@@ -1,0 +1,66 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
+and skip elsewhere; they import no JAX, so they run on a machine that has
+only the port's dependencies:
+
+  python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import paged_attention as PA
+
+
+def _inputs(bits: int, gen: torch.Generator, b=6, hkv=2, hg=4, d=64,
+            bs=8, n_lblk=6):
+    """Fragmented tables with both unmapped sentinels, ragged lengths
+    (7, 8, 9, 16, 17 at bs 8) and one dead row, on the card."""
+    lengths = (7, 8, 9, 16, 17)
+    n_blocks = b * n_lblk + 2
+    perm = torch.randperm(n_blocks, generator=gen).tolist()
+    bt = torch.full((b, n_lblk), n_blocks, dtype=torch.int32)
+    tidx = torch.full((n_blocks, bs), -1, dtype=torch.int32)
+    pos = torch.zeros(b, dtype=torch.int32)
+    for r, n in enumerate(lengths):
+        pos[r] = n - 1
+        for lb in range(n_lblk):
+            if lb * bs < n:
+                phys = perm.pop()
+                bt[r, lb] = phys
+                t = lb * bs + torch.arange(bs)
+                tidx[phys] = torch.where(t < n, t, -1).int()
+            elif lb % 2:
+                bt[r, lb] = -1
+    bt[-1] = -1                                   # the dead row
+    dk = d // 2 if bits == 4 else d
+    shape = (n_blocks, bs, hkv, dk)
+    if bits == 16:
+        k, v = (torch.randn(shape, generator=gen).bfloat16() for _ in "kv")
+    else:
+        k, v = (torch.randint(-127, 128, shape, generator=gen).to(torch.int8)
+                for _ in "kv")
+    ks, vs = (0.01 + 0.04 * torch.rand((b, hkv), generator=gen)
+              for _ in "kv")
+    q = torch.randn((b, hkv, hg, d), generator=gen).bfloat16()
+    x = dict(q=q, k_pool=k, v_pool=v, k_scale=ks, v_scale=vs,
+             token_idx=tidx, block_table=bt, pos=pos)
+    return {name: t.cuda() for name, t in x.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_paged_attention_kernel_matches_plain(bits, window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x = _inputs(bits, torch.Generator().manual_seed(bits + window))
+    n0 = PA.paged_attention.launches
+    got = PA.paged_attention(**x, bits=bits, window=window)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == n0 + 1
+    want = PA.paged_attention_ref(**x, bits=bits, window=window)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.all(got[-1] == 0)                # dead row: exact zeros
+    assert np.isfinite(got.cpu().numpy()).all()
