@@ -4,17 +4,22 @@
   python3 chip_smoke.py --phases 1,2
 
 Phases:
- 1. environment: versions, the card, and the build of every kernel (nvcc,
-    sm_90a);
+ 1. environment: versions, the card, and the build of every kernel (one
+    nvcc per source, sm_90a, all started together);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes the serving path gives it, with times, the bound and the
-    library yardstick;
+    library yardstick: K1 (one-query paged decode) and K2 (the W-query
+    speculative verify window);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
     off): the same requests through the continuous scheduler with the
     kernel and the gather backends give identical greedy tokens at kv16,
-    kv8 and kv4;
+    kv8 and kv4, and the speculative scheduler gives those same tokens
+    with either backend at kv16 and kv8;
  4. serve: the launcher's path on granite-3-2b's full 40-layer config in
-    bf16 — 12 requests, 32 new tokens each — counting kernel launches.
+    bf16 — 12 requests, 32 new tokens each — counting kernel launches;
+ 5. speculative serve: phase 4's requests through the launcher's
+    ``--speculate --draft-k 4`` path, counting K2 launches per window and
+    checking that the tokens billed are the tokens delivered.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -65,11 +70,14 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 # phase 2: K1 against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_inputs(gen, *, bits, B=8, Hkv=8, Hg=4, D=64, bs=16, n_lblk=64,
-                 dev="cuda"):
+def paged_inputs(gen, *, bits, w=None, B=8, Hkv=8, Hg=4, D=64, bs=16,
+                 n_lblk=64, dev="cuda"):
     """Fragmented, out-of-order block tables with both unmapped sentinels
     (−1 and ≥ n_blocks), a hole inside a row, stale token indices past
-    ``pos``, ragged positions and one dead row."""
+    ``pos``, ragged positions and one dead row. ``w`` gives K2's inputs: a
+    window of ``w`` queries at ``pos .. pos + w − 1`` per row (row 0's
+    runs past capacity) and per-query ladders."""
+    nw = 1 if w is None else w
     cap = n_lblk * bs
     n_blocks = B * n_lblk + n_lblk // 2
     perm = torch.randperm(n_blocks, generator=gen, device=dev).tolist()
@@ -82,14 +90,14 @@ def paged_inputs(gen, *, bits, B=8, Hkv=8, Hg=4, D=64, bs=16, n_lblk=64,
         if b == B - 1:                             # the dead row: all unmapped
             bt[b] = torch.where(torch.arange(n_lblk) % 2 == 0, -1, n_blocks + 3)
             continue
-        need = pos_h[b] // bs + 1
+        need = min(n_lblk, (pos_h[b] + nw - 1) // bs + 1)
         for lb in range(n_lblk):
             if lb < need and not (b == 1 and lb == need // 2):
                 phys = perm.pop()
                 bt[b, lb] = phys
                 t = lb * bs + torch.arange(bs)
                 # slots past pos hold stale larger indices, must be masked
-                tidx[phys] = torch.where(t <= pos_h[b] + 3, t, -1).int()
+                tidx[phys] = torch.where(t <= pos_h[b] + nw + 2, t, -1).int()
             else:
                 bt[b, lb] = -1 if lb % 3 == 0 else n_blocks + lb
     dk = D // 2 if bits == 4 else D
@@ -108,6 +116,18 @@ def paged_inputs(gen, *, bits, B=8, Hkv=8, Hg=4, D=64, bs=16, n_lblk=64,
     if bits != 16:
         ks = 0.005 + 0.02 * torch.rand((B, Hkv), generator=gen, device=dev)
         vs = 0.005 + 0.02 * torch.rand((B, Hkv), generator=gen, device=dev)
+    if w is not None:
+        q = torch.randn((B, w, Hkv, Hg, D), generator=gen, device=dev).bfloat16()
+        if bits == 16:
+            ks = vs = torch.ones((B, w, Hkv), device=dev)
+        else:               # ladders: non-decreasing along the window
+            ks = ks[:, None] * (1 + 0.1 * torch.rand(
+                (B, w, Hkv), generator=gen, device=dev)).cummax(1).values
+            vs = vs[:, None] * (1 + 0.1 * torch.rand(
+                (B, w, Hkv), generator=gen, device=dev)).cummax(1).values
+        return dict(q=q, k_pool=k, v_pool=v, k_ladder=ks.float().contiguous(),
+                    v_ladder=vs.float().contiguous(), token_idx=tidx.to(dev),
+                    block_table=bt.to(dev), pos=pos.int())
     q = torch.randn((B, Hkv, Hg, D), generator=gen, device=dev).bfloat16()
     return dict(q=q, k_pool=k, v_pool=v, k_scale=ks.float().contiguous(),
                 v_scale=vs.float().contiguous(), token_idx=tidx.to(dev),
@@ -167,6 +187,102 @@ def sdpa_ms(x) -> float:
         fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qq, k2, v2, attn_mask=mask)
     return cuda_time_ms(fn)
+
+
+def window_keep(x, window=0):
+    """``[B, W, S]`` attendable columns of K2's dense view, with the
+    kernel's full-attention sentinel, and the gather indices."""
+    q, bt, tidx, pos = x["q"], x["block_table"], x["token_idx"], x["pos"]
+    B, W = q.shape[:2]
+    n_blocks, bs = tidx.shape
+    n_lblk = bt.shape[1]
+    ok = (bt >= 0) & (bt < n_blocks)
+    idx = torch.where(ok, bt, 0).long()
+    t = torch.where(ok[..., None], tidx[idx], -1).reshape(B, 1, -1).long()
+    qp = pos.long()[:, None, None] + torch.arange(W, device=q.device)[None, :, None]
+    win = window if window > 0 else n_lblk * bs + W
+    return (t >= 0) & (t <= qp) & (qp - t < win), ok, idx
+
+
+def window_bound(x, bits) -> dict:
+    """Least time for one K2 call on an H100 SXM: the bytes it must move
+    (K and V of the columns the window's last query attends, mapped
+    blocks' token indices, q, ladders, table, positions, the f32 output)
+    over HBM bandwidth, and the operations each query's attended keys need
+    (4·Hkv·Hg·D per key) over the f32 rate."""
+    q, bt = x["q"], x["block_table"]
+    B, W, Hkv, Hg, D = q.shape
+    keep, ok, _ = window_keep(x)
+    n_keys = int(keep[:, -1].sum())               # the last query's columns
+    q_keys = int(keep.sum())                      # summed over the W queries
+    elt = 2 if bits == 16 else 1
+    bs = x["token_idx"].shape[1]
+    nbytes = (2 * n_keys * Hkv * D * elt + int(ok.sum()) * bs * 4
+              + q.numel() * q.element_size() + B * W * Hkv * Hg * D * 4
+              + 2 * B * W * Hkv * 4 + bt.numel() * 4 + B * 4)
+    flops = 4 * q_keys * Hkv * Hg * D
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "keys": n_keys}
+
+
+def window_sdpa_ms(x) -> float:
+    """One ``scaled_dot_product_attention`` call on K2's dense view (kv16;
+    the gather is not timed), with the per-query causal mask
+    ``[B, 1, W, S]`` and ``enable_gqa``."""
+    import torch.nn.functional as F
+    q = x["q"]
+    B, W, Hkv, Hg, D = q.shape
+    keep, ok, idx = window_keep(x)
+    S = keep.shape[-1]
+    k = torch.where(ok[..., None, None, None], x["k_pool"][idx], 0)
+    v = torch.where(ok[..., None, None, None], x["v_pool"][idx], 0)
+    k = k.reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
+    v = v.reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
+    qq = q.reshape(B, W, Hkv * Hg, D).transpose(1, 2).contiguous()
+    mask = keep[:, None]
+    fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qq, k, v, attn_mask=mask, enable_gqa=True)
+    return cuda_time_ms(fn)
+
+
+def phase_window_kernel(seed: int) -> dict:
+    """K2 against its plain version at the speculative serve shape: B=8,
+    W=5, Hkv=8, Hg=4, D=64, bs=16, n_lblk 64 and 256, kv16 and kv8."""
+    from repro_torch.kernels import paged_attention as PA
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    main = None
+    for n_lblk in (64, 256):
+        for bits in (16, 8):
+            x = paged_inputs(gen, bits=bits, w=5, n_lblk=n_lblk)
+            kw = dict(bits=bits, window=0)
+            got = PA.paged_attention_multi(**x, **kw)
+            torch.cuda.synchronize()
+            want = PA.paged_attention_multi_ref(**x, **kw)
+            err = float((got - want).abs().max())
+            dead = float(got[-1].abs().max())
+            print(f"[K2] n_lblk={n_lblk} kv{bits}: max_abs_err={err:.3e} "
+                  f"(tol {ATOL:g}), dead row max |out|={dead}")
+            if not err <= ATOL or dead != 0.0:
+                raise AssertionError(f"K2 disagrees with its plain version "
+                                     f"at n_lblk={n_lblk} kv{bits}")
+            ms = cuda_time_ms(lambda: PA.paged_attention_multi(**x, **kw))
+            plain = cuda_time_ms(
+                lambda: PA.paged_attention_multi_ref(**x, **kw), iters=50)
+            lib = window_sdpa_ms(x) if bits == 16 else None
+            bd = window_bound(x, bits)
+            print(f"[K2] n_lblk={n_lblk} kv{bits}: kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, sdpa "
+                  f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+                  f"{bd['bytes']} B, {bd['flops']} flop, {bd['keys']} keys)")
+            if n_lblk == 64 and bits == 16:
+                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "library_ms": lib, **bd}
+    PA.paged_attention_multi.launches = 0  # comparison launches do not count
+    return main
 
 
 def phase_kernels(seed: int) -> list[dict]:
@@ -257,8 +373,60 @@ def phase_parity(seed: int) -> None:
                   f"({sum(map(len, out['kernel']))} tokens)")
             if not same:
                 raise AssertionError(f"kv{bits}: {out}")
+            if bits == 4:                 # speculation runs at kv16/kv8
+                continue
+            for backend in ("kernel", "gather"):
+                srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+                    slots=256, kv_bits=bits, max_batch=4, block_size=16,
+                    paged_backend=backend, speculate=True, draft_k=4),
+                    device="cuda")
+                PA.paged_attention_multi.launches = 0
+                A.paged_view.calls = 0
+                sched = ContinuousScheduler(srv, quantum=4)
+                for r in reqs:
+                    sched.submit(r)
+                spec = [r["tokens"] for r in sched.run()]
+                used = (PA.paged_attention_multi.launches
+                        if backend == "kernel" else A.paged_view.calls)
+                if used == 0:
+                    raise AssertionError(f"spec {backend} backend never ran")
+                same = spec == out["kernel"]
+                print(f"[parity] full width x4 layers, f32, kv{bits}: "
+                      f"speculative ({backend}, k=4, {sched.windows_run} "
+                      f"windows) vs greedy tokens identical: {same}")
+                if not same:
+                    first_divergence(cfg, params, engine, reqs, spec,
+                                     out["kernel"], bits)
+                    raise AssertionError(f"kv{bits} spec {backend}: {spec}")
+                del srv, sched
     del params
     torch.cuda.empty_cache()
+
+
+def first_divergence(cfg, params, engine, reqs, spec, greedy, bits) -> None:
+    """Where speculative and greedy tokens first differ: the request, the
+    position, and the top-2 margin of the greedy logits there (a solo
+    replay through ``decode_step`` on a contiguous cache)."""
+    from repro_torch.models import transformer as T
+    for i, (a, b) in enumerate(zip(spec, greedy)):
+        if a == b:
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        tokens = torch.as_tensor(reqs[i].tokens[None], device="cuda")
+        table = engine.table
+        logits, caches = T.prefill(params, cfg, table[0], {"tokens": tokens},
+                                   len(reqs[i].tokens) + len(b) + 1,
+                                   kv_bits=bits)
+        pos = torch.tensor([tokens.shape[1]], dtype=torch.int32, device="cuda")
+        for n in range(j):
+            logits, caches = T.decode_step(
+                params, cfg, table[0], torch.tensor([[b[n]]], device="cuda"),
+                pos, caches)
+            pos = pos + 1
+        top = logits[0].float().topk(2).values
+        print(f"[parity] first divergence: request {i}, token {j}: spec "
+              f"{a[j]} vs greedy {b[j]}; greedy top-2 logit margin "
+              f"{float(top[0] - top[1]):.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +487,61 @@ def phase_serve(seed: int) -> dict:
     return {"launches": launches, "tok_s": n_tok / wall, "peak": peak}
 
 
+def phase_spec_serve(seed: int, greedy: dict) -> dict:
+    """The launcher's speculative path on the full config: phase 4's
+    requests with ``--speculate --draft-k 4``. Every layer of every window
+    must attend through K2 and nothing else, and the ledger must bill
+    exactly the tokens delivered."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import RequestStatus
+
+    args = S.parse_args(["--continuous", "--full", "--requests", "12",
+                         "--max-new", "32", "--kv-bits", "16",
+                         "--quantum", "8", "--block-size", "16",
+                         "--speculate", "--draft-k", "4",
+                         "--seed", str(seed)])
+    torch.cuda.reset_peak_memory_stats()
+    cfg, srv = S.build_server(args)
+    reqs = S.make_requests(cfg, args)
+    PA.paged_attention.launches = 0
+    PA.paged_attention_multi.launches = 0
+    A.paged_view.calls = 0
+    out = S.serve(srv, reqs, args.quantum)
+    k1, k2 = PA.paged_attention.launches, PA.paged_attention_multi.launches
+    gathers = A.paged_view.calls
+    results, sched, wall = out["results"], out["sched"], out["wall_s"]
+    for i, r in enumerate(results):
+        if r["status"] is not RequestStatus.COMPLETED or len(r["tokens"]) != 32:
+            raise AssertionError(f"request {i}: {r['status']}, "
+                                 f"{len(r['tokens'])} tokens")
+        if not all(0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"request {i}: token out of vocab")
+    expect = cfg.n_layers * sched.windows_run
+    print(f"[spec] K2 launches {k2} = {cfg.n_layers} layers x "
+          f"{sched.windows_run} windows: {k2 == expect}; K1 launches {k1}; "
+          f"gather path calls {gathers}")
+    if k2 != expect or k2 == 0 or k1 != 0 or gathers != 0:
+        raise AssertionError("the speculative path did not run through K2 "
+                             "alone")
+    n_tok = sum(len(r["tokens"]) for r in results)
+    billed = len(sched.admission_log) + sum(n for _, n in sched.spec_billed)
+    print(f"[spec] tokens billed {billed} (admission {len(sched.admission_log)}"
+          f" + windows {billed - len(sched.admission_log)}) = delivered "
+          f"{n_tok}: {billed == n_tok}")
+    if billed != n_tok:
+        raise AssertionError("billed tokens differ from delivered tokens")
+    peak = torch.cuda.max_memory_allocated()
+    per_window = (billed - len(sched.admission_log)) / sched.spec_row_windows
+    print(f"[spec] {n_tok} tokens in {wall:.3f}s = {n_tok / wall:.2f} tok/s "
+          f"(greedy, phase 4: {greedy.get('tok_s', float('nan')):.2f} tok/s); "
+          f"{sched.segments_run} segments, {sched.windows_run} windows, "
+          f"{per_window:.3f} tokens delivered per live row per window; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    return {"launches": k2, "tok_s": n_tok / wall, "peak": peak}
+
+
 def phase_profile(seed: int) -> None:
     """Where one decode segment's time goes (``--profile``): wall time on
     the host against device-busy time from ``torch.profiler``, with the
@@ -368,9 +591,18 @@ def _leaves(tree):
         yield tree
 
 
+def kernel_entry(name, source, replaces, launches, row) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4")
+    ap.add_argument("--phases", default="1,2,3,4,5")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -384,34 +616,34 @@ def main() -> None:
           f"python {sys.version.split()[0]}")
     print(f"[env] {card}")
     from repro_torch.kernels import paged_attention as PA
-    info = PA.build()
-    print(f"[env] built K1 ({PA.SOURCE.name}, sm_90a) in "
-          f"{info['seconds']:.1f}s -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[env] ptxas: {line.strip()}")
-    main_row = None
+    libs = PA.build()
+    for name, info in libs.items():
+        print(f"[env] built {name} ({PA.SOURCES[name].name}, sm_90a) in "
+              f"{info['seconds']:.1f}s -> {info['path']}")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[env] ptxas {name}: {line.strip()}")
+    k1_row = k2_row = None
     if 2 in phases:
-        _, main_row = phase_kernels(args.seed)
+        _, k1_row = phase_kernels(args.seed)
+        k2_row = phase_window_kernel(args.seed)
     if 3 in phases:
         phase_parity(args.seed)
     served = phase_serve(args.seed) if 4 in phases else {"launches": 0}
+    spec = (phase_spec_serve(args.seed, served) if 5 in phases
+            else {"launches": 0})
     if args.profile:
         phase_profile(args.seed)
     kernels = []
-    if main_row is not None:
-        kernels.append({
-            "name": "paged_attention",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention.py:116",
-            "launches": served["launches"],
-            "max_abs_err": main_row["max_abs_err"],
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"],
-        })
+    if k1_row is not None:
+        kernels.append(kernel_entry(
+            "paged_attention", "paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:116", served["launches"],
+            k1_row))
+        kernels.append(kernel_entry(
+            "paged_attention_multi", "paged_attention_multi.cu",
+            "src/repro/kernels/paged_attention.py:247", spec["launches"],
+            k2_row))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

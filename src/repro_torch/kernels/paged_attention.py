@@ -1,30 +1,40 @@
-"""Paged decode attention: the Hopper kernel's wrapper and its plain version.
+"""Paged decode attention: the Hopper kernels' wrappers and their plain
+versions.
 
-Replaces the Pallas TPU kernel ``paged_attention_pallas``
-(``repro/kernels/paged_attention.py``). The CUDA source is
-``csrc/paged_attention.cu``; it is compiled with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface at first use (into
-``build/repro_torch/`` at the repository root) and called through
-``ctypes``.
+Two kernels, each replacing a Pallas TPU kernel of
+``repro/kernels/paged_attention.py``:
+
+* K1 :func:`paged_attention` ← ``paged_attention_pallas``: one query per row
+  (greedy decode), source ``csrc/paged_attention.cu``;
+* K2 :func:`paged_attention_multi` ← ``paged_attention_pallas_multi``: the
+  ``W`` queries of a speculative draft/verify window per row, source
+  ``csrc/paged_attention_multi.cu``.
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use (into ``build/repro_torch/`` at the
+repository root; one ``nvcc`` per source, started together) and called
+through ``ctypes``.
 
 Layout (the reference's, see :class:`repro_torch.models.attention.
 PagedKVCache`):
 
   q        [B, Hkv, Hg, D]          f32 or bf16 — one decode token per row
+           [B, W, Hkv, Hg, D]       K2: query j at position pos + j
   k/v pool [nb, bs, Hkv, D]         bf16 (kv16) or int8 (kv8);
-           [nb, bs, Hkv, D/2]       int8 at kv4, two nibbles per byte
+           [nb, bs, Hkv, D/2]       int8 at kv4, two nibbles per byte (K1)
   tidx     [nb, bs]                 int32 absolute token index, −1 = empty
-  scales   [B, Hkv]                 f32 per-row dequant scales (kv8/kv4)
+  scales   [B, Hkv]                 f32 per-row dequant scales (K1, kv8/kv4)
+  ladders  [B, W, Hkv]              f32 per-query dequant scales (K2, kv8)
   bt       [B, n_lblk]              int32 block table
   pos      [B]                      int32 current absolute position
-  → out    [B, Hkv, Hg, D]          f32
+  → out    [B, Hkv, Hg, D]          f32 (K2: [B, W, Hkv, Hg, D])
 
 An entry is mapped iff ``0 <= entry < n_blocks`` (``n_blocks`` defaults to
 the pool's block count; the port's pools pass it explicitly because they
 carry a write-sink block past it).
 
-:func:`paged_attention` runs the plain version for CPU tensors and the
-kernel for CUDA tensors — it never falls back from one to the other.
+Each wrapper runs the plain version for CPU tensors and the kernel for
+CUDA tensors — it never falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -42,13 +52,31 @@ import torch
 
 from repro_torch.core.qtypes import unpack_int4
 
-__all__ = ["paged_attention", "paged_attention_ref", "build",
-           "SOURCE", "BUILD_DIR", "MAX_D", "MAX_HG", "MAX_BS"]
+__all__ = ["paged_attention", "paged_attention_ref", "paged_attention_multi",
+           "paged_attention_multi_ref", "build", "SOURCES", "BUILD_DIR",
+           "MAX_D", "MAX_HG", "MAX_BS", "MAX_WHG"]
 
 NEG_INF = -1e30
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
+           "paged_attention_multi": _CSRC / "paged_attention_multi.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 MAX_D, MAX_HG, MAX_BS = 256, 16, 64
+MAX_WHG = 64                  # K2: W·Hg query rows per (row, KV head) ...
+MAX_WHG_D = 8192              # ... and W·Hg·D accumulators per thread block
+
+
+def _dense_rows(pool: torch.Tensor, block_table: torch.Tensor, nb: int,
+                fill) -> torch.Tensor:
+    """Gather each row's logical blocks into ``[B, n_lblk·bs, ...]``;
+    unmapped entries (``< 0`` or ``>= nb``) read as ``fill``."""
+    b, n_lblk = block_table.shape
+    ok = (block_table >= 0) & (block_table < nb)
+    g = pool[torch.where(ok, block_table, 0).long()]    # [B, n_lblk, bs, ...]
+    mask = ok.reshape(b, n_lblk, *([1] * (g.ndim - 2)))
+    g = torch.where(mask, g, torch.full((), fill, dtype=g.dtype,
+                                        device=g.device))
+    return g.reshape(b, n_lblk * pool.shape[1], *pool.shape[2:])
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -64,18 +92,10 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     scores and the output, kv4 unpacks and dequantizes first. Rows with no
     attendable key return exact zeros."""
     b, hkv, hg, d = q.shape
-    bs = token_idx.shape[1]
-    n_lblk = block_table.shape[1]
     nb = k_pool.shape[0] if n_blocks is None else int(n_blocks)
-    ok = (block_table >= 0) & (block_table < nb)
-    idx = torch.where(ok, block_table, 0).long()
 
     def gather(pool, fill):
-        g = pool[idx]                                   # [B, n_lblk, bs, ...]
-        mask = ok.reshape(b, n_lblk, *([1] * (g.ndim - 2)))
-        g = torch.where(mask, g, torch.full((), fill, dtype=g.dtype,
-                                            device=g.device))
-        return g.reshape(b, n_lblk * bs, *pool.shape[2:])
+        return _dense_rows(pool, block_table, nb, fill)
 
     ks = k_scale.float().reshape(b, hkv)
     vs = v_scale.float().reshape(b, hkv)
@@ -90,7 +110,7 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     scores = torch.einsum("bkgd,bskd->bkgs", qh, kf)
     if bits == 8:
         scores = scores * ks[:, :, None, None]
-    win = window if window > 0 else n_lblk * bs + 1
+    win = window if window > 0 else tidx.shape[1] + 1  # S = n_lblk·bs
     p_ = pos.long()[:, None]
     keep = (tidx >= 0) & (tidx <= p_) & (p_ - tidx < win)
     scores = torch.where(keep[:, None, None, :], scores, NEG_INF)
@@ -106,56 +126,78 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_LIB: dict = {}
+_LIBS: dict = {}
+
+# ctypes signatures of the C entry points (pointers, ints, float, stream)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "paged_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "paged_attention_multi": [_P] * 9 + [_I] * 11 + [_F, _P],
+}
 
 
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the paged-attention kernel is built "
-                       "on the machine with the GPU")
+    raise RuntimeError("nvcc not found: the paged-attention kernels are "
+                       "built on the machine with the GPU")
 
 
 def build(verbose: bool = False) -> dict:
-    """Compile the kernel (once per source content) and load it.
+    """Compile every kernel source (once per source content) and load it.
 
-    Returns ``{"lib", "path", "seconds", "ptxas"}``: ``seconds`` is this
-    call's build time (0 when the library was already built) and ``ptxas``
-    the compiler's register / shared-memory report.
+    The ``nvcc`` processes of all sources not yet built start together and
+    run in parallel. Returns ``{name: {"lib", "path", "seconds",
+    "ptxas"}}``: ``seconds`` is the wall time of this call's build (0 when
+    the library was already built) and ``ptxas`` the compiler's register /
+    shared-memory / spill report.
     """
-    if "lib" in _LIB:
-        return _LIB
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
+    if len(_LIBS) == len(SOURCES):
+        return _LIBS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libpaged_attention_{tag}.so"
-    log = so.with_suffix(".ptxas.txt")
     t0 = time.perf_counter()
-    if not so.exists():
+    jobs = {}
+    for name, src in SOURCES.items():
+        tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+        so = BUILD_DIR / f"lib{name}_{tag}.so"
+        if so.exists():
+            jobs[name] = (so, None, None)
+            continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
+               "-Xptxas", "-v", "-o", tmp, str(src)]
+        jobs[name] = (so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (so, tmp, proc) in jobs.items():
+        if proc is None:
+            continue
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        log.write_text(res.stdout + res.stderr)
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}")
+            continue
+        so.with_suffix(".ptxas.txt").write_text(out)
         os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    fn = lib.repro_paged_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
-    _LIB.update(lib=lib, path=str(so), seconds=seconds,
-                ptxas=log.read_text() if log.exists() else "")
-    if verbose:
-        print(_LIB["ptxas"])
-    return _LIB
+    for name, (so, _, proc) in jobs.items():
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, f"repro_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        log = so.with_suffix(".ptxas.txt")
+        _LIBS[name] = {"lib": lib, "path": str(so),
+                       "seconds": seconds if proc is not None else 0.0,
+                       "ptxas": log.read_text() if log.exists() else ""}
+        if verbose:
+            print(_LIBS[name]["ptxas"])
+    return _LIBS
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -208,7 +250,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check(block_table, "block_table", torch.int32, (b, n_lblk))
     _check(pos, "pos", torch.int32, (b,))
     out = torch.empty((b, hkv, hg, d), dtype=torch.float32, device=q.device)
-    lib = build()["lib"]
+    lib = build()["paged_attention"]["lib"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.repro_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -224,3 +266,112 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: the W queries of a speculative draft/verify window
+# ---------------------------------------------------------------------------
+
+def _multi_window(window: int, n_lblk: int, bs: int, w: int) -> int:
+    """Mask width: ``window``, or for full attention (``window <= 0``) the
+    reference's sentinel ``n_lblk·bs + W``, which exceeds every
+    ``pos + j − tidx``."""
+    return window if window > 0 else n_lblk * bs + w
+
+
+def paged_attention_multi_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, k_ladder: torch.Tensor,
+                              v_ladder: torch.Tensor, token_idx: torch.Tensor,
+                              block_table: torch.Tensor, pos: torch.Tensor,
+                              *, bits: int = 16, window: int = 0,
+                              n_blocks: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K2: a dense gather of each row's blocks (unmapped
+    entries read as empty), then ``decode_attention_window``'s operation
+    order — kv8 contracts on the int grid and scales query ``j``'s scores
+    by ``k_ladder[:, j]`` and its output by ``v_ladder[:, j]``; kv16
+    ignores the ladders. Query ``j`` sits at ``pos + j``. A query with no
+    attendable key returns exact zeros."""
+    if bits not in (8, 16):
+        raise ValueError(f"the window kernel supports kv16/kv8, got kv{bits}")
+    b, w, hkv, hg, d = q.shape
+    bs = token_idx.shape[1]
+    n_lblk = block_table.shape[1]
+    nb = k_pool.shape[0] if n_blocks is None else int(n_blocks)
+    kf = _dense_rows(k_pool, block_table, nb, 0).float()   # [B, S, Hkv, D]
+    vf = _dense_rows(v_pool, block_table, nb, 0).float()
+    tidx = _dense_rows(token_idx, block_table, nb, -1).long()  # [B, S]
+    qh = q.float() * d ** -0.5
+    scores = torch.einsum("bwkgd,bskd->bwkgs", qh, kf)
+    if bits == 8:
+        scores = scores * k_ladder.float()[..., None, None]
+    win = _multi_window(window, n_lblk, bs, w)
+    qp = pos.long()[:, None, None] + torch.arange(w, device=q.device)[None, :,
+                                                                      None]
+    t = tidx[:, None, :]
+    keep = (t >= 0) & (t <= qp) & (qp - t < win)        # [B, W, S]
+    scores = torch.where(keep[:, :, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bwkgs,bskd->bwkgd", p, vf)
+    if bits == 8:
+        out = out * v_ladder.float()[..., None, None]
+    alive = keep.any(dim=-1)[:, :, None, None, None]
+    return torch.where(alive, out, torch.zeros((), device=out.device))
+
+
+def paged_attention_multi(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, k_ladder: torch.Tensor,
+                          v_ladder: torch.Tensor, token_idx: torch.Tensor,
+                          block_table: torch.Tensor, pos: torch.Tensor, *,
+                          bits: int = 16, window: int = 0,
+                          n_blocks: Optional[int] = None) -> torch.Tensor:
+    """In-place paged attention for a W-query window; ``window <= 0`` is
+    full attention. Returns ``[B, W, Hkv, Hg, D]`` f32. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (counted in
+    ``paged_attention_multi.launches``) or raise."""
+    if q.device.type == "cpu":
+        return paged_attention_multi_ref(
+            q, k_pool, v_pool, k_ladder, v_ladder, token_idx, block_table,
+            pos, bits=bits, window=window, n_blocks=n_blocks)
+    if bits not in (8, 16):
+        raise ValueError(f"the window kernel supports kv16/kv8, got kv{bits}")
+    b, w, hkv, hg, d = q.shape
+    nb_alloc, bs = token_idx.shape
+    n_lblk = block_table.shape[1]
+    nb = nb_alloc if n_blocks is None else int(n_blocks)
+    if not (d % 2 == 0 and d <= MAX_D and bs <= MAX_BS
+            and w * hg <= MAX_WHG and w * hg * d <= MAX_WHG_D):
+        raise ValueError(f"unsupported shape: D={d} (even, <= {MAX_D}), "
+                         f"bs={bs} (<= {MAX_BS}), W·Hg={w * hg} (<= "
+                         f"{MAX_WHG}), W·Hg·D={w * hg * d} (<= {MAX_WHG_D})")
+    if not 0 <= nb <= nb_alloc:
+        raise ValueError(f"n_blocks={nb} exceeds the pool's {nb_alloc}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be f32 or bf16, got {q.dtype}")
+    _check(q, "q", q.dtype, (b, w, hkv, hg, d))
+    kv_dtype = torch.bfloat16 if bits == 16 else torch.int8
+    _check(k_pool, "k_pool", kv_dtype, (nb_alloc, bs, hkv, d))
+    _check(v_pool, "v_pool", kv_dtype, (nb_alloc, bs, hkv, d))
+    _check(token_idx, "token_idx", torch.int32, (nb_alloc, bs))
+    _check(k_ladder, "k_ladder", torch.float32, (b, w, hkv))
+    _check(v_ladder, "v_ladder", torch.float32, (b, w, hkv))
+    _check(block_table, "block_table", torch.int32, (b, n_lblk))
+    _check(pos, "pos", torch.int32, (b,))
+    out = torch.empty((b, w, hkv, hg, d), dtype=torch.float32,
+                      device=q.device)
+    lib = build()["paged_attention_multi"]["lib"]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.repro_paged_attention_multi(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        token_idx.data_ptr(), k_ladder.data_ptr(), v_ladder.data_ptr(),
+        block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, w, hkv, hg, d, nb, bs, n_lblk,
+        bits, _multi_window(int(window), n_lblk, bs, w), float(d ** -0.5),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"window paged-attention kernel launch failed: "
+                           f"CUDA error {err}")
+    paged_attention_multi.launches += 1
+    return out
+
+
+paged_attention_multi.launches = 0

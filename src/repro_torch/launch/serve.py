@@ -3,7 +3,8 @@ Manager with an energy budget, served through continuous batching on the
 paged KV pool.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \
-      [--requests 12 --max-new 32 --kv-bits 16 --seed 0]
+      [--requests 12 --max-new 32 --kv-bits 16 --seed 0] \
+      [--speculate --draft-k 4 --draft-model ngram]
 
 Runs on the GPU unless ``--device cpu`` is given. ``--full`` serves the
 published configuration (granite-3-2b: 40 layers, d_model 2048) with
@@ -72,6 +73,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="'kernel' attends in place through the paged-"
                          "attention kernel, 'gather' builds the dense "
                          "per-segment view, 'auto' = kernel on CUDA")
+    ap.add_argument("--speculate", action="store_true",
+                    help="speculative decoding: each window drafts "
+                         "--draft-k tokens (self-speculative n-gram lookup) "
+                         "and verifies them in one batched pass — the same "
+                         "tokens as greedy decode (implies --continuous)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="drafted tokens per speculative window (window = "
+                         "draft-k + 1 positions; default: 4)")
+    ap.add_argument("--draft-model", default=None,
+                    choices=["ngram", "repeat"],
+                    help="drafter: 'ngram' (default, self-speculative "
+                         "longest-suffix lookup) or 'repeat' (repeat the "
+                         "current token)")
     ap.add_argument("--budget-inferences", type=float, default=200,
                     help="energy budget in units of full-power inferences")
     ap.add_argument("--seed", type=int, default=0)
@@ -99,7 +113,9 @@ def build_server(args: argparse.Namespace):
                          max_batch=8 if args.full else 4,
                          block_size=args.block_size,
                          pool_blocks=args.pool_blocks,
-                         paged_backend=args.paged_backend)
+                         paged_backend=args.paged_backend,
+                         speculate=args.speculate, draft_k=args.draft_k,
+                         draft_model=args.draft_model)
     return cfg, AdaptiveServer(cfg, params, engine, scfg, manager=mgr,
                                device=device)
 
@@ -145,8 +161,11 @@ def main(argv=None) -> None:
               f"{sorted(set(r['profile_trace']))}")
     n_tok = sum(len(r["tokens"]) for r in results)
     mgr = srv.manager
+    steps = (f"{sched.windows_run} draft/verify windows of "
+             f"{sched.draft_w}" if sched.spec
+             else f"{sched.decode_steps} decode steps")
     print(f"[serve] {n_tok} tokens in {wall:.2f}s ({n_tok / wall:.1f} tok/s, "
-          f"{sched.decode_steps} decode steps)")
+          f"{steps})")
     print(f"[serve] energy spent: {mgr.spent_j:.3e} J "
           f"({100 * (1 - mgr.remaining_fraction()):.0f}% of budget), "
           f"saver_mode={mgr._saver}")

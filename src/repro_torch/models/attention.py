@@ -18,14 +18,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.qtypes import pack_int4, unpack_int4
 
-__all__ = ["gqa_attention", "decode_attention", "KVCache", "init_kv_cache",
-           "update_kv_cache", "PagedKVCache", "init_paged_kv_cache",
-           "update_paged_kv_cache", "paged_view", "paged_decode_attention",
-           "stack_layers"]
+__all__ = ["gqa_attention", "decode_attention", "decode_attention_window",
+           "KVCache", "init_kv_cache", "kv_scale", "update_kv_cache",
+           "update_kv_cache_window", "PagedKVCache", "init_paged_kv_cache",
+           "update_paged_kv_cache", "update_paged_kv_cache_window",
+           "paged_view", "paged_decode_attention",
+           "paged_decode_attention_window", "stack_layers"]
 
 NEG_INF = -1e30
 
@@ -136,6 +139,17 @@ def init_kv_cache(batch: int, slots: int, hkv: int, d: int, *,
     )
 
 
+def kv_scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Int-KV dequant scale ``amax / qmax + 1e-9`` as the reference computes
+    it: XLA lowers the expression to one fused multiply-add,
+    ``fma(amax, f32(1/qmax), f32(1e-9))``, rounded once to f32. The f32
+    product is exact in f64, so the f64 sum rounded to f32 is that fma.
+    True division differs from it by one ulp in most elements."""
+    inv = float(np.float32(1.0 / qmax))
+    eps = float(np.float32(1e-9))
+    return (amax.double() * inv + eps).float()
+
+
 def _quantize_kv(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
     """Quantize K/V rows onto the per-(B, Hkv) int grid. ``torch.round``
     rounds half to even, like the reference's ``jnp.round``."""
@@ -159,8 +173,8 @@ def _kv_step_quantize(cache, k_new: torch.Tensor, v_new: torch.Tensor):
         qmax = 127.0 if cache.bits == 8 else 7.0
         k_amax = k_new.float().abs().amax(dim=(1, 3))
         v_amax = v_new.float().abs().amax(dim=(1, 3))
-        k_scale = torch.maximum(cache.k_scale, k_amax / qmax + 1e-9)
-        v_scale = torch.maximum(cache.v_scale, v_amax / qmax + 1e-9)
+        k_scale = torch.maximum(cache.k_scale, kv_scale(k_amax, qmax))
+        v_scale = torch.maximum(cache.v_scale, kv_scale(v_amax, qmax))
         k_row = _quantize_kv(k_new, k_scale, cache.bits)[:, 0]
         v_row = _quantize_kv(v_new, v_scale, cache.bits)[:, 0]
     else:
@@ -185,6 +199,66 @@ def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
         cache.k_scale.copy_(k_scale)
         cache.v_scale.copy_(v_scale)
     return cache
+
+
+def _kv_window_quantize(cache, k_new: torch.Tensor, v_new: torch.Tensor):
+    """W-token form of :func:`_kv_step_quantize` for a draft/verify window
+    (``k_new``/``v_new`` ``[B, W, Hkv, D]``).
+
+    Int caches get a per-position **scale ladder** ``[B, W, Hkv]``: entry
+    ``j`` is the running-max scale the stepwise path would hold after
+    folding position ``j`` (``cummax`` of the per-position scales, floored
+    at the committed scale; max is associative, so this equals folding one
+    step at a time). Position ``j`` is quantized under ``ladder[:, j]``;
+    the committed scales are left to the caller, who commits the entry of
+    the last accepted position. kv8 only at int precision, as in the
+    reference. Returns ``(k_ladder, v_ladder, k_rows, v_rows)``.
+    """
+    b, w = k_new.shape[:2]
+    if cache.bits in (4, 8):
+        assert cache.bits == 8, "speculative windows require kv8/kv16"
+        qmax = 127.0
+        k_amax = k_new.float().abs().amax(dim=3)
+        v_amax = v_new.float().abs().amax(dim=3)
+        k_lad = torch.maximum(cache.k_scale[:, None],
+                              torch.cummax(kv_scale(k_amax, qmax), 1).values)
+        v_lad = torch.maximum(cache.v_scale[:, None],
+                              torch.cummax(kv_scale(v_amax, qmax), 1).values)
+
+        def quant(x, lad):
+            q = torch.round(x.float() / lad[..., None])
+            return torch.clamp(q, -qmax, qmax).to(torch.int8)
+
+        k_rows, v_rows = quant(k_new, k_lad), quant(v_new, v_lad)
+    else:
+        shape = (b, w) + tuple(cache.k_scale.shape[1:])
+        k_lad = cache.k_scale[:, None].expand(shape)
+        v_lad = cache.v_scale[:, None].expand(shape)
+        k_rows = k_new.to(cache.k.dtype)
+        v_rows = v_new.to(cache.v.dtype)
+    return k_lad, v_lad, k_rows, v_rows
+
+
+def _window_positions(pos: torch.Tensor, w: int) -> torch.Tensor:
+    """``[B, W]`` absolute positions ``pos + j`` of a window (int64)."""
+    return pos.long()[:, None] + torch.arange(w, device=pos.device)[None]
+
+
+def update_kv_cache_window(cache: KVCache, k_new: torch.Tensor,
+                           v_new: torch.Tensor, pos: torch.Tensor):
+    """Write a W-token window at ring slots ``(pos + j) % slots``, in
+    place. The committed scales stay unchanged: rejected tail slots hold
+    junk that the next window's writes cover before any query reads them.
+    Returns ``(cache, k_ladder, v_ladder)``."""
+    b, slots = cache.token_idx.shape
+    qpos = _window_positions(pos, k_new.shape[1])
+    slot = qpos % slots
+    k_lad, v_lad, k_rows, v_rows = _kv_window_quantize(cache, k_new, v_new)
+    bidx = torch.arange(b, device=pos.device)[:, None]
+    cache.k[bidx, slot] = k_rows
+    cache.v[bidx, slot] = v_rows
+    cache.token_idx[bidx, slot] = qpos.to(torch.int32)
+    return cache, k_lad, v_lad
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,
@@ -219,6 +293,37 @@ def decode_attention(q: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,
               if cache.bits == 4 else cache.v.float())
         out = torch.einsum("bkgs,bskd->bkgd", p, vf)
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_window(q: torch.Tensor, cache: KVCache,
+                            pos: torch.Tensor, k_ladder: torch.Tensor,
+                            v_ladder: torch.Tensor, *,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """W-query attention vs the cache for a draft/verify window. q
+    ``[B, W, H, D]`` → ``[B, W, H, D]``; query ``j`` sits at ``pos + j``
+    and attends causally through the per-slot ``token_idx``. kv8 contracts
+    on the int grid and folds query ``j``'s ladder entry ``[B, W, Hkv]``
+    into its scores and output — the scale the stepwise path holds after
+    writing position ``j``."""
+    b, w, h, d = q.shape
+    slots, hkv = cache.k.shape[1], cache.k.shape[2]
+    hg = h // hkv
+    qh = (q.float() * d ** -0.5).reshape(b, w, hkv, hg, d)
+    if cache.bits not in (8, 16):
+        raise ValueError("speculative windows require kv8/kv16")
+    scores = torch.einsum("bwkgd,bskd->bwkgs", qh, cache.k.float())
+    if cache.bits == 8:
+        scores = scores * k_ladder[..., None, None]
+    win = slots + 1 if window is None else int(window)
+    t = cache.token_idx[:, None, :].long()                   # [B, 1, S]
+    qp = _window_positions(pos, w)[:, :, None]               # [B, W, 1]
+    keep = (t >= 0) & (t <= qp) & (qp - t < win)
+    scores = torch.where(keep[:, :, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bwkgs,bskd->bwkgd", p, cache.v.float())
+    if cache.bits == 8:
+        out = out * v_ladder[..., None, None]
+    return out.reshape(b, w, h, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +448,30 @@ def update_paged_kv_cache(cache: PagedKVCache, k_new: torch.Tensor,
     return cache
 
 
+def update_paged_kv_cache_window(cache: PagedKVCache, k_new: torch.Tensor,
+                                 v_new: torch.Tensor, pos: torch.Tensor):
+    """Write a W-token window through the block table, in place, with the
+    placement of :func:`update_paged_kv_cache` per position. Unmapped
+    entries and window positions at or past the row's capacity
+    ``n_lblk·bs`` write into the sink: a speculative tail never wraps onto
+    logical block 0, which may be a shared prefix. Committed scales stay
+    unchanged. Returns ``(cache, k_ladder, v_ladder)``."""
+    b, n_lblk = cache.block_table.shape
+    bs = cache.k.shape[1]
+    cap = n_lblk * bs
+    qpos = _window_positions(pos, k_new.shape[1])
+    slot = qpos % cap
+    entry = cache.block_table.gather(1, slot // bs)
+    entry = torch.where(qpos < cap, entry, cache.n_blocks)
+    _, phys = _mapped(entry, cache.n_blocks)
+    off = slot % bs
+    k_lad, v_lad, k_rows, v_rows = _kv_window_quantize(cache, k_new, v_new)
+    cache.k[phys, off] = k_rows
+    cache.v[phys, off] = v_rows
+    cache.token_idx[phys, off] = qpos.to(torch.int32)
+    return cache, k_lad, v_lad
+
+
 def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
                            pos: torch.Tensor, *,
                            window: Optional[int] = None) -> torch.Tensor:
@@ -361,3 +490,25 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
         cache.v_scale, cache.token_idx, cache.block_table, pos,
         bits=cache.bits, window=win, n_blocks=cache.n_blocks)
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def paged_decode_attention_window(q: torch.Tensor, cache: PagedKVCache,
+                                  pos: torch.Tensor, k_ladder: torch.Tensor,
+                                  v_ladder: torch.Tensor, *,
+                                  window: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """W-query window attention **in place** against the paged pool through
+    the multi-query paged-attention kernel (its plain version for CPU
+    tensors). q ``[B, W, H, D]`` → ``[B, W, H, D]``; query ``j`` at
+    ``pos + j``; ladders ``[B, W, Hkv]`` (read at kv8 only)."""
+    from repro_torch.kernels.paged_attention import paged_attention_multi
+    b, w, h, d = q.shape
+    bs, hkv = cache.k.shape[1], cache.k.shape[2]
+    slots = cache.block_table.shape[1] * bs
+    win = 0 if window is None or int(window) > slots else int(window)
+    out = paged_attention_multi(
+        q.reshape(b, w, hkv, h // hkv, d), cache.k, cache.v,
+        k_ladder.contiguous(), v_ladder.contiguous(), cache.token_idx,
+        cache.block_table, pos, bits=cache.bits, window=win,
+        n_blocks=cache.n_blocks)
+    return out.reshape(b, w, h, d).to(q.dtype)

@@ -10,7 +10,8 @@ Caches are updated in place.
 Public entry points: ``init_params``, ``quant_layer_names``, ``forward``,
 ``prefill``, ``decode_step``, ``prequant_decode_weights``,
 ``overlay_params``, ``init_caches``, ``init_paged_caches``,
-``decode_segment``.
+``decode_segment``, and for speculative decoding ``ngram_propose``,
+``decode_step_spec`` and ``decode_segment_spec``.
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ import numpy as np
 import torch
 
 from .attention import (KVCache, PagedKVCache, _mapped, _quantize_kv,
-                        decode_attention, gqa_attention, init_kv_cache,
-                        init_paged_kv_cache, paged_decode_attention,
-                        paged_view, stack_layers, update_kv_cache,
-                        update_paged_kv_cache)
+                        decode_attention, decode_attention_window,
+                        gqa_attention, init_kv_cache, init_paged_kv_cache,
+                        kv_scale, paged_decode_attention,
+                        paged_decode_attention_window, paged_view,
+                        stack_layers, update_kv_cache, update_kv_cache_window,
+                        update_paged_kv_cache, update_paged_kv_cache_window)
 from .layers import (SIGNED_SYM, embed_lookup, init_embed, init_linear,
                      init_norm, qlinear, rms_norm)
 from .mlp import init_mlp, mlp
@@ -36,7 +39,9 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "init_params", "param_count", "forward", "prefill", "decode_step",
            "prequant_decode_weights", "overlay_params", "paged_block_size",
            "init_caches", "init_paged_caches", "cache_bytes",
-           "decode_segment"]
+           "supports_prefix_sharing", "supports_speculation",
+           "decode_segment", "ngram_propose", "decode_step_spec",
+           "decode_segment_spec"]
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +316,25 @@ def cache_bytes(caches) -> int:
     return total
 
 
+def supports_prefix_sharing(cfg: ModelConfig) -> bool:
+    """Whether a stack's KV is per-position state only, so a prefix's
+    blocks can be mapped by any row: full causal attention, no SSM
+    recurrence, no MoE capacity dispatch (which couples tokens across the
+    batch), no sliding-window ring."""
+    has_attn = cfg.family in ("dense", "moe", "hybrid", "vlm", "audio")
+    has_ssm = cfg.family in ("ssm", "hybrid")
+    return (has_attn and not has_ssm and cfg.family != "moe"
+            and not cfg.sliding_window and cfg.causal)
+
+
+def supports_speculation(cfg: ModelConfig, kv_bits: int = 16) -> bool:
+    """Whether draft/verify speculative decoding is exact for this stack:
+    the prefix-sharing requirements (a rejected draft must be rollable
+    back, and a ring could wrap a speculative tail onto live slots) plus
+    kv16/kv8 — the packed int4 cache has no per-query dequant ladder."""
+    return supports_prefix_sharing(cfg) and kv_bits in (8, 16)
+
+
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
@@ -361,8 +385,8 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
             zero = torch.zeros((), device=dev)
             ka = torch.where(amask[:, :, None, None], k_l.float().abs(), zero)
             va = torch.where(amask[:, :, None, None], v_l.float().abs(), zero)
-            ks = ka.amax(dim=(1, 3)) / qmax + 1e-9
-            vs = va.amax(dim=(1, 3)) / qmax + 1e-9
+            ks = kv_scale(ka.amax(dim=(1, 3)), qmax)
+            vs = kv_scale(va.amax(dim=(1, 3)), qmax)
             kq, vq = _quantize_kv(k_l, ks, kv_bits), _quantize_kv(v_l, vs, kv_bits)
             c.k_scale.copy_(ks)
             c.v_scale.copy_(vs)
@@ -602,3 +626,253 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
     elif paged:
         _writeback(caches["kv"], caches.pop("kv_view"), finish)
     return ys, ok, tok, pos, caches
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: n-gram drafter, W-token verify, spec segment
+# ---------------------------------------------------------------------------
+
+def ngram_propose(hist: torch.Tensor, tok: torch.Tensor, k: int,
+                  vocab: int) -> torch.Tensor:
+    """Self-speculative n-gram drafter: longest-suffix match over the row's
+    own history.
+
+    ``hist [B, Hn]`` holds each row's most recent tokens (−1 = empty, pads
+    on the left only) with the *current* token last; ``tok [B]`` is that
+    token. Each earlier position ``j`` is scored by how long a suffix of
+    the current context it matches (up to a trigram; a (d+1)-gram match
+    beats any d-gram match, the most recent position wins ties), and the
+    ``k`` tokens that followed the best match are proposed — extended
+    periodically when the match sits closer than ``k`` to the end. Rows
+    with no match repeat the current token. Integer-only, no host sync.
+    Returns ``[B, k]`` int32.
+    """
+    b, hn = hist.shape
+    dev = hist.device
+    if not k:
+        return torch.zeros((b, 0), dtype=torch.int32, device=dev)
+    h = hist.to(torch.int32)
+    cur = tok.to(torch.int32)
+    depth = min(3, hn - 1)
+    j_idx = torch.arange(hn - 1, device=dev)[None]           # [1, hn-1]
+    score = torch.zeros((b, hn - 1), dtype=torch.int32, device=dev)
+    run = torch.ones((b, hn - 1), dtype=torch.bool, device=dev)
+    for d in range(depth):
+        tgt = h[:, hn - 1 - d][:, None]                       # suffix token
+        cand = torch.where(j_idx - d >= 0,
+                           h.gather(1, (j_idx - d).clamp(min=0)
+                                    .expand(b, -1)), -2)
+        run = run & (cand == tgt) & (tgt >= 0)
+        score = score + (1 << d) * run.to(torch.int32)
+    best_j = (score * hn + j_idx).argmax(dim=1)
+    matched = score.amax(dim=1) > 0
+    period = (hn - 1 - best_j).clamp(min=1)
+    offs = torch.arange(k, device=dev)[None]                  # [1, k]
+    idx = best_j[:, None] + 1 + torch.remainder(offs, period[:, None])
+    prop = h.gather(1, idx.clamp(max=hn - 1))
+    return torch.where(matched[:, None] & (prop >= 0), prop, cur[:, None])
+
+
+def decode_step_spec(params: dict, cfg: ModelConfig, bits_row,
+                     tokens: torch.Tensor, pos: torch.Tensor, caches: dict,
+                     paged_backend: str = "gather"):
+    """W-token draft/verify forward. tokens ``[B, W]`` (``tokens[:, j]`` at
+    position ``pos + j``) → ``(logits [B, W, V], caches, (k_ladders,
+    v_ladders))`` with ladders ``[L, B, W, Hkv]``; caches updated in place.
+
+    The W-wide twin of :func:`decode_step` for the stacks
+    :func:`supports_speculation` admits. All W positions are written before
+    attention runs, and the committed int8 scales are left untouched: the
+    caller commits the ladders at the accepted count
+    (:func:`decode_segment_spec`). Cache branches as in
+    :func:`decode_step`: a ``"kv_view"`` entry takes every read and write;
+    a paged pool attends in place (``"kernel"``, the window kernel) or
+    through the dense view (``"gather"``).
+    """
+    _require_dense(cfg)
+    eb, _, layer_bits = split_bits(cfg, bits_row)
+    x = embed_lookup(params["embed"], tokens, eb)
+    b, w = tokens.shape
+    positions = (pos[:, None] + torch.arange(w, dtype=torch.int32,
+                                             device=pos.device)[None])
+    kv, view = caches["kv"], caches.get("kv_view")
+    klads, vlads = [], []
+    for l in range(cfg.n_layers):
+        lp, lb = _layer(params["layers"], l), layer_bits[l]
+        xin = rms_norm(lp["norm_attn"], x)
+        q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
+        if view is not None:
+            c, klad, vlad = update_kv_cache_window(view.layer(l), k, v, pos)
+            attn = decode_attention_window(
+                q, c, pos, klad, vlad, window=cfg.window(c.token_idx.shape[1]))
+        elif isinstance(kv, PagedKVCache):
+            c, klad, vlad = update_paged_kv_cache_window(kv.layer(l), k, v,
+                                                         pos)
+            slots_p = c.block_table.shape[1] * c.k.shape[1]
+            if paged_backend == "kernel":
+                attn = paged_decode_attention_window(
+                    q, c, pos, klad, vlad, window=cfg.window(slots_p))
+            else:
+                attn = decode_attention_window(
+                    q, paged_view(c), pos, klad, vlad,
+                    window=cfg.window(slots_p))
+        else:
+            c, klad, vlad = update_kv_cache_window(kv.layer(l), k, v, pos)
+            attn = decode_attention_window(
+                q, c, pos, klad, vlad, window=cfg.window(c.token_idx.shape[1]))
+        klads.append(klad)
+        vlads.append(vlad)
+        x = x + qlinear(lp["attn_out"], attn.reshape(b, w, -1),
+                        lb[_site_idx(cfg, "attn_out")])
+        x = x + _mlp_block(cfg, lp, lb, x)
+    x = rms_norm(params["norm_f"], x)
+    logits = _logits(cfg, params, bits_row, x)               # [B, W, V]
+    return logits, caches, (torch.stack(klads), torch.stack(vlads))
+
+
+def _commit_window_scales(kv, k_ladders: torch.Tensor,
+                          v_ladders: torch.Tensor, m: torch.Tensor,
+                          w: int) -> None:
+    """Commit, in place, the ladder entry of each row's last delivered
+    position as its int8 scale (``kv`` stacked, scales ``[L, B, Hkv]``;
+    ladders ``[L, B, W, Hkv]``; ``m [B]`` delivered counts). Rows with
+    ``m == 0`` keep their scale: a frozen row's junk must never move the
+    scale its ints were written under."""
+    if kv.bits != 8:
+        return
+    n_layers, b, _, hkv = k_ladders.shape
+    idx = (m.long() - 1).clamp(0, w - 1)[None, :, None, None]
+    idx = idx.expand(n_layers, b, 1, hkv)
+    keep = (m >= 1)[None, :, None]
+    kv.k_scale.copy_(torch.where(keep, k_ladders.gather(2, idx)[:, :, 0],
+                                 kv.k_scale))
+    kv.v_scale.copy_(torch.where(keep, v_ladders.gather(2, idx)[:, :, 0],
+                                 kv.v_scale))
+
+
+def decode_segment_spec(params: dict, cfg: ModelConfig, table, schedule,
+                        tok0: torch.Tensor, pos0: torch.Tensor, caches: dict,
+                        remaining, quota=None, hist0=None, spec_on=None,
+                        prequant: Optional[list] = None,
+                        paged_backend: str = "gather",
+                        fault_step=None, draft_k: int = 4,
+                        draft_override=None, draft_fn=None):
+    """Speculative decode segment: ``len(schedule)`` draft/verify windows.
+
+    Each window proposes ``draft_k`` tokens per row (:func:`ngram_propose`
+    over the history, or ``draft_fn(hist, tok) -> [B, draft_k]``), feeds
+    ``[tok, d_1..d_k]`` (``W = draft_k + 1``) through one verify forward
+    (:func:`decode_step_spec`), and advances each row by its **delivered**
+    count ``m = min(accepted + 1, remaining, quota)``: ``accepted`` is the
+    length of the prefix where the drafts equal the greedy argmax chain,
+    and position ``accepted`` adds the bonus token, so every delivered
+    token is the token greedy decode would emit. Rejected positions need
+    no rollback: the next window's writes cover their slots before any
+    query reads them, and their amaxes never reach the committed scales
+    (:func:`_commit_window_scales`).
+
+    ``quota [B]`` caps the segment's delivered tokens per row; ``spec_on
+    [B]`` False clamps a row to ``m <= 1``; ``hist0 [B, Hn]`` is the
+    drafter's history (default: 32 slots holding only ``tok0``);
+    ``fault_step [B]`` poisons a row's whole ``[W, V]`` verify logits at
+    that window, and ``row_ok`` finite-checks every live window;
+    ``draft_override [B, n_iter, draft_k]`` (entries ``>= 0``) forces
+    proposals. The loop makes no host sync: ``m`` stays on the device.
+    Paged pools run the backends of :func:`decode_segment`, and rows that
+    finish inside the segment come back with their tables unmapped.
+
+    Returns ``(tokens [B, n_iter, W], delivered [B, n_iter], row_ok [B],
+    tok [B], pos [B], caches)``; window ``i`` delivered
+    ``tokens[:, i, :delivered[:, i]]``, the rest is −1.
+    """
+    if paged_backend not in ("kernel", "gather"):
+        raise ValueError(f"paged_backend must be kernel|gather, got "
+                         f"{paged_backend!r}")
+    if prequant is None:
+        prequant = prequant_decode_weights(params, cfg, table)
+    table = np.asarray(table)
+    schedule = np.asarray(schedule).reshape(-1)
+    n_iter = len(schedule)
+    dev = tok0.device
+    b = tok0.shape[0]
+    w = draft_k + 1
+
+    def i32(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+    rem0 = i32(remaining)
+    rem = rem0
+    qta = (torch.full((b,), np.iinfo(np.int32).max // 2, dtype=torch.int32,
+                      device=dev) if quota is None else i32(quota))
+    son = (torch.ones((b,), dtype=torch.bool, device=dev) if spec_on is None
+           else torch.as_tensor(spec_on, dtype=torch.bool, device=dev))
+    fs = (torch.full((b,), -1, dtype=torch.int32, device=dev)
+          if fault_step is None else i32(fault_step))
+    tok, pos = tok0.to(torch.int32), pos0.to(torch.int32)
+    if hist0 is None:
+        hist = torch.full((b, 32), -1, dtype=torch.int32, device=dev)
+        hist[:, -1] = tok
+    else:
+        hist = i32(hist0)
+    dov = (None if draft_override is None
+           else i32(draft_override).permute(1, 0, 2))        # [n_iter, B, k]
+    paged = isinstance(caches.get("kv"), PagedKVCache)
+    use_kernel = paged and paged_backend == "kernel"
+    caches = dict(caches)
+    if paged and not use_kernel:
+        kv = caches["kv"]
+        caches["kv_view"] = _stack_views(
+            [paged_view(kv.layer(l)) for l in range(cfg.n_layers)])
+    wj = torch.arange(w, device=dev)[None]
+    hj = torch.arange(hist.shape[1], device=dev)[None]
+    ok = torch.ones((b,), dtype=torch.bool, device=dev)
+    outs, ms = [], []
+    for i, pid in enumerate(schedule):
+        pid = int(pid)
+        live = (rem > 0) & (qta > 0)
+        if draft_fn is not None:
+            prop = draft_fn(hist, tok).to(torch.int32)
+        else:
+            prop = ngram_propose(hist, tok, draft_k, cfg.vocab)
+        if dov is not None:
+            prop = torch.where(dov[i] >= 0, dov[i], prop)
+        feed = torch.cat([tok[:, None], prop], dim=1)          # [B, W]
+        feed = torch.where(live[:, None], feed, 0)
+        logits, caches, (klads, vlads) = decode_step_spec(
+            overlay_params(params, prequant[pid]), cfg, table[pid], feed,
+            pos, caches, paged_backend=paged_backend)
+        # a fault poisons the whole verify window after the KV writes
+        logits = torch.where((fs == i)[:, None, None],
+                             torch.full((), float("nan"), device=dev),
+                             logits)
+        ok = ok & (torch.isfinite(logits).all(dim=2).all(dim=1) | ~live)
+        g = logits.argmax(dim=-1).to(torch.int32)               # [B, W]
+        if draft_k:
+            match = (prop == g[:, :draft_k]).to(torch.int32)
+            acc = match.cumprod(dim=1).sum(dim=1).to(torch.int32)
+        else:
+            acc = torch.zeros_like(rem)
+        one = torch.ones_like(rem)
+        m = torch.where(son, torch.minimum(torch.minimum(acc + 1, rem), qta),
+                        torch.minimum(torch.minimum(one, rem), qta))
+        m = torch.where(live, m, 0).to(torch.int32)
+        _commit_window_scales(caches["kv_view"] if "kv_view" in caches
+                              else caches["kv"], klads, vlads, m, w)
+        outs.append(torch.where(wj < m[:, None], g, -1))
+        ms.append(m)
+        last = g.gather(1, (m.long() - 1).clamp(0, w - 1)[:, None])[:, 0]
+        tok = torch.where(m >= 1, last, tok)
+        # slide the drafter's history past the delivered tokens only
+        hist = torch.cat([hist, g], dim=1).gather(1, m.long()[:, None] + hj)
+        pos, rem, qta = pos + m, rem - m, qta - m
+    ys = (torch.stack(outs, dim=1) if outs else
+          torch.empty((b, 0, w), dtype=torch.int32, device=dev))
+    delivered = (torch.stack(ms, dim=1) if ms else
+                 torch.empty((b, 0), dtype=torch.int32, device=dev))
+    finish = (rem0 > 0) & (rem <= 0)
+    if use_kernel:
+        kv = caches["kv"]
+        kv.block_table.masked_fill_(finish[None, :, None], kv.n_blocks)
+    elif paged:
+        _writeback(caches["kv"], caches.pop("kv_view"), finish)
+    return ys, delivered, ok, tok, pos, caches

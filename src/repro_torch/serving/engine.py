@@ -59,6 +59,17 @@ class ServingConfig:
     ``paged_backend`` — ``"kernel"`` attends in place through the paged-
     attention kernel, ``"gather"`` builds the per-segment dense view,
     ``"auto"`` is the kernel on CUDA and gather on the CPU.
+
+    Speculative decoding: ``speculate`` decodes through draft/verify
+    windows — each segment window proposes ``draft_k`` tokens per row and
+    verifies the ``draft_k + 1`` window in one batched forward
+    (:func:`repro_torch.models.transformer.decode_segment_spec`),
+    delivering 1..``draft_k + 1`` tokens per row, the same tokens as greedy
+    decode. Needs a ``supports_speculation`` stack (full causal attention,
+    kv16/kv8). ``draft_hist`` is the token history the n-gram drafter
+    sees. ``draft_model``: ``None``/``"ngram"`` = the n-gram drafter,
+    ``"repeat"`` = repeat the current token; a small-model drafter plugs
+    in as :class:`AdaptiveServer`'s ``draft_fn``.
     """
 
     slots: int = 4096
@@ -67,6 +78,10 @@ class ServingConfig:
     block_size: int = 16
     pool_blocks: Optional[int] = None
     paged_backend: str = "auto"
+    speculate: bool = False
+    draft_k: int = 4
+    draft_hist: int = 32
+    draft_model: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -95,11 +110,15 @@ class AdaptiveServer:
         serving: :class:`ServingConfig`.
         manager: optional :class:`ProfileManager`; ``None`` pins profile 0.
         device: where the server runs — CUDA unless ``"cpu"`` is asked for.
+        draft_fn: optional drafter ``(hist [B, Hn], tok [B]) -> [B,
+            draft_k]`` for a speculative server (e.g. a small model);
+            ``None`` defers to ``ServingConfig.draft_model``.
     """
 
     def __init__(self, cfg: T.ModelConfig, params: dict,
                  engine: AdaptiveEngine, serving: ServingConfig,
-                 manager: Optional[ProfileManager] = None, device=None):
+                 manager: Optional[ProfileManager] = None, device=None,
+                 draft_fn=None):
         self.cfg = cfg
         self.params = params
         self.engine = engine
@@ -124,6 +143,38 @@ class AdaptiveServer:
         if pb == "kernel" and not has_kernel:
             raise ValueError(f"the paged-attention kernel has no kv"
                              f"{serving.kv_bits} path (kv4/kv8/kv16 only)")
+        if serving.speculate:
+            if not T.supports_speculation(cfg, serving.kv_bits):
+                raise ValueError(
+                    "speculate=True needs a supports_speculation stack: "
+                    "full causal attention (no SSM/MoE/sliding-window) "
+                    "with kv_bits in (8, 16)")
+            if serving.draft_k < 1:
+                raise ValueError("draft_k must be >= 1")
+            if serving.draft_hist < 2:
+                raise ValueError("draft_hist must be >= 2 (the n-gram "
+                                 "drafter matches history pairs)")
+            if pb == "kernel":
+                from repro_torch.kernels import paged_attention as PA
+                rows = (serving.draft_k + 1) * (cfg.n_heads // cfg.n_kv)
+                if rows > PA.MAX_WHG or rows * cfg.hd > PA.MAX_WHG_D:
+                    raise ValueError(
+                        f"the window kernel takes W·Hg <= {PA.MAX_WHG} and "
+                        f"W·Hg·D <= {PA.MAX_WHG_D}; draft_k="
+                        f"{serving.draft_k} gives W·Hg={rows}, D={cfg.hd}")
+        if draft_fn is None:
+            if serving.draft_model in (None, "ngram"):
+                pass                     # decode_segment_spec's built-in
+            elif serving.draft_model == "repeat":
+                k = serving.draft_k
+
+                def draft_fn(hist, tok):
+                    return tok[:, None].expand(tok.shape[0], k)
+            else:
+                raise ValueError(f"unknown draft_model "
+                                 f"{serving.draft_model!r}: use None, "
+                                 f"'ngram' or 'repeat' (or pass draft_fn)")
+        self.draft_fn = draft_fn
         self.paged_backend = pb
         self.block_size = T.paged_block_size(cfg, serving.slots,
                                              serving.block_size)
@@ -207,6 +258,24 @@ class AdaptiveServer:
                                 prequant=self.prequant,
                                 paged_backend=self.paged_backend,
                                 fault_step=fs)
+
+    def segment_spec(self, schedule: np.ndarray, hist: np.ndarray,
+                     spec_on: np.ndarray, tok: torch.Tensor,
+                     pos: torch.Tensor, caches: dict, remaining: np.ndarray,
+                     quota: np.ndarray):
+        """One speculative segment over the pool: ``len(schedule)``
+        draft/verify windows (``decode_segment_spec`` on the server's
+        images, backend and drafter). ``hist``/``spec_on``/``quota`` are
+        the host's per-row drafter history, opt-out mask and quantum in
+        delivered tokens. Returns ``(tokens, delivered, row_ok, tok, pos,
+        caches)``."""
+        return T.decode_segment_spec(
+            self.params, self.cfg, self.engine.table, schedule, tok, pos,
+            caches, remaining, quota=quota,
+            hist0=torch.as_tensor(hist, device=self.device),
+            spec_on=torch.as_tensor(spec_on, device=self.device),
+            prequant=self.prequant, paged_backend=self.paged_backend,
+            draft_k=self.scfg.draft_k, draft_fn=self.draft_fn)
 
     def clear_rows(self, slots_idx, caches: dict) -> dict:
         """Unmap the block tables of pool rows ``slots_idx`` (retirement),

@@ -22,11 +22,20 @@ The profile plan is made one segment ahead with
 the rows actually live at each step, so the energy ledger bills exactly the
 live rows; every billing event lands in :attr:`ContinuousScheduler.events`.
 
+**Speculation** (``ServingConfig.speculate``): each segment runs
+``ceil(quantum / W)`` draft/verify windows (``W = draft_k + 1``) with a
+quota of ``quantum`` delivered tokens per row. A window's delivered count
+is data the host needs for retirement, history and billing, so spec mode
+is synchronous (``_flush(keep=0)``): the profile plan is provisional, and
+the ledger bills the tokens each window actually delivered at the flush
+(:attr:`ContinuousScheduler.spec_billed`, invariant 11 of the reference).
+
 Not ported yet (later slices): the prefix registry and shared admission,
 chunked prefill, priorities and preemption, deadlines, cancellation,
-shedding, fault injection and quarantine, speculation, durability. A row
-whose logits go non-finite raises at the flush (the reference quarantines
-it).
+shedding, fault injection and quarantine, durability, and speculation's
+composition with preemption/resume, cancellation, quarantine and
+copy-on-write prefixes, which comes with them. A row whose logits go
+non-finite raises at the flush (the reference quarantines it).
 """
 from __future__ import annotations
 
@@ -91,6 +100,20 @@ class ContinuousScheduler:
         self._inflight: list[dict] = []                  # dispatched, unread
         self.segments_run = 0
         self.decode_steps = 0
+        self.windows_run = 0
+        self.spec_row_windows = 0      # (row, window) pairs that delivered
+        # speculative state: per-row drafter history (−1 pad, last entry =
+        # the row's current token, updated at the flush) and the per-class
+        # opt-out mask (bound at admission)
+        self.spec = bool(scfg.speculate)
+        self.draft_w = int(scfg.draft_k) + 1 if self.spec else 1
+        if self.spec:
+            self._hist = np.full((nslots, int(scfg.draft_hist)), -1,
+                                 np.int32)
+            self._slot_spec = np.ones((nslots,), bool)
+            # (pid, delivered) per verify window, in billing order: the
+            # flush-side twin of the planned `events`
+            self.spec_billed: list[tuple[int, int]] = []
 
     # ------------------------------------------------------------- paged util
     def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
@@ -238,15 +261,29 @@ class ContinuousScheduler:
             self._slot_crit[slot] = self.policy.bind_critical(req)
             self.remaining[slot] = req.max_new - 1
             self._slot_blocks[slot] = blocks
+            self._seed_spec(slot, req)
         if clear:
             self.srv.clear_rows(clear, self._caches)
         self._inflight.append(entry)
+
+    def _seed_spec(self, slot: int, req) -> None:
+        """Reset slot ``slot``'s speculation state for its new occupant: an
+        empty history (the admission flush lands the first token; a
+        previous occupant's n-grams must never draft for this row) and the
+        request's class speculation binding."""
+        if not self.spec:
+            return
+        self._hist[slot] = -1
+        self._slot_spec[slot] = self.policy.bind_speculative(req)
 
     # --------------------------------------------------------------- decoding
     def run_segment(self) -> None:
         """One decode segment: plan ``quantum`` steps against the live rows,
         dispatch, then retire rows whose budget runs out (their blocks go
-        back now; the segment already unmapped their tables)."""
+        back now; the segment already unmapped their tables). A speculative
+        scheduler runs :meth:`_run_segment_spec` instead."""
+        if self.spec:
+            return self._run_segment_spec()
         q = self.quantum
         mgr = self.srv.manager
         rem = self.remaining
@@ -280,6 +317,93 @@ class ContinuousScheduler:
                 self._slot_blocks[slot] = None
         self._inflight.append(entry)
 
+    def _run_segment_spec(self) -> None:
+        """One speculative segment: ``ceil(quantum / W)`` draft/verify
+        windows with ``quota = quantum`` delivered tokens per row.
+
+        The profile plan is provisional (ids bind now, the ledger advances
+        at the flush with the tokens each window delivered), and retirement
+        and block release move to :meth:`_flush_spec`, since the host
+        learns which rows finished only when the delivered counts land.
+        """
+        self._flush(0)      # land admissions first: fresh rows' history
+        w = self.draft_w    # must hold their first token
+        n_iter = max(1, -(-self.quantum // w))
+        mgr = self.srv.manager
+        rem = self.remaining
+        if mgr is None:
+            sched = np.zeros((n_iter,), np.int32)
+        else:
+            sched = mgr.plan_schedule_ragged(n_iter, rem, self._slot_crit,
+                                             draft_w=w, provisional=True)
+        if self.record_events:
+            # the PLANNED clamped bill per window (what the provisional
+            # plan fed select()); the actuals land in `spec_billed`
+            for i in range(n_iter):
+                live_i = rem > i * w
+                self.events.append(
+                    (int(sched[i]),
+                     int(np.minimum(w, np.maximum(rem - i * w, 0)).sum()),
+                     bool((self._slot_crit & live_i).any())))
+        quota = np.full((self.n_slots,), self.quantum, np.int32)
+        toks, ms, ok, self._tok, self._pos, self._caches = \
+            self.srv.segment_spec(sched, self._hist, self._slot_spec,
+                                  self._tok, self._pos, self._caches,
+                                  self.remaining, quota)
+        self.segments_run += 1
+        self.windows_run += n_iter
+        self._inflight.append({
+            "kind": "spec", "toks": toks, "ms": ms, "ok": ok,
+            "sched": sched,
+            "rows": [(s, self.slot_req[s]) for s in range(self.n_slots)
+                     if self.slot_req[s] is not None],
+            "completes": []})
+
+    def _flush_spec(self, e: dict, arr: np.ndarray, names) -> None:
+        """Land one speculative segment: distribute each window's delivered
+        prefix, bill the ledger the tokens actually delivered, slide each
+        row's drafter history, then retire rows whose budget hit zero and
+        hand their blocks back (the segment already unmapped their
+        tables)."""
+        ms = e["ms"].cpu().numpy()                        # [B, n_iter]
+        ok = e["ok"].cpu().numpy()
+        mgr = self.srv.manager
+        sched = e["sched"]
+        n_iter = ms.shape[1]
+        h = self._hist.shape[1]
+        self.spec_row_windows += int((ms > 0).sum())
+        for i in range(n_iter):
+            n_tok = int(ms[:, i].sum())   # idle rows deliver 0
+            if mgr is not None:
+                mgr.account(int(sched[i]), n_tok)
+            if self.record_events:
+                self.spec_billed.append((int(sched[i]), n_tok))
+        bad = [rid for slot, rid in e["rows"]
+               if ms[slot].any() and not ok[slot]]
+        if bad:
+            raise RuntimeError(f"non-finite logits in requests {bad} "
+                               f"(quarantine is not ported)")
+        for slot, rid in e["rows"]:
+            res = self.results[rid]
+            delivered: list[int] = []
+            for i in range(n_iter):
+                m = int(ms[slot, i])
+                if m:
+                    delivered.extend(arr[slot, i, :m].tolist())
+                    res["profile_trace"].extend([names[sched[i]]] * m)
+            res["tokens"].extend(delivered)
+            if delivered:
+                cat = np.concatenate([self._hist[slot],
+                                      np.asarray(delivered, np.int32)])
+                self._hist[slot] = cat[-h:]
+            self.remaining[slot] -= len(delivered)
+            if self.remaining[slot] == 0 and delivered:
+                self.slot_req[slot] = None               # retire → refill
+                self._slot_crit[slot] = False
+                e["completes"].append(rid)
+                self.allocator.release(self._slot_blocks[slot])
+                self._slot_blocks[slot] = None
+
     def _flush(self, keep: int = 0) -> None:
         """Read in-flight token blocks into per-request results, leaving
         the newest ``keep`` entries unread (one segment ahead of the host).
@@ -293,6 +417,12 @@ class ContinuousScheduler:
                     res = self.results[rid]
                     res["tokens"].append(int(arr[j]))
                     res["profile_trace"].append(e["name"])
+                    if self.spec and rid in self.slot_req:
+                        # the admission token is the row's current token:
+                        # the drafter's history ends with it
+                        self._hist[self.slot_req.index(rid), -1] = int(arr[j])
+            elif e["kind"] == "spec":
+                self._flush_spec(e, arr, names)
             else:
                 ok = e["ok"].cpu().numpy()
                 bad = [rid for slot, rid, n in e["rows"]
@@ -313,11 +443,12 @@ class ContinuousScheduler:
     # ------------------------------------------------------------------ drive
     def step(self) -> bool:
         """One engine round: admit, then run one segment with one kept in
-        flight. Returns False once everything is drained."""
+        flight (none in spec mode: delivered counts gate retirement).
+        Returns False once everything is drained."""
         self.admit()
         if self.live_rows:
             self.run_segment()
-            self._flush(keep=1)
+            self._flush(keep=0 if self.spec else 1)
         else:
             self._flush()
         return bool(self.live_rows or len(self.policy) or self._inflight)

@@ -64,3 +64,56 @@ def test_paged_attention_kernel_matches_plain(bits, window):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert torch.all(got[-1] == 0)                # dead row: exact zeros
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+def _window_inputs(bits: int, gen: torch.Generator, w=5, b=6, hkv=2, hg=4,
+                   d=64, bs=8, n_lblk=6):
+    """Window inputs: fragmented tables with both sentinels, rows whose
+    window starts at 7, 8, 9, 16 and 43 (the last runs past capacity),
+    and one dead row, on the card."""
+    starts = (7, 8, 9, 16, n_lblk * bs - 5)
+    n_blocks = b * n_lblk + 2
+    perm = torch.randperm(n_blocks, generator=gen).tolist()
+    bt = torch.full((b, n_lblk), n_blocks, dtype=torch.int32)
+    tidx = torch.full((n_blocks, bs), -1, dtype=torch.int32)
+    pos = torch.zeros(b, dtype=torch.int32)
+    for r, n in enumerate(starts):
+        pos[r] = n
+        for lb in range(n_lblk):
+            if lb * bs < n + w:
+                phys = perm.pop()
+                bt[r, lb] = phys
+                t = lb * bs + torch.arange(bs)
+                tidx[phys] = torch.where(t < n + w, t, -1).int()
+            elif lb % 2:
+                bt[r, lb] = -1
+    bt[-1] = -1                                   # the dead row
+    shape = (n_blocks, bs, hkv, d)
+    if bits == 16:
+        k, v = (torch.randn(shape, generator=gen).bfloat16() for _ in "kv")
+    else:
+        k, v = (torch.randint(-127, 128, shape, generator=gen).to(torch.int8)
+                for _ in "kv")
+    kl, vl = (0.01 + 0.04 * torch.rand((b, w, hkv), generator=gen)
+              for _ in "kv")
+    q = torch.randn((b, w, hkv, hg, d), generator=gen).bfloat16()
+    x = dict(q=q, k_pool=k, v_pool=v, k_ladder=kl, v_ladder=vl,
+             token_idx=tidx, block_table=bt, pos=pos)
+    return {name: t.cuda() for name, t in x.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("bits", [16, 8])
+def test_paged_attention_multi_kernel_matches_plain(bits, window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x = _window_inputs(bits, torch.Generator().manual_seed(bits + window))
+    n0 = PA.paged_attention_multi.launches
+    got = PA.paged_attention_multi(**x, bits=bits, window=window)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_multi.launches == n0 + 1
+    want = PA.paged_attention_multi_ref(**x, bits=bits, window=window)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.all(got[-1] == 0)                # dead row: exact zeros
+    assert np.isfinite(got.cpu().numpy()).all()

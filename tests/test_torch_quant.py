@@ -138,24 +138,89 @@ def test_pow2_scale_is_exact_where_jax_exp2_is_not():
     assert np.array_equal(s.numpy(), np.ldexp(np.float32(1.0), k))
 
 
-@pytest.mark.parametrize("bits", [8, 4])
-def test_kv_step_scale_is_true_division(bits):
-    """The running int-KV scale ``amax/qmax + 1e-9`` is true f32 division in
-    the port. XLA on the CPU rewrites the division by the constant as a
-    multiply by its f32 reciprocal, so the reference's scale can sit one
-    ulp away (ROADMAP queue 3)."""
+def _jax_prefill_scales(bits: int):
+    """The reference's prefill on the smoke model (ragged rows): its int-KV
+    scales and the raw K/V they were calibrated on."""
+    from repro.configs import get_smoke
+    from repro.models import transformer as JT
+    cfg = get_smoke("granite-3-2b")
+    params = JT.init_params(cfg, jax.random.PRNGKey(bits))
+    table = np.ones((2 + 4 * cfg.n_layers, 2), np.int32) * 32
     rng = np.random.default_rng(bits)
-    k = rng.standard_normal((5, 1, 2, 16)).astype(np.float32)
-    cache = A.init_kv_cache(5, 4, 2, 16, bits=bits, device="cpu")
-    cache.k_scale.fill_(1e-6)
-    ks, _, _, _ = A._kv_step_quantize(cache, torch.from_numpy(k),
-                                      torch.from_numpy(k))
+    prompts = rng.integers(0, cfg.vocab, (3, 12)).astype(np.int32)
+    plen = np.array([12, 7, 3], np.int32)
+    batch = {"tokens": jnp.asarray(prompts), "prompt_len": jnp.asarray(plen)}
+    _, caches, (rk, rv) = jax.jit(
+        lambda p, b: JT.prefill(p, cfg, jnp.asarray(table), b, 16,
+                                kv_bits=bits, return_raw_kv=True))(params,
+                                                                    batch)
+    return (cfg, table, prompts, plen, np.asarray(rk), np.asarray(rv),
+            np.asarray(caches["kv"].k_scale), np.asarray(caches["kv"].v_scale))
+
+
+@pytest.mark.parametrize("site,bits", [("step", 8), ("step", 4),
+                                       ("prefill", 8), ("prefill", 4),
+                                       ("window", 8)])
+def test_kv_scale_matches_jax_bitwise(site, bits, monkeypatch):
+    """The int-KV scale ``amax/qmax + 1e-9`` equals the reference's jitted
+    function bit for bit at each calibration site — the decode step, the
+    prefill, and the speculative window ladder. XLA on the CPU lowers the
+    expression to one fused multiply-add, ``fma(amax, f32(1/qmax),
+    f32(1e-9))``, which ``attention.kv_scale`` computes; true division is
+    one ulp off in most elements. The prefill site runs the port's
+    ``prefill`` on the reference's raw K/V (its forward swapped for them)."""
+    from repro_torch.models import transformer as T
     qmax = np.float32(127.0 if bits == 8 else 7.0)
-    exact = (np.abs(k).max(axis=(1, 3)) / qmax + np.float32(1e-9)).astype(np.float32)
-    assert np.array_equal(ks.numpy(), np.maximum(exact, np.float32(1e-6)))
-    jc = JA.init_kv_cache(5, 4, 2, 16, bits=bits)._replace(
-        k_scale=jnp.full((5, 2), 1e-6, jnp.float32))
-    jks = np.asarray(jax.jit(lambda c, x: JA._kv_step_quantize(c, x, x)[0])(
-        jc, jnp.asarray(k)))
-    ulps = np.abs(jks.view(np.int32) - ks.numpy().view(np.int32))
-    assert ulps.max() <= 1
+    rng = np.random.default_rng(bits + len(site))
+    if site == "prefill":
+        cfg, table, prompts, plen, rk, rv, jks, jvs = _jax_prefill_scales(bits)
+        import repro_torch.configs as C
+        tcfg = C.get_smoke("granite-3-2b")
+        b, s = prompts.shape
+
+        def raw_forward(params, cfg, bits_row, batch, collect=False):
+            return (torch.zeros(b, s, cfg.d_model), None,
+                    (torch.from_numpy(rk.copy()), torch.from_numpy(rv.copy())))
+
+        monkeypatch.setattr(T, "forward", raw_forward)
+        monkeypatch.setattr(T, "_logits", lambda *a: torch.zeros(b, 1, 8))
+        _, caches = T.prefill({}, tcfg, table,
+                              {"tokens": torch.from_numpy(prompts),
+                               "prompt_len": plen}, 16, kv_bits=bits)
+        got = (caches["kv"].k_scale.numpy(), caches["kv"].v_scale.numpy())
+        want = (jks, jvs)
+        amax = np.abs(rk).max(axis=(2, 4))         # unmasked: rows differ
+    elif site == "step":
+        k = (rng.standard_normal((64, 1, 2, 16))
+             * rng.uniform(0.01, 5, (64, 1, 2, 1))).astype(np.float32)
+        cache = A.init_kv_cache(64, 4, 2, 16, bits=bits, device="cpu")
+        cache.k_scale.fill_(1e-6)
+        ks, _, _, _ = A._kv_step_quantize(cache, torch.from_numpy(k),
+                                          torch.from_numpy(k))
+        jc = JA.init_kv_cache(64, 4, 2, 16, bits=bits)._replace(
+            k_scale=jnp.full((64, 2), 1e-6, jnp.float32))
+        jks = jax.jit(lambda c, x: JA._kv_step_quantize(c, x, x)[0])(
+            jc, jnp.asarray(k))
+        got, want = (ks.numpy(),), (np.asarray(jks),)
+        amax = np.abs(k).max(axis=(1, 3))
+    else:
+        k = (rng.standard_normal((16, 5, 2, 16))
+             * rng.uniform(0.01, 5, (16, 5, 2, 1))).astype(np.float32)
+        cache = A.init_kv_cache(16, 8, 2, 16, bits=bits, device="cpu")
+        cache.k_scale.fill_(1e-6)
+        lad, _, _, _ = A._kv_window_quantize(cache, torch.from_numpy(k),
+                                             torch.from_numpy(k))
+        jc = JA.init_kv_cache(16, 8, 2, 16, bits=bits)._replace(
+            k_scale=jnp.full((16, 2), 1e-6, jnp.float32))
+        jlad = jax.jit(lambda c, x: JA._kv_window_quantize(c, x, x)[0])(
+            jc, jnp.asarray(k))
+        got, want = (lad.numpy(),), (np.asarray(jlad),)
+        amax = np.abs(k).max(axis=3)
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32
+        assert np.array_equal(g.view(np.int32), w.view(np.int32)), site
+    # the fused form, not true division, is what matches
+    fma = (amax.astype(np.float64) * np.float64(np.float32(1 / qmax))
+           + np.float64(np.float32(1e-9))).astype(np.float32)
+    div = (amax / qmax + np.float32(1e-9)).astype(np.float32)
+    assert not np.array_equal(fma, div)

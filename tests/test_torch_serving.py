@@ -66,7 +66,8 @@ def _manager(cls, stats):
 
 @pytest.mark.parametrize("case,kv_bits,managed", [
     ("boundary", 16, False), ("boundary", 8, False), ("boundary", 4, False),
-    ("boundary", 16, True), ("refill", 8, True), ("refill", 16, False)])
+    ("boundary", 16, True), ("boundary", 8, True), ("boundary", 4, True),
+    ("refill", 8, True), ("refill", 16, False)])
 def test_scheduler_matches_reference(parts, case, kv_bits, managed):
     cfg, tcfg, jp, tp, jeng, teng, stats = parts
     reqs = _requests(case)
