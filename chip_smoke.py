@@ -8,18 +8,27 @@ Phases:
     nvcc per source, sm_90a, all started together);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes the serving path gives it, with times, the bound and the
-    library yardstick: K1 (one-query paged decode) and K2 (the W-query
-    speculative verify window);
+    library yardstick: K1 (one-query paged decode), K2 (the W-query
+    speculative verify window), K3 (the dequant-matmul of the native
+    integer-weight linears) and K5 (per-tensor dynamic fake-quant, bit for
+    bit);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
     off): the same requests through the continuous scheduler with the
     kernel and the gather backends give identical greedy tokens at kv16,
     kv8 and kv4, and the speculative scheduler gives those same tokens
-    with either backend at kv16 and kv8;
+    with either backend at kv16 and kv8; then the native path in bf16 at
+    W8 and W4: prefill logits on the card (K3, K5) against the CPU's;
  4. serve: the launcher's path on granite-3-2b's full 40-layer config in
-    bf16 — 12 requests, 32 new tokens each — counting kernel launches;
+    bf16 — 12 requests, 32 new tokens each — counting kernel launches
+    (and K5's, which builds the weight images);
  5. speculative serve: phase 4's requests through the launcher's
     ``--speculate --draft-k 4`` path, counting K2 launches per window and
-    checking that the tokens billed are the tokens delivered.
+    checking that the tokens billed are the tokens delivered;
+ 6. native serve: phase 4's requests served from ``to_native(params, 8)``
+    (then 4 requests × 16 tokens at W4) through ``AdaptiveServer`` +
+    ``ContinuousScheduler``, counting K3 launches per linear, K1 per step
+    and K5 per tied-head image, and checking that the dequantize-then-matmul
+    branch never runs.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -40,6 +49,7 @@ import torch  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12          # bf16 dense tensor cores
 ATOL = 1e-4                       # kernel vs plain, f32 outputs
 
 
@@ -323,6 +333,186 @@ def phase_kernels(seed: int) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: K3 (dequant-matmul) and K5 (per-tensor fake-quant)
+# ---------------------------------------------------------------------------
+
+def rotating(make, nbytes: int, budget: int = 256 << 20, cap: int = 64):
+    """Copies of an operand that together exceed the 50 MB L2 cache, so a
+    timed loop that cycles through them reads each one cold, as a layer's
+    weights are on the serving path (40 layers of them between reuses)."""
+    n = max(1, min(cap, -(-budget // max(1, nbytes))))
+    return [make() for _ in range(n)]
+
+
+def cycle_time_ms(fn, operands, iters: int) -> float:
+    it = itertools.cycle(operands)
+    return cuda_time_ms(lambda: fn(next(it)), iters=iters,
+                        warmup=min(20, iters))
+
+
+def qmatmul_bound(m, k, n, bits) -> dict:
+    """Least time for one K3 call on an H100 SXM: the bytes it must move
+    (packed weights, bf16 x, f32 out, f32 scales) over HBM bandwidth, and
+    2·M·K·N over the bf16 dense tensor-core rate."""
+    nbytes = k * n * bits // 8 + m * k * 2 + m * n * 4 + n * 4
+    flops = 2 * m * k * n
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_qmatmul(seed: int) -> dict:
+    """K3 against its plain version on the card: decode (M = 8) and prefill
+    (M = 2048) at granite-3-2b's four linear shapes, int8 and packed int4,
+    bf16 x as the serving path gives it; the odd shapes of the reference's
+    kernel tests; one fused-requant case.
+
+    Tolerance: both sides multiply the same bf16 operands, whose products
+    are exact in f32, and differ only in the order of the f32 sums. Each
+    side is within gamma_K·(|x|@|w|) of the exact sum (gamma_K ≈ K·2^-24),
+    so |kernel − plain| <= 4·K·2^-24·(|x|@|w|) elementwise leaves a factor
+    2 for the tensor cores' accumulation. The fused requant is checked bit
+    for bit against the plain requant of the kernel's own accumulator (the
+    kernel's sum order is deterministic), and within one grid step of the
+    plain version's."""
+    from repro_torch.core.qtypes import QuantSpec
+    from repro_torch.core.quantizers import quantize_native
+    from repro_torch.kernels import qmatmul as QM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    u = 2.0 ** -24
+    cases = [(m, k, n, bits) for m in (8, 2048)
+             for k, n in ((2048, 3072), (2048, 2048), (2048, 16384),
+                          (8192, 2048)) for bits in (8, 4)]
+    cases += [(m, k, n, bits) for m, k, n in ((5, 100, 70), (33, 96, 40))
+              for bits in (8, 4)]
+    main = None
+    for m, k, n, bits in cases:
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        spec = QuantSpec(bits=bits, per_channel=True, channel_axis=-1,
+                         po2_scale=False)
+        qt = quantize_native(w, spec)
+        scale = qt.scale.reshape(-1).contiguous()
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        got = QM.qmatmul(x, qt.data, scale, bits=bits)
+        torch.cuda.synchronize()
+        want = QM.qmatmul_ref(x, qt.data, scale, bits)
+        wb = QM.dequant_ref(qt.data, scale, bits).bfloat16().float()
+        tol = 4 * k * u * (x.float().abs() @ wb.abs())
+        diff = (got - want).abs()
+        err = float(diff.max())
+        worst = float((diff / tol.clamp_min(1e-30)).max())
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"K3 disagrees with its plain version at "
+                                 f"M={m} K={k} N={n} W{bits}: max err "
+                                 f"{err:.3e}, {worst:.2f}x the tolerance")
+        big = m * k * n > 1e9
+        ws = rotating(lambda: qt.data.clone(), qt.data.numel())
+        ms = cycle_time_ms(lambda wq: QM.qmatmul(x, wq, scale, bits=bits),
+                           ws, 50 if big else 200)
+        plain = cycle_time_ms(lambda wq: QM.qmatmul_ref(x, wq, scale, bits),
+                              ws[:4], 10 if big else 50)
+        del ws
+        wl = rotating(lambda: wb.bfloat16(), wb.numel() * 2)
+        lib = cycle_time_ms(lambda w16: torch.matmul(x, w16), wl,
+                            50 if big else 200)
+        del wl
+        bd = qmatmul_bound(m, k, n, bits)
+        print(f"[K3] M={m} K={k} N={n} W{bits}: max_abs_err={err:.3e} "
+              f"({worst:.3f}x tol); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"torch.matmul bf16 {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}); {bd['flops'] / ms / 1e9:.1f} TFLOP/s, "
+              f"{bd['bytes'] / ms / 1e6:.1f} GB/s")
+        if (m, k, n, bits) == (8, 2048, 16384, 8):
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, **bd}
+        if (m, k, n, bits) == (2048, 2048, 2048, 8):
+            for ob, os_ in ((8, 0.25), (4, 0.5)):
+                fused = QM.qmatmul(x, qt.data, scale, bits=bits, out_bits=ob,
+                                   out_scale=os_)
+                again = QM.requant_ref(got, os_, ob)
+                plain_rq = QM.qmatmul_ref(x, qt.data, scale, bits,
+                                          out_scale=os_, out_bits=ob)
+                same = torch.equal(fused, again)
+                step = float((fused - plain_rq).abs().max())
+                flips = float((fused != plain_rq).float().mean())
+                print(f"[K3] fused requant A{ob} s={os_}: equal to the plain "
+                      f"requant of the kernel's sums: {same}; vs plain "
+                      f"version max err {step:g} ({100 * flips:.4f}% of "
+                      f"elements one step apart)")
+                if not same or step > os_:
+                    raise AssertionError("K3's fused requant disagrees")
+    QM.qmatmul.launches = 0               # comparison launches do not count
+    return main
+
+
+def phase_aquant(seed: int) -> dict:
+    """K5 against its plain version on the card, bit for bit: the shapes of
+    the prequant images ([2048, 16384], [8192, 2048]) and the tied head's
+    dequantized table (49155 x 2048 values), bits 4/6/8, power-of-two scale
+    on and off; a bf16 input; and amax exactly at a power of two and one
+    f32 step above it, where ceil(log2(.)) decides the grid."""
+    from repro_torch.kernels import aquant as AQ
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+
+    def bits_of(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    cases = []
+    for shape in ((2048, 16384), (8192, 2048), (2048, 49155)):
+        x = torch.randn(shape, generator=gen, device="cuda") * 0.05
+        for bits in (4, 6, 8):
+            for po2 in (True, False):
+                cases.append((f"{shape[0]}x{shape[1]} f32", x, bits, po2))
+    xb = (torch.randn((2048, 16384), generator=gen, device="cuda")
+          * 0.05).bfloat16()
+    cases += [("2048x16384 bf16", xb, b, True) for b in (4, 8)]
+    for label, top in (("amax = 2^-3", 0.125),
+                       ("amax = 2^-3 + 1 ulp",
+                        float(np.nextafter(np.float32(0.125), np.float32(1))))):
+        x = (torch.rand((8192, 2048), generator=gen, device="cuda") - 0.5) * 0.2
+        x[17, 5] = -top
+        cases += [(f"8192x2048 {label}", x, b, po2) for b in (4, 8)
+                  for po2 in (True, False)]
+    main = None
+    for label, x, bits, po2 in cases:
+        got = AQ.aquant(x, bits, po2)
+        torch.cuda.synchronize()
+        want = AQ.aquant_ref(x, bits, po2)
+        same = torch.equal(bits_of(got), bits_of(want))
+        err = float((got.float() - want.float()).abs().max())
+        if not same:
+            raise AssertionError(f"K5 differs from its plain version at "
+                                 f"{label} bits={bits} po2={po2}: max err "
+                                 f"{err:g}")
+        timed = "+" not in label and "= 2^" not in label and (
+            bits == 8 or "49155" in label)
+        if timed:
+            nbytes = 2 * x.numel() * x.element_size()
+            bound = nbytes / H100_BYTES_PER_S * 1e3
+            ms = cuda_time_ms(lambda: AQ.aquant(x, bits, po2), iters=50,
+                              warmup=5)
+            plain = cuda_time_ms(lambda: AQ.aquant_ref(x, bits, po2),
+                                 iters=10, warmup=2)
+            print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal; "
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{bound:.4f} ms (bytes: {nbytes} B), "
+                  f"{nbytes / ms / 1e6:.1f} GB/s; no single PyTorch call "
+                  f"computes it")
+            if label.startswith("2048x49155") and bits == 8 and po2:
+                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "library_ms": None, "bound_ms": bound,
+                        "bound_by": "bytes"}
+        else:
+            print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal")
+    AQ.aquant.launches = 0                # comparison launches do not count
+    return main
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernel vs gather backends at full width, f32
 # ---------------------------------------------------------------------------
 
@@ -429,6 +619,97 @@ def first_divergence(cfg, params, engine, reqs, spec, greedy, bits) -> None:
               f"{float(top[0] - top[1]):.3e}")
 
 
+def phase_native_parity(seed: int) -> None:
+    """The native path at full width (granite-3-2b widths, 4 layers, bf16
+    compute), W8 and W4: ragged prefill logits on the card (every linear
+    through K3, the tied head's fake-quant through K5) against the same
+    function on the CPU (their plain versions), on the same weights.
+
+    Checked at the A16 profile of the weights' width (A16-W8 on W8
+    carriers, A16-W4 on W4): |card − CPU| <= 0.05·max|CPU logits|. Both
+    sides round the same bf16 activations at the same points, but their f32
+    sums and transcendentals differ in the last f32 bit, so a bf16 rounding
+    can flip by one ulp (2^-8 relative) and the flips compound over the
+    layers; a wrong kernel is off by the logits' own size. A4-W4 is
+    reported without a bound: a 4-bit activation grid turns a one-ulp flip
+    into a whole grid step (1/8 of the row's amax), so there the two
+    devices diverge by construction, whatever the kernels do.
+    Greedy-token identity is not required (bf16 outputs round); argmax
+    agreement is reported."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import qmatmul as QM
+    from repro_torch.models import layers as LY
+    from repro_torch.models import transformer as T
+    from repro_torch.models.native import to_native
+    from repro_torch.runtime import use_compute_dtype
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    table = AdaptiveEngine(tuple(paper_profiles(names)),
+                           QuantIndex(names)).table
+    rng = np.random.default_rng(seed)
+    lens = (64, 37, 5)
+    prompts = np.zeros((len(lens), 64), np.int32)
+    for j, n in enumerate(lens):
+        prompts[j, 64 - n:] = rng.integers(0, cfg.vocab, n)
+    plen = np.asarray(lens, np.int32)
+    for w_bits in (8, 4):
+        nat = to_native(params, w_bits)
+        nat_cpu = _to_cpu(nat)
+        checked = 0 if w_bits == 8 else 1          # A16-W8 / A16-W4
+        for pid in (checked, 4):                    # ..., then A4-W4
+            QM.qmatmul.launches = AQ.aquant.launches = 0
+            LY.dequant_matmul.calls = 0
+            with use_compute_dtype(torch.bfloat16):
+                got, _ = T.prefill(nat, cfg, table[pid],
+                                   {"tokens": torch.as_tensor(prompts,
+                                                              device="cuda"),
+                                    "prompt_len": plen}, 128)
+                torch.cuda.synchronize()
+                k3, k5 = QM.qmatmul.launches, AQ.aquant.launches
+                want, _ = T.prefill(nat_cpu, cfg, table[pid],
+                                    {"tokens": torch.as_tensor(prompts),
+                                     "prompt_len": plen}, 128)
+            got = got.float().cpu()
+            want = want.float()
+            err = float((got - want).abs().max())
+            bound = 0.05 * float(want.abs().max())
+            agree = (got.argmax(-1) == want.argmax(-1)).tolist()
+            print(f"[native] full width x4 layers, bf16, W{w_bits}, profile "
+                  f"{pid}: prefill logits card vs CPU max_abs_err={err:.4e} "
+                  f"({'bound' if pid == checked else 'not checked, 5 %:'} "
+                  f"{bound:.4e}); argmax agrees {agree}; K3 launches "
+                  f"{k3} (= 4 x {cfg.n_layers} layers), K5 launches {k5}, "
+                  f"dequant-matmul calls {LY.dequant_matmul.calls}")
+            if not np.isfinite(got.numpy()).all() or (pid == checked
+                                                      and err > bound):
+                raise AssertionError(f"native prefill W{w_bits} profile "
+                                     f"{pid}: card and CPU disagree")
+            if k3 != 4 * cfg.n_layers or k5 != 1 or LY.dequant_matmul.calls:
+                raise AssertionError("the native prefill did not run "
+                                     "through K3 and K5 alone")
+        del nat, nat_cpu
+    QM.qmatmul.launches = AQ.aquant.launches = 0
+    del params
+    torch.cuda.empty_cache()
+
+
+def _to_cpu(tree):
+    from repro_torch.core.quantizers import QTensor
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.data.cpu(), tree.scale.cpu(), tree.bits,
+                       tree.orig_last)
+    return tree.cpu()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve the full config through the launcher's path
 # ---------------------------------------------------------------------------
@@ -439,18 +720,24 @@ def phase_serve(seed: int) -> dict:
     from repro_torch.models import attention as A
     from repro_torch.serving.engine import RequestStatus
 
+    from repro_torch.kernels import aquant as AQ
     args = S.parse_args(["--continuous", "--full", "--requests", "12",
                          "--max-new", "32", "--kv-bits", "16",
                          "--quantum", "8", "--block-size", "16",
                          "--seed", str(seed)])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    AQ.aquant.launches = 0
     cfg, srv = S.build_server(args)
     torch.cuda.synchronize()
+    k5 = AQ.aquant.launches
+    n_images = len({t.data_ptr() for t in _leaves(srv.prequant)})
     print(f"[serve] built {cfg.name} ({cfg.n_layers} layers, "
           f"{sum(p.numel() for p in _leaves(srv.params)) / 1e9:.3f} B params) "
-          f"with {len({t.data_ptr() for t in _leaves(srv.prequant)})} distinct weight "
-          f"images in {time.perf_counter() - t0:.1f}s")
+          f"with {n_images} distinct weight images in "
+          f"{time.perf_counter() - t0:.1f}s; K5 launches building them: {k5}")
+    if k5 == 0:
+        raise AssertionError("the prequant images did not go through K5")
     reqs = S.make_requests(cfg, args)
     PA.paged_attention.launches = 0
     A.paged_view.calls = 0
@@ -484,7 +771,8 @@ def phase_serve(seed: int) -> dict:
     print(f"[serve] energy ledger: spent {mgr.spent_j:.6e} J of "
           f"{mgr.budget_j:.6e} J ({100 * (1 - mgr.remaining_fraction()):.1f}%)"
           f", saver_mode={mgr._saver}, events={len(sched.events)}")
-    return {"launches": launches, "tok_s": n_tok / wall, "peak": peak}
+    return {"launches": launches, "tok_s": n_tok / wall, "peak": peak,
+            "k5": k5}
 
 
 def phase_spec_serve(seed: int, greedy: dict) -> dict:
@@ -542,6 +830,98 @@ def phase_spec_serve(seed: int, greedy: dict) -> dict:
     return {"launches": k2, "tok_s": n_tok / wall, "peak": peak}
 
 
+def phase_native_serve(seed: int, requests: int, max_new: int,
+                       w_bits: int) -> dict:
+    """The native integer-weight path at full width: phase 4's config and
+    requests (``requests`` × ``max_new`` of them) served from
+    ``to_native(params, w_bits)`` through ``AdaptiveServer`` +
+    ``ContinuousScheduler`` on the paged pool, bf16, kv16. Every native
+    linear of every prefill forward and decode step must launch K3, every
+    decode step K1 in each layer, the tied head's images K5 (once per
+    distinct head bits), and the dequantize-then-matmul branch never. The
+    f32 masters are freed before the peak-memory window opens, so the peak
+    is the native deployment's."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qmatmul as QM
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as LY
+    from repro_torch.models import transformer as T
+    from repro_torch.models.native import to_native
+    from repro_torch.serving.engine import (AdaptiveServer, RequestStatus,
+                                            ServingConfig)
+
+    args = S.parse_args(["--continuous", "--full", "--requests",
+                         str(requests), "--max-new", str(max_new),
+                         "--kv-bits", "16", "--quantum", "8",
+                         "--block-size", "16", "--seed", str(seed)])
+    cfg = get_config(args.arch)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    profs = paper_profiles(names, inner_layers=[])
+    engine = AdaptiveEngine(tuple(profs), QuantIndex(names))
+    stats = S.profile_stats(cfg, profs, T.param_count(params))
+    mgr = ProfileManager(stats, accuracy_target=0.985, accuracy_floor=0.95,
+                         budget_j=stats[0].energy_j * args.budget_inferences,
+                         low_energy=0.5)
+    t0 = time.perf_counter()
+    nat = to_native(params, w_bits)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    t_conv = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    QM.qmatmul.launches = AQ.aquant.launches = PA.paged_attention.launches = 0
+    LY.dequant_matmul.calls = A.paged_view.calls = 0
+    srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
+        slots=1024, kv_bits=16, max_batch=8, block_size=args.block_size),
+        manager=mgr, device="cuda")
+    reqs = S.make_requests(cfg, args)
+    out = S.serve(srv, reqs, args.quantum)
+    k3, k5, k1 = (QM.qmatmul.launches, AQ.aquant.launches,
+                  PA.paged_attention.launches)
+    deq, gathers = LY.dequant_matmul.calls, A.paged_view.calls
+    results, sched, wall = out["results"], out["sched"], out["wall_s"]
+    for i, r in enumerate(results):
+        if (r["status"] is not RequestStatus.COMPLETED
+                or len(r["tokens"]) != max_new):
+            raise AssertionError(f"native request {i}: {r['status']}, "
+                                 f"{len(r['tokens'])} tokens")
+        if not all(0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"native request {i}: token out of vocab")
+    waves = len(sched.events) - sched.decode_steps   # one event per wave
+    head_bits = {int(T.split_bits(cfg, row)[1][1]) for row in engine.table}
+    want_k3 = 4 * cfg.n_layers * (sched.decode_steps + waves)
+    want_k1 = cfg.n_layers * sched.decode_steps
+    print(f"[native] W{w_bits}: converted in {t_conv:.1f}s; K3 launches {k3} "
+          f"= 4 x {cfg.n_layers} layers x ({sched.decode_steps} decode steps "
+          f"+ {waves} prefill waves): {k3 == want_k3}; K1 launches {k1} = "
+          f"{cfg.n_layers} x {sched.decode_steps}: {k1 == want_k1}; K5 "
+          f"launches {k5} = {len(head_bits)} tied-head images: "
+          f"{k5 == len(head_bits)}; dequant-matmul calls {deq}; gather "
+          f"calls {gathers}")
+    if (k3 != want_k3 or k1 != want_k1 or k5 != len(head_bits) or deq
+            or gathers or k3 == 0):
+        raise AssertionError(f"the native W{w_bits} serve did not run "
+                             f"through K3, K1 and K5 alone")
+    n_tok = sum(len(r["tokens"]) for r in results)
+    peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(nat))
+    print(f"[native] W{w_bits}: {len(results)} requests, {n_tok} tokens in "
+          f"{wall:.3f}s = {n_tok / wall:.2f} tok/s; {sched.segments_run} "
+          f"segments; native weights {weight_bytes / 2**30:.2f} GiB; peak "
+          f"memory {peak / 2**30:.2f} GiB")
+    return {"k3": k3, "k5": k5, "tok_s": n_tok / wall, "peak": peak}
+
+
 def phase_profile(seed: int) -> None:
     """Where one decode segment's time goes (``--profile``): wall time on
     the host against device-busy time from ``torch.profiler``, with the
@@ -592,6 +972,8 @@ def _leaves(tree):
 
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
+    """One row of the kernel table: the main path's launch count and the
+    phase-2 row of the kernel at its main-path shape."""
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches,
@@ -602,7 +984,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -615,35 +997,48 @@ def main() -> None:
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     print(f"[env] {card}")
-    from repro_torch.kernels import paged_attention as PA
-    libs = PA.build()
+    from repro_torch.kernels import build as B
+    libs = B.build()
     for name, info in libs.items():
-        print(f"[env] built {name} ({PA.SOURCES[name].name}, sm_90a) in "
+        print(f"[env] built {name} ({B.SOURCES[name].name}, sm_90a) in "
               f"{info['seconds']:.1f}s -> {info['path']}")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[env] ptxas {name}: {line.strip()}")
-    k1_row = k2_row = None
+    rows = {}
     if 2 in phases:
-        _, k1_row = phase_kernels(args.seed)
-        k2_row = phase_window_kernel(args.seed)
+        _, rows["k1"] = phase_kernels(args.seed)
+        rows["k2"] = phase_window_kernel(args.seed)
+        rows["k3"] = phase_qmatmul(args.seed)
+        rows["k5"] = phase_aquant(args.seed)
     if 3 in phases:
         phase_parity(args.seed)
+        phase_native_parity(args.seed)
     served = phase_serve(args.seed) if 4 in phases else {"launches": 0}
     spec = (phase_spec_serve(args.seed, served) if 5 in phases
             else {"launches": 0})
+    native = {"k3": 0, "k5": 0}
+    if 6 in phases:
+        native = phase_native_serve(args.seed, 12, 32, 8)
+        phase_native_serve(args.seed, 4, 16, 4)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
-    if k1_row is not None:
+    if rows:
         kernels.append(kernel_entry(
             "paged_attention", "paged_attention.cu",
             "src/repro/kernels/paged_attention.py:116", served["launches"],
-            k1_row))
+            rows["k1"]))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
-            k2_row))
+            rows["k2"]))
+        kernels.append(kernel_entry(
+            "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
+            native["k3"], rows["k3"]))
+        kernels.append(kernel_entry(
+            "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
+            native["k5"], rows["k5"]))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,9 @@ Two kernels, each replacing a Pallas TPU kernel of
   ``csrc/paged_attention_multi.cu``.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use (into ``build/repro_torch/`` at the
-repository root; one ``nvcc`` per source, started together) and called
-through ``ctypes``.
+with a plain C interface at first use and called through ``ctypes``
+(:mod:`repro_torch.kernels.build`, which also builds the port's other
+kernels; ``build``, ``SOURCES`` and ``BUILD_DIR`` are re-exported here).
 
 Layout (the reference's, see :class:`repro_torch.models.attention.
 PagedKVCache`):
@@ -38,29 +38,19 @@ CUDA tensors — it never falls back from one to the other.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.core.qtypes import unpack_int4
+from repro_torch.kernels.build import BUILD_DIR, SOURCES, build
+from repro_torch.kernels.build import check as _check
 
 __all__ = ["paged_attention", "paged_attention_ref", "paged_attention_multi",
            "paged_attention_multi_ref", "build", "SOURCES", "BUILD_DIR",
            "MAX_D", "MAX_HG", "MAX_BS", "MAX_WHG"]
 
 NEG_INF = -1e30
-_CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
-           "paged_attention_multi": _CSRC / "paged_attention_multi.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 MAX_D, MAX_HG, MAX_BS = 256, 16, 64
 MAX_WHG = 64                  # K2: W·Hg query rows per (row, KV head) ...
 MAX_WHG_D = 8192              # ... and W·Hg·D accumulators per thread block
@@ -123,94 +113,8 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build, bind, launch
+# the CUDA kernels: launch (build and bind: repro_torch.kernels.build)
 # ---------------------------------------------------------------------------
-
-_LIBS: dict = {}
-
-# ctypes signatures of the C entry points (pointers, ints, float, stream)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "paged_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
-    "paged_attention_multi": [_P] * 9 + [_I] * 11 + [_F, _P],
-}
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the paged-attention kernels are "
-                       "built on the machine with the GPU")
-
-
-def build(verbose: bool = False) -> dict:
-    """Compile every kernel source (once per source content) and load it.
-
-    The ``nvcc`` processes of all sources not yet built start together and
-    run in parallel. Returns ``{name: {"lib", "path", "seconds",
-    "ptxas"}}``: ``seconds`` is the wall time of this call's build (0 when
-    the library was already built) and ``ptxas`` the compiler's register /
-    shared-memory / spill report.
-    """
-    if len(_LIBS) == len(SOURCES):
-        return _LIBS
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    jobs = {}
-    for name, src in SOURCES.items():
-        tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-        so = BUILD_DIR / f"lib{name}_{tag}.so"
-        if so.exists():
-            jobs[name] = (so, None, None)
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(src)]
-        jobs[name] = (so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    failed = []
-    for name, (so, tmp, proc) in jobs.items():
-        if proc is None:
-            continue
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}")
-            continue
-        so.with_suffix(".ptxas.txt").write_text(out)
-        os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    seconds = time.perf_counter() - t0
-    for name, (so, _, proc) in jobs.items():
-        lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, f"repro_{name}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
-        log = so.with_suffix(".ptxas.txt")
-        _LIBS[name] = {"lib": lib, "path": str(so),
-                       "seconds": seconds if proc is not None else 0.0,
-                       "ptxas": log.read_text() if log.exists() else ""}
-        if verbose:
-            print(_LIBS[name]["ptxas"])
-    return _LIBS
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, k_scale: torch.Tensor,

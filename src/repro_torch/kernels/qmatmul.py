@@ -1,0 +1,107 @@
+"""Dequant-matmul: the Hopper kernel's wrapper (K3) and its plain version.
+
+:func:`qmatmul` replaces the Pallas TPU kernel ``qmatmul_pallas`` of
+``repro/kernels/qmatmul.py``; source ``csrc/qmatmul.cu``, built and bound by
+:mod:`repro_torch.kernels.build`. It computes ``x[M, K] @ dequant(w_q)[K,
+N]`` with the reference's numerics: ``x`` rounded to bf16, each weight
+dequantized as ``(q · scale)`` in f32 and then rounded to bf16, f32
+accumulation, and an optional fused requant of the accumulator onto the
+``out_bits`` grid of ``out_scale``.
+
+Layout: ``w_q`` int8 ``[K, N]`` for bits 5–8, or packed int4 ``[K, N/2]``
+for bits ≤ 4 (low nibble = even column); ``scale`` f32 ``[N]``; output f32
+``[M, N]``. The kernel masks ragged M/K/N edges itself.
+
+The wrapper runs the plain version for CPU tensors and the kernel for CUDA
+tensors — it never falls back from one to the other. The flattening,
+scalar-scale and gradient wrapper is :func:`repro_torch.kernels.ops.qmatmul`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.qtypes import unpack_int4
+from repro_torch.kernels.build import check, lib
+
+__all__ = ["qmatmul", "qmatmul_ref", "dequant_ref", "requant_ref"]
+
+
+def dequant_ref(w_q: torch.Tensor, scale, bits: int) -> torch.Tensor:
+    """Dequantize an int8 carrier (packed two per byte when ``bits <= 4``)
+    to f32; ``scale`` broadcasts against the dequantized ``[K, N]``."""
+    q = unpack_int4(w_q) if bits <= 4 else w_q
+    return q.float() * torch.as_tensor(scale, dtype=torch.float32,
+                                       device=w_q.device)
+
+
+def requant_ref(acc: torch.Tensor, out_scale, out_bits: int) -> torch.Tensor:
+    """Static fixed-point requant: ``clip(round_half_away(acc / s)) · s`` at
+    ``out_bits``."""
+    qmax = 2.0 ** (out_bits - 1) - 1.0
+    qmin = -(2.0 ** (out_bits - 1))
+    s = torch.as_tensor(out_scale, dtype=torch.float32, device=acc.device)
+    r = acc / s
+    q = torch.clamp(torch.sign(r) * torch.floor(torch.abs(r) + 0.5),
+                    qmin, qmax)
+    return q * s
+
+
+def qmatmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale, bits: int,
+                out_scale=None, out_bits: Optional[int] = None
+                ) -> torch.Tensor:
+    """Plain version (port of ``repro/kernels/ref.py::qmatmul_ref``): the
+    operands rounded to bf16 and multiplied in f32 — every product of two
+    bf16 values is exact in f32, so only the order of the sums differs
+    from the kernel — then the optional requant."""
+    w = dequant_ref(w_q, scale, bits).bfloat16().float()
+    acc = x.bfloat16().float() @ w
+    if out_scale is not None:
+        if out_bits is None:
+            raise ValueError("out_scale needs out_bits")
+        acc = requant_ref(acc, out_scale, out_bits)
+    return acc
+
+
+def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
+            bits: int = 8, out_bits: Optional[int] = None,
+            out_scale: Optional[float] = None) -> torch.Tensor:
+    """``x[M, K] @ dequant(w_q, scale)[K, N]`` → ``[M, N]`` f32. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (counted in
+    ``qmatmul.launches``) or raise."""
+    if (out_bits is None) != (out_scale is None):
+        raise ValueError("out_bits and out_scale go together")
+    if x.device.type == "cpu":
+        return qmatmul_ref(x, w_q, scale, bits, out_scale=out_scale,
+                           out_bits=out_bits)
+    if not 1 <= bits <= 8:
+        raise ValueError(f"weight bits must be 1..8, got {bits}")
+    if x.dim() != 2 or w_q.dim() != 2:
+        raise ValueError(f"x and w_q must be 2-D, got {tuple(x.shape)} and "
+                         f"{tuple(w_q.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be f32 or bf16, got {x.dtype}")
+    m, k = x.shape
+    n = w_q.shape[1] * (2 if bits <= 4 else 1)
+    check(x, "x", x.dtype, (m, k))
+    check(w_q, "w_q", torch.int8, (k, w_q.shape[1]))
+    check(scale, "scale", torch.float32, (n,))
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    row_bytes = w_q.shape[1]
+    vec_ok = int(w_q.data_ptr() % 16 == 0 and row_bytes % 16 == 0)
+    requant = out_bits is not None
+    qmax = float(2 ** (out_bits - 1) - 1) if requant else 0.0
+    qmin = -float(2 ** (out_bits - 1)) if requant else 0.0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib("qmatmul").repro_qmatmul(
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        int(x.dtype == torch.bfloat16), m, k, n, bits, int(requant), vec_ok,
+        float(out_scale) if requant else 1.0, qmin, qmax, stream)
+    if err != 0:
+        raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {err}")
+    qmatmul.launches += 1
+    return out
+
+
+qmatmul.launches = 0

@@ -3,13 +3,16 @@
 :func:`params_from_jax` takes the reference's parameter tree as nested dicts
 of numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) and
 returns the port's tree, leaf for leaf — both packages keep the same stacked
-``[L, ...]`` layout. Nothing here imports JAX.
+``[L, ...]`` layout. The reference's native ``QTensor`` leaves (from
+``to_native``) become the port's :class:`~repro_torch.core.quantizers.
+QTensor`, recognised by their fields. Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.quantizers import QTensor
 from repro_torch.runtime import resolve_device
 
 __all__ = ["params_from_jax", "tensor_from_numpy"]
@@ -27,10 +30,15 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
 
 
 def params_from_jax(tree, device=None):
-    """Convert a nested dict (or list) of numpy arrays to torch tensors on
-    ``device`` (CUDA unless ``device="cpu"``)."""
+    """Convert a nested dict (or list) of numpy arrays, and native
+    ``QTensor`` leaves, to torch tensors on ``device`` (CUDA unless
+    ``device="cpu"``)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if getattr(tree, "_fields", None) == QTensor._fields:
+        return QTensor(tensor_from_numpy(tree.data, device),
+                       tensor_from_numpy(tree.scale, device),
+                       int(tree.bits), int(tree.orig_last))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return tensor_from_numpy(tree, device)

@@ -32,7 +32,7 @@ from .layers import (SIGNED_SYM, embed_lookup, init_embed, init_linear,
                      init_norm, qlinear, rms_norm)
 from .mlp import init_mlp, mlp
 from .rotary import apply_rope
-from repro_torch.core.quantizers import fake_quant_dynamic
+from repro_torch.core.quantizers import QTensor, dequantize, fake_quant_dynamic
 from repro_torch.runtime import compute_dtype
 
 __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
@@ -173,6 +173,8 @@ def _layer(tree, l: int):
     """Layer ``l`` of a stacked parameter tree (views)."""
     if isinstance(tree, dict):
         return {k: _layer(v, l) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.layer(l)
     return tree[l]
 
 
@@ -252,7 +254,10 @@ def _lm_head_params(cfg: ModelConfig, params: dict) -> dict:
     if head is not None and "wfq" in head:
         return head                      # prequant image (tied: see below)
     if cfg.tie_embeddings:
-        return {"w": params["embed"]["w"].t()}
+        emb = params["embed"]
+        if "wq" in emb:                  # native: dequantize the tied table
+            return {"w": dequantize(emb["wq"], torch.float32).t()}
+        return {"w": emb["w"].t()}
     return head
 
 
@@ -462,6 +467,12 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
     two images, not six. The tied lm_head's image is the embedding image at
     the head's bits, transposed (a view): per-tensor fake-quant commutes
     with the transpose, so this is the reference's in-loop ``fq(w.T)``.
+
+    Native (``wq``) sites pass through untouched. A native tied head gets
+    its image here, once per distinct head bits: ``fq(dequantize(embed.wq,
+    f32))`` transposed, which is the reference's per-step ``fq(dequantize(
+    embed.wq, f32).T)`` hoisted. Every image goes through
+    :func:`fake_quant_dynamic` (K5 on the card).
     """
     _require_dense(cfg)
     table = np.asarray(table)
@@ -481,7 +492,11 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
                 images[key] = fake_quant_dynamic(w, bits, SIGNED_SYM).to(cd)
         return images[key]
 
-    lp = params["layers"]
+    lp, emb = params["layers"], params["embed"]
+    head_src = None                      # (image name, table) of a tied head
+    if cfg.tie_embeddings:
+        head_src = (("embed", emb["w"]) if "w" in emb else
+                    ("native_head", dequantize(emb["wq"], torch.float32)))
     overlays = []
     for p in range(table.shape[0]):
         eb, hb, lbits = split_bits(cfg, table[p])
@@ -490,20 +505,22 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
             col = lbits[:, _site_idx(cfg, name), 1]
             return {"wfq": image(name, w, tuple(int(x) for x in col))}
 
-        ov = {"embed": {"wfq": image("embed", params["embed"]["w"],
-                                     int(eb[1]))}}
-        if cfg.tie_embeddings:
-            ov["lm_head"] = {"wfq": image("embed", params["embed"]["w"],
-                                          int(hb[1])).t()}
-        else:
+        ov: dict = {}
+        if "w" in emb:
+            ov["embed"] = {"wfq": image("embed", emb["w"], int(eb[1]))}
+        if head_src is not None:
+            ov["lm_head"] = {"wfq": image(*head_src, int(hb[1])).t()}
+        elif "w" in params["lm_head"]:
             ov["lm_head"] = {"wfq": image("lm_head", params["lm_head"]["w"],
                                           int(hb[1]))}
-        ov["layers"] = {
-            "qkv": site("qkv", lp["qkv"]["w"]),
-            "attn_out": site("attn_out", lp["attn_out"]["w"]),
-            "mlp": {"w_in": site("mlp_in", lp["mlp"]["w_in"]["w"]),
-                    "w_out": site("mlp_out", lp["mlp"]["w_out"]["w"])},
-        }
+        lov: dict = {}
+        if "w" in lp["qkv"]:
+            lov["qkv"] = site("qkv", lp["qkv"]["w"])
+            lov["attn_out"] = site("attn_out", lp["attn_out"]["w"])
+        if "w" in lp["mlp"]["w_in"]:
+            lov["mlp"] = {"w_in": site("mlp_in", lp["mlp"]["w_in"]["w"]),
+                          "w_out": site("mlp_out", lp["mlp"]["w_out"]["w"])}
+        ov["layers"] = lov
         overlays.append(ov)
     return overlays
 

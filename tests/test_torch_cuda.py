@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card: K1
+and K2 (paged attention), K3 (dequant-matmul: within the summation-order
+bound 4·K·2^-24·(|x|@|w|), products of bf16 operands being exact in f32)
+and K5 (per-tensor fake-quant: bit for bit).
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -10,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import aquant as AQ
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import qmatmul as QM
 
 
 def _inputs(bits: int, gen: torch.Generator, b=6, hkv=2, hg=4, d=64,
@@ -117,3 +122,51 @@ def test_paged_attention_multi_kernel_matches_plain(bits, window):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert torch.all(got[-1] == 0)                # dead row: exact zeros
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 3072), (5, 100, 70),
+                                   (33, 96, 40), (300, 1000, 256)])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_qmatmul_kernel_matches_plain(m, k, n, bits, xdtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(m + k + n + bits)
+    x = torch.randn((m, k), generator=gen).to(xdtype).cuda()
+    if bits <= 4:
+        w_q = torch.randint(-128, 128, (k, n // 2), generator=gen)
+    else:
+        w_q = torch.randint(-127, 128, (k, n), generator=gen)
+    w_q = w_q.to(torch.int8).cuda()
+    scale = (0.001 + 0.01 * torch.rand((n,), generator=gen)).cuda()
+    n0 = QM.qmatmul.launches
+    got = QM.qmatmul(x, w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert QM.qmatmul.launches == n0 + 1
+    want = QM.qmatmul_ref(x, w_q, scale, bits)
+    wb = QM.dequant_ref(w_q, scale, bits).bfloat16().float()
+    tol = 4 * k * 2.0 ** -24 * (x.bfloat16().float().abs() @ wb.abs())
+    assert bool(((got - want).abs() <= tol).all())
+    fused = QM.qmatmul(x, w_q, scale, bits=bits, out_bits=6, out_scale=0.5)
+    assert torch.equal(fused, QM.requant_ref(got, 0.5, 6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(257, 96), (2048, 4099), (3,)])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+@pytest.mark.parametrize("po2", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aquant_kernel_matches_plain_bitwise(shape, bits, po2, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(bits + len(shape))
+    x = (torch.randn(shape, generator=gen) * 3.7).to(dtype).cuda()
+    n0 = AQ.aquant.launches
+    got = AQ.aquant(x, bits, po2)
+    torch.cuda.synchronize()
+    assert AQ.aquant.launches == n0 + 1
+    want = AQ.aquant_ref(x, bits, po2)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got.view(view), want.view(view))
