@@ -10,13 +10,15 @@ Phases:
     shapes the serving path gives it, with times, the bound and the
     library yardstick: K1 (one-query paged decode), K2 (the W-query
     speculative verify window), K3 (the dequant-matmul of the native
-    integer-weight linears) and K5 (per-tensor dynamic fake-quant, bit for
-    bit);
+    integer-weight linears), K4 (decode attention over the contiguous
+    int8 cache) and K5 (per-tensor dynamic fake-quant, bit for bit);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
     off): the same requests through the continuous scheduler with the
     kernel and the gather backends give identical greedy tokens at kv16,
     kv8 and kv4, and the speculative scheduler gives those same tokens
-    with either backend at kv16 and kv8; then the native path in bf16 at
+    with either backend at kv16 and kv8; static ``serve`` at kv8 gives the
+    same tokens through K4 as through the reference's einsum (a flip only
+    at a top-2 logit margin under 1e-3); then the native path in bf16 at
     W8 and W4: prefill logits on the card (K3, K5) against the CPU's;
  4. serve: the launcher's path on granite-3-2b's full 40-layer config in
     bf16 — 12 requests, 32 new tokens each — counting kernel launches
@@ -28,7 +30,12 @@ Phases:
     (then 4 requests × 16 tokens at W4) through ``AdaptiveServer`` +
     ``ContinuousScheduler``, counting K3 launches per linear, K1 per step
     and K5 per tied-head image, and checking that the dequantize-then-matmul
-    branch never runs.
+    branch never runs;
+ 7. the contiguous int8 cache on the full config in bf16: phase 4's
+    requests through the launcher's static path (no ``--continuous``,
+    ``--kv-bits 8``) and its contiguous pool (``--continuous --no-paged-kv
+    --kv-bits 8``), counting K4 launches per layer per decode step, with
+    K1 and the kv8 einsum never.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -513,6 +520,95 @@ def phase_aquant(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: K4 (decode attention over the contiguous int8 cache)
+# ---------------------------------------------------------------------------
+
+def qkv_bound(q, lengths, s) -> dict:
+    """Least time for one K4 call on an H100 SXM: the bytes it must move
+    (each group's valid K and V prefix at one byte per element — all S
+    rows of V for a length-0 group, whose output is their mean — q, the
+    f32 output, scales and lengths) over HBM bandwidth, and
+    4·Σlen·Hg·D operations over the f32 rate."""
+    b, hkv, hg, d = q.shape
+    n = lengths.long().clamp(max=s)
+    k_rows = int(n.sum())
+    v_rows = int(torch.where(n > 0, n, s).sum())
+    nbytes = ((k_rows + v_rows) * d + q.numel() * q.element_size()
+              + b * hkv * hg * d * 4 + 3 * b * hkv * 4)
+    flops = 4 * k_rows * hg * d
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def qkv_sdpa_ms(q, k, v, ks, vs, lengths) -> float:
+    """One ``scaled_dot_product_attention`` call on the cache dequantized
+    beforehand to q's type (not timed), with the ``col < len`` mask and
+    ``enable_gqa``."""
+    import torch.nn.functional as F
+    b, hkv, hg, d = q.shape
+    s = k.shape[1]
+    kd = (k.float() * ks[:, None, :, None]).to(q.dtype).transpose(1, 2)
+    vd = (v.float() * vs[:, None, :, None]).to(q.dtype).transpose(1, 2)
+    kd, vd = kd.contiguous(), vd.contiguous()            # [B, Hkv, S, D]
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lengths[:, :1].long())[:, None, None, :]
+    qq = q.reshape(b, hkv * hg, 1, d)
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qq, kd, vd, attn_mask=mask, enable_gqa=True))
+
+
+def phase_qkv_attention(seed: int) -> dict:
+    """K4 against its plain version at the serving shape: 8 rows × 8 KV
+    heads, Hg = 4, D = 64, S = 1024 int8 slots in the cache's own layout
+    (a layer of a stacked cache), per-row lengths 0, 1, 63, 64, 65 (a
+    64-column tile edge ± 1), 1024, 300 and 544, with bf16 and f32 q.
+    Tolerance 1e-5: both sides sum the same f32 products in different
+    orders (outputs are O(0.1))."""
+    from repro_torch.kernels import qkv_attention as QK
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    b, hkv, hg, d, s = 8, 8, 4, 64, 1024
+    stack = [torch.randint(-127, 128, (2, b, s, hkv, d), generator=gen,
+                           device="cuda").to(torch.int8) for _ in "kv"]
+    k, v = stack[0][1], stack[1][1]                      # layer views
+    ks, vs = (0.005 + 0.02 * torch.rand((b, hkv), generator=gen,
+                                        device="cuda") for _ in "kv")
+    row_len = torch.tensor([0, 1, 63, 64, 65, s, 300, 544],
+                           dtype=torch.int32, device="cuda")
+    lengths = row_len[:, None].expand(b, hkv).contiguous()
+    main = None
+    for qdtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((b, hkv, hg, d), generator=gen,
+                        device="cuda").to(qdtype)
+        got = QK.qkv_attention(q, k, v, ks, vs, lengths)
+        torch.cuda.synchronize()
+        want = QK.qkv_attention_cache_ref(q, k, v, ks, vs, lengths)
+        err = float((got - want).abs().max())
+        print(f"[K4] S={s} q {str(qdtype)[6:]}: max_abs_err={err:.3e} "
+              f"(tol 1e-5), lengths {row_len.tolist()}")
+        if not err <= 1e-5 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K4 disagrees with its plain version "
+                                 f"(q {qdtype})")
+        ms = cuda_time_ms(lambda: QK.qkv_attention(q, k, v, ks, vs, lengths))
+        plain = cuda_time_ms(lambda: QK.qkv_attention_cache_ref(
+            q, k, v, ks, vs, lengths), iters=50)
+        lib = qkv_sdpa_ms(q, k, v, ks, vs, lengths)
+        bd = qkv_bound(q, lengths, s)
+        print(f"[K4] S={s} q {str(qdtype)[6:]}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, SDPA on the pre-dequantized cache "
+              f"({str(qdtype)[6:]}, dequant not timed) {lib:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {bd['bytes']} B, "
+              f"{bd['flops']} flop)")
+        if qdtype == torch.bfloat16:
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, **bd}
+    QK.qkv_attention.launches = 0          # comparison launches do not count
+    return main
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernel vs gather backends at full width, f32
 # ---------------------------------------------------------------------------
 
@@ -589,14 +685,53 @@ def phase_parity(seed: int) -> None:
                                      out["kernel"], bits)
                     raise AssertionError(f"kv{bits} spec {backend}: {spec}")
                 del srv, sched
+        static_parity(cfg, params, engine, reqs)
     del params
     torch.cuda.empty_cache()
 
 
-def first_divergence(cfg, params, engine, reqs, spec, greedy, bits) -> None:
-    """Where speculative and greedy tokens first differ: the request, the
-    position, and the top-2 margin of the greedy logits there (a solo
-    replay through ``decode_step`` on a contiguous cache)."""
+def static_parity(cfg, params, engine, reqs) -> None:
+    """The static path at kv8 (``AdaptiveServer.serve``, contiguous cache):
+    K4 (``paged_backend="kernel"``) against the reference's einsum
+    (``"gather"``). K4 dequantizes before the dot where the einsum scales
+    after it, so a greedy token may flip only where the top-2 logits
+    nearly tie: a divergence fails unless its margin is under 1e-3."""
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    out = {}
+    for backend in ("kernel", "gather"):
+        srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+            slots=256, kv_bits=8, max_batch=4, paged_backend=backend),
+            device="cuda")
+        QK.qkv_attention.launches = A.decode_attention.kv8_einsum_calls = 0
+        out[backend] = [r["tokens"] for r in srv.serve(reqs)]
+        used = (QK.qkv_attention.launches, A.decode_attention.kv8_einsum_calls)
+        print(f"[parity] static serve kv8 {backend}: K4 launches {used[0]}, "
+              f"kv8 einsum calls {used[1]}")
+        if (used[0] > 0) != (backend == "kernel") or \
+                (used[1] > 0) != (backend == "gather"):
+            raise AssertionError(f"static {backend} backend took the wrong "
+                                 f"kv8 read")
+        del srv
+    same = out["kernel"] == out["gather"]
+    print(f"[parity] full width x4 layers, f32, kv8 static serve: K4 vs "
+          f"einsum greedy tokens identical: {same} "
+          f"({sum(map(len, out['kernel']))} tokens)")
+    if not same:
+        margin = first_divergence(cfg, params, engine, reqs, out["kernel"],
+                                  out["gather"], 8)
+        if not margin < 1e-3:
+            raise AssertionError(f"static kv8: K4 tokens diverge at a "
+                                 f"top-2 margin of {margin:.3e}")
+    QK.qkv_attention.launches = A.decode_attention.kv8_einsum_calls = 0
+
+
+def first_divergence(cfg, params, engine, reqs, spec, greedy, bits) -> float:
+    """Where two token lists first differ: the request, the position, and
+    the top-2 margin of the second list's logits there (a solo replay
+    through ``decode_step`` on a contiguous cache, the reference's
+    arithmetic), which it returns."""
     from repro_torch.models import transformer as T
     for i, (a, b) in enumerate(zip(spec, greedy)):
         if a == b:
@@ -614,9 +749,11 @@ def first_divergence(cfg, params, engine, reqs, spec, greedy, bits) -> None:
                 pos, caches)
             pos = pos + 1
         top = logits[0].float().topk(2).values
-        print(f"[parity] first divergence: request {i}, token {j}: spec "
-              f"{a[j]} vs greedy {b[j]}; greedy top-2 logit margin "
-              f"{float(top[0] - top[1]):.3e}")
+        margin = float(top[0] - top[1])
+        print(f"[parity] first divergence: request {i}, token {j}: "
+              f"{a[j]} vs {b[j]}; top-2 logit margin {margin:.3e}")
+        return margin
+    return float("inf")
 
 
 def phase_native_parity(seed: int) -> None:
@@ -741,7 +878,7 @@ def phase_serve(seed: int) -> dict:
     reqs = S.make_requests(cfg, args)
     PA.paged_attention.launches = 0
     A.paged_view.calls = 0
-    out = S.serve(srv, reqs, args.quantum)
+    out = S.serve(srv, reqs, args.quantum, continuous=True)
     launches, gathers = PA.paged_attention.launches, A.paged_view.calls
     results, sched, wall = out["results"], out["sched"], out["wall_s"]
     for i, r in enumerate(results):
@@ -796,7 +933,7 @@ def phase_spec_serve(seed: int, greedy: dict) -> dict:
     PA.paged_attention.launches = 0
     PA.paged_attention_multi.launches = 0
     A.paged_view.calls = 0
-    out = S.serve(srv, reqs, args.quantum)
+    out = S.serve(srv, reqs, args.quantum, continuous=True)
     k1, k2 = PA.paged_attention.launches, PA.paged_attention_multi.launches
     gathers = A.paged_view.calls
     results, sched, wall = out["results"], out["sched"], out["wall_s"]
@@ -885,7 +1022,7 @@ def phase_native_serve(seed: int, requests: int, max_new: int,
         slots=1024, kv_bits=16, max_batch=8, block_size=args.block_size),
         manager=mgr, device="cuda")
     reqs = S.make_requests(cfg, args)
-    out = S.serve(srv, reqs, args.quantum)
+    out = S.serve(srv, reqs, args.quantum, continuous=True)
     k3, k5, k1 = (QM.qmatmul.launches, AQ.aquant.launches,
                   PA.paged_attention.launches)
     deq, gathers = LY.dequant_matmul.calls, A.paged_view.calls
@@ -920,6 +1057,65 @@ def phase_native_serve(seed: int, requests: int, max_new: int,
           f"segments; native weights {weight_bytes / 2**30:.2f} GiB; peak "
           f"memory {peak / 2**30:.2f} GiB")
     return {"k3": k3, "k5": k5, "tok_s": n_tok / wall, "peak": peak}
+
+
+def phase_contiguous_serve(seed: int, continuous: bool) -> dict:
+    """The contiguous int8 cache on the full config in bf16: phase 4's 12
+    requests × 32 tokens through the launcher at ``--kv-bits 8``, on the
+    static path (no ``--continuous``: ``AdaptiveServer.serve``, groups of
+    8 rows) or on the continuous scheduler's contiguous pool
+    (``--continuous --no-paged-kv``). Every layer of every decode step must
+    read the cache through K4: 40 × decode steps launches, K1 and the kv8
+    einsum never."""
+    import gc
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+
+    argv = ["--full", "--requests", "12", "--max-new", "32", "--kv-bits",
+            "8", "--quantum", "8", "--seed", str(seed)]
+    if continuous:
+        argv += ["--continuous", "--no-paged-kv"]
+    args = S.parse_args(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, srv = S.build_server(args)
+    reqs = S.make_requests(cfg, args)
+    QK.qkv_attention.launches = PA.paged_attention.launches = 0
+    A.decode_attention.kv8_einsum_calls = A.paged_view.calls = 0
+    out = S.serve(srv, reqs, args.quantum, continuous=continuous)
+    k4, k1 = QK.qkv_attention.launches, PA.paged_attention.launches
+    einsum, gathers = A.decode_attention.kv8_einsum_calls, A.paged_view.calls
+    results, sched, wall = out["results"], out["sched"], out["wall_s"]
+    for i, r in enumerate(results):
+        if len(r["tokens"]) != 32 or (continuous and r["status"].value
+                                      != "completed"):
+            raise AssertionError(f"request {i}: {len(r['tokens'])} tokens")
+        if not all(0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"request {i}: token out of vocab")
+    if continuous:
+        steps, label = sched.decode_steps, "contiguous pool"
+        if sched.paged:
+            raise AssertionError("--no-paged-kv built a paged pool")
+    else:
+        n_groups = -(-len(reqs) // srv.scfg.max_batch)
+        steps, label = n_groups * (args.max_new - 1), "static serve"
+    expect = cfg.n_layers * steps
+    print(f"[contig] {label} kv8: K4 launches {k4} = {cfg.n_layers} layers x "
+          f"{steps} decode steps: {k4 == expect}; K1 launches {k1}; kv8 "
+          f"einsum calls {einsum}; gather calls {gathers}")
+    if k4 != expect or k4 == 0 or k1 or einsum or gathers:
+        raise AssertionError(f"the {label} did not read the int8 cache "
+                             f"through K4 alone")
+    n_tok = sum(len(r["tokens"]) for r in results)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[contig] {label} kv8: {len(results)} requests, {n_tok} tokens "
+          f"in {wall:.3f}s = {n_tok / wall:.2f} tok/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    del srv, out
+    return {"launches": k4, "tok_s": n_tok / wall, "peak": peak}
 
 
 def phase_profile(seed: int) -> None:
@@ -984,7 +1180,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -1010,6 +1206,7 @@ def main() -> None:
         _, rows["k1"] = phase_kernels(args.seed)
         rows["k2"] = phase_window_kernel(args.seed)
         rows["k3"] = phase_qmatmul(args.seed)
+        rows["k4"] = phase_qkv_attention(args.seed)
         rows["k5"] = phase_aquant(args.seed)
     if 3 in phases:
         phase_parity(args.seed)
@@ -1021,6 +1218,10 @@ def main() -> None:
     if 6 in phases:
         native = phase_native_serve(args.seed, 12, 32, 8)
         phase_native_serve(args.seed, 4, 16, 4)
+    static = {"launches": 0}
+    if 7 in phases:
+        static = phase_contiguous_serve(args.seed, continuous=False)
+        phase_contiguous_serve(args.seed, continuous=True)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -1036,6 +1237,10 @@ def main() -> None:
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
             native["k3"], rows["k3"]))
+        kernels.append(kernel_entry(
+            "qkv_attention", "qkv_attention.cu",
+            "src/repro/kernels/qkv_attention.py:68", static["launches"],
+            rows["k4"]))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
             native["k5"], rows["k5"]))

@@ -26,7 +26,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
            "paged_attention_multi": _CSRC / "paged_attention_multi.cu",
            "qmatmul": _CSRC / "qmatmul.cu",
-           "aquant": _CSRC / "aquant.cu"}
+           "aquant": _CSRC / "aquant.cu",
+           "qkv_attention": _CSRC / "qkv_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 _LIBS: dict = {}
@@ -38,6 +39,7 @@ _ARGTYPES = {
     "paged_attention_multi": [_P] * 9 + [_I] * 11 + [_F, _P],
     "qmatmul": [_P] * 4 + [_I] * 7 + [_F] * 3 + [_P],
     "aquant": [_P] * 3 + [_L] + [_I] * 4 + [_P],
+    "qkv_attention": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _P],
 }
 
 

@@ -1,10 +1,17 @@
 """Serving launcher for the port: the adaptive engine behind a Profile
-Manager with an energy budget, served through continuous batching on the
-paged KV pool.
+Manager with an energy budget.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \
+      [--requests 12 --max-new 32 --kv-bits 8 --seed 0]
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \
-      [--requests 12 --max-new 32 --kv-bits 16 --seed 0] \
-      [--speculate --draft-k 4 --draft-model ngram]
+      [--no-paged-kv] [--speculate --draft-k 4 --draft-model ngram]
+
+As in the reference launcher, ``--continuous`` decides the path. Without
+it, the requests are served in static groups (``AdaptiveServer.serve``:
+length-sorted groups of up to ``max_batch`` rows, one ragged generate per
+group, on a contiguous KV cache). With it, they go through the continuous
+scheduler's slot pool: the paged block pool, or contiguous rows with
+``--no-paged-kv``. ``--speculate`` needs ``--continuous``.
 
 Runs on the GPU unless ``--device cpu`` is given. ``--full`` serves the
 published configuration (granite-3-2b: 40 layers, d_model 2048) with
@@ -55,7 +62,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the published configuration (default: smoke)")
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the continuous-batching slot pool "
-                         "(the only mode ported so far; implied)")
+                         "(ContinuousScheduler) instead of static groups")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--kv-bits", type=int, default=16, choices=[4, 8, 16],
@@ -63,6 +70,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "packed int4")
     ap.add_argument("--quantum", type=int, default=8,
                     help="decode steps per continuous-batching segment")
+    ap.add_argument("--no-paged-kv", dest="paged_kv", action="store_false",
+                    help="continuous scheduler on contiguous [max_batch, "
+                         "slots] KV rows instead of the paged block pool")
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per KV block of the paged pool")
     ap.add_argument("--pool-blocks", type=int, default=None,
@@ -71,13 +81,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--paged-backend", default="auto",
                     choices=["auto", "kernel", "gather"],
                     help="'kernel' attends in place through the paged-"
-                         "attention kernel, 'gather' builds the dense "
-                         "per-segment view, 'auto' = kernel on CUDA")
+                         "attention kernel (and reads a contiguous kv8 "
+                         "cache through the int8-KV decode kernel), "
+                         "'gather' builds the dense per-segment view (and "
+                         "reads a contiguous cache through the reference's "
+                         "einsum), 'auto' = kernel on CUDA")
     ap.add_argument("--speculate", action="store_true",
                     help="speculative decoding: each window drafts "
                          "--draft-k tokens (self-speculative n-gram lookup) "
                          "and verifies them in one batched pass — the same "
-                         "tokens as greedy decode (implies --continuous)")
+                         "tokens as greedy decode (needs --continuous)")
     ap.add_argument("--draft-k", type=int, default=4,
                     help="drafted tokens per speculative window (window = "
                          "draft-k + 1 positions; default: 4)")
@@ -92,7 +105,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain versions of the kernels)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.speculate and not args.continuous:
+        raise SystemExit("--speculate needs --continuous (draft/verify "
+                         "windows run through the slot-pool segment)")
+    return args
 
 
 def build_server(args: argparse.Namespace):
@@ -111,6 +128,7 @@ def build_server(args: argparse.Namespace):
     scfg = ServingConfig(slots=1024 if args.full else 256,
                          kv_bits=args.kv_bits,
                          max_batch=8 if args.full else 4,
+                         paged_kv=args.paged_kv,
                          block_size=args.block_size,
                          pool_blocks=args.pool_blocks,
                          paged_backend=args.paged_backend,
@@ -130,16 +148,22 @@ def make_requests(cfg, args: argparse.Namespace) -> list[Request]:
             for i, n in enumerate(rng.integers(lo, hi, args.requests))]
 
 
-def serve(srv: AdaptiveServer, reqs: list[Request], quantum: int) -> dict:
-    """Submit ``reqs`` to a fresh scheduler and drain it. Returns the
-    results (submission order), the scheduler, and the wall time."""
-    sched = ContinuousScheduler(srv, quantum=quantum)
-    for r in reqs:
-        sched.submit(r)
+def serve(srv: AdaptiveServer, reqs: list[Request], quantum: int, *,
+          continuous: bool) -> dict:
+    """Serve ``reqs``: through a fresh :class:`ContinuousScheduler` drained
+    to the end (``continuous``), else in static groups
+    (:meth:`AdaptiveServer.serve`). Returns the results (submission
+    order), the scheduler (``None`` on the static path), and the wall
+    time."""
+    sched = None
+    if continuous:
+        sched = ContinuousScheduler(srv, quantum=quantum)
+        for r in reqs:
+            sched.submit(r)
     if srv.device.type == "cuda":
         torch.cuda.synchronize(srv.device)
     t0 = time.perf_counter()
-    results = sched.run()
+    results = sched.run() if continuous else srv.serve(reqs)
     if srv.device.type == "cuda":
         torch.cuda.synchronize(srv.device)
     return {"results": results, "sched": sched,
@@ -149,21 +173,33 @@ def serve(srv: AdaptiveServer, reqs: list[Request], quantum: int) -> dict:
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg, srv = build_server(args)
-    out = serve(srv, make_requests(cfg, args), args.quantum)
+    out = serve(srv, make_requests(cfg, args), args.quantum,
+                continuous=args.continuous)
     results, sched, wall = out["results"], out["sched"], out["wall_s"]
-    st = sched.paged_stats()
-    print(f"[serve] {cfg.name} on {srv.device} ({srv.paged_backend} "
-          f"backend, kv{srv.scfg.kv_bits}): peak {st['peak_used_blocks']}/"
-          f"{st['pool_blocks']} blocks of {st['block_size']} tokens")
+    head = (f"[serve] {cfg.name} on {srv.device} ({srv.paged_backend} "
+            f"backend, kv{srv.scfg.kv_bits})")
+    if sched is None:
+        print(f"{head}: static groups of {srv.scfg.max_batch} rows, "
+              f"contiguous KV cache")
+    elif sched.paged:
+        st = sched.paged_stats()
+        print(f"{head}: peak {st['peak_used_blocks']}/{st['pool_blocks']} "
+              f"blocks of {st['block_size']} tokens")
+    else:
+        print(f"{head}: contiguous pool of {sched.n_slots} rows")
     for i, r in enumerate(results):
-        print(f"[serve] req{i}: {len(r['tokens'])} tokens "
-              f"[{r['status'].value}], profiles used: "
-              f"{sorted(set(r['profile_trace']))}")
+        status = f" [{r['status'].value}]" if "status" in r else ""
+        print(f"[serve] req{i}: {len(r['tokens'])} tokens{status}, "
+              f"profiles used: {sorted(set(r['profile_trace']))}")
     n_tok = sum(len(r["tokens"]) for r in results)
     mgr = srv.manager
-    steps = (f"{sched.windows_run} draft/verify windows of "
-             f"{sched.draft_w}" if sched.spec
-             else f"{sched.decode_steps} decode steps")
+    if sched is None:
+        steps = "static groups"
+    elif sched.spec:
+        steps = (f"{sched.windows_run} draft/verify windows of "
+                 f"{sched.draft_w}")
+    else:
+        steps = f"{sched.decode_steps} decode steps"
     print(f"[serve] {n_tok} tokens in {wall:.2f}s ({n_tok / wall:.1f} tok/s, "
           f"{steps})")
     print(f"[serve] energy spent: {mgr.spent_j:.3e} J "

@@ -262,18 +262,41 @@ def update_kv_cache_window(cache: KVCache, k_new: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     kernel: bool = False) -> torch.Tensor:
     """One-token attention vs the cache. q ``[B, 1, H, D]`` → ``[B, 1, H, D]``.
 
     kv8 contracts on the int grid and folds the scale into the scores and
-    the output; kv4 dequantizes first. Masking uses the per-slot
-    ``token_idx``, so ring wraparound is safe.
+    the output (counted in ``decode_attention.kv8_einsum_calls``); kv4
+    dequantizes first. Masking uses the per-slot ``token_idx``, so ring
+    wraparound is safe.
+
+    ``kernel=True`` reads a kv8 cache through the int8-KV decode kernel
+    (:func:`repro_torch.kernels.qkv_attention.qkv_attention`, K4; its plain
+    version on the CPU) with per-row lengths ``min(pos + 1, slots)``,
+    computed on the device. For full causal attention that is the
+    ``token_idx`` mask: a row's slots hold its tokens ``max(0, pos − slots +
+    1) … pos`` and softmax does not depend on slot order. A sliding window
+    (``window < slots``) has no such form and raises. kv16 and kv4 have no
+    kernel, in the reference either, and take the einsum path.
     """
     b, _, h, d = q.shape
     slots, hkv = cache.k.shape[1], cache.k.shape[2]
     hg = h // hkv
+    if kernel and cache.bits == 8:
+        if window is not None and int(window) < slots:
+            raise ValueError(f"the int8-KV decode kernel attends to full "
+                             f"causal attention only: window {window} < "
+                             f"{slots} slots")
+        from repro_torch.kernels.qkv_attention import qkv_attention
+        lengths = torch.clamp(pos.to(torch.int32) + 1, max=slots)
+        out = qkv_attention(q.reshape(b, hkv, hg, d).contiguous(), cache.k,
+                            cache.v, cache.k_scale, cache.v_scale,
+                            lengths[:, None].expand(b, hkv).contiguous())
+        return out.reshape(b, 1, h, d).to(q.dtype)
     qh = (q.float() * d ** -0.5).reshape(b, hkv, hg, d)
     if cache.bits == 8:
+        decode_attention.kv8_einsum_calls += 1
         scores = torch.einsum("bkgd,bskd->bkgs", qh, cache.k.float())
         scores = scores * cache.k_scale[:, :, None, None]
     else:
@@ -293,6 +316,9 @@ def decode_attention(q: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,
               if cache.bits == 4 else cache.v.float())
         out = torch.einsum("bkgs,bskd->bkgd", p, vf)
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+decode_attention.kv8_einsum_calls = 0
 
 
 def decode_attention_window(q: torch.Tensor, cache: KVCache,

@@ -10,8 +10,8 @@ Caches are updated in place.
 Public entry points: ``init_params``, ``quant_layer_names``, ``forward``,
 ``prefill``, ``decode_step``, ``prequant_decode_weights``,
 ``overlay_params``, ``init_caches``, ``init_paged_caches``,
-``decode_segment``, and for speculative decoding ``ngram_propose``,
-``decode_step_spec`` and ``decode_segment_spec``.
+``decode_segment``, ``decode_many``, and for speculative decoding
+``ngram_propose``, ``decode_step_spec`` and ``decode_segment_spec``.
 """
 from __future__ import annotations
 
@@ -40,8 +40,8 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "prequant_decode_weights", "overlay_params", "paged_block_size",
            "init_caches", "init_paged_caches", "cache_bytes",
            "supports_prefix_sharing", "supports_speculation",
-           "decode_segment", "ngram_propose", "decode_step_spec",
-           "decode_segment_spec"]
+           "decode_segment", "decode_many", "ngram_propose",
+           "decode_step_spec", "decode_segment_spec"]
 
 
 # ---------------------------------------------------------------------------
@@ -417,8 +417,11 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
     A :class:`PagedKVCache` is read by ``paged_backend``: ``"kernel"``
     attends in place against the pool (the paged-attention kernel; its
     plain version on the CPU), ``"gather"`` builds the dense per-row view.
-    A ``"kv_view"`` entry (the gather backend of :func:`decode_segment`)
-    takes every read and write of the step instead.
+    A contiguous kv8 cache on ``"kernel"`` is read through the int8-KV
+    decode kernel (K4, :func:`~repro_torch.models.attention.
+    decode_attention` with ``kernel=True``); ``"gather"`` runs the
+    reference's einsum. A ``"kv_view"`` entry (the gather backend of
+    :func:`decode_segment`) takes every read and write of the step instead.
     """
     _require_dense(cfg)
     eb, _, layer_bits = split_bits(cfg, bits_row)
@@ -446,7 +449,8 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
         else:
             c = update_kv_cache(kv.layer(l), k, v, pos)
             attn = decode_attention(q, c, pos,
-                                    window=cfg.window(c.token_idx.shape[1]))
+                                    window=cfg.window(c.token_idx.shape[1]),
+                                    kernel=paged_backend == "kernel")
         x = x + qlinear(lp["attn_out"], attn.reshape(b, 1, -1),
                         lb[_site_idx(cfg, "attn_out")])
         x = x + _mlp_block(cfg, lp, lb, x)
@@ -589,7 +593,10 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
     once at entry, steps read and write the view, and the view folds back
     through the tables at exit; ``"kernel"`` attends in place against the
     pool each step and writes through the table. Either way, rows that
-    finish inside the segment come back with their tables unmapped.
+    finish inside the segment come back with their tables unmapped. A
+    contiguous cache is read in place either way; at kv8 ``"kernel"`` reads
+    it through K4 and ``"gather"`` through the reference's einsum
+    (:func:`decode_step`).
     ``fault_step [B]`` (optional) poisons a row's logits with NaN at that
     step; the returned ``row_ok [B]`` is a per-row finite check over live
     steps.
@@ -643,6 +650,32 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
     elif paged:
         _writeback(caches["kv"], caches.pop("kv_view"), finish)
     return ys, ok, tok, pos, caches
+
+
+def decode_many(params: dict, cfg: ModelConfig, table, schedule,
+                logits0: torch.Tensor, pos0: torch.Tensor, caches: dict,
+                row_budget=None, prequant: Optional[list] = None,
+                paged_backend: str = "gather"):
+    """Greedy decode of ``len(schedule)`` tokens from prefill logits (port
+    of the reference's fused ``decode_many``): ``tokens[:, 0]`` is the
+    argmax of ``logits0 [B, V]`` (produced under profile ``schedule[0]``),
+    then :func:`decode_segment` runs ``schedule[1:]`` from ``pos0 [B]``
+    with ``row_budget − 1`` tokens left per row. ``row_budget [B]``
+    (default: every step) freezes a row at its budget: its later tokens
+    are −1. Returns ``(tokens [B, steps] int32, pids [steps], caches)``;
+    ``pids`` is the schedule, the realized per-step profile trace."""
+    schedule = np.asarray(schedule, np.int32).reshape(-1)
+    steps = len(schedule)
+    b = logits0.shape[0]
+    budget = (np.full((b,), steps, np.int32) if row_budget is None
+              else np.asarray(row_budget, np.int32))
+    live0 = torch.as_tensor(budget > 0, device=logits0.device)
+    tok0 = logits0.argmax(dim=-1).to(torch.int32)
+    out0 = torch.where(live0, tok0, -1)
+    ys, _, _, _, caches = decode_segment(
+        params, cfg, table, schedule[1:], torch.where(live0, tok0, 0), pos0,
+        caches, budget - 1, prequant=prequant, paged_backend=paged_backend)
+    return torch.cat([out0[:, None], ys], dim=1), schedule, caches
 
 
 # ---------------------------------------------------------------------------

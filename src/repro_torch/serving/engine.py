@@ -1,13 +1,15 @@
-"""Adaptive serving engine (port of ``repro/serving/engine.py``, the
-continuous-batching primitives on the paged pool).
+"""Adaptive serving engine (port of ``repro/serving/engine.py``): static
+grouped serving (``generate``, ``serve``, the per-token oracle
+``generate_stepwise``) on a contiguous KV cache, and the continuous-batching
+primitives on the paged pool and the contiguous pool.
 
 The reference's jitted closures become methods that update the scheduler's
 pool tensors in place (its donated carries). Profile adaptivity stays
 bits-as-data: a profile id indexes the host bits table and the per-profile
 weight images, so switching profiles loads nothing.
 
-Admission prefills run on the prequantized weight images rather than on the
-float masters. That is the reference's arithmetic: fake-quant is
+Prefills and decode steps run on the prequantized weight images rather than
+on the float masters. That is the reference's arithmetic: fake-quant is
 elementwise once its per-tensor scale is fixed, so quantizing the master
 per call (the reference) and once up front (here) give the same values.
 """
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,13 +54,24 @@ class ServingConfig:
 
     ``slots`` — per-row KV capacity in tokens (must cover ``prompt_len +
     max_new``). ``kv_bits`` — KV storage: 16 (bf16), 8 (int8), 4 (packed
-    int4) or 32 (f32, gather backend only). ``max_batch`` — rows of the
-    scheduler's slot pool. ``block_size`` — tokens per KV block.
+    int4) or 32 (f32, gather backend only). ``max_batch`` — decode rows:
+    the static group width of :meth:`AdaptiveServer.serve` and the size of
+    the scheduler's slot pool. ``paged_kv`` — the scheduler's pool is a
+    global block pool with per-row block tables; ``False`` keeps contiguous
+    ``[max_batch, slots]`` rows (the static paths always decode on a
+    contiguous cache). ``block_size`` — tokens per KV block.
     ``pool_blocks`` — physical blocks (``None``: ``max_batch ·
     ceil(slots / block_size)``, the contiguous footprint).
-    ``paged_backend`` — ``"kernel"`` attends in place through the paged-
-    attention kernel, ``"gather"`` builds the per-segment dense view,
-    ``"auto"`` is the kernel on CUDA and gather on the CPU.
+
+    ``paged_backend`` — the server's one kernel switch, resolved into
+    :attr:`AdaptiveServer.paged_backend`: ``"kernel"`` attends in place
+    through the paged-attention kernel on a paged pool and reads a
+    contiguous kv8 cache through the int8-KV decode kernel (K4);
+    ``"gather"`` builds the per-segment dense view of a paged pool and
+    reads a contiguous kv8 cache through the reference's einsum;
+    ``"auto"`` is the kernel on CUDA and gather on the CPU. Contiguous kv16
+    and kv4 caches have no kernel, in the reference either: they run the
+    reference's ``decode_attention`` on every backend.
 
     Speculative decoding: ``speculate`` decodes through draft/verify
     windows — each segment window proposes ``draft_k`` tokens per row and
@@ -75,6 +88,7 @@ class ServingConfig:
     slots: int = 4096
     kv_bits: int = 16
     max_batch: int = 8
+    paged_kv: bool = True
     block_size: int = 16
     pool_blocks: Optional[int] = None
     paged_backend: str = "auto"
@@ -99,9 +113,12 @@ class Request:
 
 
 class AdaptiveServer:
-    """Serving primitives over one model: the per-profile weight images,
-    paged admission waves, decode segments and row clearing, shared by every
-    :class:`~repro_torch.serving.scheduler.ContinuousScheduler` built on it.
+    """Serving entry points over one model: static grouped serving
+    (:meth:`generate`, :meth:`serve`, :meth:`generate_stepwise`) and the
+    continuous-batching primitives (admission waves into the paged or the
+    contiguous pool, decode segments, row clearing) shared by every
+    :class:`~repro_torch.serving.scheduler.ContinuousScheduler` built on it,
+    over the per-profile weight images.
 
     Args:
         cfg: model architecture.
@@ -187,6 +204,163 @@ class AdaptiveServer:
         """``params`` with profile ``pid``'s weight images grafted on."""
         return T.overlay_params(self.params, self.prequant[int(pid)])
 
+    def _select_profile(self, critical: bool) -> int:
+        if self.manager is None:
+            return 0
+        return self.manager.select(accuracy_critical=critical)
+
+    def _prefill(self, pid: int, prompts: np.ndarray, slots: int,
+                 prompt_len: Optional[np.ndarray] = None):
+        """Ragged prefill of ``prompts [B, S]`` under profile ``pid`` into a
+        contiguous ``[B, slots]`` cache → ``(logits [B, V], caches)``."""
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                           device=self.device)}
+        if prompt_len is not None:
+            batch["prompt_len"] = np.asarray(prompt_len, np.int32)
+        return T.prefill(self.profile_params(pid), self.cfg,
+                         self.engine.table[int(pid)], batch, slots,
+                         kv_bits=self.scfg.kv_bits)
+
+    # ----------------------------------------------------------- static path
+    def generate(self, prompts: np.ndarray, max_new: int,
+                 accuracy_critical: bool = False, *,
+                 row_budget: Optional[np.ndarray] = None,
+                 prompt_len: Optional[np.ndarray] = None,
+                 row_critical: Optional[np.ndarray] = None,
+                 account_rows: Optional[int] = None) -> dict:
+        """Batched greedy generation: one prefill, then
+        :func:`~repro_torch.models.transformer.decode_many` on the
+        contiguous cache with the server's backend. prompts ``[B, S]``
+        int32 (ragged requests left-padded to a common length, real lengths
+        in ``prompt_len [B]``: per-row rope offsets, pad-key masks,
+        logical-position KV handoff and ``pos0 = prompt_len``).
+        ``row_budget [B]`` masks a row's tokens at index ≥ budget to −1.
+        With a manager, per-row data (``row_budget`` / ``row_critical``)
+        plans the schedule on the exact ragged ledger (step ``i`` bills
+        only rows still live); otherwise ``account_rows`` rows (default
+        ``B``) are billed every step. Returns the tokens and the per-step
+        profile trace."""
+        b, s = prompts.shape
+        if self.manager is None:
+            schedule = np.zeros((max_new,), np.int32)
+        elif row_budget is not None or row_critical is not None:
+            rb_plan = (np.full((b,), max_new) if row_budget is None
+                       else np.minimum(np.asarray(row_budget), max_new))
+            rc = (np.full((b,), bool(accuracy_critical))
+                  if row_critical is None else np.asarray(row_critical, bool))
+            schedule = self.manager.plan_schedule_ragged(max_new, rb_plan, rc)
+        else:
+            n_account = b if account_rows is None else account_rows
+            schedule = self.manager.plan_schedule(
+                max_new, n_account, accuracy_critical=accuracy_critical)
+        logits, caches = self._prefill(int(schedule[0]), prompts,
+                                       self.scfg.slots, prompt_len)
+        pos0 = torch.as_tensor(
+            np.full((b,), s, np.int32) if prompt_len is None
+            else np.asarray(prompt_len, np.int32), device=self.device)
+        rb = (np.full((b,), max_new, np.int32) if row_budget is None
+              else np.asarray(row_budget, np.int32))
+        toks, pids, _ = T.decode_many(
+            self.params, self.cfg, self.engine.table, schedule, logits, pos0,
+            caches, row_budget=rb, prequant=self.prequant,
+            paged_backend=self.paged_backend)
+        names = self.engine.profile_names
+        return {"tokens": toks.cpu().tolist(),        # the one sync, at the end
+                "profile_trace": [names[int(p)] for p in pids]}
+
+    def generate_stepwise(self, prompts: np.ndarray, max_new: int,
+                          accuracy_critical: bool = False) -> dict:
+        """The reference's per-token host loop (one decode step and one
+        host argmax per token), kept as :meth:`generate`'s oracle: the
+        profile is selected and billed (``B`` inferences) before the
+        prefill and before every step."""
+        b, s = prompts.shape
+        names = self.engine.profile_names
+        pid = self._select_profile(accuracy_critical)
+        logits, caches = self._prefill(pid, prompts, self.scfg.slots)
+        if self.manager is not None:
+            self.manager.account(pid, b)    # prefill billed like an inference
+        nxt = logits.float().cpu().numpy().argmax(axis=-1).astype(np.int32)
+        out, trace = [nxt], [names[pid]]
+        for step in range(max_new - 1):
+            pid = self._select_profile(accuracy_critical)
+            pos = torch.full((b,), s + step, dtype=torch.int32,
+                             device=self.device)
+            tok = torch.as_tensor(nxt[:, None], device=self.device)
+            logits, caches = T.decode_step(
+                self.profile_params(pid), self.cfg, self.engine.table[pid],
+                tok, pos, caches, paged_backend=self.paged_backend)
+            if self.manager is not None:
+                self.manager.account(pid, b)
+            nxt = logits.float().cpu().numpy().argmax(axis=-1).astype(np.int32)
+            out.append(nxt)
+            trace.append(names[pid])
+        return {"tokens": np.stack(out, axis=1).tolist(),
+                "profile_trace": trace}
+
+    def serve(self, requests: Sequence[Request]) -> list[dict]:
+        """Static request batching: sort by prompt length, cut into groups
+        of up to ``max_batch``, one ragged :meth:`generate` per group.
+        Prompts are left-padded with per-row ``prompt_len``, so every row
+        emits what it would solo; groups are padded to ``max_batch`` rows
+        (pad rows: budget 0, ``prompt_len`` 0, fully masked). Each result's
+        ``profile_trace`` is cut to its own ``max_new``; the ledger bills
+        per step only the rows still live. (The reference buckets MoE
+        groups to powers of two; that comes with the MoE family.)"""
+        results: list = [None] * len(requests)
+        order = sorted(range(len(requests)),
+                       key=lambda i: len(requests[i].tokens))
+        rows = self.scfg.max_batch
+        for i0 in range(0, len(order), rows):
+            group = order[i0:i0 + rows]
+            maxlen = max(len(requests[i].tokens) for i in group)
+            prompts = np.zeros((rows, maxlen), np.int32)
+            budget = np.zeros((rows,), np.int32)
+            plen = np.zeros((rows,), np.int32)       # pad rows: fully masked
+            crit = np.zeros((rows,), bool)
+            for row, i in enumerate(group):
+                t = requests[i].tokens
+                prompts[row, maxlen - len(t):] = t   # left-pad
+                budget[row] = requests[i].max_new
+                plen[row] = len(t)
+                crit[row] = requests[i].accuracy_critical
+            max_new = max(requests[i].max_new for i in group)
+            out = self.generate(prompts, max_new, row_budget=budget,
+                                prompt_len=plen, row_critical=crit)
+            for row, i in enumerate(group):
+                mn = requests[i].max_new
+                results[i] = {"tokens": out["tokens"][row][:mn],
+                              "profile_trace": out["profile_trace"][:mn]}
+        return results
+
+    # ------------------------------------------------------ continuous path
+    def admit(self, pid: int, prompts: np.ndarray, prompt_len: np.ndarray,
+              slots_idx: np.ndarray, tok: torch.Tensor, pos: torch.Tensor,
+              caches: dict) -> torch.Tensor:
+        """One admission wave into the contiguous pool (the reference's
+        ``admit_fn``): a ragged prefill of the left-padded ``prompts [a,
+        bucket]`` into ``[a, slots]`` rows, first tokens by on-device
+        argmax, and each row written whole over pool row ``slots_idx[j]``
+        (a retired request's stale ``token_idx`` entries must not survive).
+        Wave rows whose ``slots_idx`` is out of range (padding) are
+        skipped, where the reference's scatter drops them. Updates
+        ``tok``/``pos``/``caches`` in place and returns the wave's first
+        tokens ``[a]``."""
+        logits, rows = self._prefill(pid, prompts, self.scfg.slots,
+                                     prompt_len)
+        tok0 = logits.argmax(dim=-1).to(torch.int32)
+        sidx = np.asarray(slots_idx)
+        live = np.nonzero(sidx < tok.shape[0])[0]
+        j = torch.as_tensor(live, device=self.device)
+        s = torch.as_tensor(sidx[live], device=self.device)
+        pool, row = caches["kv"], rows["kv"]
+        for name in ("k", "v", "k_scale", "v_scale", "token_idx"):
+            getattr(pool, name)[:, s] = getattr(row, name)[:, j]
+        tok[s] = tok0[j]
+        pos[s] = torch.as_tensor(np.asarray(prompt_len)[live],
+                                 dtype=torch.int32, device=self.device)
+        return tok0
+
     def admit_paged(self, pid: int, prompts: np.ndarray,
                     prompt_len: np.ndarray, slots_idx: np.ndarray,
                     dest: np.ndarray, tok: torch.Tensor, pos: torch.Tensor,
@@ -199,12 +373,7 @@ class AdaptiveServer:
         skipped — the host filters them, where the reference's scatter
         drops them. Updates ``tok``/``pos``/``caches`` in place and returns
         the wave's first tokens ``[a]``."""
-        bits = self.engine.table[int(pid)]
-        batch = {"tokens": torch.as_tensor(prompts, device=self.device),
-                 "prompt_len": np.asarray(prompt_len)}
-        logits, rows = T.prefill(self.profile_params(pid), self.cfg, bits,
-                                 batch, self.slots_p,
-                                 kv_bits=self.scfg.kv_bits)
+        logits, rows = self._prefill(pid, prompts, self.slots_p, prompt_len)
         tok0 = logits.argmax(dim=-1).to(torch.int32)
         live = np.nonzero(np.asarray(slots_idx) < tok.shape[0])[0]
         self._scatter_blocks(caches["kv"], rows["kv"], np.asarray(dest),

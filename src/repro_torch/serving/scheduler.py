@@ -1,4 +1,4 @@
-"""Continuous batching on the paged KV pool (port of
+"""Continuous batching on the paged or the contiguous KV pool (port of
 ``repro/serving/scheduler.py``: FIFO policy, cold admission waves).
 
 The scheduler owns a fixed ``[max_batch]`` slot pool whose decode state —
@@ -13,7 +13,11 @@ prompts (rows bucketed to a power of two, prompts left-padded to a power-of-
 two length), whose rows are scattered into blocks the
 :class:`~repro_torch.serving.paged.BlockAllocator` hands out — exactly the
 blocks ``prompt + max_new`` will touch. A dry allocator is backpressure:
-the queue head waits. Token blocks come back one segment late
+the queue head waits. With ``ServingConfig.paged_kv=False`` the pool is
+contiguous ``[max_batch, slots]`` rows: admission is gated on free rows
+alone, and each wave writes its prefilled rows whole over the pool rows
+(:meth:`~repro_torch.serving.engine.AdaptiveServer.admit`). Token blocks
+come back one segment late
 (``_flush(keep=1)``): retirement needs only the host's ``remaining`` counts,
 so the next dispatch is queued before the previous tokens are read.
 
@@ -29,6 +33,7 @@ is data the host needs for retirement, history and billing, so spec mode
 is synchronous (``_flush(keep=0)``): the profile plan is provisional, and
 the ledger bills the tokens each window actually delivered at the flush
 (:attr:`ContinuousScheduler.spec_billed`, invariant 11 of the reference).
+Speculation runs on the paged pool only (not ported on the contiguous one).
 
 Not ported yet (later slices): the prefix registry and shared admission,
 chunked prefill, priorities and preemption, deadlines, cancellation,
@@ -76,16 +81,25 @@ class ContinuousScheduler:
             raise NotImplementedError("priority classes and preemption are "
                                       "not ported")
         dev = server.device
-        self.block_size = server.block_size
-        self.n_lblk = server.n_lblk
-        nb = (scfg.pool_blocks if scfg.pool_blocks is not None
-              else nslots * self.n_lblk)
-        self._caches = T.init_paged_caches(
-            cfg, nslots, scfg.slots, kv_bits=scfg.kv_bits,
-            block_size=self.block_size, pool_blocks=nb, device=dev)
-        self.allocator = BlockAllocator(nb, self.block_size)
-        self._slot_blocks: list = [None] * nslots
-        self.peak_used_blocks = 0
+        self.paged = bool(scfg.paged_kv)
+        if self.paged:
+            self.block_size = server.block_size
+            self.n_lblk = server.n_lblk
+            nb = (scfg.pool_blocks if scfg.pool_blocks is not None
+                  else nslots * self.n_lblk)
+            self._caches = T.init_paged_caches(
+                cfg, nslots, scfg.slots, kv_bits=scfg.kv_bits,
+                block_size=self.block_size, pool_blocks=nb, device=dev)
+            self.allocator = BlockAllocator(nb, self.block_size)
+            self._slot_blocks: list = [None] * nslots
+            self.peak_used_blocks = 0
+        else:
+            if scfg.speculate:
+                raise NotImplementedError("speculation on the contiguous "
+                                          "pool is not ported")
+            self._caches = T.init_caches(cfg, nslots, scfg.slots,
+                                         kv_bits=scfg.kv_bits, device=dev)
+            self.allocator = None
         self._tok = torch.zeros((nslots,), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((nslots,), dtype=torch.int32, device=dev)
         self.remaining = np.zeros((nslots,), np.int64)   # tokens left to emit
@@ -123,7 +137,10 @@ class ContinuousScheduler:
                    -(-(prompt_len + max_new) // self.block_size))
 
     def paged_stats(self) -> dict:
-        """Block-pool occupancy (live / LRU-cached / free partition)."""
+        """Block-pool occupancy (live / LRU-cached / free partition); the
+        contiguous pool reports ``{"paged": False, "kv_bytes": ...}``."""
+        if not self.paged:
+            return {"paged": False, "kv_bytes": T.cache_bytes(self._caches)}
         live = self.allocator.used_blocks
         return {
             "paged": True,
@@ -144,7 +161,7 @@ class ContinuousScheduler:
         the pool raises ``ValueError`` here."""
         if request.deadline_ms is not None:
             raise NotImplementedError("deadlines are not ported")
-        if request.max_new > 0:
+        if self.paged and request.max_new > 0:
             need = self._blocks_needed(len(request.tokens), request.max_new)
             if need > self.allocator.n_blocks:
                 raise ValueError(
@@ -185,9 +202,14 @@ class ContinuousScheduler:
     # -------------------------------------------------------------- admission
     def admit(self) -> int:
         """Fill free slots from the queue in policy order, gated on blocks
-        as well as slots; one cold admission wave per round. Returns the
-        number of requests admitted."""
+        as well as slots on the paged pool; one cold admission wave per
+        round. Returns the number of requests admitted."""
         free = [s for s in range(self.n_slots) if self.slot_req[s] is None]
+        if not self.paged:
+            rows = []
+            while free and len(self.policy):
+                rows.append((self.policy.pop_head(), free.pop(0), None))
+            return self._dispatch_cold(rows) if rows else 0
         cold = []
         while free and len(self.policy):
             rid = self.policy.head()
@@ -216,7 +238,9 @@ class ContinuousScheduler:
         return pid
 
     def _dispatch_cold(self, rows) -> int:
-        """One admission wave: full ragged prefill + block scatter."""
+        """One admission wave: full ragged prefill, then a block scatter
+        (paged pool) or whole-row writes (contiguous pool). ``rows``:
+        ``(rid, slot, blocks)``, ``blocks`` None on the contiguous pool."""
         reqs = [self._reqs[rid] for rid, _, _ in rows]
         lens = [len(r.tokens) for r in reqs]
         bucket = _next_pow2(max(self.bucket_min, max(lens)))
@@ -224,16 +248,22 @@ class ContinuousScheduler:
         prompts = np.zeros((a, bucket), np.int32)
         plen = np.zeros((a,), np.int32)
         sidx = np.full((a,), self.n_slots, np.int32)
-        dest = np.full((a, self.n_lblk), self.allocator.n_blocks, np.int32)
-        for j, (rid, slot, blocks) in enumerate(rows):
+        for j, (rid, slot, _) in enumerate(rows):
             prompts[j, bucket - lens[j]:] = np.asarray(reqs[j].tokens,
                                                        np.int32)
             plen[j] = lens[j]
             sidx[j] = slot
-            dest[j, :len(blocks)] = blocks
         pid = self._bill(reqs)
-        tok0 = self.srv.admit_paged(pid, prompts, plen, sidx, dest,
-                                    self._tok, self._pos, self._caches)
+        if self.paged:
+            dest = np.full((a, self.n_lblk), self.allocator.n_blocks,
+                           np.int32)
+            for j, (_, _, blocks) in enumerate(rows):
+                dest[j, :len(blocks)] = blocks
+            tok0 = self.srv.admit_paged(pid, prompts, plen, sidx, dest,
+                                        self._tok, self._pos, self._caches)
+        else:
+            tok0 = self.srv.admit(pid, prompts, plen, sidx, self._tok,
+                                  self._pos, self._caches)
         self._post_admission(tok0, self.srv.engine.profile_names[pid],
                              [(j, rid, slot, blocks)
                               for j, (rid, slot, blocks) in enumerate(rows)])
@@ -241,8 +271,8 @@ class ContinuousScheduler:
 
     def _post_admission(self, tok0, pname: str, rows) -> None:
         """Bookkeeping after a wave. ``max_new == 1`` rows complete at
-        admission: their blocks go straight back and their table is
-        cleared."""
+        admission: on the paged pool their blocks go straight back and
+        their table is cleared (a contiguous row has nothing to clear)."""
         entry = {"kind": "admit", "toks": tok0, "name": pname,
                  "rows": [], "completes": []}
         clear = []
@@ -254,13 +284,15 @@ class ContinuousScheduler:
                 self.admission_log.append(rid)
             if req.max_new == 1:
                 entry["completes"].append(rid)
-                self.allocator.release(blocks)
-                clear.append(slot)
+                if self.paged:
+                    self.allocator.release(blocks)
+                    clear.append(slot)
                 continue
             self.slot_req[slot] = rid
             self._slot_crit[slot] = self.policy.bind_critical(req)
             self.remaining[slot] = req.max_new - 1
-            self._slot_blocks[slot] = blocks
+            if self.paged:
+                self._slot_blocks[slot] = blocks
             self._seed_spec(slot, req)
         if clear:
             self.srv.clear_rows(clear, self._caches)
@@ -279,8 +311,9 @@ class ContinuousScheduler:
     # --------------------------------------------------------------- decoding
     def run_segment(self) -> None:
         """One decode segment: plan ``quantum`` steps against the live rows,
-        dispatch, then retire rows whose budget runs out (their blocks go
-        back now; the segment already unmapped their tables). A speculative
+        dispatch, then retire rows whose budget runs out (on the paged pool
+        their blocks go back now; the segment already unmapped their
+        tables). A speculative
         scheduler runs :meth:`_run_segment_spec` instead."""
         if self.spec:
             return self._run_segment_spec()
@@ -313,8 +346,9 @@ class ContinuousScheduler:
                 self.slot_req[slot] = None
                 self._slot_crit[slot] = False
                 entry["completes"].append(rid)
-                self.allocator.release(self._slot_blocks[slot])
-                self._slot_blocks[slot] = None
+                if self.paged:
+                    self.allocator.release(self._slot_blocks[slot])
+                    self._slot_blocks[slot] = None
         self._inflight.append(entry)
 
     def _run_segment_spec(self) -> None:

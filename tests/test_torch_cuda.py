@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: K1
 and K2 (paged attention), K3 (dequant-matmul: within the summation-order
-bound 4·K·2^-24·(|x|@|w|), products of bf16 operands being exact in f32)
-and K5 (per-tensor fake-quant: bit for bit).
+bound 4·K·2^-24·(|x|@|w|), products of bf16 operands being exact in f32),
+K4 (int8-KV decode attention on the contiguous cache) and K5 (per-tensor
+fake-quant: bit for bit).
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.kernels import aquant as AQ
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import qkv_attention as QK
 from repro_torch.kernels import qmatmul as QM
 
 
@@ -170,3 +172,34 @@ def test_aquant_kernel_matches_plain_bitwise(shape, bits, po2, dtype):
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert got.dtype == dtype and got.shape == x.shape
     assert torch.equal(got.view(view), want.view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [200, 1024])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True])
+def test_qkv_attention_kernel_matches_plain(s, qdtype, strided):
+    """K4 on the contiguous cache's layout at a ragged S, with lengths 0
+    (uniform weights over all S), 1, a tile edge (63, 64, 65) and S;
+    ``strided`` reads K/V as a view with one padding KV head per slot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(s + int(strided))
+    b, hkv, hg, d = 3, 2, 4, 64
+    lens = torch.tensor([[0, 1], [63, 64], [65, s]], dtype=torch.int32)
+    kv = [torch.randint(-127, 128, (b, s, hkv + int(strided), d),
+                        generator=gen).to(torch.int8) for _ in "kv"]
+    k, v = (x.cuda()[:, :, :hkv] for x in kv)
+    assert k.is_contiguous() != strided
+    ks, vs = ((0.005 + 0.02 * torch.rand((b, hkv), generator=gen)).cuda()
+              for _ in "kv")
+    q = torch.randn((b, hkv, hg, d), generator=gen).to(qdtype).cuda()
+    n0 = QK.qkv_attention.launches
+    got = QK.qkv_attention(q, k, v, ks, vs, lens.cuda())
+    torch.cuda.synchronize()
+    assert QK.qkv_attention.launches == n0 + 1
+    want = QK.qkv_attention_cache_ref(q, k, v, ks, vs, lens.cuda())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    mean_v = (v[0, :, 0].float() * vs[0, 0]).mean(dim=0)   # length 0
+    torch.testing.assert_close(got[0, 0], mean_v.expand(hg, d), atol=1e-5,
+                               rtol=0)
