@@ -8,8 +8,11 @@ Phases:
     nvcc per source, sm_90a, all started together);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes the serving path gives it, with times, the bound and the
-    library yardstick: K1 (one-query paged decode), K2 (the W-query
-    speculative verify window), K3 (the dequant-matmul of the native
+    library yardstick: K1 (one-query paged decode; bs 16, 24 and 128,
+    n_lblk up to 256, a row whose keys lie in the last split, window 5)
+    and K2 (the W-query speculative verify window; W·Hg 20, 68 and 80),
+    each also bitwise equal across two calls and timed on the device
+    through a CUDA graph, then both for grids of 2, 4 and 8 blocks per SM; K3 (the dequant-matmul of the native
     integer-weight linears), K4 (decode attention over the contiguous
     int8 cache) and K5 (per-tensor dynamic fake-quant, bit for bit);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
@@ -22,10 +25,13 @@ Phases:
     W8 and W4: prefill logits on the card (K3, K5) against the CPU's;
  4. serve: the launcher's path on granite-3-2b's full 40-layer config in
     bf16 — 12 requests, 32 new tokens each — counting kernel launches
-    (and K5's, which builds the weight images);
+    (and K5's, which builds the weight images); then 4 requests × 16
+    tokens with ``--block-size 128``, K1 launches = 40 × steps;
  5. speculative serve: phase 4's requests through the launcher's
     ``--speculate --draft-k 4`` path, counting K2 launches per window and
-    checking that the tokens billed are the tokens delivered;
+    checking that the tokens billed are the tokens delivered; then
+    ``--draft-k 16`` (W·Hg 68) on 4 requests × 16 tokens in f32, K2
+    launches = 40 × windows and the tokens equal greedy's;
  6. native serve: phase 4's requests served from ``to_native(params, 8)``
     (then 4 requests × 16 tokens at W4) through ``AdaptiveServer`` +
     ``ContinuousScheduler``, counting K3 launches per linear, K1 per step
@@ -151,11 +157,24 @@ def paged_inputs(gen, *, bits, w=None, B=8, Hkv=8, Hg=4, D=64, bs=16,
                 block_table=bt.to(dev), pos=pos.int())
 
 
+def ops_ms(qk_flops, pv_flops, tensor_cores) -> float:
+    """Least time for the operations: q·K at the bf16 tensor-core rate
+    where the kernel runs it there (bf16 q at kv16/kv8, D % 16 == 0), else
+    at the f32 rate; P·V at the f32 rate (it runs on the CUDA cores). The
+    two units can run at once, so the larger of the two times."""
+    qk_rate = H100_BF16_FLOPS if tensor_cores else H100_F32_FLOPS
+    return max(qk_flops / qk_rate, pv_flops / H100_F32_FLOPS) * 1e3
+
+
+def on_tensor_cores(q, bits) -> bool:
+    return q.dtype == torch.bfloat16 and bits != 4 and q.shape[-1] % 16 == 0
+
+
 def paged_bound(x, bits) -> dict:
     """Least time for this call on an H100 SXM: the bytes it must move
     (attended keys' K and V, mapped blocks' token indices, q, scales,
-    table, positions, output) over HBM bandwidth, and its operations over
-    the f32 rate (the kernel's arithmetic type)."""
+    table, positions, output) over HBM bandwidth, and its operations
+    (:func:`ops_ms`)."""
     q, bt, tidx, pos = x["q"], x["block_table"], x["token_idx"], x["pos"]
     B, Hkv, Hg, D = q.shape
     n_blocks, bs = tidx.shape
@@ -170,15 +189,15 @@ def paged_bound(x, bits) -> dict:
               + 2 * B * Hkv * 4 + bt.numel() * 4 + B * 4)
     flops = 4 * n_keys * Hkv * Hg * D
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = ops_ms(flops / 2, flops / 2, on_tensor_cores(q, bits))
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "keys": n_keys}
 
 
-def sdpa_ms(x) -> float:
+def sdpa_fn(x):
     """One ``scaled_dot_product_attention`` call on a dense view gathered
-    beforehand (kv16 only; the gather is not timed)."""
+    beforehand (kv16 only; the gather is not timed), as a callable."""
     import torch.nn.functional as F
     q, bt, tidx, pos = x["q"], x["block_table"], x["token_idx"], x["pos"]
     B, Hkv, Hg, D = q.shape
@@ -203,7 +222,7 @@ def sdpa_ms(x) -> float:
         v2 = v.repeat_interleave(Hg, dim=1)
         fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qq, k2, v2, attn_mask=mask)
-    return cuda_time_ms(fn)
+    return fn
 
 
 def window_keep(x, window=0):
@@ -226,7 +245,7 @@ def window_bound(x, bits) -> dict:
     (K and V of the columns the window's last query attends, mapped
     blocks' token indices, q, ladders, table, positions, the f32 output)
     over HBM bandwidth, and the operations each query's attended keys need
-    (4·Hkv·Hg·D per key) over the f32 rate."""
+    (4·Hkv·Hg·D per key, half q·K and half P·V; :func:`ops_ms`)."""
     q, bt = x["q"], x["block_table"]
     B, W, Hkv, Hg, D = q.shape
     keep, ok, _ = window_keep(x)
@@ -239,16 +258,16 @@ def window_bound(x, bits) -> dict:
               + 2 * B * W * Hkv * 4 + bt.numel() * 4 + B * 4)
     flops = 4 * q_keys * Hkv * Hg * D
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = ops_ms(flops / 2, flops / 2, on_tensor_cores(q, bits))
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops, "keys": n_keys}
 
 
-def window_sdpa_ms(x) -> float:
+def window_sdpa_fn(x):
     """One ``scaled_dot_product_attention`` call on K2's dense view (kv16;
     the gather is not timed), with the per-query causal mask
-    ``[B, 1, W, S]`` and ``enable_gqa``."""
+    ``[B, 1, W, S]`` and ``enable_gqa``, as a callable."""
     import torch.nn.functional as F
     q = x["q"]
     B, W, Hkv, Hg, D = q.shape
@@ -260,81 +279,215 @@ def window_sdpa_ms(x) -> float:
     v = v.reshape(B, S, Hkv, D).transpose(1, 2).contiguous()
     qq = q.reshape(B, W, Hkv * Hg, D).transpose(1, 2).contiguous()
     mask = keep[:, None]
-    fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+    return lambda: F.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask, enable_gqa=True)
-    return cuda_time_ms(fn)
+
+
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time per call: CUDA events around the replays of a CUDA graph
+    that holds ``n`` calls of ``fn`` (back-to-back eager calls of a kernel
+    this short time the host's issue rate, not the kernel). The inputs
+    stay in L2 between calls, as for :func:`cuda_time_ms`."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del g
+    return t0.elapsed_time(t1) / (reps * n)
+
+
+def library_times(make_fn):
+    """(per-call ms, device ms) of one library call; the device time is
+    ``None`` where the call cannot be captured in a CUDA graph."""
+    fn = make_fn()
+    per_call = cuda_time_ms(fn)
+    try:
+        dev = graph_ms(fn)
+    except RuntimeError as e:             # capture refused: report, go on
+        print(f"[lib] CUDA-graph capture failed ({str(e)[:80]}); device "
+              f"time not measured")
+        torch.cuda.synchronize()
+        dev = None
+    return per_call, dev
+
+
+def last_split_only(x):
+    """Row 1 keeps only the last 4 logical blocks of row 0 (shared
+    physical blocks, row 0's position): every split but the last has no
+    valid key for it."""
+    bt, pos = x["block_table"].clone(), x["pos"].clone()
+    bt[1] = -1
+    bt[1, -4:] = bt[0, -4:]
+    pos[1] = pos[0]
+    return dict(x, block_table=bt, pos=pos)
+
+
+def plan_of(PA, x, w=1) -> tuple:
+    """(splits, tiles per split, row tiles, rows per tile) of a call."""
+    q = x["q"]
+    b, hkv, hg, d = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
+    rt, rows = PA.row_plan(w, hg, d)
+    n_cols = x["block_table"].shape[1] * x["token_idx"].shape[1]
+    return (*PA.split_plan(b, hkv, rt, n_cols), rt, rows)
+
+
+def check_case(tag, fn, ref, x, kw, label) -> float:
+    """Kernel against its plain version: max abs error within ATOL, the
+    dead row exactly zero, two calls bitwise equal. Returns the error."""
+    got = fn(**x, **kw)
+    torch.cuda.synchronize()
+    want = ref(**x, **kw)
+    again = fn(**x, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    dead = float(got[-1].abs().max())
+    same = torch.equal(got, again)
+    print(f"[{tag}] {label}: max_abs_err={err:.3e} (tol {ATOL:g}), dead row "
+          f"max |out|={dead}, two calls bitwise equal: {same}")
+    if not err <= ATOL or dead != 0.0 or not same:
+        raise AssertionError(f"{tag} disagrees with its plain version at "
+                             f"{label}")
+    return err
 
 
 def phase_window_kernel(seed: int) -> dict:
-    """K2 against its plain version at the speculative serve shape: B=8,
-    W=5, Hkv=8, Hg=4, D=64, bs=16, n_lblk 64 and 256, kv16 and kv8."""
+    """K2 against its plain version: the speculative serve shape (B=8, W=5,
+    Hkv=8, Hg=4, D=64, bs=16) at n_lblk 64 and 256; W·Hg 68 (Hg 4,
+    draft_k 16) and 80 (Hkv 2, Hg 16, D 128, W 5) at n_lblk 64; each at
+    kv16 and kv8, timed. Untimed at n_lblk 256: a row whose keys all lie
+    in the last split, and window 5 (every split but the last empty)."""
     from repro_torch.kernels import paged_attention as PA
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    fn, ref = PA.paged_attention_multi, PA.paged_attention_multi_ref
+    cases = [(dict(w=5, n_lblk=n), f"n_lblk={n}") for n in (64, 256)]
+    cases += [(dict(w=17, n_lblk=64), "W·Hg=68 (W 17, Hg 4), n_lblk=64"),
+              (dict(w=5, n_lblk=64, Hkv=2, Hg=16, D=128),
+               "W·Hg=80 (W 5, Hkv 2, Hg 16, D 128), n_lblk=64")]
     main = None
-    for n_lblk in (64, 256):
+    for shape, label in cases:
         for bits in (16, 8):
-            x = paged_inputs(gen, bits=bits, w=5, n_lblk=n_lblk)
+            x = paged_inputs(gen, bits=bits, **shape)
             kw = dict(bits=bits, window=0)
-            got = PA.paged_attention_multi(**x, **kw)
-            torch.cuda.synchronize()
-            want = PA.paged_attention_multi_ref(**x, **kw)
-            err = float((got - want).abs().max())
-            dead = float(got[-1].abs().max())
-            print(f"[K2] n_lblk={n_lblk} kv{bits}: max_abs_err={err:.3e} "
-                  f"(tol {ATOL:g}), dead row max |out|={dead}")
-            if not err <= ATOL or dead != 0.0:
-                raise AssertionError(f"K2 disagrees with its plain version "
-                                     f"at n_lblk={n_lblk} kv{bits}")
-            ms = cuda_time_ms(lambda: PA.paged_attention_multi(**x, **kw))
-            plain = cuda_time_ms(
-                lambda: PA.paged_attention_multi_ref(**x, **kw), iters=50)
-            lib = window_sdpa_ms(x) if bits == 16 else None
+            lab = f"{label} kv{bits}"
+            err = check_case("K2", fn, ref, x, kw, lab)
+            splits, per, rt, rows = plan_of(PA, x, shape["w"])
+            ms = cuda_time_ms(lambda: fn(**x, **kw))
+            dev = graph_ms(lambda: fn(**x, **kw))
+            plain = cuda_time_ms(lambda: ref(**x, **kw), iters=50)
+            lib = lib_dev = None
+            if bits == 16:
+                lib, lib_dev = library_times(lambda: window_sdpa_fn(x))
             bd = window_bound(x, bits)
-            print(f"[K2] n_lblk={n_lblk} kv{bits}: kernel {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, sdpa "
-                  f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            print(f"[K2] {lab}: {splits} splits x {per} tiles, {rt} row "
+                  f"tile(s) of {rows}; device {dev:.4f} ms, per call "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+                  f"{_ms(lib)} (device {_ms(lib_dev)}), bound "
                   f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
                   f"{bd['bytes']} B, {bd['flops']} flop, {bd['keys']} keys)")
-            if n_lblk == 64 and bits == 16:
-                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "library_ms": lib, **bd}
+            if main is None:
+                main = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+                        "plain_ms": plain, "library_ms": lib,
+                        "library_device_ms": lib_dev, "splits": splits, **bd}
+    for bits in (16, 8):
+        x = paged_inputs(gen, bits=bits, w=5, n_lblk=256)
+        check_case("K2", fn, ref, last_split_only(x), dict(bits=bits),
+                   f"n_lblk=256 kv{bits}, row 1's keys in the last split only")
+        check_case("K2", fn, ref, x, dict(bits=bits, window=5),
+                   f"n_lblk=256 kv{bits}, window 5")
     PA.paged_attention_multi.launches = 0  # comparison launches do not count
     return main
 
 
+def split_sweep(seed: int) -> None:
+    """K1 and K2 device times at phase 2's shapes for grids of 2, 4 and 8
+    blocks per SM (``BLOCKS_PER_SM``, the planner's one tuning knob), and
+    K1's fixed cost per call (the launches, each split's table reads, the
+    merge) on a table whose rows are 40 tokens long."""
+    from repro_torch.kernels import paged_attention as PA
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    keep = PA.BLOCKS_PER_SM
+    for n_lblk in (64, 256):
+        for w, bits in ((None, 16), (None, 8), (5, 16), (5, 8)):
+            x = paged_inputs(gen, bits=bits, w=w, n_lblk=n_lblk)
+            fn = PA.paged_attention if w is None else PA.paged_attention_multi
+            line = []
+            for per_sm in (2, 4, 8):
+                PA.BLOCKS_PER_SM = per_sm
+                splits, per, _, _ = plan_of(PA, x, w or 1)
+                dev = graph_ms(lambda: fn(**x, bits=bits))
+                line.append(f"{per_sm}/SM: {splits}x{per} {dev:.4f} ms")
+            PA.BLOCKS_PER_SM = keep
+            print(f"[sweep] {'K1' if w is None else 'K2'} n_lblk={n_lblk} "
+                  f"kv{bits}: " + "; ".join(line))
+        # the fixed cost of a call: every row 40 tokens long, so all but
+        # one column tile of each row is skipped
+        x = paged_inputs(gen, bits=16, n_lblk=n_lblk)
+        x["pos"] = torch.full_like(x["pos"], 40)
+        dev = graph_ms(lambda: PA.paged_attention(**x, bits=16))
+        print(f"[sweep] K1 n_lblk={n_lblk} kv16, every row 40 tokens: "
+              f"device {dev:.4f} ms")
+    PA.paged_attention.launches = PA.paged_attention_multi.launches = 0
+
+
+def _ms(t) -> str:
+    return "n/a" if t is None else f"{t:.4f} ms"
+
+
 def phase_kernels(seed: int) -> list[dict]:
+    """K1 against its plain version: B=8, Hkv=8, Hg=4, D=64 at bs 16 with
+    n_lblk 64 (phase 4's table) and 256 (``ServingConfig.slots=4096``),
+    kv16/kv8/kv4; bs 24 (n_lblk 43) and 128 (n_lblk 8) at kv16 and kv8;
+    all timed. Untimed at n_lblk 256: a row whose keys all lie in the last
+    split, and window 5."""
     from repro_torch.kernels import paged_attention as PA
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    fn, ref = PA.paged_attention, PA.paged_attention_ref
+    cases = [(dict(n_lblk=n), bits, f"n_lblk={n}") for n in (64, 256)
+             for bits in (16, 8, 4)]
+    cases += [(dict(bs=bs, n_lblk=n), bits, f"bs={bs} n_lblk={n}")
+              for bs, n in ((24, 43), (128, 8)) for bits in (16, 8)]
     rows, main = [], None
-    for n_lblk in (64, 256):
-        for bits in (16, 8, 4):
-            x = paged_inputs(gen, bits=bits, n_lblk=n_lblk)
-            kw = dict(bits=bits, window=0)
-            got = PA.paged_attention(**x, **kw)
-            torch.cuda.synchronize()
-            want = PA.paged_attention_ref(**x, **kw)
-            err = float((got - want).abs().max())
-            dead = float(got[-1].abs().max())
-            print(f"[K1] n_lblk={n_lblk} kv{bits}: max_abs_err={err:.3e} "
-                  f"(tol {ATOL:g}), dead row max |out|={dead}")
-            if not err <= ATOL or dead != 0.0:
-                raise AssertionError(f"K1 disagrees with its plain version "
-                                     f"at n_lblk={n_lblk} kv{bits}")
-            ms = cuda_time_ms(lambda: PA.paged_attention(**x, **kw))
-            plain = cuda_time_ms(lambda: PA.paged_attention_ref(**x, **kw),
-                                 iters=50)
-            lib = sdpa_ms(x) if bits == 16 else None
-            bd = paged_bound(x, bits)
-            row = {"n_lblk": n_lblk, "bits": bits, "max_abs_err": err,
-                   "ms": ms, "plain_ms": plain, "library_ms": lib, **bd}
-            print(f"[K1] n_lblk={n_lblk} kv{bits}: kernel {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, sdpa "
-                  f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
-                  f"{bd['bytes']} B, {bd['flops']} flop, {bd['keys']} keys)")
-            rows.append(row)
-            if n_lblk == 64 and bits == 16:
-                main = row
+    for shape, bits, label in cases:
+        x = paged_inputs(gen, bits=bits, **shape)
+        kw = dict(bits=bits, window=0)
+        lab = f"{label} kv{bits}"
+        err = check_case("K1", fn, ref, x, kw, lab)
+        splits, per, rt, nrow = plan_of(PA, x)
+        ms = cuda_time_ms(lambda: fn(**x, **kw))
+        dev = graph_ms(lambda: fn(**x, **kw))
+        plain = cuda_time_ms(lambda: ref(**x, **kw), iters=50)
+        lib = lib_dev = None
+        if bits == 16:
+            lib, lib_dev = library_times(lambda: sdpa_fn(x))
+        bd = paged_bound(x, bits)
+        row = {"label": lab, "max_abs_err": err, "ms": ms, "device_ms": dev,
+               "plain_ms": plain, "library_ms": lib,
+               "library_device_ms": lib_dev, "splits": splits, **bd}
+        print(f"[K1] {lab}: {splits} splits x {per} tiles, {rt} row tile(s) "
+              f"of {nrow}; device {dev:.4f} ms, per call {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa {_ms(lib)} (device {_ms(lib_dev)}), "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+              f"{bd['bytes']} B, {bd['flops']} flop, {bd['keys']} keys)")
+        rows.append(row)
+        if main is None:
+            main = row
+    for bits in (16, 8, 4):
+        x = paged_inputs(gen, bits=bits, n_lblk=256)
+        check_case("K1", fn, ref, last_split_only(x), dict(bits=bits),
+                   f"n_lblk=256 kv{bits}, row 1's keys in the last split only")
+        check_case("K1", fn, ref, x, dict(bits=bits, window=5),
+                   f"n_lblk=256 kv{bits}, window 5")
     PA.paged_attention.launches = 0       # comparison launches do not count
     return rows, main
 
@@ -967,6 +1120,127 @@ def phase_spec_serve(seed: int, greedy: dict) -> dict:
     return {"launches": k2, "tok_s": n_tok / wall, "peak": peak}
 
 
+def phase_serve_block128(seed: int) -> None:
+    """The launcher's ``--continuous --block-size 128`` path on the full
+    config in bf16: 4 requests × 16 tokens, every layer of every decode step
+    through K1 (a block size the first port's K1 refused), no gather."""
+    import gc
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import RequestStatus
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = S.parse_args(["--continuous", "--full", "--requests", "4",
+                         "--max-new", "16", "--kv-bits", "16", "--quantum",
+                         "8", "--block-size", "128", "--seed", str(seed)])
+    cfg, srv = S.build_server(args)
+    reqs = S.make_requests(cfg, args)
+    PA.paged_attention.launches = 0
+    A.paged_view.calls = 0
+    out = S.serve(srv, reqs, args.quantum, continuous=True)
+    k1, gathers = PA.paged_attention.launches, A.paged_view.calls
+    results, sched = out["results"], out["sched"]
+    for i, r in enumerate(results):
+        if r["status"] is not RequestStatus.COMPLETED or len(r["tokens"]) != 16:
+            raise AssertionError(f"bs 128 request {i}: {r['status']}, "
+                                 f"{len(r['tokens'])} tokens")
+        if not all(0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"bs 128 request {i}: token out of vocab")
+    expect = cfg.n_layers * sched.decode_steps
+    n_tok = sum(len(r["tokens"]) for r in results)
+    print(f"[serve] --block-size {srv.block_size}: K1 launches {k1} = "
+          f"{cfg.n_layers} layers x {sched.decode_steps} decode steps: "
+          f"{k1 == expect}; gather calls {gathers}; {n_tok} tokens in "
+          f"{out['wall_s']:.3f}s")
+    if srv.block_size != 128 or k1 != expect or k1 == 0 or gathers:
+        raise AssertionError("the bs-128 serve did not run through K1 alone")
+    del srv, out
+
+
+def phase_spec_wide(seed: int) -> None:
+    """``--speculate --draft-k 16`` (W·Hg = 68) on the full config: the
+    launcher's 4 requests × 16 tokens, served greedy (K1) and then
+    speculatively (K2) by ``AdaptiveServer`` + ``ContinuousScheduler`` in
+    f32 with TF32 off and no manager (one profile, so windows and steps use
+    the same weights). K2 launches = n_layers × windows, K1 and gather
+    none; the tokens equal greedy's. The verify forward multiplies 17
+    tokens per row where greedy multiplies one, so the two differ in f32
+    summation order: a flip is allowed only at a top-2 logit margin under
+    1e-3 (``first_divergence``), as in phase 3's static kv8 check."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = S.parse_args(["--continuous", "--full", "--requests", "4",
+                         "--max-new", "16", "--kv-bits", "16", "--quantum",
+                         "8", "--speculate", "--draft-k", "16", "--seed",
+                         str(seed)])
+    cfg = get_config(args.arch)
+    reqs = S.make_requests(cfg, args)
+    toks = {}
+    with use_compute_dtype(torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = T.init_params(cfg, gen, device="cuda")
+        names = T.quant_layer_names(cfg)
+        engine = AdaptiveEngine(tuple(paper_profiles(names, inner_layers=[])),
+                                QuantIndex(names))
+        for spec in (False, True):
+            srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+                slots=1024, kv_bits=16, max_batch=8, block_size=16,
+                speculate=spec, draft_k=args.draft_k), device="cuda")
+            PA.paged_attention.launches = 0
+            PA.paged_attention_multi.launches = 0
+            A.paged_view.calls = 0
+            out = S.serve(srv, reqs, args.quantum, continuous=True)
+            k1, k2 = (PA.paged_attention.launches,
+                      PA.paged_attention_multi.launches)
+            gathers = A.paged_view.calls
+            sched = out["sched"]
+            toks[spec] = [r["tokens"] for r in out["results"]]
+            if any(len(t) != 16 for t in toks[spec]):
+                raise AssertionError(f"draft-k 16 (spec={spec}): short "
+                                     f"request")
+            if spec:
+                expect = cfg.n_layers * sched.windows_run
+                print(f"[spec] --draft-k 16 (W·Hg {17 * cfg.n_heads // cfg.n_kv}"
+                      f"), f32: K2 launches {k2} = {cfg.n_layers} layers x "
+                      f"{sched.windows_run} windows: {k2 == expect}; K1 "
+                      f"launches {k1}; gather calls {gathers}")
+                if k2 != expect or k2 == 0 or k1 or gathers:
+                    raise AssertionError("the draft-k 16 serve did not run "
+                                         "through K2 alone")
+            elif k1 != cfg.n_layers * sched.decode_steps or k2 or gathers:
+                raise AssertionError("the greedy f32 serve did not run "
+                                     "through K1 alone")
+            del srv, out, sched
+            gc.collect()
+            torch.cuda.empty_cache()
+        same = toks[True] == toks[False]
+        print(f"[spec] --draft-k 16 vs greedy, full config, f32: tokens "
+              f"identical: {same} ({sum(map(len, toks[True]))} tokens)")
+        if not same:
+            margin = first_divergence(cfg, params, engine, reqs, toks[True],
+                                      toks[False], 16)
+            if not margin < 1e-3:
+                raise AssertionError(f"draft-k 16 tokens diverge from greedy "
+                                     f"at a top-2 margin of {margin:.3e}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_native_serve(seed: int, requests: int, max_new: int,
                        w_bits: int) -> dict:
     """The native integer-weight path at full width: phase 4's config and
@@ -1169,13 +1443,18 @@ def _leaves(tree):
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One row of the kernel table: the main path's launch count and the
-    phase-2 row of the kernel at its main-path shape."""
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    phase-2 row of the kernel at its main-path shape (K1/K2 also carry
+    their device time from a CUDA graph and their split count)."""
+    entry = {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{source}",
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    if "splits" in row:
+        entry.update(device_ms=row["device_ms"], splits=row["splits"],
+                     library_device_ms=row["library_device_ms"])
+    return entry
 
 
 def main() -> None:
@@ -1205,6 +1484,7 @@ def main() -> None:
     if 2 in phases:
         _, rows["k1"] = phase_kernels(args.seed)
         rows["k2"] = phase_window_kernel(args.seed)
+        split_sweep(args.seed)
         rows["k3"] = phase_qmatmul(args.seed)
         rows["k4"] = phase_qkv_attention(args.seed)
         rows["k5"] = phase_aquant(args.seed)
@@ -1212,8 +1492,12 @@ def main() -> None:
         phase_parity(args.seed)
         phase_native_parity(args.seed)
     served = phase_serve(args.seed) if 4 in phases else {"launches": 0}
+    if 4 in phases:
+        phase_serve_block128(args.seed)
     spec = (phase_spec_serve(args.seed, served) if 5 in phases
             else {"launches": 0})
+    if 5 in phases:
+        phase_spec_wide(args.seed)
     native = {"k3": 0, "k5": 0}
     if 6 in phases:
         native = phase_native_serve(args.seed, 12, 32, 8)

@@ -5,7 +5,9 @@ shared library with a plain C interface at first use (into
 ``build/repro_torch/`` at the repository root; one ``nvcc`` per source, all
 started together, so the build takes as long as the slowest source) and
 called through ``ctypes``. Each C entry point returns ``cudaGetLastError()``
-of its launch; the wrappers raise when it is not 0.
+of its launch; the wrappers raise when it is not 0. Headers shared between
+sources (``csrc/*.cuh``) are part of every source's build tag, so a change to
+one rebuilds each library.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "lib", "check", "SOURCES", "BUILD_DIR"]
+__all__ = ["build", "lib", "check", "SOURCES", "BUILD_DIR", "SM_COUNT"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
@@ -29,14 +31,15 @@ SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
            "aquant": _CSRC / "aquant.cu",
            "qkv_attention": _CSRC / "qkv_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SM_COUNT = 132                # streaming multiprocessors of an H100 SXM
 
 _LIBS: dict = {}
 
 # ctypes signatures of the C entry points (pointers, ints, floats, stream)
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _ARGTYPES = {
-    "paged_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
-    "paged_attention_multi": [_P] * 9 + [_I] * 11 + [_F, _P],
+    "paged_attention": [_P] * 11 + [_I] * 15 + [_F, _P],
+    "paged_attention_multi": [_P] * 11 + [_I] * 15 + [_F, _P],
     "qmatmul": [_P] * 4 + [_I] * 7 + [_F] * 3 + [_P],
     "aquant": [_P] * 3 + [_L] + [_I] * 4 + [_P],
     "qkv_attention": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _P],
@@ -65,8 +68,9 @@ def build(verbose: bool = False) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     jobs = {}
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     for name, src in SOURCES.items():
-        tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+        tag = hashlib.sha1(src.read_bytes() + headers).hexdigest()[:12]
         so = BUILD_DIR / f"lib{name}_{tag}.so"
         if so.exists():
             jobs[name] = (so, None, None)

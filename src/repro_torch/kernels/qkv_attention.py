@@ -28,16 +28,31 @@ tensors — it never falls back from one to the other.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.build import build
 from repro_torch.kernels.build import check as _check
 
 __all__ = ["qkv_attention", "qkv_attention_ref", "qkv_attention_cache_ref",
-           "MAX_D", "MAX_HG"]
+           "supports", "MAX_D", "MAX_HG"]
 
 NEG_INF = -1e30
 MAX_D, MAX_HG = 256, 16
+
+
+def supports(d: int, hg: int) -> Optional[str]:
+    """Why K4 cannot take head dim ``d`` with ``hg`` query heads per KV
+    head (it loads four int8 values per thread and keeps one accumulator row
+    per query head), or ``None`` when it can. The wrapper calls it before
+    any build, and :class:`~repro_torch.serving.engine.AdaptiveServer` at
+    construction."""
+    if d % 4 or not 4 <= d <= MAX_D:
+        return f"head dim D={d} must be a multiple of 4 and at most {MAX_D}"
+    if not 1 <= hg <= MAX_HG:
+        return f"Hg={hg} query heads per KV head must be 1..{MAX_HG}"
+    return None
 
 
 def qkv_attention_ref(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
@@ -90,9 +105,9 @@ def qkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return qkv_attention_cache_ref(q, k, v, k_scale, v_scale, lengths)
     b, hkv, hg, d = q.shape
     s = k.shape[1]
-    if not (d % 4 == 0 and d <= MAX_D and 1 <= hg <= MAX_HG):
-        raise ValueError(f"unsupported shape: D={d} (a multiple of 4, <= "
-                         f"{MAX_D}), Hg={hg} (<= {MAX_HG})")
+    why = supports(d, hg)
+    if why is not None:
+        raise ValueError(f"unsupported shape: {why}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be f32 or bf16, got {q.dtype}")
     _check(q, "q", q.dtype, (b, hkv, hg, d))

@@ -71,7 +71,15 @@ class ServingConfig:
     reads a contiguous kv8 cache through the reference's einsum;
     ``"auto"`` is the kernel on CUDA and gather on the CPU. Contiguous kv16
     and kv4 caches have no kernel, in the reference either: they run the
-    reference's ``decode_attention`` on every backend.
+    reference's ``decode_attention`` on every backend. On the kernel
+    backend (``"kernel"``, or ``"auto"`` on CUDA) the server checks at
+    construction that each kernel it will launch takes the model's shapes
+    — K1 on a paged pool (D even, ``<= 256``; any block size and Hg), K2
+    when ``speculate`` (the same, any ``draft_k``), K4 at kv8 (D a multiple
+    of 4, ``<= 256``, Hg ``<= 16``) — and raises a ``ValueError`` naming
+    ``paged_backend="gather"`` otherwise; it never switches backend by
+    itself. The check runs on every device, so the CPU sees the same
+    refusal as the card.
 
     Speculative decoding: ``speculate`` decodes through draft/verify
     windows — each segment window proposes ``draft_k`` tokens per row and
@@ -171,14 +179,6 @@ class AdaptiveServer:
             if serving.draft_hist < 2:
                 raise ValueError("draft_hist must be >= 2 (the n-gram "
                                  "drafter matches history pairs)")
-            if pb == "kernel":
-                from repro_torch.kernels import paged_attention as PA
-                rows = (serving.draft_k + 1) * (cfg.n_heads // cfg.n_kv)
-                if rows > PA.MAX_WHG or rows * cfg.hd > PA.MAX_WHG_D:
-                    raise ValueError(
-                        f"the window kernel takes W·Hg <= {PA.MAX_WHG} and "
-                        f"W·Hg·D <= {PA.MAX_WHG_D}; draft_k="
-                        f"{serving.draft_k} gives W·Hg={rows}, D={cfg.hd}")
         if draft_fn is None:
             if serving.draft_model in (None, "ngram"):
                 pass                     # decode_segment_spec's built-in
@@ -195,10 +195,38 @@ class AdaptiveServer:
         self.paged_backend = pb
         self.block_size = T.paged_block_size(cfg, serving.slots,
                                              serving.block_size)
+        if pb == "kernel":
+            self._check_kernels()
         self.n_lblk = -(-serving.slots // self.block_size)
         self.slots_p = self.n_lblk * self.block_size     # virtual row length
         # per-profile weight images, built once per server
         self.prequant = T.prequant_decode_weights(params, cfg, engine.table)
+
+    def _check_kernels(self) -> None:
+        """Raise now, not at the first decode, if a kernel this server will
+        launch cannot take the model's shapes: K1 on a paged pool, K2 when
+        speculating, K4 at kv8 (static serving and the contiguous pool read
+        an int8 cache through it)."""
+        from repro_torch.kernels import paged_attention as PA
+        from repro_torch.kernels import qkv_attention as QK
+        cfg, scfg = self.cfg, self.scfg
+        hg, d = cfg.n_heads // cfg.n_kv, cfg.hd
+        checks = []
+        if scfg.paged_kv:
+            checks.append(("the paged-attention kernel (K1)",
+                           PA.supports(d, hg, self.block_size)))
+        if scfg.speculate:
+            checks.append(("the window kernel (K2)",
+                           PA.supports(d, hg, self.block_size,
+                                       scfg.draft_k + 1)))
+        if scfg.kv_bits == 8:
+            checks.append(("the int8-KV decode kernel (K4)",
+                           QK.supports(d, hg)))
+        for name, why in checks:
+            if why is not None:
+                raise ValueError(
+                    f"{name} cannot take {cfg.name}: {why}; serve it with "
+                    f"paged_backend='gather' (--paged-backend gather)")
 
     def profile_params(self, pid: int) -> dict:
         """``params`` with profile ``pid``'s weight images grafted on."""

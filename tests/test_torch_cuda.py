@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: K1
-and K2 (paged attention), K3 (dequant-matmul: within the summation-order
+and K2 (paged attention: small tables, and long ones that the kernels cut
+into several splits, block sizes 24 and 128, windows of 68 and 80 query
+rows, two calls bitwise equal), K3 (dequant-matmul: within the summation-order
 bound 4·K·2^-24·(|x|@|w|), products of bf16 operands being exact in f32),
 K4 (int8-KV decode attention on the contiguous cache) and K5 (per-tensor
 fake-quant: bit for bit).
@@ -124,6 +126,133 @@ def test_paged_attention_multi_kernel_matches_plain(bits, window):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert torch.all(got[-1] == 0)                # dead row: exact zeros
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+def _split_inputs(bits: int, gen: torch.Generator, *, w=None, b=6, hkv=2,
+                  hg=4, d=64, bs=16, n_lblk=256):
+    """Long tables that the kernels cut into several splits: row 0 near
+    full context, row 1 whose keys all lie in the last 4 logical blocks
+    (every other split empty), rows of random length with unmapped holes
+    (both sentinels), and a dead last row; on the card. ``w`` makes K2's
+    window inputs (ladders, row 0's window past capacity)."""
+    nw = 1 if w is None else w
+    cap = n_lblk * bs
+    n_blocks = b * n_lblk + 3
+    perm = torch.randperm(n_blocks, generator=gen).tolist()
+    bt = torch.full((b, n_lblk), n_blocks, dtype=torch.int32)
+    tidx = torch.full((n_blocks, bs), -1, dtype=torch.int32)
+    pos = torch.randint(1, cap - nw, (b,), generator=gen, dtype=torch.int32)
+    pos[0] = pos[1] = cap - 2
+    for r in range(b - 1):
+        for lb in range(n_lblk):
+            live = lb * bs <= pos[r] + nw - 1 and (r != 1 or lb >= n_lblk - 4)
+            if live and lb % 7 != 5:
+                phys = perm.pop()
+                bt[r, lb] = phys
+                t = lb * bs + torch.arange(bs)
+                tidx[phys] = torch.where(t <= pos[r] + nw + 1, t, -1).int()
+            else:
+                bt[r, lb] = -1 if lb % 2 else n_blocks + 1
+    dk = d // 2 if bits == 4 else d
+    shape = (n_blocks, bs, hkv, dk)
+    if bits == 16:
+        k, v = (torch.randn(shape, generator=gen).bfloat16() for _ in "kv")
+    else:
+        lo = -128 if bits == 4 else -127
+        k, v = (torch.randint(lo, 128, shape, generator=gen).to(torch.int8)
+                for _ in "kv")
+    sshape = (b, hkv) if w is None else (b, w, hkv)
+    ks, vs = (0.01 + 0.04 * torch.rand(sshape, generator=gen) for _ in "kv")
+    qshape = (b, hkv, hg, d) if w is None else (b, w, hkv, hg, d)
+    q = torch.randn(qshape, generator=gen).bfloat16()
+    names = ("k_scale", "v_scale") if w is None else ("k_ladder", "v_ladder")
+    x = dict(q=q, k_pool=k, v_pool=v, token_idx=tidx, block_table=bt,
+             pos=pos, **dict(zip(names, (ks, vs))))
+    return {name: t.cuda() for name, t in x.items()}
+
+
+def _check_split_kernel(fn, ref, x, kw, splits_at_least):
+    q = x["q"]
+    w = 1 if q.dim() == 4 else q.shape[1]
+    row_tiles, _ = PA.row_plan(w, q.shape[-2], q.shape[-1])
+    splits, _ = PA.split_plan(q.shape[0], q.shape[-3], row_tiles,
+                              x["block_table"].shape[1] * x["token_idx"].shape[1])
+    assert splits >= splits_at_least
+    got = fn(**x, **kw)
+    again = fn(**x, **kw)
+    torch.cuda.synchronize()
+    want = ref(**x, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(got, again)                # bitwise deterministic
+    assert torch.all(got[-1] == 0)                # dead row: exact zeros
+    assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_paged_attention_kernel_many_splits(bits, window):
+    """K1 at n_lblk 256 (several splits), the last-split-only row, both
+    windows; two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x = _split_inputs(bits, torch.Generator().manual_seed(20 + bits + window))
+    _check_split_kernel(PA.paged_attention, PA.paged_attention_ref, x,
+                        dict(bits=bits, window=window), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n_lblk", [(24, 43), (128, 8)])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_paged_attention_kernel_any_block_size(bits, bs, n_lblk):
+    """K1 at block sizes the first port refused or tiled unevenly: 24 (does
+    not divide a 64-column tile) and 128 (two tiles per block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x = _split_inputs(bits, torch.Generator().manual_seed(bs + bits),
+                      bs=bs, n_lblk=n_lblk)
+    _check_split_kernel(PA.paged_attention, PA.paged_attention_ref, x,
+                        dict(bits=bits, window=0), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,hkv,hg,d", [(17, 2, 4, 64), (5, 2, 16, 128),
+                                        (5, 2, 4, 64)])
+@pytest.mark.parametrize("bits", [16, 8])
+def test_paged_attention_multi_kernel_wide_windows(bits, w, hkv, hg, d):
+    """K2 at W·Hg 68 (Hg 4, draft_k 16: three row tiles) and 80 (Hg 16,
+    W 5, D 128), and the serve's 20, over several splits; two calls
+    bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x = _split_inputs(bits, torch.Generator().manual_seed(w * hg + bits),
+                      w=w, hkv=hkv, hg=hg, d=d, n_lblk=64)
+    _check_split_kernel(PA.paged_attention_multi,
+                        PA.paged_attention_multi_ref, x,
+                        dict(bits=bits, window=0), 2)
+
+
+@pytest.mark.cuda
+def test_server_refuses_k4_shapes_on_cuda_auto():
+    """On the card ``"auto"`` resolves to the kernel backend, and a kv8
+    model that K4 cannot take (Hg 17) is refused at construction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    cfg = get_smoke("granite-3-2b")
+    bad = dataclasses.replace(cfg, n_heads=34, n_kv=2)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    names = T.quant_layer_names(cfg)
+    engine = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+    with pytest.raises(ValueError, match="Hg=17.*gather"):
+        AdaptiveServer(bad, params, engine, ServingConfig(
+            slots=32, kv_bits=8, paged_backend="auto"), device="cuda")
 
 
 @pytest.mark.cuda

@@ -198,14 +198,22 @@ def test_window_plain_matches_pallas_interpret_and_view(bits, window, w):
 
 
 def test_window_wrapper_rejects_what_the_kernel_cannot_take():
-    """CUDA tensors launch or raise; validation runs before any build."""
+    """CUDA tensors launch or raise; validation runs before any build. A
+    window of any width passes the shape check (the kernel tiles its query
+    rows): W·Hg = 72 gets as far as the device check. The limits that stay
+    — D odd or above 256 — raise on the shape itself."""
     x = _convert(_window_inputs(16, 2), 16, torch)
     meta = {n: a.to("meta") for n, a in x.items()}
     with pytest.raises(ValueError, match="kv16/kv8"):
         PA.paged_attention_multi(**meta, bits=4)
     big = dict(meta, q=torch.zeros(7, 9, HKV, 8, D, device="meta"))
-    with pytest.raises(ValueError, match="W·Hg"):
+    assert PA.supports(D, 8, BS, 9) is None
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         PA.paged_attention_multi(**big)
+    for d in (D + 1, 258):
+        odd = dict(meta, q=torch.zeros(7, 2, HKV, HG, d, device="meta"))
+        with pytest.raises(ValueError, match="head dim"):
+            PA.paged_attention_multi(**odd)
     with pytest.raises(ValueError, match="kv16/kv8"):
         PA.paged_attention_multi(**x, bits=4)     # the plain version too
 
@@ -571,21 +579,28 @@ def test_spec_scheduler_matches_reference(parts, kv_bits, k, managed,
 
 def test_spec_server_validation(parts):
     """Speculation on a stack or precision without it, a bad drafter or
-    depth, and a window the kernel cannot take all raise at construction."""
+    depth, and a head dim the kernels cannot take all raise at
+    construction; a window of any width (draft_k=40: W·Hg = 82) constructs
+    on the kernel backend."""
+    import dataclasses
     _, tcfg, _, tp, _, teng, _ = parts
 
-    def make(**kw):
-        return AdaptiveServer(tcfg, tp, teng, ServingConfig(
+    def make(cfg=tcfg, **kw):
+        return AdaptiveServer(cfg, tp, teng, ServingConfig(
             slots=32, max_batch=2, speculate=True, **kw), device="cpu")
 
     assert make(kv_bits=8).draft_fn is None
     assert make(draft_model="repeat").draft_fn(
         torch.zeros(2, 4), torch.tensor([3, 5])).tolist() == [[3] * 4,
                                                                [5] * 4]
+    assert make(draft_k=40, paged_backend="kernel").paged_backend == "kernel"
     for kw, msg in [(dict(kv_bits=4), "supports_speculation"),
                     (dict(draft_k=0), "draft_k"),
                     (dict(draft_hist=1), "draft_hist"),
-                    (dict(draft_model="medusa"), "draft_model"),
-                    (dict(draft_k=40, paged_backend="kernel"), "W·Hg")]:
+                    (dict(draft_model="medusa"), "draft_model")]:
         with pytest.raises(ValueError, match=msg):
             make(**kw)
+    for hd in (17, 264):                  # the limit that stays: D even, <= 256
+        cfg = dataclasses.replace(tcfg, head_dim=hd)
+        with pytest.raises(ValueError, match="head dim.*gather"):
+            make(cfg, draft_k=40, paged_backend="kernel")
