@@ -13,8 +13,12 @@ Phases:
     and K2 (the W-query speculative verify window; W·Hg 20, 68 and 80),
     each also bitwise equal across two calls and timed on the device
     through a CUDA graph, then both for grids of 2, 4 and 8 blocks per SM; K3 (the dequant-matmul of the native
-    integer-weight linears), K4 (decode attention over the contiguous
-    int8 cache) and K5 (per-tensor dynamic fake-quant, bit for bit);
+    integer-weight linears: decode's split-K kernel at M 1, 8 and 16 and
+    its edges, prefill at M 2048; two calls bitwise equal, the fused
+    requant bit for bit, device time from a CUDA graph with cold weights
+    beside torch.matmul's, then decode for grids of at most 2, 3 and 4
+    blocks per SM), K4 (decode attention over the contiguous int8 cache)
+    and K5 (per-tensor dynamic fake-quant, bit for bit);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
     off): the same requests through the continuous scheduler with the
     kernel and the gather backends give identical greedy tokens at kv16,
@@ -510,6 +514,14 @@ def cycle_time_ms(fn, operands, iters: int) -> float:
                         warmup=min(20, iters))
 
 
+def cycle_graph_ms(fn, operands, n: int = 20) -> float:
+    """Device time per call from a CUDA graph of at least ``n`` calls, each
+    reading the next of ``operands`` (copies from :func:`rotating`), so
+    every call finds its operand cold in L2 as the serving path does."""
+    it = itertools.cycle(operands)
+    return graph_ms(lambda: fn(next(it)), n=max(n, len(operands)))
+
+
 def qmatmul_bound(m, k, n, bits) -> dict:
     """Least time for one K3 call on an H100 SXM: the bytes it must move
     (packed weights, bf16 x, f32 out, f32 scales) over HBM bandwidth, and
@@ -523,32 +535,44 @@ def qmatmul_bound(m, k, n, bits) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
+GRANITE_LINEARS = ((2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048))
+
+
 def phase_qmatmul(seed: int) -> dict:
     """K3 against its plain version on the card: decode (M = 8) and prefill
     (M = 2048) at granite-3-2b's four linear shapes, int8 and packed int4,
-    bf16 x as the serving path gives it; the odd shapes of the reference's
-    kernel tests; one fused-requant case.
+    bf16 x as the serving path gives it; decode's edges (M 1 and 16, K 96,
+    K 8256, N 70 at W8 whose rows are not 16-byte aligned); the odd shapes
+    of the reference's kernel tests; the fused requant.
 
     Tolerance: both sides multiply the same bf16 operands, whose products
     are exact in f32, and differ only in the order of the f32 sums. Each
     side is within gamma_K·(|x|@|w|) of the exact sum (gamma_K ≈ K·2^-24),
     so |kernel − plain| <= 4·K·2^-24·(|x|@|w|) elementwise leaves a factor
-    2 for the tensor cores' accumulation. The fused requant is checked bit
-    for bit against the plain requant of the kernel's own accumulator (the
-    kernel's sum order is deterministic), and within one grid step of the
-    plain version's."""
+    2 for the tensor cores' accumulation. Two calls are bitwise equal. The
+    fused requant is checked bit for bit against the plain requant of the
+    kernel's own sums (the kernel's sum order is deterministic), and within
+    one grid step of the plain version's.
+
+    Times: "device" from CUDA events around a CUDA graph of at least 20
+    calls, each reading its own cold copy of the weights; "per call" from
+    events around eager calls (the host's issue rate through ctypes as much
+    as the kernel); torch.matmul on the bf16 weight image, the same two
+    ways."""
     from repro_torch.core.qtypes import QuantSpec
     from repro_torch.core.quantizers import quantize_native
     from repro_torch.kernels import qmatmul as QM
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     u = 2.0 ** -24
-    cases = [(m, k, n, bits) for m in (8, 2048)
-             for k, n in ((2048, 3072), (2048, 2048), (2048, 16384),
-                          (8192, 2048)) for bits in (8, 4)]
+    cases = [(m, k, n, bits) for m in (8, 2048) for k, n in GRANITE_LINEARS
+             for bits in (8, 4)]
+    cases += [(m, 2048, 3072, 8) for m in (1, 16)]
+    cases += [(8, k, 2048, bits) for k in (96, 8256) for bits in (8, 4)]
+    cases += [(8, 2048, 70, 8)]
     cases += [(m, k, n, bits) for m, k, n in ((5, 100, 70), (33, 96, 40))
               for bits in (8, 4)]
-    main = None
+    main, decode = None, []
     for m, k, n, bits in cases:
         w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
         spec = QuantSpec(bits=bits, per_channel=True, channel_axis=-1,
@@ -556,7 +580,9 @@ def phase_qmatmul(seed: int) -> dict:
         qt = quantize_native(w, spec)
         scale = qt.scale.reshape(-1).contiguous()
         x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        label = f"M={m} K={k} N={n} W{bits}"
         got = QM.qmatmul(x, qt.data, scale, bits=bits)
+        again = QM.qmatmul(x, qt.data, scale, bits=bits)
         torch.cuda.synchronize()
         want = QM.qmatmul_ref(x, qt.data, scale, bits)
         wb = QM.dequant_ref(qt.data, scale, bits).bfloat16().float()
@@ -564,48 +590,90 @@ def phase_qmatmul(seed: int) -> dict:
         diff = (got - want).abs()
         err = float(diff.max())
         worst = float((diff / tol.clamp_min(1e-30)).max())
-        if not bool((diff <= tol).all()):
+        same = torch.equal(got, again)
+        if not bool((diff <= tol).all()) or not same:
             raise AssertionError(f"K3 disagrees with its plain version at "
-                                 f"M={m} K={k} N={n} W{bits}: max err "
-                                 f"{err:.3e}, {worst:.2f}x the tolerance")
+                                 f"{label}: max err {err:.3e}, {worst:.2f}x "
+                                 f"the tolerance; two calls equal: {same}")
         big = m * k * n > 1e9
         ws = rotating(lambda: qt.data.clone(), qt.data.numel())
-        ms = cycle_time_ms(lambda wq: QM.qmatmul(x, wq, scale, bits=bits),
-                           ws, 50 if big else 200)
+        kern = lambda wq: QM.qmatmul(x, wq, scale, bits=bits)  # noqa: E731
+        ms = cycle_time_ms(kern, ws, 50 if big else 200)
+        dev = cycle_graph_ms(kern, ws)
         plain = cycle_time_ms(lambda wq: QM.qmatmul_ref(x, wq, scale, bits),
                               ws[:4], 10 if big else 50)
         del ws
         wl = rotating(lambda: wb.bfloat16(), wb.numel() * 2)
         lib = cycle_time_ms(lambda w16: torch.matmul(x, w16), wl,
                             50 if big else 200)
+        lib_dev = cycle_graph_ms(lambda w16: torch.matmul(x, w16), wl)
         del wl
         bd = qmatmul_bound(m, k, n, bits)
-        print(f"[K3] M={m} K={k} N={n} W{bits}: max_abs_err={err:.3e} "
-              f"({worst:.3f}x tol); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"torch.matmul bf16 {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-              f"({bd['bound_by']}); {bd['flops'] / ms / 1e9:.1f} TFLOP/s, "
-              f"{bd['bytes'] / ms / 1e6:.1f} GB/s")
+        cols, splits, per = QM.split_plan(m, k, n, bits)
+        plan = f"{-(-n // cols)} column tiles x {splits} splits of {per} rows"
+        print(f"[K3] {label}: max_abs_err={err:.3e} ({worst:.3f}x tol), two "
+              f"calls bitwise equal; {plan}; device {dev:.4f} ms, per call "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul bf16 device "
+              f"{lib_dev:.4f} / per call {lib:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+              f"{bd['flops'] / dev / 1e9:.1f} TFLOP/s, "
+              f"{bd['bytes'] / dev / 1e6:.1f} GB/s on the device")
+        row = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+               "plain_ms": plain, "library_ms": lib,
+               "library_device_ms": lib_dev, "splits": splits, **bd}
+        if m <= 16 and (k, n) in GRANITE_LINEARS:
+            decode.append((label, dev))
         if (m, k, n, bits) == (8, 2048, 16384, 8):
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "library_ms": lib, **bd}
-        if (m, k, n, bits) == (2048, 2048, 2048, 8):
+            main = row
+        if m <= 16 and bits == 8 or (m, k, n, bits) == (2048, 2048, 2048, 8):
             for ob, os_ in ((8, 0.25), (4, 0.5)):
                 fused = QM.qmatmul(x, qt.data, scale, bits=bits, out_bits=ob,
                                    out_scale=os_)
-                again = QM.requant_ref(got, os_, ob)
+                same = torch.equal(fused, QM.requant_ref(got, os_, ob))
                 plain_rq = QM.qmatmul_ref(x, qt.data, scale, bits,
                                           out_scale=os_, out_bits=ob)
-                same = torch.equal(fused, again)
                 step = float((fused - plain_rq).abs().max())
                 flips = float((fused != plain_rq).float().mean())
-                print(f"[K3] fused requant A{ob} s={os_}: equal to the plain "
-                      f"requant of the kernel's sums: {same}; vs plain "
-                      f"version max err {step:g} ({100 * flips:.4f}% of "
-                      f"elements one step apart)")
+                print(f"[K3] {label} fused requant A{ob} s={os_}: equal to "
+                      f"the plain requant of the kernel's sums: {same}; vs "
+                      f"plain version max err {step:g} ({100 * flips:.4f}% "
+                      f"of elements one step apart)")
                 if not same or step > os_:
                     raise AssertionError("K3's fused requant disagrees")
+    per_step = sum(dev for lab, dev in decode if lab.startswith("M=8 ")
+                   and lab.endswith("W8"))
+    print(f"[K3] decode step at M=8 W8: 40 layers x the four linears' device "
+          f"times = {40 * per_step:.3f} ms")
     QM.qmatmul.launches = 0               # comparison launches do not count
     return main
+
+
+def qmatmul_sweep(seed: int) -> None:
+    """K3's device time at the four decode linears (M = 8, W8 and W4,
+    weights cold) for grids of at most 2, 3 and 4 blocks per SM
+    (``BLOCKS_PER_SM``, the split planner's one tuning knob)."""
+    from repro_torch.kernels import qmatmul as QM
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    keep = QM.BLOCKS_PER_SM
+    for (k, n), bits in itertools.product(GRANITE_LINEARS, (8, 4)):
+        nb = k * n * bits // 8
+        ws = rotating(lambda: torch.randint(
+            -128, 128, (k, n * bits // 8), generator=gen, device="cuda",
+            dtype=torch.int8), nb)
+        scale = 0.001 + 0.01 * torch.rand(n, generator=gen, device="cuda")
+        x = torch.randn((8, k), generator=gen, device="cuda").bfloat16()
+        line = []
+        for per_sm in (2, 3, 4):
+            QM.BLOCKS_PER_SM = per_sm
+            cols, splits, per = QM.split_plan(8, k, n, bits)
+            dev = cycle_graph_ms(
+                lambda wq: QM.qmatmul(x, wq, scale, bits=bits), ws)
+            line.append(f"{per_sm}/SM: {-(-n // cols)}x{splits} {dev:.4f} ms "
+                        f"({nb / dev / 1e6:.0f} GB/s)")
+        QM.BLOCKS_PER_SM = keep
+        del ws
+        print(f"[sweep] K3 M=8 K={k} N={n} W{bits}: " + "; ".join(line))
+    QM.qmatmul.launches = 0
 
 
 def phase_aquant(seed: int) -> dict:
@@ -1443,7 +1511,7 @@ def _leaves(tree):
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One row of the kernel table: the main path's launch count and the
-    phase-2 row of the kernel at its main-path shape (K1/K2 also carry
+    phase-2 row of the kernel at its main-path shape (K1–K3 also carry
     their device time from a CUDA graph and their split count)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1451,9 +1519,11 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
              "max_abs_err": row["max_abs_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-    if "splits" in row:
-        entry.update(device_ms=row["device_ms"], splits=row["splits"],
+    if "device_ms" in row:
+        entry.update(device_ms=row["device_ms"],
                      library_device_ms=row["library_device_ms"])
+    if "splits" in row:
+        entry["splits"] = row["splits"]
     return entry
 
 
@@ -1486,6 +1556,7 @@ def main() -> None:
         rows["k2"] = phase_window_kernel(args.seed)
         split_sweep(args.seed)
         rows["k3"] = phase_qmatmul(args.seed)
+        qmatmul_sweep(args.seed)
         rows["k4"] = phase_qkv_attention(args.seed)
         rows["k5"] = phase_aquant(args.seed)
     if 3 in phases:

@@ -12,6 +12,17 @@ Layout: ``w_q`` int8 ``[K, N]`` for bits 5–8, or packed int4 ``[K, N/2]``
 for bits ≤ 4 (low nibble = even column); ``scale`` f32 ``[N]``; output f32
 ``[M, N]``. The kernel masks ragged M/K/N edges itself.
 
+Decode (M ≤ 16) is bound by the weight bytes. Its kernel splits K: the grid
+is column tiles (``split_plan``: 128 columns at int8, 256 at int4) times
+K-splits of whole 64-row steps, a few blocks per SM, and each block streams
+its int8/int4 rows through a 4-stage ``cp.async`` ring in shared memory and
+dequantizes them into registers for ``mma.sync``. With more than one split,
+each writes an f32 partial into scratch that this wrapper allocates, and a
+second launch adds the partials in split order (no atomics: two calls are
+bitwise equal) and applies the fused requant. Prefill (M > 16) keeps one
+block per 64 × 128 output tile with no pipelining; its ``wgmma`` redesign is
+the next step.
+
 The wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors — it never falls back from one to the other. The flattening,
 scalar-scale and gradient wrapper is :func:`repro_torch.kernels.ops.qmatmul`.
@@ -23,9 +34,38 @@ from typing import Optional
 import torch
 
 from repro_torch.core.qtypes import unpack_int4
-from repro_torch.kernels.build import check, lib
+from repro_torch.kernels.build import SM_COUNT, check, lib
 
-__all__ = ["qmatmul", "qmatmul_ref", "dequant_ref", "requant_ref"]
+__all__ = ["qmatmul", "qmatmul_ref", "dequant_ref", "requant_ref",
+           "split_plan", "DECODE_ROWS", "STEP_ROWS", "MAX_SPLIT_STEPS"]
+
+DECODE_ROWS = 16              # M at or below which the split-K kernel runs
+STEP_ROWS = 64                # K rows per ring stage of the split-K kernel
+MAX_SPLIT_STEPS = 16          # steps per split at most (x's slice in smem)
+PREFILL_COLS = 128            # columns per block of the prefill kernel
+BLOCKS_PER_SM = 3             # the split planner's grid: at most 3 per SM
+
+
+def split_plan(m: int, k: int, n: int, bits: int) -> tuple[int, int, int]:
+    """``(columns per block, splits, K rows per split)`` of one call.
+
+    Decode (``m <= DECODE_ROWS``): 128 columns per block at int8, 256 at
+    int4 (128 weight bytes per row either way), and as many K-splits as
+    bring the grid to at most ``BLOCKS_PER_SM · SM_COUNT`` blocks, but at
+    least ``ceil(steps / MAX_SPLIT_STEPS)`` and at most one per 64-row step.
+    Split ``s`` covers rows ``[s·per, min(k, (s + 1)·per))``: whole steps,
+    only the last ragged, none empty. Prefill is never split."""
+    if m > DECODE_ROWS:
+        return PREFILL_COLS, 1, k
+    cols = 256 if bits <= 4 else 128
+    steps = -(-k // STEP_ROWS)
+    if steps == 0:
+        return cols, 1, STEP_ROWS
+    tiles = max(1, -(-n // cols))
+    want = max(1, BLOCKS_PER_SM * SM_COUNT // tiles)
+    splits = min(steps, max(want, -(-steps // MAX_SPLIT_STEPS)))
+    per = -(-steps // splits)
+    return cols, -(-steps // per), per * STEP_ROWS
 
 
 def dequant_ref(w_q: torch.Tensor, scale, bits: int) -> torch.Tensor:
@@ -69,7 +109,8 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
             out_scale: Optional[float] = None) -> torch.Tensor:
     """``x[M, K] @ dequant(w_q, scale)[K, N]`` → ``[M, N]`` f32. CPU tensors
     take the plain version; CUDA tensors launch the kernel (counted in
-    ``qmatmul.launches``) or raise."""
+    ``qmatmul.launches``, once per call, also when a decode call launches
+    the merge as well) or raise."""
     if (out_bits is None) != (out_scale is None):
         raise ValueError("out_bits and out_scale go together")
     if x.device.type == "cpu":
@@ -88,6 +129,9 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
     check(w_q, "w_q", torch.int8, (k, w_q.shape[1]))
     check(scale, "scale", torch.float32, (n,))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    _, splits, per = split_plan(m, k, n, bits)
+    part = (torch.empty((splits, m, n), dtype=torch.float32,
+                        device=x.device) if splits > 1 and m * n else None)
     row_bytes = w_q.shape[1]
     vec_ok = int(w_q.data_ptr() % 16 == 0 and row_bytes % 16 == 0)
     requant = out_bits is not None
@@ -96,8 +140,10 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib("qmatmul").repro_qmatmul(
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
         int(x.dtype == torch.bfloat16), m, k, n, bits, int(requant), vec_ok,
-        float(out_scale) if requant else 1.0, qmin, qmax, stream)
+        splits, per, float(out_scale) if requant else 1.0, qmin, qmax,
+        stream)
     if err != 0:
         raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {err}")
     qmatmul.launches += 1

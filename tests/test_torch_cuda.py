@@ -2,7 +2,9 @@
 and K2 (paged attention: small tables, and long ones that the kernels cut
 into several splits, block sizes 24 and 128, windows of 68 and 80 query
 rows, two calls bitwise equal), K3 (dequant-matmul: within the summation-order
-bound 4·K·2^-24·(|x|@|w|), products of bf16 operands being exact in f32),
+bound 4·K·2^-24·(|x|@|w|), products of bf16 operands being exact in f32;
+the split-K decode path at M 1–16 with one and many splits, ragged and
+unaligned shapes, two calls bitwise equal),
 K4 (int8-KV decode attention on the contiguous cache) and K5 (per-tensor
 fake-quant: bit for bit).
 
@@ -281,6 +283,76 @@ def test_qmatmul_kernel_matches_plain(m, k, n, bits, xdtype):
     assert bool(((got - want).abs() <= tol).all())
     fused = QM.qmatmul(x, w_q, scale, bits=bits, out_bits=6, out_scale=0.5)
     assert torch.equal(fused, QM.requant_ref(got, 0.5, 6))
+
+
+def _qmatmul_case(m, k, n, bits, xdtype, seed, x_offset=0, w_offset=0):
+    """x and the weights on the card; ``x_offset`` / ``w_offset`` elements
+    shift each into a larger buffer, so its pointer is not 16-byte
+    aligned."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((m * k + x_offset,), generator=gen).to(xdtype).cuda()
+    x = x[x_offset:].view(m, k)
+    cols = n // 2 if bits <= 4 else n
+    lo = -128 if bits <= 4 else -127
+    w_q = torch.randint(lo, 128, (k * cols + w_offset,), generator=gen)
+    w_q = w_q.to(torch.int8).cuda()[w_offset:].view(k, cols)
+    scale = (0.001 + 0.01 * torch.rand((n,), generator=gen)).cuda()
+    return x, w_q, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bits,offsets", [
+    (1, 2048, 3072, 8, (0, 0)), (8, 2048, 3072, 8, (0, 0)),
+    (16, 2048, 3072, 4, (0, 0)), (17, 2048, 3072, 8, (0, 0)),
+    (8, 40, 256, 8, (0, 0)),            # K smaller than one 64-row step
+    (8, 64, 512, 4, (0, 0)),            # one split
+    (8, 8256, 2048, 8, (0, 0)),         # many splits, the last one step
+    (5, 1000, 384, 4, (0, 0)),          # K not a multiple of the split
+    (8, 640, 69, 8, (0, 0)),            # N odd at W8
+    (8, 2048, 70, 8, (0, 0)),           # rows not 16-byte aligned (W8)
+    (8, 2048, 40, 4, (0, 0)),           # rows not 16-byte aligned (W4)
+    (16, 1024, 256, 8, (1, 3)),         # x and w_q pointers unaligned
+    (8, 2048, 16384, 4, (0, 0)), (8, 8192, 2048, 4, (0, 0))])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_qmatmul_decode_split_kernel(m, k, n, bits, offsets, xdtype):
+    """The split-K decode path (and M 17, the first prefill M) within the
+    summation-order bound, two calls bitwise equal, one launch counted per
+    call, the fused requant equal to ``requant_ref`` of the kernel's own
+    sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, w_q, scale = _qmatmul_case(m, k, n, bits, xdtype, m + k + n + bits,
+                                  *offsets)
+    n0 = QM.qmatmul.launches
+    got = QM.qmatmul(x, w_q, scale, bits=bits)
+    again = QM.qmatmul(x, w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert QM.qmatmul.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = QM.qmatmul_ref(x, w_q, scale, bits)
+    wb = QM.dequant_ref(w_q, scale, bits).bfloat16().float()
+    tol = 4 * k * 2.0 ** -24 * (x.bfloat16().float().abs() @ wb.abs())
+    assert bool(((got - want).abs() <= tol).all())
+    for out_bits, out_scale in ((8, 0.25), (4, 0.5)):
+        fused = QM.qmatmul(x, w_q, scale, bits=bits, out_bits=out_bits,
+                           out_scale=out_scale)
+        assert torch.equal(fused, QM.requant_ref(got, out_scale, out_bits))
+
+
+@pytest.mark.cuda
+def test_qmatmul_decode_edges_m0_k0():
+    """M 0 gives an empty result; K 0 gives zeros (and requant of zeros)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    w = torch.zeros((0, 64), dtype=torch.int8, device="cuda")
+    s = torch.ones(64, device="cuda")
+    out = QM.qmatmul(torch.zeros((8, 0), device="cuda"), w, s, bits=8,
+                     out_bits=8, out_scale=0.25)
+    torch.cuda.synchronize()
+    assert out.shape == (8, 64) and not out.any()
+    w = torch.zeros((32, 64), dtype=torch.int8, device="cuda")
+    out = QM.qmatmul(torch.zeros((0, 32), device="cuda"), w, s, bits=8)
+    assert out.shape == (0, 64)
 
 
 @pytest.mark.cuda
