@@ -14,11 +14,16 @@ Phases:
     each also bitwise equal across two calls and timed on the device
     through a CUDA graph, then both for grids of 2, 4 and 8 blocks per SM; K3 (the dequant-matmul of the native
     integer-weight linears: decode's split-K kernel at M 1, 8 and 16 and
-    its edges, prefill at M 2048; two calls bitwise equal, the fused
-    requant bit for bit, device time from a CUDA graph with cold weights
-    beside torch.matmul's, then decode for grids of at most 2, 3 and 4
-    blocks per SM), K4 (decode attention over the contiguous int8 cache)
-    and K5 (per-tensor dynamic fake-quant, bit for bit);
+    its edges; prefill's wgmma kernel at M 17–4096, ragged K and N, beside
+    the mma.sync kernel it replaced on those shapes (step 0) and that still
+    takes f32 x and strides TMA cannot describe (N 70, N 3080); each line
+    names its route; two calls bitwise equal, the fused requant bit for
+    bit, device time from a CUDA graph with cold weights beside
+    torch.matmul's, K3's device time per decode step and per prefill wave,
+    then decode for grids of at most 2, 3 and 4 blocks per SM and prefill
+    with 128-row and 256-row tiles), K4 (decode attention over the
+    contiguous int8 cache) and K5 (per-tensor dynamic fake-quant, bit for
+    bit);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
     off): the same requests through the continuous scheduler with the
     kernel and the gather backends give identical greedy tokens at kv16,
@@ -540,92 +545,138 @@ GRANITE_LINEARS = ((2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048))
 
 def phase_qmatmul(seed: int) -> dict:
     """K3 against its plain version on the card: decode (M = 8) and prefill
-    (M = 2048) at granite-3-2b's four linear shapes, int8 and packed int4,
-    bf16 x as the serving path gives it; decode's edges (M 1 and 16, K 96,
-    K 8256, N 70 at W8 whose rows are not 16-byte aligned); the odd shapes
-    of the reference's kernel tests; the fused requant.
+    (M = 2048, and 4096 at W8) at granite-3-2b's four linear shapes, int8
+    and packed int4, bf16 x as the serving path gives it; decode's edges (M
+    1 and 16, K 96, K 8256, N 70 at W8 whose rows are not 16-byte aligned);
+    prefill's edges (M 17, 100 and 128; a ragged K 2056; ragged N 3104,
+    which the wgmma kernel masks, and 3080 and 70, whose rows TMA cannot
+    describe, so the mma.sync kernel takes them; an f32 x, which the
+    mma.sync kernel takes too); the odd shapes of the reference's kernel
+    tests; the fused requant. Each line names the route the call took.
 
     Tolerance: both sides multiply the same bf16 operands, whose products
     are exact in f32, and differ only in the order of the f32 sums. Each
     side is within gamma_K·(|x|@|w|) of the exact sum (gamma_K ≈ K·2^-24),
     so |kernel − plain| <= 4·K·2^-24·(|x|@|w|) elementwise leaves a factor
-    2 for the tensor cores' accumulation. Two calls are bitwise equal. The
-    fused requant is checked bit for bit against the plain requant of the
-    kernel's own sums (the kernel's sum order is deterministic), and within
-    one grid step of the plain version's.
+    2 for the tensor cores' accumulation; each line prints the worst
+    element's share of it. Two calls are bitwise equal. The fused requant
+    is checked bit for bit against the plain requant of the kernel's own
+    sums (the kernel's sum order is deterministic), and within one grid
+    step of the plain version's.
 
     Times: "device" from CUDA events around a CUDA graph of at least 20
     calls, each reading its own cold copy of the weights; "per call" from
     events around eager calls (the host's issue rate through ctypes as much
     as the kernel); torch.matmul on the bf16 weight image, the same two
-    ways."""
+    ways. Step 0: the mma.sync prefill kernel, given (by setting the
+    wrapper's rule aside) the bf16 granite cases the rule sends to wgmma,
+    timed on the device the same way."""
     from repro_torch.core.qtypes import QuantSpec
     from repro_torch.core.quantizers import quantize_native
     from repro_torch.kernels import qmatmul as QM
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     u = 2.0 ** -24
-    cases = [(m, k, n, bits) for m in (8, 2048) for k, n in GRANITE_LINEARS
-             for bits in (8, 4)]
-    cases += [(m, 2048, 3072, 8) for m in (1, 16)]
-    cases += [(8, k, 2048, bits) for k in (96, 8256) for bits in (8, 4)]
-    cases += [(8, 2048, 70, 8)]
-    cases += [(m, k, n, bits) for m, k, n in ((5, 100, 70), (33, 96, 40))
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(m, k, n, bits, bf16) for m in (8, 2048)
+             for k, n in GRANITE_LINEARS for bits in (8, 4)]
+    cases += [(4096, k, n, 8, bf16) for k, n in GRANITE_LINEARS]
+    cases += [(m, 2048, 3072, 8, bf16) for m in (1, 16, 17, 100, 128)]
+    cases += [(8, k, 2048, bits, bf16) for k in (96, 8256) for bits in (8, 4)]
+    cases += [(8, 2048, 70, 8, bf16), (2048, 2048, 70, 8, bf16)]
+    cases += [(2048, 2056, 3072, bits, bf16) for bits in (8, 4)]
+    cases += [(2048, 2048, n, bits, bf16) for n in (3104, 3080)
               for bits in (8, 4)]
-    main, decode = None, []
-    for m, k, n, bits in cases:
+    cases += [(2048, 2048, 3072, 8, f32)]
+    cases += [(m, k, n, bits, bf16) for m, k, n in ((5, 100, 70), (33, 96, 40))
+              for bits in (8, 4)]
+    fused_at = {(2048, 2048, 2048, 8), (4096, 2048, 2048, 8)}
+    main, main_prefill, decode, prefill = None, None, [], {}
+    for m, k, n, bits, xdtype in cases:
         w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
         spec = QuantSpec(bits=bits, per_channel=True, channel_axis=-1,
                          po2_scale=False)
         qt = quantize_native(w, spec)
         scale = qt.scale.reshape(-1).contiguous()
-        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
-        label = f"M={m} K={k} N={n} W{bits}"
+        x = torch.randn((m, k), generator=gen, device="cuda").to(xdtype)
+        label = f"M={m} K={k} N={n} W{bits}" + (" f32 x" if xdtype == f32
+                                                 else "")
         got = QM.qmatmul(x, qt.data, scale, bits=bits)
+        route = QM.qmatmul.last_route
+        if (m > 16 and (k, n) in GRANITE_LINEARS and xdtype == bf16
+                and route != "wgmma"):
+            raise AssertionError(f"K3 at the main path's {label} took "
+                                 f"{route}, not the wgmma kernel")
         again = QM.qmatmul(x, qt.data, scale, bits=bits)
         torch.cuda.synchronize()
         want = QM.qmatmul_ref(x, qt.data, scale, bits)
         wb = QM.dequant_ref(qt.data, scale, bits).bfloat16().float()
-        tol = 4 * k * u * (x.float().abs() @ wb.abs())
+        tol = 4 * k * u * (x.bfloat16().float().abs() @ wb.abs())
         diff = (got - want).abs()
         err = float(diff.max())
         worst = float((diff / tol.clamp_min(1e-30)).max())
         same = torch.equal(got, again)
         if not bool((diff <= tol).all()) or not same:
             raise AssertionError(f"K3 disagrees with its plain version at "
-                                 f"{label}: max err {err:.3e}, {worst:.2f}x "
-                                 f"the tolerance; two calls equal: {same}")
+                                 f"{label} ({route}): max err {err:.3e}, "
+                                 f"{worst:.2f}x the tolerance; two calls "
+                                 f"equal: {same}")
         big = m * k * n > 1e9
         ws = rotating(lambda: qt.data.clone(), qt.data.numel())
         kern = lambda wq: QM.qmatmul(x, wq, scale, bits=bits)  # noqa: E731
         ms = cycle_time_ms(kern, ws, 50 if big else 200)
         dev = cycle_graph_ms(kern, ws)
+        step0 = None
+        if route == "wgmma" and (k, n) in GRANITE_LINEARS and bits == 8:
+            rule = QM.route_of          # the mma.sync kernel takes any call
+            QM.route_of = lambda *a: "mma_sync"  # noqa: E731
+            step0 = cycle_graph_ms(kern, ws)
+            QM.route_of = rule
         plain = cycle_time_ms(lambda wq: QM.qmatmul_ref(x, wq, scale, bits),
                               ws[:4], 10 if big else 50)
         del ws
+        x16 = x.bfloat16()
         wl = rotating(lambda: wb.bfloat16(), wb.numel() * 2)
-        lib = cycle_time_ms(lambda w16: torch.matmul(x, w16), wl,
+        lib = cycle_time_ms(lambda w16: torch.matmul(x16, w16), wl,
                             50 if big else 200)
-        lib_dev = cycle_graph_ms(lambda w16: torch.matmul(x, w16), wl)
+        lib_dev = cycle_graph_ms(lambda w16: torch.matmul(x16, w16), wl)
         del wl
         bd = qmatmul_bound(m, k, n, bits)
-        cols, splits, per = QM.split_plan(m, k, n, bits)
-        plan = f"{-(-n // cols)} column tiles x {splits} splits of {per} rows"
-        print(f"[K3] {label}: max_abs_err={err:.3e} ({worst:.3f}x tol), two "
-              f"calls bitwise equal; {plan}; device {dev:.4f} ms, per call "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul bf16 device "
-              f"{lib_dev:.4f} / per call {lib:.4f} ms, bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+        if route == "splitk":
+            cols, splits, per = QM.split_plan(m, k, n, bits)
+            plan = (f"{-(-n // cols)} column tiles x {splits} splits of "
+                    f"{per} rows")
+        elif route == "wgmma":
+            rows, cols, splits = QM.prefill_rows(m), QM.WGMMA_COLS, 1
+            plan = (f"{-(-m // rows)} x {-(-n // cols)} tiles of {rows} x "
+                    f"{cols}")
+        else:
+            splits = 1
+            plan = f"{-(-m // 64)} x {-(-n // 128)} tiles of 64 x 128"
+        old = "" if step0 is None else (
+            f"; step 0 (mma.sync) device {step0:.4f} ms, "
+            f"{step0 / dev:.2f}x the new kernel")
+        print(f"[K3] {label}: route {route} ({plan}); max_abs_err={err:.3e} "
+              f"({worst:.3f}x tol), two calls bitwise equal; device "
+              f"{dev:.4f} ms, per call {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"torch.matmul bf16 device {lib_dev:.4f} / per call "
+              f"{lib:.4f} ms ({dev / lib_dev:.2f}x), bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+              f"{bd['bound_ms'] / dev:.3f} of it); "
               f"{bd['flops'] / dev / 1e9:.1f} TFLOP/s, "
-              f"{bd['bytes'] / dev / 1e6:.1f} GB/s on the device")
+              f"{bd['bytes'] / dev / 1e6:.1f} GB/s on the device{old}")
         row = {"max_abs_err": err, "ms": ms, "device_ms": dev,
                "plain_ms": plain, "library_ms": lib,
                "library_device_ms": lib_dev, "splits": splits, **bd}
         if m <= 16 and (k, n) in GRANITE_LINEARS:
             decode.append((label, dev))
+        if step0 is not None:
+            prefill[(m, k, n)] = (dev, step0, lib_dev)
         if (m, k, n, bits) == (8, 2048, 16384, 8):
             main = row
-        if m <= 16 and bits == 8 or (m, k, n, bits) == (2048, 2048, 2048, 8):
+        if (m, k, n, bits) == (2048, 2048, 16384, 8):
+            main_prefill = row
+        if m <= 16 and bits == 8 or (m, k, n, bits) in fused_at:
             for ob, os_ in ((8, 0.25), (4, 0.5)):
                 fused = QM.qmatmul(x, qt.data, scale, bits=bits, out_bits=ob,
                                    out_scale=os_)
@@ -634,16 +685,31 @@ def phase_qmatmul(seed: int) -> dict:
                                           out_scale=os_, out_bits=ob)
                 step = float((fused - plain_rq).abs().max())
                 flips = float((fused != plain_rq).float().mean())
-                print(f"[K3] {label} fused requant A{ob} s={os_}: equal to "
-                      f"the plain requant of the kernel's sums: {same}; vs "
-                      f"plain version max err {step:g} ({100 * flips:.4f}% "
-                      f"of elements one step apart)")
+                print(f"[K3] {label} fused requant A{ob} s={os_} "
+                      f"({QM.qmatmul.last_route}): equal to the plain "
+                      f"requant of the kernel's sums: {same}; vs plain "
+                      f"version max err {step:g} ({100 * flips:.4f}% of "
+                      f"elements one step apart)")
                 if not same or step > os_:
                     raise AssertionError("K3's fused requant disagrees")
     per_step = sum(dev for lab, dev in decode if lab.startswith("M=8 ")
                    and lab.endswith("W8"))
     print(f"[K3] decode step at M=8 W8: 40 layers x the four linears' device "
           f"times = {40 * per_step:.3f} ms")
+    for m in (2048, 4096):
+        wave = [40 * sum(prefill[(m, k, n)][i] for k, n in GRANITE_LINEARS)
+                for i in range(3)]
+        bound = 40 * sum(qmatmul_bound(m, k, n, 8)["bound_ms"]
+                         for k, n in GRANITE_LINEARS)
+        print(f"[K3] prefill wave at M={m} W8: 40 layers x the four linears' "
+              f"device times = {wave[0]:.3f} ms (step 0 mma.sync "
+              f"{wave[1]:.3f} ms, torch.matmul bf16 {wave[2]:.3f} ms, "
+              f"operations bound {bound:.3f} ms)")
+    main["prefill"] = {"shape": "M=2048 K=2048 N=16384 W8", "route": "wgmma",
+                       **{key: main_prefill[key] for key in (
+                           "max_abs_err", "ms", "device_ms", "plain_ms",
+                           "library_ms", "library_device_ms", "bound_ms",
+                           "bound_by")}}
     QM.qmatmul.launches = 0               # comparison launches do not count
     return main
 
@@ -673,6 +739,37 @@ def qmatmul_sweep(seed: int) -> None:
         QM.BLOCKS_PER_SM = keep
         del ws
         print(f"[sweep] K3 M=8 K={k} N={n} W{bits}: " + "; ".join(line))
+    QM.qmatmul.launches = 0
+
+
+def qmatmul_prefill_sweep(seed: int) -> None:
+    """K3's wgmma prefill at the four granite linears (M 2048 and 4096, W8,
+    weights cold) with 128-row and 256-row output tiles (``prefill_rows``,
+    the prefill rule's one knob), device time beside torch.matmul bf16."""
+    from repro_torch.kernels import qmatmul as QM
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    rule = QM.prefill_rows
+    for m, (k, n) in itertools.product((2048, 4096), GRANITE_LINEARS):
+        ws = rotating(lambda: torch.randint(
+            -127, 128, (k, n), generator=gen, device="cuda",
+            dtype=torch.int8), k * n)
+        scale = 0.001 + 0.01 * torch.rand(n, generator=gen, device="cuda")
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        line = []
+        for rows in (128, 256):
+            QM.prefill_rows = lambda _m, rows=rows: rows  # noqa: E731
+            dev = cycle_graph_ms(
+                lambda wq: QM.qmatmul(x, wq, scale, bits=8), ws)
+            line.append(f"{rows} x 128 tiles {dev:.4f} ms "
+                        f"({2 * m * k * n / dev / 1e9:.0f} TFLOP/s)")
+        QM.prefill_rows = rule
+        del ws
+        w16 = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+        wl = rotating(lambda: w16.clone(), k * n * 2)
+        lib = cycle_graph_ms(lambda w: torch.matmul(x, w), wl)
+        del wl
+        print(f"[sweep] K3 M={m} K={k} N={n} W8 (rule: {rule(m)} rows): "
+              + "; ".join(line) + f"; torch.matmul bf16 {lib:.4f} ms")
     QM.qmatmul.launches = 0
 
 
@@ -1524,6 +1621,8 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
                      library_device_ms=row["library_device_ms"])
     if "splits" in row:
         entry["splits"] = row["splits"]
+    if "prefill" in row:
+        entry["prefill"] = row["prefill"]
     return entry
 
 
@@ -1557,6 +1656,7 @@ def main() -> None:
         split_sweep(args.seed)
         rows["k3"] = phase_qmatmul(args.seed)
         qmatmul_sweep(args.seed)
+        qmatmul_prefill_sweep(args.seed)
         rows["k4"] = phase_qkv_attention(args.seed)
         rows["k5"] = phase_aquant(args.seed)
     if 3 in phases:

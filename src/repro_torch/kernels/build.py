@@ -40,7 +40,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _ARGTYPES = {
     "paged_attention": [_P] * 11 + [_I] * 15 + [_F, _P],
     "paged_attention_multi": [_P] * 11 + [_I] * 15 + [_F, _P],
-    "qmatmul": [_P] * 5 + [_I] * 9 + [_F] * 3 + [_P],
+    "qmatmul": [_P] * 5 + [_I] * 10 + [_F] * 3 + [_P],
     "aquant": [_P] * 3 + [_L] + [_I] * 4 + [_P],
     "qkv_attention": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _P],
 }

@@ -4,7 +4,9 @@ into several splits, block sizes 24 and 128, windows of 68 and 80 query
 rows, two calls bitwise equal), K3 (dequant-matmul: within the summation-order
 bound 4·K·2^-24·(|x|@|w|), products of bf16 operands being exact in f32;
 the split-K decode path at M 1–16 with one and many splits, ragged and
-unaligned shapes, two calls bitwise equal),
+unaligned shapes, two calls bitwise equal; the prefill paths, wgmma where
+TMA can describe the operands and mma.sync elsewhere, at M 17–2048 with
+ragged K and N),
 K4 (int8-KV decode attention on the contiguous cache) and K5 (per-tensor
 fake-quant: bit for bit).
 
@@ -337,6 +339,78 @@ def test_qmatmul_decode_split_kernel(m, k, n, bits, offsets, xdtype):
         fused = QM.qmatmul(x, w_q, scale, bits=bits, out_bits=out_bits,
                            out_scale=out_scale)
         assert torch.equal(fused, QM.requant_ref(got, out_scale, out_bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bits,offsets,route", [
+    (17, 2048, 3072, 8, (0, 0), "wgmma"),     # the first prefill M
+    (128, 2048, 3072, 4, (0, 0), "wgmma"),    # one row tile
+    (2048, 2048, 3072, 8, (0, 0), "wgmma"),   # 128-column tiles
+    (2048, 2048, 16384, 4, (0, 0), "wgmma"),  # 256-column tiles
+    (300, 8192, 2048, 8, (0, 0), "wgmma"),    # ragged M, 128 K steps
+    (100, 2056, 3072, 8, (0, 0), "wgmma"),    # ragged K: TMA's zero fill
+    (100, 2056, 3072, 4, (0, 0), "wgmma"),
+    (100, 2048, 3104, 8, (0, 0), "wgmma"),    # ragged N: masked store
+    (100, 2048, 3104, 4, (0, 0), "wgmma"),
+    (100, 2048, 3080, 8, (0, 0), "mma_sync"),  # rows not 16-byte multiples
+    (100, 2048, 70, 8, (0, 0), "mma_sync"),
+    (100, 1024, 256, 8, (1, 0), "mma_sync"),  # x base not 16-byte aligned
+    (100, 1024, 256, 4, (0, 3), "mma_sync")])  # w base not 16-byte aligned
+def test_qmatmul_prefill_kernel(m, k, n, bits, offsets, route):
+    """Prefill (bf16 x) on the route the rule gives: within the
+    summation-order bound, two calls bitwise equal, one launch counted per
+    call, the fused requant equal to ``requant_ref`` of the kernel's own
+    sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, w_q, scale = _qmatmul_case(m, k, n, bits, torch.bfloat16,
+                                  m + k + n + bits, *offsets)
+    n0 = QM.qmatmul.launches
+    got = QM.qmatmul(x, w_q, scale, bits=bits)
+    assert QM.qmatmul.last_route == route
+    again = QM.qmatmul(x, w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert QM.qmatmul.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = QM.qmatmul_ref(x, w_q, scale, bits)
+    wb = QM.dequant_ref(w_q, scale, bits).bfloat16().float()
+    tol = 4 * k * 2.0 ** -24 * (x.float().abs() @ wb.abs())
+    assert bool(((got - want).abs() <= tol).all())
+    for out_bits, out_scale in ((8, 0.25), (4, 0.5)):
+        fused = QM.qmatmul(x, w_q, scale, bits=bits, out_bits=out_bits,
+                           out_scale=out_scale)
+        assert QM.qmatmul.last_route == route
+        assert torch.equal(fused, QM.requant_ref(got, out_scale, out_bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmatmul_prefill_routes_agree(bits, monkeypatch):
+    """The mma.sync kernel, given operands the rule sends to wgmma, lies
+    within the same bound; an f32 x takes it by the rule; the entry point
+    refuses the wgmma kernel for operands TMA cannot describe."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, w_q, scale = _qmatmul_case(256, 2048, 3072, bits, torch.bfloat16, 7)
+    want = QM.qmatmul_ref(x, w_q, scale, bits)
+    wb = QM.dequant_ref(w_q, scale, bits).bfloat16().float()
+    tol = 4 * 2048 * 2.0 ** -24 * (x.float().abs() @ wb.abs())
+    got = QM.qmatmul(x, w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert QM.qmatmul.last_route == "wgmma"
+    assert bool(((got - want).abs() <= tol).all())
+    got = QM.qmatmul(x.float(), w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert QM.qmatmul.last_route == "mma_sync"
+    assert bool(((got - want).abs() <= tol).all())
+    monkeypatch.setattr(QM, "route_of", lambda *a: "mma_sync")
+    got = QM.qmatmul(x, w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert QM.qmatmul.last_route == "mma_sync"
+    assert bool(((got - want).abs() <= tol).all())
+    monkeypatch.setattr(QM, "route_of", lambda *a: "wgmma")
+    with pytest.raises(RuntimeError, match="wgmma"):
+        QM.qmatmul(x.float(), w_q, scale, bits=bits)
 
 
 @pytest.mark.cuda
