@@ -22,8 +22,14 @@ Phases:
     torch.matmul's, K3's device time per decode step and per prefill wave,
     then decode for grids of at most 2, 3 and 4 blocks per SM and prefill
     with 128-row and 256-row tiles), K4 (decode attention over the
-    contiguous int8 cache) and K5 (per-tensor dynamic fake-quant, bit for
-    bit);
+    contiguous int8 cache: the split-context kernel beside step 0, the
+    first port's one-block-per-group kernel, and SDPA on the
+    pre-dequantized cache, device times from CUDA graphs over cold cache
+    copies at phase 2's shape, the static serve's own lengths, S 4096 and
+    every length 1; ragged S, Hg 1 and 16, D 128 and 256 at f32 and bf16
+    q, a last split holding one column; two calls bitwise equal; then
+    grids of 2, 4 and 8 blocks per SM) and K5 (per-tensor dynamic
+    fake-quant, bit for bit);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
     off): the same requests through the continuous scheduler with the
     kernel and the gather backends give identical greedy tokens at kv16,
@@ -861,69 +867,263 @@ def qkv_bound(q, lengths, s) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def qkv_sdpa_ms(q, k, v, ks, vs, lengths) -> float:
-    """One ``scaled_dot_product_attention`` call on the cache dequantized
-    beforehand to q's type (not timed), with the ``col < len`` mask and
-    ``enable_gqa``."""
+def qkv_inputs(gen, row_len, *, b=8, hkv=8, hg=4, d=64, s=1024,
+               qdtype=torch.bfloat16) -> dict:
+    """One K4 call's operands as the static serve gives them: q ``[B, Hkv,
+    Hg, D]``, K and V as layer 1 of a two-layer stacked int8 cache ``[2, B,
+    S, Hkv, D]`` (a strided view, as ``KVCache`` holds a layer), per-(row,
+    head) scales, and ``lengths [B, Hkv]`` from the per-row ``row_len``."""
+    cache = [torch.randint(-127, 128, (2, b, s, hkv, d), generator=gen,
+                           device="cuda", dtype=torch.int16).to(torch.int8)
+             for _ in "kv"]
+    ks, vs = (0.005 + 0.02 * torch.rand((b, hkv), generator=gen,
+                                        device="cuda") for _ in "kv")
+    lengths = torch.as_tensor(row_len, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, hkv, hg, d), generator=gen, device="cuda").to(qdtype)
+    return {"q": q, "cache": cache, "k_scale": ks, "v_scale": vs,
+            "lengths": lengths[:, None].expand(b, hkv).contiguous()}
+
+
+def k4_args(x, cache=None):
+    k, v = (c[1] for c in (cache or x["cache"]))
+    return (x["q"], k, v, x["k_scale"], x["v_scale"], x["lengths"])
+
+
+class route_as:
+    """Within the block, every K4 call takes ``route`` (``None``: the
+    wrapper's own rule), by setting ``qkv_attention.route_of`` aside."""
+
+    def __init__(self, QK, route):
+        self.QK, self.route = QK, route
+
+    def __enter__(self):
+        self.rule = self.QK.route_of
+        if self.route is not None:
+            self.QK.route_of = lambda *a: self.route  # noqa: E731
+
+    def __exit__(self, *exc):
+        self.QK.route_of = self.rule
+
+
+def k4_device_ms(QK, x, copies, route=None) -> float:
+    """K4's device time per call: a CUDA graph of >= 20 calls, each on the
+    next cold copy of the stacked cache."""
+    with route_as(QK, route):
+        return cycle_graph_ms(lambda c: QK.qkv_attention(*k4_args(x, c)),
+                              copies)
+
+
+def k4_copies(x):
+    """Copies of the stacked cache that together exceed L2 by the bytes a
+    call reads, so each call of a cycle finds its K and V cold."""
+    b, hkv, _, d = x["q"].shape
+    s = x["cache"][0].shape[2]
+    n = x["lengths"].long().clamp(max=s)
+    touched = int(n.sum() + torch.where(n > 0, n, s).sum()) * d
+    return rotating(lambda: [c.clone() for c in x["cache"]], touched)
+
+
+def qkv_sdpa_times(x) -> dict:
+    """``scaled_dot_product_attention`` on the cache dequantized beforehand
+    to q's type (not timed) in ``[B, Hkv, S, D]``, with the ``col < len``
+    mask and ``enable_gqa``: device time from a CUDA graph over cold copies
+    (``None`` if capture is refused) and per-call time."""
     import torch.nn.functional as F
+    q = x["q"]
     b, hkv, hg, d = q.shape
+    k, v = (c[1] for c in x["cache"])
     s = k.shape[1]
-    kd = (k.float() * ks[:, None, :, None]).to(q.dtype).transpose(1, 2)
-    vd = (v.float() * vs[:, None, :, None]).to(q.dtype).transpose(1, 2)
-    kd, vd = kd.contiguous(), vd.contiguous()            # [B, Hkv, S, D]
+    kd = (k.float() * x["k_scale"][:, None, :, None]).to(q.dtype)
+    vd = (v.float() * x["v_scale"][:, None, :, None]).to(q.dtype)
+    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
     mask = (torch.arange(s, device=q.device)[None, :]
-            < lengths[:, :1].long())[:, None, None, :]
+            < x["lengths"][:, :1].long())[:, None, None, :]
     qq = q.reshape(b, hkv * hg, 1, d)
-    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qq, kd, vd, attn_mask=mask, enable_gqa=True))
+    copies = rotating(lambda: (kd.clone(), vd.clone()),
+                      2 * kd.numel() * kd.element_size())
+    fn = lambda c: F.scaled_dot_product_attention(  # noqa: E731
+        qq, c[0], c[1], attn_mask=mask, enable_gqa=True)
+    per_call = cycle_time_ms(fn, copies, 200)
+    try:
+        dev = cycle_graph_ms(fn, copies)
+    except RuntimeError as e:             # capture refused: report, go on
+        print(f"[lib] CUDA-graph capture failed ({str(e)[:80]}); device "
+              f"time not measured")
+        torch.cuda.synchronize()
+        dev = None
+    return {"library_ms": per_call, "library_device_ms": dev}
+
+
+def check_k4(QK, x, label, route=None) -> float:
+    """K4 against its plain version within 1e-5 (both sides sum the same
+    f32 products in different orders; outputs are O(0.1)), finite, and
+    bitwise equal across two calls. Returns the max abs error."""
+    with route_as(QK, route):
+        got = QK.qkv_attention(*k4_args(x))
+        again = QK.qkv_attention(*k4_args(x))
+    torch.cuda.synchronize()
+    want = QK.qkv_attention_cache_ref(*k4_args(x))
+    err = float((got - want).abs().max())
+    same = torch.equal(got, again)
+    q = x["q"]
+    s = x["cache"][0].shape[2]
+    splits, per = QK.split_plan(q.shape[0], q.shape[1], s)
+    print(f"[K4] {label}: route {route or QK.route_of(q.dtype, q.shape[-1])}"
+          f", {splits} splits x {per} tiles; max_abs_err={err:.3e} (tol "
+          f"1e-5), two calls bitwise equal: {same}")
+    if not err <= 1e-5 or not bool(torch.isfinite(got).all()) or not same:
+        raise AssertionError(f"K4 disagrees with its plain version at "
+                             f"{label}")
+    return err
+
+
+def serve_lengths(seed: int) -> list:
+    """Per-row K4 lengths ``min(pos + 1, slots)`` of the static serve's
+    decode steps (``--full --requests 12 --max-new 32``): prompts from
+    ``launch/serve.py::make_requests``, sorted into groups of 8 rows (pad
+    rows have prompt length 0), at each group's first and last decode step
+    (pos = prompt length and prompt length + 30). Returns ``(label,
+    lengths)`` pairs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    args = S.parse_args(["--full", "--requests", "12", "--max-new", "32",
+                         "--seed", str(seed)])
+    reqs = S.make_requests(get_config(args.arch), args)
+    plen = sorted(len(r.tokens) for r in reqs)
+    out = []
+    for gi in range(0, len(plen), 8):
+        grp = plen[gi:gi + 8] + [0] * (8 - len(plen[gi:gi + 8]))
+        for step, label in ((0, "first"), (args.max_new - 2, "last")):
+            out.append((f"group {gi // 8 + 1} {label} decode step",
+                        [min(p + step + 1, 1024) for p in grp]))
+    return out
 
 
 def phase_qkv_attention(seed: int) -> dict:
-    """K4 against its plain version at the serving shape: 8 rows × 8 KV
-    heads, Hg = 4, D = 64, S = 1024 int8 slots in the cache's own layout
-    (a layer of a stacked cache), per-row lengths 0, 1, 63, 64, 65 (a
-    64-column tile edge ± 1), 1024, 300 and 544, with bf16 and f32 q.
-    Tolerance 1e-5: both sides sum the same f32 products in different
-    orders (outputs are O(0.1))."""
+    """K4 against its plain version, timed on the device beside step 0 (the
+    first port's one-block-per-group kernel, the ``serial`` route) and SDPA
+    on the pre-dequantized cache, at 8 rows × 8 KV heads, Hg 4, D 64: S
+    1024 with per-row lengths 0, 1, 63, 64, 65 (a 64-column tile edge ±
+    1), 1024, 300 and 544 (bf16 q, on both q·K routes, and f32 q); the
+    static serve's own lengths at each group's first and last decode step;
+    S 4096 with one row at 4096; every length 1 (the fixed cost of a
+    call). Untimed: a ragged S 1000, Hg 1 and 16, D 128 and 256 at f32 and
+    bf16 q, a contiguous (not layer-view) cache, and a row whose last split
+    holds one valid column."""
     from repro_torch.kernels import qkv_attention as QK
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
-    b, hkv, hg, d, s = 8, 8, 4, 64, 1024
-    stack = [torch.randint(-127, 128, (2, b, s, hkv, d), generator=gen,
-                           device="cuda").to(torch.int8) for _ in "kv"]
-    k, v = stack[0][1], stack[1][1]                      # layer views
-    ks, vs = (0.005 + 0.02 * torch.rand((b, hkv), generator=gen,
-                                        device="cuda") for _ in "kv")
-    row_len = torch.tensor([0, 1, 63, 64, 65, s, 300, 544],
-                           dtype=torch.int32, device="cuda")
-    lengths = row_len[:, None].expand(b, hkv).contiguous()
-    main = None
-    for qdtype in (torch.bfloat16, torch.float32):
-        q = torch.randn((b, hkv, hg, d), generator=gen,
-                        device="cuda").to(qdtype)
-        got = QK.qkv_attention(q, k, v, ks, vs, lengths)
-        torch.cuda.synchronize()
-        want = QK.qkv_attention_cache_ref(q, k, v, ks, vs, lengths)
-        err = float((got - want).abs().max())
-        print(f"[K4] S={s} q {str(qdtype)[6:]}: max_abs_err={err:.3e} "
-              f"(tol 1e-5), lengths {row_len.tolist()}")
-        if not err <= 1e-5 or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"K4 disagrees with its plain version "
-                                 f"(q {qdtype})")
-        ms = cuda_time_ms(lambda: QK.qkv_attention(q, k, v, ks, vs, lengths))
+    main_len = [0, 1, 63, 64, 65, 1024, 300, 544]
+    cases = [("S=1024 q bf16", dict(row_len=main_len)),
+             ("S=1024 q float32", dict(row_len=main_len,
+                                        qdtype=torch.float32))]
+    cases += [(f"S=1024 serve {lab}", dict(row_len=n))
+              for lab, n in serve_lengths(seed)]
+    cases += [("S=4096 one row at 4096", dict(
+        row_len=[4096, 1, 63, 64, 65, 1024, 300, 544], s=4096)),
+              ("S=1024 every length 1", dict(row_len=[1] * 8))]
+    main, steps = None, {}
+    for label, kw in cases:
+        x = qkv_inputs(gen, **kw)
+        q = x["q"]
+        routes = [None, "serial"]
+        if q.dtype == torch.bfloat16 and label == "S=1024 q bf16":
+            routes.append("cuda_cores")        # q·K off the tensor cores
+        err = max(check_k4(QK, x, label, r) for r in routes)
+        copies = k4_copies(x)
+        dev = {r: k4_device_ms(QK, x, copies, r) for r in routes}
+        fn = lambda c: QK.qkv_attention(*k4_args(x, c))  # noqa: E731
+        ms = cycle_time_ms(fn, copies, 200)
+        del copies
         plain = cuda_time_ms(lambda: QK.qkv_attention_cache_ref(
-            q, k, v, ks, vs, lengths), iters=50)
-        lib = qkv_sdpa_ms(q, k, v, ks, vs, lengths)
-        bd = qkv_bound(q, lengths, s)
-        print(f"[K4] S={s} q {str(qdtype)[6:]}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, SDPA on the pre-dequantized cache "
-              f"({str(qdtype)[6:]}, dequant not timed) {lib:.4f} ms, bound "
+            *k4_args(x)), iters=20, warmup=2)
+        lib = qkv_sdpa_times(x)
+        bd = qkv_bound(q, x["lengths"], x["cache"][0].shape[2])
+        splits, per = QK.split_plan(q.shape[0], q.shape[1],
+                                    x["cache"][0].shape[2])
+        new, old = dev[None], dev["serial"]
+        sdpa = lib["library_device_ms"]
+        other = ("" if "cuda_cores" not in dev else
+                 f"; q.K on the CUDA cores {dev['cuda_cores']:.4f} ms")
+        print(f"[K4] {label}: {splits} splits x {per} tiles; device "
+              f"{new:.4f} ms (step 0 {old:.4f} ms, {old / new:.2f}x; SDPA "
+              f"on the pre-dequantized cache, dequant not timed, "
+              f"{_ms(sdpa)}"
+              + ("" if sdpa is None else f", {new / sdpa:.2f}x of it")
+              + f"){other}; per call {ms:.4f} ms (SDPA "
+              f"{lib['library_ms']:.4f}), plain {plain:.4f} ms; bound "
               f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {bd['bytes']} B, "
-              f"{bd['flops']} flop)")
-        if qdtype == torch.bfloat16:
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "library_ms": lib, **bd}
+              f"{bd['flops']} flop; {bd['bound_ms'] / new:.3f} of it); "
+              f"lengths {kw['row_len']}")
+        if "serve" in label:
+            steps[label] = (new, old)
+        if main is None:
+            main = {"max_abs_err": err, "plain_ms": plain, "ms": ms,
+                    "device_ms": new, "step0_device_ms": old,
+                    "splits": splits, **lib, **bd}
+    for label, (new, old) in steps.items():
+        print(f"[K4] {label}: 40 layers x device time = {40 * new:.4f} ms "
+              f"per decode step (step 0 {40 * old:.4f} ms)")
+    edges = [("S=1000 (ragged) q bf16", dict(
+        row_len=[1000, 999, 0, 1, 64, 936, 937, 500], s=1000)),
+             ("S=1000 (ragged) q float32", dict(
+                 row_len=[1000, 999, 0, 1, 64, 936, 937, 500], s=1000,
+                 qdtype=torch.float32))]
+    for hg in (1, 16):
+        edges += [(f"Hg={hg} q {str(dt)[6:]}", dict(
+            row_len=main_len, hg=hg, qdtype=dt))
+            for dt in (torch.bfloat16, torch.float32)]
+    for d in (128, 256):
+        edges += [(f"D={d} Hkv=2 q {str(dt)[6:]}", dict(
+            row_len=main_len, d=d, hkv=2, qdtype=dt))
+            for dt in (torch.bfloat16, torch.float32)]
+    # the last split of S 1024 (8 splits x 2 tiles) holds one valid column
+    edges += [("S=1024 last split holds one column", dict(
+        row_len=[897, 1, 1024, 0, 896, 128, 129, 2]))]
+    for label, kw in edges:
+        x = qkv_inputs(gen, **kw)
+        check_k4(QK, x, label)
+    x = qkv_inputs(gen, row_len=main_len)
+    x["cache"] = [torch.stack([c[1].contiguous()] * 2) for c in x["cache"]]
+    check_k4(QK, x, "S=1024 contiguous cache")
     QK.qkv_attention.launches = 0          # comparison launches do not count
     return main
+
+
+def qkv_sweep(seed: int) -> None:
+    """K4's device time for grids of about 2, 4 and 8 blocks per SM
+    (``BLOCKS_PER_SM``) at phase 2's shape, the serve's longest decode step
+    and S 4096, and at S 4096 for splits of at most 2, 4 and 8 tiles
+    (``MAX_SPLIT_TILES``): the split planner's two knobs."""
+    from repro_torch.kernels import qkv_attention as QK
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    keep = QK.BLOCKS_PER_SM
+    last = serve_lengths(seed)[-1]
+    for label, kw in (("S=1024", dict(row_len=[0, 1, 63, 64, 65, 1024, 300,
+                                                 544])),
+                      (f"S=1024 serve {last[0]}", dict(row_len=last[1])),
+                      ("S=4096 one row at 4096", dict(
+                          row_len=[4096, 1, 63, 64, 65, 1024, 300, 544],
+                          s=4096))):
+        x = qkv_inputs(gen, **kw)
+        copies = k4_copies(x)
+        line = []
+        for per_sm in (2, 4, 8):
+            QK.BLOCKS_PER_SM = per_sm
+            splits, per = QK.split_plan(8, 8, x["cache"][0].shape[2])
+            line.append(f"{per_sm}/SM: {splits}x{per} "
+                        f"{k4_device_ms(QK, x, copies):.4f} ms")
+        QK.BLOCKS_PER_SM = keep
+        if x["cache"][0].shape[2] == 4096:
+            cap = QK.MAX_SPLIT_TILES
+            for tiles in (2, 4, 8):
+                QK.MAX_SPLIT_TILES = tiles
+                splits, per = QK.split_plan(8, 8, 4096)
+                line.append(f"at most {tiles} tiles: {splits}x{per} "
+                            f"{k4_device_ms(QK, x, copies):.4f} ms")
+            QK.MAX_SPLIT_TILES = cap
+        del copies
+        print(f"[sweep] K4 {label}: " + "; ".join(line))
+    QK.qkv_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1608,8 +1808,9 @@ def _leaves(tree):
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One row of the kernel table: the main path's launch count and the
-    phase-2 row of the kernel at its main-path shape (K1–K3 also carry
-    their device time from a CUDA graph and their split count)."""
+    phase-2 row of the kernel at its main-path shape (K1–K4 also carry
+    their device time from a CUDA graph and their split count, K4 its step
+    0's device time)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -1621,6 +1822,8 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
                      library_device_ms=row["library_device_ms"])
     if "splits" in row:
         entry["splits"] = row["splits"]
+    if "step0_device_ms" in row:
+        entry["step0_device_ms"] = row["step0_device_ms"]
     if "prefill" in row:
         entry["prefill"] = row["prefill"]
     return entry
@@ -1658,6 +1861,7 @@ def main() -> None:
         qmatmul_sweep(args.seed)
         qmatmul_prefill_sweep(args.seed)
         rows["k4"] = phase_qkv_attention(args.seed)
+        qkv_sweep(args.seed)
         rows["k5"] = phase_aquant(args.seed)
     if 3 in phases:
         phase_parity(args.seed)

@@ -42,7 +42,7 @@ _ARGTYPES = {
     "paged_attention_multi": [_P] * 11 + [_I] * 15 + [_F, _P],
     "qmatmul": [_P] * 5 + [_I] * 10 + [_F] * 3 + [_P],
     "aquant": [_P] * 3 + [_L] + [_I] * 4 + [_P],
-    "qkv_attention": [_P] * 7 + [_I] * 6 + [_L] * 6 + [_F, _P],
+    "qkv_attention": [_P] * 9 + [_I] * 9 + [_L] * 6 + [_F, _P],
 }
 
 

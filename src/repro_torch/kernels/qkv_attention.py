@@ -23,6 +23,19 @@ Two layouts:
   f32. The kernel reads the cache through its strides: nothing transposes
   the cache per call.
 
+The kernel is split-context: each group's S columns are cut into 64-column
+tiles (:data:`TILE_COLS`) and the tiles into contiguous splits
+(:func:`split_plan`, from B, Hkv and S alone: the lengths stay on the
+device, so a call can be captured in a CUDA graph), one block per (group,
+split). A split at or past its group's length returns at once; the others
+stream their raw int8 K/V rows through a cp.async ring and write an f32
+``(m, l, acc)`` partial into scratch allocated here, which a second launch
+merges in split order (no atomics: two calls are bitwise equal). q·K runs
+on the bf16 tensor cores for bf16 q with D a multiple of 16, else on the
+f32 CUDA cores (:func:`route_of`). Each call counts one launch
+(``qkv_attention.launches``), though it makes two CUDA launches when it
+has more than one split.
+
 The wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors — it never falls back from one to the other.
 """
@@ -32,27 +45,59 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import build
+from repro_torch.kernels.build import SM_COUNT, build
 from repro_torch.kernels.build import check as _check
 
 __all__ = ["qkv_attention", "qkv_attention_ref", "qkv_attention_cache_ref",
-           "supports", "MAX_D", "MAX_HG"]
+           "supports", "split_plan", "route_of", "MAX_D", "MAX_HG",
+           "TILE_COLS", "MAX_SPLIT_TILES"]
 
 NEG_INF = -1e30
 MAX_D, MAX_HG = 256, 16
+TILE_COLS = 64                # cache columns per tile
+MAX_SPLIT_TILES = 2           # tiles a split walks: the ring's prologue
+                              # (3 stages) has all of them in flight
+BLOCKS_PER_SM = 4             # the split planner's grid: about 4 per SM
+# the C entry's route codes; "serial" is the first port's kernel (one
+# block per group), which no call takes unless ``route_of`` is set aside
+ROUTES = {"cuda_cores": 0, "tensor_cores": 1, "serial": 2}
 
 
 def supports(d: int, hg: int) -> Optional[str]:
     """Why K4 cannot take head dim ``d`` with ``hg`` query heads per KV
-    head (it loads four int8 values per thread and keeps one accumulator row
-    per query head), or ``None`` when it can. The wrapper calls it before
-    any build, and :class:`~repro_torch.serving.engine.AdaptiveServer` at
-    construction."""
+    head (it copies at least four int8 values at a time and keeps the
+    query rows of a group in one 16-row tile), or ``None`` when it can. The
+    wrapper calls it before any build, and
+    :class:`~repro_torch.serving.engine.AdaptiveServer` at construction."""
     if d % 4 or not 4 <= d <= MAX_D:
         return f"head dim D={d} must be a multiple of 4 and at most {MAX_D}"
     if not 1 <= hg <= MAX_HG:
         return f"Hg={hg} query heads per KV head must be 1..{MAX_HG}"
     return None
+
+
+def split_plan(b: int, hkv: int, s: int) -> tuple[int, int]:
+    """``(splits, tiles per split)`` for ``b·hkv`` groups of ``s`` cache
+    columns: enough splits for a grid of about ``BLOCKS_PER_SM·SM_COUNT``
+    blocks (one wave at 4 blocks per SM), at least ``ceil(n_tiles /
+    MAX_SPLIT_TILES)`` (a long row's tiles are walked in parallel) and at
+    most one per tile. Split ``i`` covers column tiles ``[i·per,
+    min(n_tiles, (i + 1)·per))``; no split is empty."""
+    n_tiles = -(-s // TILE_COLS)
+    if n_tiles == 0:
+        return 1, 1
+    want = -(-BLOCKS_PER_SM * SM_COUNT // max(1, b * hkv))
+    splits = min(n_tiles, max(want, -(-n_tiles // MAX_SPLIT_TILES)))
+    per = -(-n_tiles // splits)
+    return -(-n_tiles // per), per
+
+
+def route_of(q_dtype: torch.dtype, d: int) -> str:
+    """Where q·K runs: ``"tensor_cores"`` (mma.sync bf16, f32 sums) for
+    bf16 q with ``d`` a multiple of 16, else ``"cuda_cores"`` (f32)."""
+    if q_dtype == torch.bfloat16 and d % 16 == 0:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def qkv_attention_ref(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
@@ -117,7 +162,7 @@ def qkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(t.shape) != (b, s, hkv, d):
             raise ValueError(f"{name} must have shape {(b, s, hkv, d)}, "
                              f"got {tuple(t.shape)}")
-        # char4 loads: D contiguous and every row start 4-byte aligned
+        # cp.async of at least 4 bytes: D contiguous, rows 4-byte aligned
         if (t.stride(3) != 1 or t.data_ptr() % 4
                 or any(x % 4 for x in t.stride()[:3])):
             raise ValueError(f"{name} must have a contiguous D axis and "
@@ -125,14 +170,23 @@ def qkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(k_scale, "k_scale", torch.float32, (b, hkv))
     _check(v_scale, "v_scale", torch.float32, (b, hkv))
     _check(lengths, "lengths", torch.int32, (b, hkv))
+    splits, per = split_plan(b, hkv, s)
     out = torch.empty((b, hkv, hg, d), dtype=torch.float32, device=q.device)
+    part = ml = None
+    if splits > 1:
+        part = torch.empty((b * hkv * splits, hg, d), dtype=torch.float32,
+                           device=q.device)
+        ml = torch.empty((b * hkv * splits, hg, 2), dtype=torch.float32,
+                         device=q.device)
     lib = build()["qkv_attention"]["lib"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.repro_qkv_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, hkv, hg, d, s,
-        k.stride(0), k.stride(1), k.stride(2),
+        None if part is None else part.data_ptr(),
+        None if ml is None else ml.data_ptr(),
+        int(q.dtype == torch.bfloat16), ROUTES[route_of(q.dtype, d)], b, hkv,
+        hg, d, s, splits, per, k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), float(d ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"int8-KV decode-attention kernel launch failed: "

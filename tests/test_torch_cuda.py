@@ -478,3 +478,76 @@ def test_qkv_attention_kernel_matches_plain(s, qdtype, strided):
     mean_v = (v[0, :, 0].float() * vs[0, 0]).mean(dim=0)   # length 0
     torch.testing.assert_close(got[0, 0], mean_v.expand(hg, d), atol=1e-5,
                                rtol=0)
+
+
+def _qkv_case(b, s, hkv, hg, d, lens, qdtype, seed):
+    """q, a K/V layer view of a stacked int8 cache ``[2, B, S, Hkv, D]``,
+    scales and per-row lengths ``[B, Hkv]`` on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    k, v = (torch.randint(-127, 128, (2, b, s, hkv, d), generator=gen)
+            .to(torch.int8).cuda()[1] for _ in "kv")
+    ks, vs = ((0.005 + 0.02 * torch.rand((b, hkv), generator=gen)).cuda()
+              for _ in "kv")
+    q = torch.randn((b, hkv, hg, d), generator=gen).to(qdtype).cuda()
+    lengths = torch.tensor(lens, dtype=torch.int32)[:, None].expand(b, hkv)
+    return q, k, v, ks, vs, lengths.contiguous().cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hkv,hg,d,lens", [
+    (3, 1000, 2, 4, 64, [1000, 0, 937]),        # ragged S, 16 splits of 1
+    (2, 64, 2, 4, 64, [64, 0]),                 # one split
+    (8, 1024, 8, 4, 64, [0, 1, 63, 64, 65, 1024, 300, 544]),  # 8 x 2
+    (1, 4096, 1, 16, 128, [4096]),              # 64 splits, Hg 16
+    (2, 300, 3, 1, 256, [129, 300]),            # Hg 1, D 256
+    (2, 200, 2, 5, 36, [0, 77])])               # D % 16 != 0
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_qkv_attention_split_kernel(b, s, hkv, hg, d, lens, qdtype):
+    """The split-context K4 against its plain version within 1e-5, two
+    calls bitwise equal, one counted launch per call; bf16 q also on the
+    CUDA-core q·K route where the rule sends it to the tensor cores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x = _qkv_case(b, s, hkv, hg, d, lens, qdtype, s + d)
+    want = QK.qkv_attention_cache_ref(*x)
+    routes = [QK.route_of(qdtype, d)]
+    if routes[0] == "tensor_cores":
+        routes.append("cuda_cores")
+    rule = QK.route_of
+    try:
+        for route in routes:
+            QK.route_of = lambda *a, route=route: route  # noqa: E731
+            n0 = QK.qkv_attention.launches
+            got = QK.qkv_attention(*x)
+            again = QK.qkv_attention(*x)
+            torch.cuda.synchronize()
+            assert QK.qkv_attention.launches == n0 + 2
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+            assert torch.equal(got, again), route
+    finally:
+        QK.route_of = rule
+
+
+@pytest.mark.cuda
+def test_qkv_attention_kernel_in_a_cuda_graph():
+    """A K4 call (two launches: splits and merge) captured in a CUDA graph
+    replays to the eager call's output, after the lengths change on the
+    device: the wrapper never reads them on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    q, k, v, ks, vs, lengths = _qkv_case(
+        4, 1024, 2, 4, 64, [1, 700, 0, 1024], torch.bfloat16, 5)
+    QK.qkv_attention(q, k, v, ks, vs, lengths)       # build and warm up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = QK.qkv_attention(q, k, v, ks, vs, lengths)
+    lengths.copy_(torch.tensor([[900, 900], [2, 2], [65, 65], [0, 0]],
+                               dtype=torch.int32, device="cuda"))
+    g.replay()
+    torch.cuda.synchronize()
+    want = QK.qkv_attention(q, k, v, ks, vs, lengths)
+    assert torch.equal(out, want)
+    torch.testing.assert_close(
+        out, QK.qkv_attention_cache_ref(q, k, v, ks, vs, lengths),
+        atol=1e-5, rtol=0)

@@ -3,7 +3,8 @@ and staggered requests (smoke granite-3-2b, paged pool, no prefix cache):
 per-request tokens and profile traces, billing events and admission order
 all equal; the allocator drains to zero live blocks; the energy ledger
 matches to the joule. Both of the port's backends run (the kernel backend
-takes its plain version on the CPU).
+takes its plain version on the CPU). An f32 cache (kv32, gather backend
+only) on the paged pool gives the reference's tokens too.
 """
 import jax
 import numpy as np
@@ -97,6 +98,26 @@ def test_scheduler_matches_reference(parts, case, kv_bits, managed):
         assert sched.peak_used_blocks == jsched.peak_used_blocks
         if managed:
             assert tm.spent_j == jm.spent_j
+
+
+def test_kv32_paged_pool_matches_reference(parts):
+    cfg, tcfg, jp, tp, jeng, teng, stats = parts
+    reqs = _requests("refill")
+    scfg = dict(slots=64, max_batch=4, kv_bits=32, block_size=8)
+    jsched = JScheduler(JServer(cfg, jp, jeng, JConfig(prefix_cache=False,
+                                                       **scfg)), quantum=4)
+    sched = ContinuousScheduler(AdaptiveServer(tcfg, tp, teng, ServingConfig(
+        paged_backend="gather", **scfg), device="cpu"), quantum=4)
+    assert sched.paged
+    for t, m, crit in reqs:
+        jsched.submit(JRequest(tokens=t, max_new=m, accuracy_critical=crit))
+        sched.submit(Request(tokens=t, max_new=m, accuracy_critical=crit))
+    want, got = jsched.run(), sched.run()
+    for g, w in zip(got, want):
+        assert g["tokens"] == w["tokens"]
+        assert g["status"].value == w["status"].value == "completed"
+    assert sched.admission_log == jsched.admission_log
+    assert sched.allocator.used_blocks == 0
 
 
 def test_poll_completed_and_backpressure(parts):

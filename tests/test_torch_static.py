@@ -10,6 +10,11 @@ package, on the same weights (smoke granite-3-2b, f32):
 * ``ContinuousScheduler`` on the contiguous pool (``paged_kv=False``) at
   kv16/kv8: tokens, traces, billing events, admission order and the ledger
   equal the JAX scheduler's with ``paged_kv=False``;
+* the ring wrap off the paged pool (``prompt + max_new > slots``, slots
+  32): static ``serve`` and the contiguous pool at kv16/kv8/kv4 on the
+  gather backend, and at kv8 on the kernel backend (K4's plain version
+  here), give the reference's tokens; kv32 (f32 cache, gather backend) on
+  static ``serve`` and the contiguous pool does too;
 * the launcher: without ``--continuous`` it serves through
   ``AdaptiveServer.serve`` and builds no scheduler; ``--speculate`` needs
   ``--continuous``.
@@ -76,7 +81,8 @@ def _servers(parts, kv_bits, managed, backend, **kw):
     executables compile once; the manager, host state only, is swapped in)
     and a fresh port server, each with a fresh manager when ``managed``."""
     cfg, tcfg, jp, tp, jeng, teng, stats, _ = parts
-    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, **kw)
+    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits)
+    scfg.update(kw)
     key = tuple(sorted(scfg.items()))
     if key not in _JSERVERS:
         _JSERVERS[key] = JServer(cfg, jp, jeng,
@@ -190,6 +196,54 @@ def test_contiguous_pool_matches_reference(parts, kv_bits, managed):
         assert st == {"paged": False, "kv_bytes": st["kv_bytes"]}
         if managed:
             assert tm.spent_j == jm.spent_j
+
+
+# (prompt length, max_new) with prompt + max_new > 32 slots in three rows:
+# the contiguous ring wraps onto the row's first slots
+WRAP = [(30, 12), (12, 25), (26, 9), (5, 4)]
+
+
+def _serve_both(parts, kv_bits, backend, path, reqs, **kw):
+    """The reference's and the port's tokens for ``reqs`` on ``path``:
+    static ``serve``, or the scheduler on the contiguous pool."""
+    js, ts, _, _ = _servers(parts, kv_bits, False, backend,
+                            paged_kv=path == "static", **kw)
+    if path == "static":
+        want = js.serve([JRequest(tokens=t, max_new=m) for t, m in reqs])
+        got = ts.serve([Request(tokens=t, max_new=m) for t, m in reqs])
+        return want, got
+    jsched, sched = JScheduler(js, quantum=4), ContinuousScheduler(ts,
+                                                                   quantum=4)
+    assert not sched.paged
+    for t, m in reqs:
+        jsched.submit(JRequest(tokens=t, max_new=m))
+        sched.submit(Request(tokens=t, max_new=m))
+    want, got = jsched.run(), sched.run()
+    assert sched.admission_log == jsched.admission_log
+    return want, got
+
+
+@pytest.mark.parametrize("path", ["static", "contiguous"])
+@pytest.mark.parametrize("kv_bits,backend", [
+    (16, "gather"), (8, "gather"), (8, "kernel"), (4, "gather")])
+def test_ring_wrap_off_the_paged_pool_matches_reference(parts, kv_bits,
+                                                        backend, path):
+    rng = np.random.default_rng(47 + kv_bits)
+    reqs = [(rng.integers(0, 512, n).astype(np.int32), m) for n, m in WRAP]
+    want, got = _serve_both(parts, kv_bits, backend, path, reqs, slots=32)
+    for g, w, (n, m) in zip(got, want, WRAP):
+        assert g["tokens"] == w["tokens"], (backend, n, m)
+        assert len(g["tokens"]) == m
+
+
+@pytest.mark.parametrize("path", ["static", "contiguous"])
+def test_kv32_matches_reference(parts, path):
+    """An f32 cache (gather backend, the only one that takes it)."""
+    reqs = [(t, m) for t, m, _ in parts[-1]]
+    want, got = _serve_both(parts, 32, "gather", path, reqs)
+    for g, w, (_, m) in zip(got, want, reqs):
+        assert g["tokens"] == w["tokens"]
+        assert len(g["tokens"]) == m
 
 
 def test_contiguous_pool_rejects_speculation(parts):
