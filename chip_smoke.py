@@ -12,7 +12,9 @@ Phases:
     n_lblk up to 256, a row whose keys lie in the last split, window 5)
     and K2 (the W-query speculative verify window; W·Hg 20, 68 and 80),
     each also bitwise equal across two calls and timed on the device
-    through a CUDA graph, then both for grids of 2, 4 and 8 blocks per SM; K3 (the dequant-matmul of the native
+    through a CUDA graph, both also on a shared table (8 rows mapping the
+    same 24 prefix blocks; bitwise equal to distinct tables, timed beside
+    them), then both for grids of 2, 4 and 8 blocks per SM; K3 (the dequant-matmul of the native
     integer-weight linears: decode's split-K kernel at M 1, 8 and 16 and
     its edges; prefill's wgmma kernel at M 17–4096, ragged K and N, beside
     the mma.sync kernel it replaced on those shapes (step 0) and that still
@@ -29,15 +31,19 @@ Phases:
     every length 1; ragged S, Hg 1 and 16, D 128 and 256 at f32 and bf16
     q, a last split holding one column; two calls bitwise equal; then
     grids of 2, 4 and 8 blocks per SM) and K5 (per-tensor dynamic
-    fake-quant, bit for bit);
+    fake-quant, bit for bit, device time from a CUDA graph);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
     off): the same requests through the continuous scheduler with the
     kernel and the gather backends give identical greedy tokens at kv16,
     kv8 and kv4, and the speculative scheduler gives those same tokens
     with either backend at kv16 and kv8; static ``serve`` at kv8 gives the
     same tokens through K4 as through the reference's einsum (a flip only
-    at a top-2 logit margin under 1e-3); then the native path in bf16 at
-    W8 and W4: prefill logits on the card (K3, K5) against the CPU's;
+    at a top-2 logit margin under 1e-3); a shared-system-prompt workload
+    with the prefix cache gives the tokens of the run without it (both
+    backends at kv16/kv8/kv4; ``prefill_chunk=32`` at kv16/kv8;
+    speculation at kv16), with the registry hits the host computes; then
+    the native path in bf16 at W8 and W4: prefill logits on the card (K3,
+    K5) against the CPU's;
  4. serve: the launcher's path on granite-3-2b's full 40-layer config in
     bf16 — 12 requests, 32 new tokens each — counting kernel launches
     (and K5's, which builds the weight images); then 4 requests × 16
@@ -56,7 +62,14 @@ Phases:
     requests through the launcher's static path (no ``--continuous``,
     ``--kv-bits 8``) and its contiguous pool (``--continuous --no-paged-kv
     --kv-bits 8``), counting K4 launches per layer per decode step, with
-    K1 and the kv8 einsum never.
+    K1 and the kv8 einsum never;
+ 8. shared prefixes and chunked prefill through the launcher's
+    ``--continuous`` path on the full config in bf16: 12 requests on one
+    384-token system prompt at kv16 and kv8, with and without
+    ``--no-prefix-cache`` (registry hits, prefill tokens, peak blocks,
+    tok/s; K1 launches = 40 × decode steps, no gather; the shared blocks'
+    bytes unchanged), then phase 4's requests with ``--prefill-chunk
+    128``.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -422,6 +435,103 @@ def phase_window_kernel(seed: int) -> dict:
                    f"n_lblk=256 kv{bits}, window 5")
     PA.paged_attention_multi.launches = 0  # comparison launches do not count
     return main
+
+
+def shared_inputs(gen, *, bits, w=None, B=8, Hkv=8, Hg=4, D=64, bs=16,
+                  n_lblk=64, n_shared=24, dev="cuda"):
+    """K1's (``w`` None) or K2's inputs on a table whose rows all map their
+    first ``n_shared`` logical blocks to the same physical blocks (a shared
+    system prompt, every slot valid), then a private tail up to a ragged
+    position, with stale token indices past it and both unmapped
+    sentinels after it."""
+    nw = 1 if w is None else w
+    cap = n_lblk * bs
+    n_blocks = n_shared + B * (n_lblk - n_shared)
+    perm = torch.randperm(n_blocks, generator=gen, device=dev).tolist()
+    pos = torch.randint(n_shared * bs, cap - nw, (B,), generator=gen,
+                        device=dev)
+    pos_h = pos.tolist()
+    bt = torch.full((B, n_lblk), n_blocks, dtype=torch.int32)
+    tidx = torch.full((n_blocks, bs), -1, dtype=torch.int32)
+    shared = [perm.pop() for _ in range(n_shared)]
+    for lb, phys in enumerate(shared):
+        tidx[phys] = (lb * bs + torch.arange(bs)).int()
+    for b in range(B):
+        bt[b, :n_shared] = torch.tensor(shared, dtype=torch.int32)
+        need = min(n_lblk, (pos_h[b] + nw - 1) // bs + 1)
+        for lb in range(n_shared, n_lblk):
+            if lb < need:
+                phys = perm.pop()
+                bt[b, lb] = phys
+                t = lb * bs + torch.arange(bs)
+                tidx[phys] = torch.where(t <= pos_h[b] + nw + 2, t, -1).int()
+            else:
+                bt[b, lb] = -1 if lb % 2 else n_blocks + lb
+    x = paged_inputs(gen, bits=bits, w=w, B=B, Hkv=Hkv, Hg=Hg, D=D, bs=bs,
+                     n_lblk=n_lblk, dev=dev)
+    shape = (n_blocks,) + tuple(x["k_pool"].shape[1:])
+    x["k_pool"] = x["k_pool"].reshape(-1)[:int(np.prod(shape))].reshape(shape)
+    x["v_pool"] = x["v_pool"].reshape(-1)[:int(np.prod(shape))].reshape(shape)
+    return dict(x, token_idx=tidx.to(dev), block_table=bt.to(dev),
+                pos=pos.int())
+
+
+def unshare(x, n_shared):
+    """The same attention with every row holding its own copy of the
+    shared blocks' bytes at new physical ids (no two rows map a block);
+    unmapped entries stay unmapped in the larger pool."""
+    bt, tidx = x["block_table"].clone(), x["token_idx"]
+    n_blocks = tidx.shape[0]
+    B = bt.shape[0]
+    shared = bt[0, :n_shared].long()
+    grow = B * n_shared
+    bt = torch.where(bt >= n_blocks, bt + grow, bt)
+    bt[:, :n_shared] = (n_blocks + torch.arange(
+        grow, device=bt.device).reshape(B, n_shared)).int()
+
+    def cat(pool):
+        return torch.cat([pool, pool[shared].repeat(B, *([1] * (pool.dim()
+                                                               - 1)))])
+
+    return dict(x, k_pool=cat(x["k_pool"]), v_pool=cat(x["v_pool"]),
+                token_idx=cat(tidx), block_table=bt)
+
+
+def phase_shared_tables(seed: int) -> None:
+    """K1 and K2 (W 5) on tables whose 8 rows all map their first 24
+    logical blocks to the same 24 physical blocks (a 384-token system
+    prompt at bs 16) with private tails, at kv16 and kv8: against the plain
+    version (ATOL), two calls bitwise equal, and bitwise equal to the same
+    attention on distinct tables (each row its own copy of the prefix);
+    device times of both in the same call, for information."""
+    from repro_torch.kernels import paged_attention as PA
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    for name, fn, ref, w in (("K1", PA.paged_attention,
+                              PA.paged_attention_ref, None),
+                             ("K2", PA.paged_attention_multi,
+                              PA.paged_attention_multi_ref, 5)):
+        for bits in (16, 8):
+            x = shared_inputs(gen, bits=bits, w=w)
+            xd = unshare(x, 24)
+            kw = dict(bits=bits, window=0)
+            got = fn(**x, **kw)
+            again = fn(**x, **kw)
+            dist = fn(**xd, **kw)
+            torch.cuda.synchronize()
+            err = float((got - ref(**x, **kw)).abs().max())
+            same, same_d = torch.equal(got, again), torch.equal(got, dist)
+            dev_s = graph_ms(lambda: fn(**x, **kw))
+            dev_d = graph_ms(lambda: fn(**xd, **kw))
+            bound = (paged_bound if w is None else window_bound)(x, bits)
+            print(f"[{name}] shared table (8 rows x 24 shared blocks, bs 16, "
+                  f"n_lblk 64{'' if w is None else ', W 5'}) kv{bits}: "
+                  f"max_abs_err={err:.3e} (tol {ATOL:g}), two calls bitwise "
+                  f"equal: {same}, equal to distinct tables: {same_d}; "
+                  f"device {dev_s:.4f} ms shared, {dev_d:.4f} ms distinct; "
+                  f"bound {bound['bound_ms']:.4f} ms (each row's keys)")
+            if not err <= ATOL or not same or not same_d:
+                raise AssertionError(f"{name} on a shared table kv{bits}")
+    PA.paged_attention.launches = PA.paged_attention_multi.launches = 0
 
 
 def split_sweep(seed: int) -> None:
@@ -824,19 +934,23 @@ def phase_aquant(seed: int) -> dict:
         if timed:
             nbytes = 2 * x.numel() * x.element_size()
             bound = nbytes / H100_BYTES_PER_S * 1e3
+            floor = 1.5 * bound         # x read twice: the amax comes first
             ms = cuda_time_ms(lambda: AQ.aquant(x, bits, po2), iters=50,
                               warmup=5)
+            dev = graph_ms(lambda: AQ.aquant(x, bits, po2))
             plain = cuda_time_ms(lambda: AQ.aquant_ref(x, bits, po2),
                                  iters=10, warmup=2)
             print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal; "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                  f"{bound:.4f} ms (bytes: {nbytes} B), "
-                  f"{nbytes / ms / 1e6:.1f} GB/s; no single PyTorch call "
+                  f"device {dev:.4f} ms, per call {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {bound:.4f} ms (bytes: {nbytes} B"
+                  f", x read once), read-twice floor {floor:.4f} ms, "
+                  f"{nbytes / dev / 1e6:.1f} GB/s; no single PyTorch call "
                   f"computes it")
             if label.startswith("2048x49155") and bits == 8 and po2:
-                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "library_ms": None, "bound_ms": bound,
-                        "bound_by": "bytes"}
+                main = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+                        "plain_ms": plain, "library_ms": None,
+                        "library_device_ms": None, "bound_ms": bound,
+                        "bound_by": "bytes", "floor_ms": floor}
         else:
             print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal")
     AQ.aquant.launches = 0                # comparison launches do not count
@@ -1208,6 +1322,103 @@ def phase_parity(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_prefix_parity(seed: int) -> None:
+    """Shared prefixes and chunked prefill at full width (granite-3-2b
+    widths, 4 layers, f32, TF32 off): 8 requests on one 64-token system
+    prompt with unique tails of 5–60 tokens, served with the prefix cache
+    on, give the tokens of the run without it on the kernel and the gather
+    backends at kv16, kv8 and kv4, with the registry hits the host
+    computes (every request after the first); chunked runs
+    (``prefill_chunk=32``) at kv16 and kv8, and speculation over the
+    copy-on-write rows at kv16, give those tokens too. A token may flip
+    only at a top-2 logit margin under 1e-3 (``first_divergence``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    engine = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+    rng = np.random.default_rng(seed + 3)
+    system = rng.integers(0, cfg.vocab, 64).astype(np.int32)
+    shape = [(5, 8), (17, 10), (33, 6), (60, 12), (9, 7), (48, 9), (12, 11),
+             (26, 8)]
+    reqs = [Request(tokens=np.concatenate(
+        [system, rng.integers(0, cfg.vocab, n).astype(np.int32)]),
+        max_new=m) for n, m in shape]
+
+    def run(bits, backend, **kw):
+        srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+            slots=256, kv_bits=bits, max_batch=4, block_size=16,
+            paged_backend=backend, **kw), device="cuda")
+        PA.paged_attention.launches = PA.paged_attention_multi.launches = 0
+        A.paged_view.calls = 0
+        sched = ContinuousScheduler(srv, quantum=4)
+        for r in reqs:
+            sched.submit(r)
+        toks = [r["tokens"] for r in sched.run()]
+        used = (PA.paged_attention.launches + PA.paged_attention_multi.launches
+                if backend == "kernel" else A.paged_view.calls)
+        if used == 0:
+            raise AssertionError(f"{backend} backend never ran")
+        if sched.allocator.used_blocks:
+            raise AssertionError("live blocks left after the drain")
+        return toks, sched
+
+    def same(label, got, want, bits):
+        ok = got == want
+        print(f"[parity] full width x4 layers, f32, kv{bits}: {label} vs no "
+              f"prefix cache: tokens identical: {ok} "
+              f"({sum(map(len, got))} tokens)")
+        if not ok:
+            margin = first_divergence(cfg, params, engine, reqs, got, want,
+                                      bits)
+            if not margin < 1e-3:
+                raise AssertionError(f"kv{bits} {label}: tokens diverge at "
+                                     f"a top-2 margin of {margin:.3e}")
+
+    with use_compute_dtype(torch.float32):
+        for bits in (16, 8, 4):
+            base, _ = run(bits, "kernel", prefix_cache=False)
+            for backend in ("kernel", "gather"):
+                toks, sched = run(bits, backend)
+                hits = sched.registry.hits
+                print(f"[parity] kv{bits} {backend}: registry hits {hits} "
+                      f"(host: {len(reqs) - 1}), misses "
+                      f"{sched.registry.misses}, prefill tokens "
+                      f"{sched.prefill_tokens} of "
+                      f"{sum(len(r.tokens) for r in reqs)}")
+                if hits != len(reqs) - 1:
+                    raise AssertionError(f"kv{bits} {backend}: {hits} hits")
+                same(f"prefix cache ({backend})", toks, base, bits)
+                if bits == 4:
+                    continue
+                toks, sched = run(bits, backend, prefill_chunk=32)
+                if sched.chunk_waves == 0:
+                    raise AssertionError("no chunk continuation ran")
+                same(f"prefill_chunk=32 ({backend}, {sched.chunk_waves} "
+                     f"continuation waves)", toks, base, bits)
+            if bits == 16:
+                toks, sched = run(bits, "kernel", speculate=True, draft_k=4)
+                if sched.registry.hits != len(reqs) - 1:
+                    raise AssertionError("speculative run missed the hits")
+                same(f"speculation over shared rows (kernel, "
+                     f"{sched.windows_run} windows)", toks, base, bits)
+    del params
+    torch.cuda.empty_cache()
+
+
 def static_parity(cfg, params, engine, reqs) -> None:
     """The static path at kv8 (``AdaptiveServer.serve``, contiguous cache):
     K4 (``paged_backend="kernel"``) against the reference's einsum
@@ -1427,7 +1638,7 @@ def phase_serve(seed: int) -> dict:
           f"{mgr.budget_j:.6e} J ({100 * (1 - mgr.remaining_fraction()):.1f}%)"
           f", saver_mode={mgr._saver}, events={len(sched.events)}")
     return {"launches": launches, "tok_s": n_tok / wall, "peak": peak,
-            "k5": k5}
+            "k5": k5, "tokens": [r["tokens"] for r in results]}
 
 
 def phase_spec_serve(seed: int, greedy: dict) -> dict:
@@ -1757,6 +1968,167 @@ def phase_contiguous_serve(seed: int, continuous: bool) -> dict:
     return {"launches": k4, "tok_s": n_tok / wall, "peak": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: shared prefixes and chunked prefill through the launcher's path
+# ---------------------------------------------------------------------------
+
+def phase_prefix_serve(seed: int, greedy: dict) -> None:
+    """The launcher's ``--continuous`` path on the full 40-layer config in
+    bf16 with the prefix cache (servers built by ``build_server`` and, for
+    the other settings, on its params). 12 requests, each one 384-token
+    system prompt (24 blocks of 16) plus a unique tail of 16–128 tokens, 32
+    new tokens each, from ``--seed``, at kv16 and kv8, with and without
+    ``--no-prefix-cache`` (served with, without, without, with, so each
+    setting runs first once): 11 registry hits (the first round dedups 7
+    of its 8 rows), K1 launches = 40 × decode steps, no gather, and at
+    kv16 the shared blocks' bytes unchanged by the serve. Then phase 4's 12
+    requests with ``--prefill-chunk 128``: every request completes."""
+    import copy
+    import dataclasses
+    import gc
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            RequestStatus)
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = S.parse_args(["--continuous", "--full", "--requests", "12",
+                         "--max-new", "32", "--kv-bits", "16", "--quantum",
+                         "8", "--block-size", "16", "--seed", str(seed)])
+    cfg, srv = S.build_server(args)
+    params, engine, scfg = srv.params, srv.engine, srv.scfg
+    mgr0 = copy.deepcopy(srv.manager)
+    rng = np.random.default_rng(seed + 8)
+    system = rng.integers(0, cfg.vocab, 384).astype(np.int32)
+    reqs = [Request(tokens=np.concatenate(
+        [system, rng.integers(0, cfg.vocab, int(n)).astype(np.int32)]),
+        max_new=32, accuracy_critical=(i % 3 == 0))
+        for i, n in enumerate(rng.integers(16, 129, 12))]
+
+    def build(**kw):
+        return AdaptiveServer(cfg, params, engine,
+                              dataclasses.replace(scfg, **kw),
+                              manager=copy.deepcopy(mgr0), device="cuda")
+
+    def serve(srv, reqs, label, shared=True):
+        sched = ContinuousScheduler(srv, quantum=args.quantum)
+        for r in reqs:
+            sched.submit(r)
+        PA.paged_attention.launches = A.paged_view.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.step()                  # the first round: 8 rows admitted
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        snap = bids = None
+        if shared and sched.registry is not None and \
+                srv.scfg.kv_bits == 16:
+            e = max(sched.registry._entries.values(),
+                    key=lambda x: x.n_tokens)
+            bids = torch.as_tensor(e.block_ids[:24], device="cuda")
+            pool = sched._caches["kv"]
+            snap = [getattr(pool, n)[:, bids].clone()
+                    for n in ("k", "v", "token_idx")]
+        while sched.step():
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, gathers = PA.paged_attention.launches, A.paged_view.calls
+        results = [sched.results[i] for i in range(len(reqs))]
+        for i, r in enumerate(results):
+            if (r["status"] is not RequestStatus.COMPLETED
+                    or len(r["tokens"]) != 32
+                    or not all(0 <= t < cfg.vocab for t in r["tokens"])):
+                raise AssertionError(f"{label} request {i}: {r['status']}, "
+                                     f"{len(r['tokens'])} tokens")
+        expect = cfg.n_layers * sched.decode_steps
+        if k1 != expect or k1 == 0 or gathers:
+            raise AssertionError(f"{label}: K1 launches {k1} != {expect} or "
+                                 f"gather calls {gathers}")
+        if snap is not None:
+            pool = sched._caches["kv"]
+            for n, was in zip(("k", "v", "token_idx"), snap):
+                if not torch.equal(getattr(pool, n)[:, bids], was):
+                    raise AssertionError(f"{label}: shared blocks' {n} "
+                                         f"changed")
+        st = sched.paged_stats()
+        n_tok = sum(len(r["tokens"]) for r in results)
+        peak = torch.cuda.max_memory_allocated()
+        reg = (f"registry hits {st['registry_hits']}, misses "
+               f"{st['registry_misses']}, entries {st['registry_entries']} "
+               f"({st['registry_bytes'] / 2**20:.1f} MiB of masters); "
+               if sched.registry is not None else "no registry; ")
+        print(f"[prefix] {label}: {reg}prefill tokens {sched.prefill_tokens}"
+              f" of {sum(len(r.tokens) for r in reqs)} prompt tokens; "
+              f"peak_used_blocks {st['peak_used_blocks']}; K1 launches {k1} "
+              f"= {cfg.n_layers} x {sched.decode_steps} decode steps, gather "
+              f"calls {gathers}; shared blocks unchanged: "
+              f"{'checked' if snap is not None else 'n/a'}; {n_tok} tokens in "
+              f"{wall:.3f}s = {n_tok / wall:.2f} tok/s (first round, its "
+              f"admission waves and one segment: {t_first:.3f}s; "
+              f"{sched.segments_run} segments in all); peak memory "
+              f"{peak / 2**30:.2f} GiB")
+        return sched, results, n_tok / wall
+
+    for bits in (16, 8):
+        if bits == 8:
+            srv = build(kv_bits=8)
+        srv_off = build(kv_bits=bits, prefix_cache=False)
+        runs = {True: [], False: []}
+        # with, without, without, with: each pair in both orders, each
+        # serve on a fresh scheduler and a fresh copy of the ledger
+        for cache in (True, False, False, True):
+            s = srv if cache else srv_off
+            s.manager = copy.deepcopy(mgr0)
+            label = (f"kv{bits} prefix cache" if cache
+                     else f"kv{bits} --no-prefix-cache")
+            sched, res, tps = serve(s, reqs, label)
+            if cache and sched.registry.hits != 11:
+                raise AssertionError(f"kv{bits}: {sched.registry.hits} "
+                                     f"registry hits, host arithmetic says "
+                                     f"11")
+            runs[cache].append((res, tps))
+            del sched
+        del srv, srv_off
+        gc.collect()
+        torch.cuda.empty_cache()
+        on, off = runs[True][0][0], runs[False][0][0]
+        n_same = sum(a == b for x, y in zip(on, off)
+                     for a, b in zip(x["tokens"], y["tokens"]))
+        n_trace = sum(x["profile_trace"] == y["profile_trace"]
+                      for x, y in zip(on, off))
+        tps = {c: ", ".join(f"{t:.2f}" for _, t in runs[c]) for c in runs}
+        print(f"[prefix] kv{bits}: {n_same} of {32 * len(on)} tokens equal "
+              f"with and without the cache, {n_trace} of {len(on)} profile "
+              f"traces (information only: bf16 continuation reads, and the "
+              f"first round's one wave becomes a cold and a shared wave "
+              f"billed apart); tok/s with the cache {tps[True]} (first and "
+              f"last serve), without {tps[False]}")
+    srv = build(prefill_chunk=128)
+    sched, results, _ = serve(srv, S.make_requests(cfg, args),
+                              "phase 4's requests, --prefill-chunk 128",
+                              shared=False)
+    toks = [r["tokens"] for r in results]
+    print(f"[prefix] --prefill-chunk {sched.chunk}: {sched.chunk_waves} "
+          f"continuation waves, {sched.segments_chunking} of "
+          f"{sched.segments_run} segments ran while chunks were in flight")
+    if sched.chunk_waves == 0 or sched.segments_chunking == 0:
+        raise AssertionError("the chunked serve did not interleave chunks")
+    if "tokens" in greedy:
+        n_same = sum(a == b for x, y in zip(toks, greedy["tokens"])
+                     for a, b in zip(x, y))
+        print(f"[prefix] chunked: {n_same} of {sum(map(len, toks))} tokens "
+              f"equal phase 4's unchunked serve (bf16 cuBLAS shapes differ: "
+              f"information only)")
+    del srv, sched, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_profile(seed: int) -> None:
     """Where one decode segment's time goes (``--profile``): wall time on
     the host against device-busy time from ``torch.profiler``, with the
@@ -1808,9 +2180,9 @@ def _leaves(tree):
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One row of the kernel table: the main path's launch count and the
-    phase-2 row of the kernel at its main-path shape (K1–K4 also carry
-    their device time from a CUDA graph and their split count, K4 its step
-    0's device time)."""
+    phase-2 row of the kernel at its main-path shape (every kernel also
+    carries its device time from a CUDA graph, K1–K4 their split count, K4
+    its step 0's device time, K5 its read-twice floor)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -1826,12 +2198,14 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
         entry["step0_device_ms"] = row["step0_device_ms"]
     if "prefill" in row:
         entry["prefill"] = row["prefill"]
+    if "floor_ms" in row:
+        entry["floor_ms"] = row["floor_ms"]
     return entry
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -1856,6 +2230,7 @@ def main() -> None:
     if 2 in phases:
         _, rows["k1"] = phase_kernels(args.seed)
         rows["k2"] = phase_window_kernel(args.seed)
+        phase_shared_tables(args.seed)
         split_sweep(args.seed)
         rows["k3"] = phase_qmatmul(args.seed)
         qmatmul_sweep(args.seed)
@@ -1865,6 +2240,7 @@ def main() -> None:
         rows["k5"] = phase_aquant(args.seed)
     if 3 in phases:
         phase_parity(args.seed)
+        phase_prefix_parity(args.seed)
         phase_native_parity(args.seed)
     served = phase_serve(args.seed) if 4 in phases else {"launches": 0}
     if 4 in phases:
@@ -1881,6 +2257,8 @@ def main() -> None:
     if 7 in phases:
         static = phase_contiguous_serve(args.seed, continuous=False)
         phase_contiguous_serve(args.seed, continuous=True)
+    if 8 in phases:
+        phase_prefix_serve(args.seed, served)
     if args.profile:
         phase_profile(args.seed)
     kernels = []

@@ -5,6 +5,7 @@ Manager with an energy budget.
       [--requests 12 --max-new 32 --kv-bits 8 --seed 0]
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \
       [--no-paged-kv] [--speculate --draft-k 4 --draft-model ngram]
+      [--no-prefix-cache] [--prefill-chunk 128] [--kv16-masters]
 
 As in the reference launcher, ``--continuous`` decides the path. Without
 it, the requests are served in static groups (``AdaptiveServer.serve``:
@@ -78,6 +79,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="physical KV blocks (default: the contiguous "
                          "footprint)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false",
+                    help="disable shared-prefix reuse (block-hash registry "
+                         "+ suffix-only admission prefill)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: admission prompts longer than "
+                         "this many tokens prefill in block-aligned chunks "
+                         "interleaved with decode segments (default: off)")
+    ap.add_argument("--kv16-masters", action="store_true",
+                    help="keep f32 KV masters for shared and chunked rows "
+                         "at --kv-bits 16 too (continuations replay the raw "
+                         "activations instead of the bf16 blocks)")
     ap.add_argument("--paged-backend", default="auto",
                     choices=["auto", "kernel", "gather"],
                     help="'kernel' attends in place through the paged-"
@@ -131,9 +144,12 @@ def build_server(args: argparse.Namespace):
                          paged_kv=args.paged_kv,
                          block_size=args.block_size,
                          pool_blocks=args.pool_blocks,
+                         prefix_cache=args.prefix_cache,
                          paged_backend=args.paged_backend,
+                         prefill_chunk=args.prefill_chunk,
                          speculate=args.speculate, draft_k=args.draft_k,
-                         draft_model=args.draft_model)
+                         draft_model=args.draft_model,
+                         kv16_masters=args.kv16_masters)
     return cfg, AdaptiveServer(cfg, params, engine, scfg, manager=mgr,
                                device=device)
 
@@ -185,6 +201,14 @@ def main(argv=None) -> None:
         st = sched.paged_stats()
         print(f"{head}: peak {st['peak_used_blocks']}/{st['pool_blocks']} "
               f"blocks of {st['block_size']} tokens")
+        if sched.registry is not None:
+            print(f"[serve] prefix registry: {st['registry_hits']} hits, "
+                  f"{st['registry_misses']} misses, "
+                  f"{st['registry_entries']} entries")
+        if sched.chunk:
+            print(f"[serve] chunked prefill ({sched.chunk} tokens): "
+                  f"{sched.chunk_waves} continuation waves, "
+                  f"{sched.segments_chunking} segments while chunking")
     else:
         print(f"{head}: contiguous pool of {sched.n_slots} rows")
     for i, r in enumerate(results):

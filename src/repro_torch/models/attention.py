@@ -23,12 +23,13 @@ import torch
 
 from repro_torch.core.qtypes import pack_int4, unpack_int4
 
-__all__ = ["gqa_attention", "decode_attention", "decode_attention_window",
-           "KVCache", "init_kv_cache", "kv_scale", "update_kv_cache",
-           "update_kv_cache_window", "PagedKVCache", "init_paged_kv_cache",
-           "update_paged_kv_cache", "update_paged_kv_cache_window",
-           "paged_view", "paged_decode_attention",
-           "paged_decode_attention_window", "stack_layers"]
+__all__ = ["gqa_attention", "prefix_attention", "decode_attention",
+           "decode_attention_window", "KVCache", "init_kv_cache",
+           "kv_scale", "update_kv_cache", "update_kv_cache_window",
+           "PagedKVCache", "init_paged_kv_cache", "update_paged_kv_cache",
+           "update_paged_kv_cache_window", "paged_view",
+           "paged_decode_attention", "paged_decode_attention_window",
+           "stack_layers"]
 
 NEG_INF = -1e30
 
@@ -86,6 +87,41 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = (acc / l.clamp_min(1e-30)).to(q.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def prefix_attention(q: torch.Tensor, k_pre: torch.Tensor,
+                     v_pre: torch.Tensor, k_suf: torch.Tensor,
+                     v_suf: torch.Tensor, *, positions: torch.Tensor,
+                     prefix_len: torch.Tensor,
+                     suffix_valid: torch.Tensor) -> torch.Tensor:
+    """Continuation-prefill attention: suffix queries against
+    ``[prefix ++ suffix]`` keys, as a dense masked softmax in f32.
+
+    ``q [B, S, H, D]`` and ``k_suf``/``v_suf [B, S, Hkv, D]`` are the
+    left-padded suffix projections; ``k_pre``/``v_pre [B, Pp, Hkv, D]`` the
+    prefix keys and values, zero past ``prefix_len[row]``; ``positions
+    [B, S]`` the suffix tokens' absolute positions (negative on pads) and
+    ``suffix_valid [B, S]`` the pad mask. Prefix key ``j`` sits at absolute
+    position ``j``. Full causal attention only.
+    """
+    b, s, h, d = q.shape
+    pp, hkv = k_pre.shape[1], k_pre.shape[2]
+    hg = h // hkv
+    qh = (q.float() * d ** -0.5).reshape(b, s, hkv, hg, d)
+    qh = qh.permute(0, 2, 3, 1, 4)                        # [B, Hkv, Hg, S, D]
+    kc = torch.cat([k_pre.float(), k_suf.float()], dim=1).permute(0, 2, 1, 3)
+    vc = torch.cat([v_pre.float(), v_suf.float()], dim=1).permute(0, 2, 1, 3)
+    scores = torch.einsum("bkgsd,bkud->bkgsu", qh, kc)
+    pos = positions.long()
+    ppos = torch.arange(pp, device=q.device)
+    keep_pre = ((ppos[None, None, :] < prefix_len.long()[:, None, None])
+                & (ppos[None, None, :] <= pos[:, :, None]))   # [B, S, Pp]
+    keep_suf = suffix_valid[:, None, :] & (pos[:, None, :] <= pos[:, :, None])
+    keep = torch.cat([keep_pre, keep_suf], dim=-1)           # [B, S, Pp+S]
+    scores = torch.where(keep[:, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgsu,bkud->bkgsd", p, vc)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ Caches are updated in place.
 Public entry points: ``init_params``, ``quant_layer_names``, ``forward``,
 ``prefill``, ``decode_step``, ``prequant_decode_weights``,
 ``overlay_params``, ``init_caches``, ``init_paged_caches``,
-``decode_segment``, ``decode_many``, and for speculative decoding
+``decode_segment``, ``decode_many``, for continuation prefill
+``forward_extend`` and ``prefill_extend``, and for speculative decoding
 ``ngram_propose``, ``decode_step_spec`` and ``decode_segment_spec``.
 """
 from __future__ import annotations
@@ -26,8 +27,9 @@ from .attention import (KVCache, PagedKVCache, _mapped, _quantize_kv,
                         gqa_attention, init_kv_cache, init_paged_kv_cache,
                         kv_scale, paged_decode_attention,
                         paged_decode_attention_window, paged_view,
-                        stack_layers, update_kv_cache, update_kv_cache_window,
-                        update_paged_kv_cache, update_paged_kv_cache_window)
+                        prefix_attention, stack_layers, update_kv_cache,
+                        update_kv_cache_window, update_paged_kv_cache,
+                        update_paged_kv_cache_window)
 from .layers import (SIGNED_SYM, embed_lookup, init_embed, init_linear,
                      init_norm, qlinear, rms_norm)
 from .mlp import init_mlp, mlp
@@ -36,7 +38,8 @@ from repro_torch.core.quantizers import QTensor, dequantize, fake_quant_dynamic
 from repro_torch.runtime import compute_dtype
 
 __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
-           "init_params", "param_count", "forward", "prefill", "decode_step",
+           "init_params", "param_count", "forward", "prefill",
+           "forward_extend", "prefill_extend", "decode_step",
            "prequant_decode_weights", "overlay_params", "paged_block_size",
            "init_caches", "init_paged_caches", "cache_bytes",
            "supports_prefix_sharing", "supports_speculation",
@@ -344,14 +347,38 @@ def supports_speculation(cfg: ModelConfig, kv_bits: int = 16) -> bool:
 # prefill
 # ---------------------------------------------------------------------------
 
+def _place(dst: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor) -> None:
+    """Write ``rows [B, n, ...]`` into ``dst [B, slots, ...]`` at columns
+    ``slot [B, n]``; a column ``>= slots`` goes to an extra sink column that
+    is cut off (the reference's dropped writes)."""
+    eff = dst.shape[1]
+    bidx = torch.arange(dst.shape[0], device=dst.device)[:, None]
+    buf = torch.cat([dst, dst[:, :1]], dim=1)
+    buf[bidx, slot.clamp(max=eff)] = rows
+    dst.copy_(buf[:, :eff])
+
+
+def _masked_amax(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Max |x| over real tokens: ``x [B, S, Hkv, D]``, ``keep [B, S]`` →
+    ``[B, Hkv]``."""
+    a = torch.where(keep[:, :, None, None], x.float().abs(),
+                    torch.zeros((), device=x.device))
+    return a.amax(dim=(1, 3))
+
+
 def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
-            slots: int, *, kv_bits: int = 16):
+            slots: int, *, kv_bits: int = 16, return_raw_kv: bool = False):
     """Full-sequence prefill → (last-token logits [B,V], caches).
 
     Ragged batches (``batch["prompt_len"]``, host ints): each left-padded
     row hands off its KV at per-row *logical* positions, so decode resumes
     at ``pos0 = prompt_len``. Pad slots keep ``token_idx = -1``, and int-KV
     scales are calibrated over real tokens only.
+
+    ``return_raw_kv`` also returns the pre-quantization K/V that the forward
+    collected (``(k, v)``, each ``[L, B, S, Hkv, hd]`` in padded column
+    coordinates) as a third result: the full-precision masters a prefix
+    registry keeps so later continuations replay the cold cache fill.
     """
     hidden, _, (k_all, v_all) = forward(params, cfg, bits_row, batch,
                                         collect=True)
@@ -373,34 +400,157 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     slot = torch.where(real, pos_t % eff, torch.full_like(pos_t, eff))
     tok_w = torch.where(real, pos_t, torch.full_like(pos_t, -1)).to(torch.int32)
     amask = (torch.arange(s, device=dev)[None] >= pad[:, None])  # [B, S]
-    bidx = torch.arange(b, device=dev)[:, None]
-
-    def place(dst: torch.Tensor, rows: torch.Tensor) -> None:
-        """Write ``rows [B, take, ...]`` at ``slot``; pad columns go to an
-        extra sink slot that is cut off (the reference's dropped writes)."""
-        buf = torch.cat([dst, dst[:, :1]], dim=1)
-        buf[bidx, slot] = rows
-        dst.copy_(buf[:, :eff])
-
     for l in range(cfg.n_layers):
         c = kv.layer(l)
         k_l, v_l = k_all[l], v_all[l]
         if kv_bits in (4, 8):
             qmax = 127.0 if kv_bits == 8 else 7.0
-            zero = torch.zeros((), device=dev)
-            ka = torch.where(amask[:, :, None, None], k_l.float().abs(), zero)
-            va = torch.where(amask[:, :, None, None], v_l.float().abs(), zero)
-            ks = kv_scale(ka.amax(dim=(1, 3)), qmax)
-            vs = kv_scale(va.amax(dim=(1, 3)), qmax)
+            ks = kv_scale(_masked_amax(k_l, amask), qmax)
+            vs = kv_scale(_masked_amax(v_l, amask), qmax)
             kq, vq = _quantize_kv(k_l, ks, kv_bits), _quantize_kv(v_l, vs, kv_bits)
             c.k_scale.copy_(ks)
             c.v_scale.copy_(vs)
         else:
             kq, vq = k_l.to(c.k.dtype), v_l.to(c.v.dtype)
-        place(c.k, kq[:, idx])
-        place(c.v, vq[:, idx])
-        place(c.token_idx, tok_w)
+        _place(c.k, slot, kq[:, idx])
+        _place(c.v, slot, vq[:, idx])
+        _place(c.token_idx, slot, tok_w)
     logits = _logits(cfg, params, bits_row, hidden[:, -1:])[:, 0]
+    if return_raw_kv:
+        return logits, caches, (k_all, v_all)
+    return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# continuation prefill (shared prefixes, chunked prefill)
+# ---------------------------------------------------------------------------
+
+def _no_kv_sched(kv_sched) -> None:
+    if kv_sched is not None:
+        raise NotImplementedError("the per-layer KV precision policy "
+                                  "(kv_sched) is not ported")
+
+
+def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
+                   prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                   prefix_len: torch.Tensor, kv_sched=None):
+    """Backbone over a prompt *suffix* that attends to precomputed prefix
+    K/V (:func:`~repro_torch.models.attention.prefix_attention` in every
+    layer). Positions are absolute, ``prefix_len + local`` (negative on
+    pads), so rope and the causal masks match a cold prefill of the whole
+    prompt.
+
+    ``batch``: ``tokens [B, Sb]`` left-padded suffixes and ``prompt_len
+    [B]`` their lengths. ``prefix_k``/``prefix_v [L, B, Pp, Hkv, hd]``:
+    full-precision prefix K/V, zero past ``prefix_len [B]``. Returns
+    ``(hidden [B, Sb, d], (k, v) [L, B, Sb, Hkv, hd])``.
+    """
+    _require_dense(cfg)
+    _no_kv_sched(kv_sched)
+    assert supports_prefix_sharing(cfg), cfg.family
+    eb, _, layer_bits = split_bits(cfg, bits_row)
+    tokens = batch["tokens"]
+    dev = tokens.device
+    x = embed_lookup(params["embed"], tokens, eb)
+    b, s = tokens.shape
+    slen = torch.as_tensor(np.asarray(batch["prompt_len"]),
+                           dtype=torch.int32, device=dev)
+    plen = torch.as_tensor(prefix_len, dtype=torch.int32, device=dev)
+    local = (torch.arange(s, dtype=torch.int32, device=dev)[None]
+             - (s - slen)[:, None])
+    positions = local + plen[:, None]          # absolute; negative on pads
+    valid = local >= 0
+    x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                     device=dev))
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        lp, lb = _layer(params["layers"], l), layer_bits[l]
+        xin = rms_norm(lp["norm_attn"], x)
+        q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
+        attn = prefix_attention(q, prefix_k[l], prefix_v[l], k, v,
+                                positions=positions, prefix_len=plen,
+                                suffix_valid=valid)
+        x = x + qlinear(lp["attn_out"], attn.reshape(b, s, -1),
+                        lb[_site_idx(cfg, "attn_out")])
+        x = x + _mlp_block(cfg, lp, lb, x)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(params["norm_f"], x)
+    return x, (torch.stack(ks), torch.stack(vs))
+
+
+def prefill_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
+                   slots: int, *, kv_bits: int = 16,
+                   prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                   prefix_len, prefix_k_amax: Optional[torch.Tensor] = None,
+                   prefix_v_amax: Optional[torch.Tensor] = None,
+                   return_raw_kv: bool = False, kv_sched=None):
+    """Continuation prefill → (last-token logits, dense ``[B, slots]``
+    caches): :func:`forward_extend` over the suffix, then the rows a cold
+    :func:`prefill` of the whole prompt would hand off — prefix K/V at
+    ``0..prefix_len−1``, suffix K/V at ``prefix_len..``, every other slot
+    at ``token_idx = −1``.
+
+    At kv8/kv4 each row's scale is :func:`~repro_torch.models.attention.
+    kv_scale` of ``max(prefix amax, suffix amax)`` (``prefix_*_amax [L, B,
+    Hkv]``, the raw max-|K|/|V| over the real prefix tokens; zeros when
+    ``None``): the scale a cold prefill over all real tokens computes, so
+    the ints match it. ``return_raw_kv`` also returns the suffix's
+    pre-quantization K/V (``[L, B, Sb, Hkv, hd]`` each), which chunked
+    prefill keeps as the next chunk's prefix masters.
+    """
+    hidden, (k_all, v_all) = forward_extend(params, cfg, bits_row, batch,
+                                            prefix_k, prefix_v, prefix_len,
+                                            kv_sched=kv_sched)
+    b, s, _ = hidden.shape
+    dev = hidden.device
+    caches = init_caches(cfg, b, slots, kv_bits=kv_bits, device=dev)
+    kv = caches["kv"]
+    eff = slots
+    pp = prefix_k.shape[2]
+    plen = torch.as_tensor(prefix_len, dtype=torch.int64, device=dev)
+    slen = torch.as_tensor(np.asarray(batch["prompt_len"]),
+                           dtype=torch.int64, device=dev)
+    ppos = torch.arange(pp, device=dev)[None].expand(b, pp)
+    real_p = ppos < plen[:, None]                           # [B, Pp]
+    slot_p = torch.where(real_p, ppos, eff)
+    tokw_p = torch.where(real_p, ppos, -1).to(torch.int32)
+    local = torch.arange(s, device=dev)[None] - (s - slen)[:, None]
+    pos_s = local + plen[:, None]                           # [B, Sb] absolute
+    real_s = local >= 0
+    slot_s = torch.where(real_s, pos_s, eff)
+    tokw_s = torch.where(real_s, pos_s, -1).to(torch.int32)
+    zeros = torch.zeros((cfg.n_layers, b, cfg.n_kv), device=dev)
+    ka_pre = zeros if prefix_k_amax is None else prefix_k_amax
+    va_pre = zeros if prefix_v_amax is None else prefix_v_amax
+    for l in range(cfg.n_layers):
+        c = kv.layer(l)
+        k_l, v_l = k_all[l], v_all[l]
+        kp_l, vp_l = prefix_k[l], prefix_v[l]
+        if kv_bits in (4, 8):
+            qmax = 127.0 if kv_bits == 8 else 7.0
+            ks = kv_scale(torch.maximum(_masked_amax(k_l, real_s),
+                                        ka_pre[l].float()), qmax)
+            vs = kv_scale(torch.maximum(_masked_amax(v_l, real_s),
+                                        va_pre[l].float()), qmax)
+            kq_s, vq_s = (_quantize_kv(k_l, ks, kv_bits),
+                          _quantize_kv(v_l, vs, kv_bits))
+            kq_p, vq_p = (_quantize_kv(kp_l, ks, kv_bits),
+                          _quantize_kv(vp_l, vs, kv_bits))
+            c.k_scale.copy_(ks)
+            c.v_scale.copy_(vs)
+        else:
+            kq_s, vq_s = k_l.to(c.k.dtype), v_l.to(c.v.dtype)
+            kq_p, vq_p = kp_l.to(c.k.dtype), vp_l.to(c.v.dtype)
+        _place(c.k, slot_p, kq_p)
+        _place(c.v, slot_p, vq_p)
+        _place(c.token_idx, slot_p, tokw_p)
+        _place(c.k, slot_s, kq_s)
+        _place(c.v, slot_s, vq_s)
+        _place(c.token_idx, slot_s, tokw_s)
+    logits = _logits(cfg, params, bits_row, hidden[:, -1:])[:, 0]
+    if return_raw_kv:
+        return logits, caches, (k_all, v_all)
     return logits, caches
 
 

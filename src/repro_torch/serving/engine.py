@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.engine import AdaptiveEngine
 from repro_torch.core.manager import ProfileManager
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import _mapped
 from repro_torch.runtime import resolve_device
 
 __all__ = ["ServingConfig", "AdaptiveServer", "Request", "RequestStatus"]
@@ -91,6 +92,22 @@ class ServingConfig:
     sees. ``draft_model``: ``None``/``"ngram"`` = the n-gram drafter,
     ``"repeat"`` = repeat the current token; a small-model drafter plugs
     in as :class:`AdaptiveServer`'s ``draft_fn``.
+
+    Shared prefixes and chunked prefill (paged pool, full causal attention
+    only): ``prefix_cache`` — register block-aligned prompt prefixes and
+    serve hash-matched admissions from them: a hit prefills only the
+    suffix and (at kv16) maps the registered blocks copy-on-write instead
+    of re-storing them. ``prefix_capacity`` bounds the registered entries
+    (LRU; one prompt registers its whole block-aligned prefix chain, one
+    entry per length, so later prompts match at any block boundary).
+    ``prefill_chunk`` — admission prompts longer than this many tokens
+    prefill in block-aligned chunks (rounded down to a block multiple, at
+    least one block) that interleave with decode segments instead of one
+    monolithic wave; ``None`` disables chunking. ``kv16_masters`` — keep
+    f32 KV masters for shared prefixes and chunked rows at ``kv_bits=16``
+    too, so every continuation replays the prefix from the raw
+    activations where it would otherwise gather the bf16 blocks (int
+    pools always keep masters; other precisions are refused).
     """
 
     slots: int = 4096
@@ -99,11 +116,15 @@ class ServingConfig:
     paged_kv: bool = True
     block_size: int = 16
     pool_blocks: Optional[int] = None
+    prefix_cache: bool = True
+    prefix_capacity: int = 32
     paged_backend: str = "auto"
+    prefill_chunk: Optional[int] = None
     speculate: bool = False
     draft_k: int = 4
     draft_hist: int = 32
     draft_model: Optional[str] = None
+    kv16_masters: bool = False
 
 
 @dataclasses.dataclass
@@ -157,6 +178,11 @@ class AdaptiveServer:
         if serving.kv_bits not in (4, 8, 16, 32):
             raise ValueError(f"kv_bits must be 4, 8, 16 or 32, "
                              f"got {serving.kv_bits}")
+        if serving.kv16_masters and serving.kv_bits != 16:
+            raise ValueError(
+                "kv16_masters only applies to bf16 pools (kv_bits=16): "
+                f"a kv{serving.kv_bits} pool is lossy and always keeps "
+                "full-precision masters")
         pb = serving.paged_backend
         if pb not in ("auto", "kernel", "gather"):
             raise ValueError(f"paged_backend must be auto|kernel|gather, "
@@ -199,6 +225,25 @@ class AdaptiveServer:
             self._check_kernels()
         self.n_lblk = -(-serving.slots // self.block_size)
         self.slots_p = self.n_lblk * self.block_size     # virtual row length
+        # continuations (shared admissions, chunks) run prefill_extend at
+        # absolute positions, exact only where prefix sharing is; a chunk
+        # is a whole number of blocks, so the kv16 path can gather a
+        # row's processed prefix straight from its own blocks
+        can_share = T.supports_prefix_sharing(cfg)
+        self.prefix_sharing = bool(serving.prefix_cache and can_share)
+        self.chunk_tokens: Optional[int] = None
+        if serving.prefill_chunk and can_share:
+            self.chunk_tokens = max(
+                self.block_size,
+                int(serving.prefill_chunk) // self.block_size
+                * self.block_size)
+        # a bf16 pool is its own master (kv16 continuations gather the
+        # prefix from the blocks); int pools, and kv16 with kv16_masters,
+        # replay full-precision masters kept from the prefill
+        self.masters_mode = (serving.kv_bits != 16
+                             or bool(serving.kv16_masters))
+        self._collect_masters = self.masters_mode and bool(
+            self.prefix_sharing or self.chunk_tokens)
         # per-profile weight images, built once per server
         self.prequant = T.prequant_decode_weights(params, cfg, engine.table)
 
@@ -238,16 +283,19 @@ class AdaptiveServer:
         return self.manager.select(accuracy_critical=critical)
 
     def _prefill(self, pid: int, prompts: np.ndarray, slots: int,
-                 prompt_len: Optional[np.ndarray] = None):
+                 prompt_len: Optional[np.ndarray] = None,
+                 return_raw_kv: bool = False):
         """Ragged prefill of ``prompts [B, S]`` under profile ``pid`` into a
-        contiguous ``[B, slots]`` cache → ``(logits [B, V], caches)``."""
+        contiguous ``[B, slots]`` cache → ``(logits [B, V], caches)``, and
+        the raw K/V with ``return_raw_kv``."""
         batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
                                            device=self.device)}
         if prompt_len is not None:
             batch["prompt_len"] = np.asarray(prompt_len, np.int32)
         return T.prefill(self.profile_params(pid), self.cfg,
                          self.engine.table[int(pid)], batch, slots,
-                         kv_bits=self.scfg.kv_bits)
+                         kv_bits=self.scfg.kv_bits,
+                         return_raw_kv=return_raw_kv)
 
     # ----------------------------------------------------------- static path
     def generate(self, prompts: np.ndarray, max_new: int,
@@ -392,7 +440,7 @@ class AdaptiveServer:
     def admit_paged(self, pid: int, prompts: np.ndarray,
                     prompt_len: np.ndarray, slots_idx: np.ndarray,
                     dest: np.ndarray, tok: torch.Tensor, pos: torch.Tensor,
-                    caches: dict) -> torch.Tensor:
+                    caches: dict):
         """One paged admission wave: a ragged prefill of the left-padded
         ``prompts [a, bucket]`` into transient dense rows, first tokens by
         on-device argmax, and a scatter of the rows into the pool at
@@ -400,25 +448,99 @@ class AdaptiveServer:
         is out of range (padding) and table entries outside the pool are
         skipped — the host filters them, where the reference's scatter
         drops them. Updates ``tok``/``pos``/``caches`` in place and returns
-        the wave's first tokens ``[a]``."""
-        logits, rows = self._prefill(pid, prompts, self.slots_p, prompt_len)
+        ``(tok0 [a], raw)``: ``raw`` is the wave's pre-quantization K/V
+        (:func:`~repro_torch.models.transformer.prefill`'s
+        ``return_raw_kv``) when the server keeps masters, else ``None``."""
+        out = self._prefill(pid, prompts, self.slots_p, prompt_len,
+                            return_raw_kv=self._collect_masters)
+        raw = out[2] if self._collect_masters else None
+        tok0 = self._land(out[0], out[1], np.asarray(prompt_len), slots_idx,
+                          dest, None, tok, pos, caches)
+        return tok0, raw
+
+    def admit_shared(self, pid: int, prompts: np.ndarray,
+                     suffix_len: np.ndarray, slots_idx: np.ndarray,
+                     dest: np.ndarray, bt_rows: np.ndarray,
+                     prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                     k_amax: Optional[torch.Tensor],
+                     v_amax: Optional[torch.Tensor], prefix_len: np.ndarray,
+                     tok: torch.Tensor, pos: torch.Tensor, caches: dict):
+        """One continuation wave (shared-prefix admissions, chunks): a
+        continuation prefill of the left-padded suffixes ``prompts [a, sb]``
+        (``suffix_len [a]``) over the prefix K/V ``prefix_k``/``prefix_v
+        [L, a, Pp, Hkv, hd]`` (``prefix_len [a]`` real tokens; raw amaxes
+        ``[L, a, Hkv]`` or ``None``), then the block scatter of
+        :meth:`admit_paged` with ``dest`` out of the pool on shared blocks
+        (never written — that skipped write is the copy-on-write) and
+        ``bt_rows`` installed as the rows' tables (the shared blocks
+        mapped, then the private tail). This is the master-replay variant;
+        :meth:`admit_shared_pool` gathers the prefix from the pool.
+        Returns ``(tok0 [a], raw suffix K/V or None)``."""
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                           device=self.device),
+                 "prompt_len": np.asarray(suffix_len, np.int32)}
+        plen = np.asarray(prefix_len, np.int32)
+        out = T.prefill_extend(
+            self.profile_params(pid), self.cfg, self.engine.table[int(pid)],
+            batch, self.slots_p, kv_bits=self.scfg.kv_bits,
+            prefix_k=prefix_k, prefix_v=prefix_v, prefix_len=plen,
+            prefix_k_amax=k_amax, prefix_v_amax=v_amax,
+            return_raw_kv=self._collect_masters)
+        raw = out[2] if self._collect_masters else None
+        tok0 = self._land(out[0], out[1], plen + np.asarray(suffix_len),
+                          slots_idx, dest, bt_rows, tok, pos, caches)
+        return tok0, raw
+
+    def admit_shared_pool(self, pid: int, prompts: np.ndarray,
+                          suffix_len: np.ndarray, slots_idx: np.ndarray,
+                          dest: np.ndarray, bt_rows: np.ndarray,
+                          pre_bids: np.ndarray, prefix_len: np.ndarray,
+                          tok: torch.Tensor, pos: torch.Tensor,
+                          caches: dict):
+        """:meth:`admit_shared` for a bf16 pool, whose blocks are the
+        masters: the prefix K/V are gathered from pool blocks ``pre_bids
+        [a, Pp / bs]`` as f32 (entries outside the pool read as zeros)."""
+        pool = caches["kv"]
+        a, pb = pre_bids.shape
+        ok, idx = _mapped(torch.as_tensor(pre_bids, device=self.device),
+                          pool.n_blocks)
+
+        def gather(x):                           # [L, nb + 1, bs, Hkv, hd]
+            g = torch.where(ok[None, :, :, None, None, None],
+                            x[:, idx].float(), 0.0)
+            return g.reshape(x.shape[0], a, pb * x.shape[2], *x.shape[3:])
+
+        return self.admit_shared(pid, prompts, suffix_len, slots_idx, dest,
+                                 bt_rows, gather(pool.k), gather(pool.v),
+                                 None, None, prefix_len, tok, pos, caches)
+
+    def _land(self, logits, rows, row_len, slots_idx, dest, bt_rows, tok,
+              pos, caches) -> torch.Tensor:
+        """Finish a paged wave: first tokens by on-device argmax, the block
+        scatter of the live wave rows, and their carry (``pos`` = each
+        row's token count ``row_len``). Returns the wave's first tokens."""
         tok0 = logits.argmax(dim=-1).to(torch.int32)
-        live = np.nonzero(np.asarray(slots_idx) < tok.shape[0])[0]
+        sidx = np.asarray(slots_idx)
+        live = np.nonzero(sidx < tok.shape[0])[0]
         self._scatter_blocks(caches["kv"], rows["kv"], np.asarray(dest),
-                             np.asarray(slots_idx), live)
+                             sidx, live,
+                             None if bt_rows is None else np.asarray(bt_rows))
         j = torch.as_tensor(live, device=self.device)
-        s = torch.as_tensor(np.asarray(slots_idx)[live], device=self.device)
+        s = torch.as_tensor(sidx[live], device=self.device)
         tok[s] = tok0[j]
-        pos[s] = torch.as_tensor(np.asarray(prompt_len)[live],
+        pos[s] = torch.as_tensor(np.asarray(row_len)[live],
                                  dtype=torch.int32, device=self.device)
         return tok0
 
     def _scatter_blocks(self, pool, rows, dest: np.ndarray,
-                        sidx: np.ndarray, live: np.ndarray) -> None:
+                        sidx: np.ndarray, live: np.ndarray,
+                        bt_rows: Optional[np.ndarray] = None) -> None:
         """Cut each live wave row of the stacked dense cache ``rows``
         (``[L, a, slots_p, ...]``) into ``n_lblk`` blocks and write the
-        blocks whose ``dest`` entry is in the pool; install ``dest`` as the
-        rows' block tables and their scales at pool rows ``sidx``."""
+        blocks whose ``dest`` entry is in the pool; install the rows' block
+        tables and scales at pool rows ``sidx``. The table is ``bt_rows``
+        where given — it differs from ``dest`` exactly on shared blocks,
+        which are mapped but not written — else ``dest``."""
         nlb, bs, L = self.n_lblk, self.block_size, self.cfg.n_layers
         a = dest.shape[0]
         d = dest[live]
@@ -436,8 +558,9 @@ class AdaptiveServer:
                                                                    src_l]
         s = torch.as_tensor(sidx[live], device=dev)
         j = torch.as_tensor(live, device=dev)
+        table = d if bt_rows is None else bt_rows[live]
         pool.block_table[:, s] = torch.as_tensor(
-            d, dtype=torch.int32, device=dev)[None].expand(L, -1, -1)
+            table, dtype=torch.int32, device=dev)[None].expand(L, -1, -1)
         pool.k_scale[:, s] = rows.k_scale[:, j]
         pool.v_scale[:, s] = rows.v_scale[:, j]
 

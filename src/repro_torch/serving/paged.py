@@ -1,9 +1,9 @@
 """Host-side paged-KV bookkeeping: block allocator + shared-prefix registry.
 
 Copy of ``repro/serving/paged.py`` (numpy-only); the one array reduction
-(``register_chain``'s raw amax) runs on torch tensors here. The port's
-serving slice uses :class:`BlockAllocator`; the registry waits for the
-shared-prefix slice.
+(``register_chain``'s raw amax) runs on torch tensors here. The scheduler
+uses :class:`BlockAllocator` and :class:`PrefixRegistry`;
+:class:`RowSnapshot` waits for preemption.
 
 The device side of the paged KV cache (:class:`repro_torch.models.attention.
 PagedKVCache`) is deliberately dumb — a pool of blocks and per-row block

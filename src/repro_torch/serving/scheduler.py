@@ -33,14 +33,33 @@ is data the host needs for retirement, history and billing, so spec mode
 is synchronous (``_flush(keep=0)``): the profile plan is provisional, and
 the ledger bills the tokens each window actually delivered at the flush
 (:attr:`ContinuousScheduler.spec_billed`, invariant 11 of the reference).
-Speculation runs on the paged pool only (not ported on the contiguous one).
+Speculation runs on the paged pool only (not ported on the contiguous one),
+shared copy-on-write rows included.
 
-Not ported yet (later slices): the prefix registry and shared admission,
-chunked prefill, priorities and preemption, deadlines, cancellation,
-shedding, fault injection and quarantine, durability, and speculation's
-composition with preemption/resume, cancellation, quarantine and
-copy-on-write prefixes, which comes with them. A row whose logits go
-non-finite raises at the flush (the reference quarantines it).
+**Shared prefixes** (``ServingConfig.prefix_cache``): prompts are hashed at
+block granularity when submitted and matched against a
+:class:`~repro_torch.serving.paged.PrefixRegistry` at admission. A hit
+prefills only its suffix (a continuation wave over the prefix K/V: at kv16
+gathered from the shared blocks, at int KV replayed from f32 masters under
+``max(prefix amax, suffix amax)``) and, at kv16, maps the registered
+blocks copy-on-write: the row's table holds them, the wave never writes
+them. Two prompts of one cold wave that share a prefix are deduplicated:
+the later one defers its lookup until the wave has registered the prefix
+and rides the shared wave. Retired blocks a registered prefix still covers
+park in the allocator's retired-block LRU.
+
+**Chunked prefill** (``ServingConfig.prefill_chunk``): a prompt longer than
+the chunk rides its admission wave with its first chunk only; the rest
+follows one chunk per admission round through continuation waves, between
+decode segments. A row mid-admission holds its slot and blocks with
+``remaining == 0`` (frozen), its profile pinned for the whole prompt, and
+continuation waves bill nothing. Each round dispatches at most two prefill
+waves (cold, shared, chunk continuations per pinned profile).
+
+Not ported yet (later slices): priorities and preemption (and so resume),
+deadlines, cancellation, shedding, fault injection and quarantine,
+durability. A row whose logits go non-finite raises at the flush (the
+reference quarantines it).
 """
 from __future__ import annotations
 
@@ -51,10 +70,17 @@ import torch
 
 from repro_torch.models import transformer as T
 from .engine import AdaptiveServer, Request, RequestStatus, _next_pow2
-from .paged import BlockAllocator
+from .paged import BlockAllocator, PrefixRegistry, prefix_keys
 from .policy import SchedulingPolicy, make_policy
 
 __all__ = ["ContinuousScheduler"]
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """An f32 copy of ``x`` in a buffer of its own (a master must not keep
+    the whole wave's raw K/V alive)."""
+    return torch.empty(x.shape, dtype=torch.float32,
+                       device=x.device).copy_(x)
 
 
 class ContinuousScheduler:
@@ -91,8 +117,15 @@ class ContinuousScheduler:
                 cfg, nslots, scfg.slots, kv_bits=scfg.kv_bits,
                 block_size=self.block_size, pool_blocks=nb, device=dev)
             self.allocator = BlockAllocator(nb, self.block_size)
-            self._slot_blocks: list = [None] * nslots
+            self.registry = (PrefixRegistry(self.allocator,
+                                            capacity=scfg.prefix_capacity)
+                             if server.prefix_sharing else None)
+            self._slot_blocks: list = [None] * nslots  # (private, entry)
+            self._prefix_keys: dict[int, list[bytes]] = {}
             self.peak_used_blocks = 0
+            # chunked prefill: a mid-admission row's progress, by slot
+            self.chunk = server.chunk_tokens
+            self._chunk_state: dict[int, dict] = {}
         else:
             if scfg.speculate:
                 raise NotImplementedError("speculation on the contiguous "
@@ -100,6 +133,7 @@ class ContinuousScheduler:
             self._caches = T.init_caches(cfg, nslots, scfg.slots,
                                          kv_bits=scfg.kv_bits, device=dev)
             self.allocator = None
+            self.registry = None
         self._tok = torch.zeros((nslots,), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((nslots,), dtype=torch.int32, device=dev)
         self.remaining = np.zeros((nslots,), np.int64)   # tokens left to emit
@@ -114,6 +148,9 @@ class ContinuousScheduler:
         self._inflight: list[dict] = []                  # dispatched, unread
         self.segments_run = 0
         self.decode_steps = 0
+        self.chunk_waves = 0           # continuation waves of chunked rows
+        self.prefill_tokens = 0        # prompt tokens the waves computed
+        self.segments_chunking = 0     # segments run while a row chunked in
         self.windows_run = 0
         self.spec_row_windows = 0      # (row, window) pairs that delivered
         # speculative state: per-row drafter history (−1 pad, last entry =
@@ -136,13 +173,31 @@ class ContinuousScheduler:
         return min(self.n_lblk,
                    -(-(prompt_len + max_new) // self.block_size))
 
+    def _release_blocks(self, blocks) -> None:
+        """Return a row's private blocks: those a registered prefix still
+        covers park in the allocator's retired-block LRU, the rest go
+        straight to the free list."""
+        self.allocator.release(
+            blocks, cache=(self.registry.covered(blocks)
+                           if self.registry is not None else ()))
+
+    def _retire_blocks(self, slot: int) -> None:
+        """Hand back slot ``slot``'s private blocks and its registry
+        entry's shared references."""
+        blocks, reg = self._slot_blocks[slot]
+        self._release_blocks(blocks)
+        if reg is not None:
+            self.registry.release(reg)
+        self._slot_blocks[slot] = None
+
     def paged_stats(self) -> dict:
-        """Block-pool occupancy (live / LRU-cached / free partition); the
-        contiguous pool reports ``{"paged": False, "kv_bytes": ...}``."""
+        """Block-pool occupancy (live / LRU-cached / free partition) and the
+        prefix registry's counters; the contiguous pool reports
+        ``{"paged": False, "kv_bytes": ...}``."""
         if not self.paged:
             return {"paged": False, "kv_bytes": T.cache_bytes(self._caches)}
         live = self.allocator.used_blocks
-        return {
+        out = {
             "paged": True,
             "block_size": self.block_size,
             "pool_blocks": self.allocator.n_blocks,
@@ -153,16 +208,34 @@ class ContinuousScheduler:
             "peak_used_blocks": self.peak_used_blocks,
             "free_blocks": self.allocator.free_blocks,
             "kv_bytes": T.cache_bytes(self._caches),
+            "registry_bytes": 0,
         }
+        if self.registry is not None:
+            out.update(registry_entries=len(self.registry),
+                       registry_hits=self.registry.hits,
+                       registry_misses=self.registry.misses,
+                       registry_invalidated=self.registry.invalidated,
+                       registry_bytes=self.registry.nbytes())
+        return out
 
     # ------------------------------------------------------------------ queue
     def submit(self, request: Request) -> int:
         """Enqueue a request; returns its id. A request that could never fit
-        the pool raises ``ValueError`` here."""
+        the pool raises ``ValueError`` here: more blocks than the pool has,
+        or, on a prefix-sharing pool, ``prompt + max_new >=`` the row's
+        virtual length (its ring position could wrap onto a shared
+        block)."""
         if request.deadline_ms is not None:
             raise NotImplementedError("deadlines are not ported")
         if self.paged and request.max_new > 0:
-            need = self._blocks_needed(len(request.tokens), request.max_new)
+            plen = len(request.tokens)
+            if self.registry is not None \
+                    and plen + request.max_new >= self.srv.slots_p:
+                raise ValueError(
+                    f"request needs {plen + request.max_new} KV slots but a "
+                    f"prefix-sharing paged pool caps rows at "
+                    f"{self.srv.slots_p - 1} (slots={self.srv.scfg.slots})")
+            need = self._blocks_needed(plen, request.max_new)
             if need > self.allocator.n_blocks:
                 raise ValueError(
                     f"request needs {need} KV blocks but the pool has only "
@@ -176,6 +249,9 @@ class ContinuousScheduler:
                                  "status": RequestStatus.COMPLETED}
             self._done.append(rid)
             return rid
+        if self.paged and self.registry is not None:
+            self._prefix_keys[rid] = prefix_keys(
+                np.asarray(request.tokens, np.int32), self.block_size)
         self.policy.enqueue(rid, request)
         return rid
 
@@ -197,33 +273,140 @@ class ContinuousScheduler:
         for rid in done:
             out.append((rid, self.results.pop(rid)))
             self._reqs.pop(rid, None)
+            if self.paged:
+                self._prefix_keys.pop(rid, None)
         return out
 
     # -------------------------------------------------------------- admission
     def admit(self) -> int:
-        """Fill free slots from the queue in policy order, gated on blocks
-        as well as slots on the paged pool; one cold admission wave per
-        round. Returns the number of requests admitted."""
+        """Fill free slots from the queue in policy order; returns the
+        number of requests admitted. The contiguous pool runs one cold wave
+        gated on free rows; the paged pool classifies candidates by the
+        wave they need (:meth:`_admit_paged_waves`)."""
+        if self.paged:
+            return self._admit_paged_waves()
         free = [s for s in range(self.n_slots) if self.slot_req[s] is None]
-        if not self.paged:
-            rows = []
-            while free and len(self.policy):
-                rows.append((self.policy.pop_head(), free.pop(0), None))
-            return self._dispatch_cold(rows) if rows else 0
-        cold = []
+        rows = []
+        while free and len(self.policy):
+            rows.append((self.policy.pop_head(), free.pop(0), None))
+        return self._dispatch_cold(rows) if rows else 0
+
+    def _admit_paged_waves(self) -> int:
+        """Claim slots *and* blocks in policy order, then dispatch at most
+        two prefill waves.
+
+        A candidate is **cold** (full ragged prefill; a prompt longer than
+        the chunk rides with its first chunk), **shared** (a registry hit:
+        suffix-only continuation; a hit with a long suffix chunks too) or
+        **deferred**: a cold candidate whose prefix an earlier candidate of
+        this round's cold wave will register. It looks the registry up
+        again once that wave has dispatched and rides the shared wave; if
+        the prefix did not register, or the private-block top-up fails, it
+        rolls back to the head of its class for the next round. A round
+        commits to at most two wave kinds; chunk continuations that will
+        run this round (one wave per pinned profile) take their share of
+        the two first (``kind_cap``), and a candidate needing a kind over
+        the cap waits. Then the mid-admission chunks advance.
+        """
+        free = [s for s in range(self.n_slots)
+                if self.slot_req[s] is None and s not in self._chunk_state]
+        cold, shared, deferred, chunked, shared_chunked = [], [], [], [], []
+        kinds: set = set()
+        kind_cap = 2 - len({st["pid"] for st in self._chunk_state.values()
+                            if not st.get("fresh")})
+        pending: dict[bytes, int] = {}   # key -> tokens this wave registers
         while free and len(self.policy):
             rid = self.policy.head()
             req = self._reqs[rid]
-            blocks = self.allocator.alloc(
-                self._blocks_needed(len(req.tokens), req.max_new))
-            if blocks is None:           # backpressure: the head waits
+            plen = len(req.tokens)
+            need = self._blocks_needed(plen, req.max_new)
+            keys = self._prefix_keys.get(rid, [])
+            entry, wait, n_shared = None, False, 0
+            if self.registry is not None:
+                entry = self.registry.lookup(keys)
+            if entry is not None:
+                self.registry.acquire(entry)     # references (or resurrects
+                if entry.block_ids is not None:  # from the LRU) its blocks
+                    n_shared = entry.n_tokens // self.block_size
+            elif pending:
+                for k in keys:                   # longest first, as lookup
+                    if k in pending:
+                        wait = True
+                        if self.srv.scfg.kv_bits == 16:
+                            n_shared = pending[k] // self.block_size
+                        break
+            kind = "shared" if (entry is not None or wait) else "cold"
+            if kind not in kinds and len(kinds) >= kind_cap:
+                if entry is not None:
+                    self.registry.release(entry)
+                break                            # over budget: next round
+            blocks = self.allocator.alloc(need - n_shared)
+            if blocks is None:                   # backpressure: the head
+                if entry is not None:            # waits, order preserved
+                    self.registry.release(entry)
                 break
             self.policy.pop_head()
-            cold.append((rid, free.pop(0), blocks))
-        n = self._dispatch_cold(cold) if cold else 0
+            slot = free.pop(0)
+            kinds.add(kind)
+            if self.registry is not None and not wait:
+                self.registry.record_admission(entry)
+            if entry is not None:
+                if self.chunk and plen - entry.n_tokens > self.chunk:
+                    shared_chunked.append((rid, slot, entry, blocks))
+                else:
+                    shared.append((rid, slot, entry, blocks))
+            elif wait:
+                deferred.append((rid, slot, blocks, keys))
+            elif self.chunk and plen > self.chunk:
+                chunked.append((rid, slot, blocks))
+            else:
+                cold.append((rid, slot, blocks))
+                if self.registry is not None:
+                    j_max = (plen - 1) // self.block_size
+                    for i, k in enumerate(keys):     # chain, longest first
+                        pending.setdefault(k, (j_max - i) * self.block_size)
+        n = 0
+        if cold or chunked:
+            n += self._dispatch_cold(cold, chunked)
+        rollback: list[int] = []
+        for rid, slot, blocks, keys in deferred:
+            # the cold wave has registered its chains: resolve now, and
+            # square the private blocks with the entry actually registered
+            req = self._reqs[rid]
+            need = self._blocks_needed(len(req.tokens), req.max_new)
+            entry = self.registry.lookup(keys)
+            if entry is None:
+                self.allocator.release(blocks)
+                rollback.append(rid)
+                continue
+            self.registry.acquire(entry)
+            n_shared = (entry.n_tokens // self.block_size
+                        if entry.block_ids is not None else 0)
+            n_priv = need - n_shared
+            if len(blocks) > n_priv:
+                self.allocator.release(blocks[n_priv:])
+                blocks = blocks[:n_priv]
+            elif len(blocks) < n_priv:
+                extra = self.allocator.alloc(n_priv - len(blocks))
+                if extra is None:
+                    self.registry.release(entry)
+                    self.allocator.release(blocks)
+                    rollback.append(rid)
+                    continue
+                blocks = blocks + extra
+            self.registry.record_admission(entry)
+            if self.chunk and len(req.tokens) - entry.n_tokens > self.chunk:
+                shared_chunked.append((rid, slot, entry, blocks))
+            else:
+                shared.append((rid, slot, entry, blocks))
+        if shared or shared_chunked:
+            n += self._dispatch_shared(shared, shared_chunked)
+        for rid in reversed(rollback):      # keep their relative order
+            self.policy.push_front(rid, self._reqs[rid])
         if n:
             self.peak_used_blocks = max(self.peak_used_blocks,
                                         self.allocator.used_blocks)
+        self._advance_chunks()
         return n
 
     def _bill(self, reqs) -> int:
@@ -237,46 +420,319 @@ class ContinuousScheduler:
             self.events.append((pid, len(reqs), crit))
         return pid
 
-    def _dispatch_cold(self, rows) -> int:
+    def _dispatch_cold(self, rows, chunked=()) -> int:
         """One admission wave: full ragged prefill, then a block scatter
         (paged pool) or whole-row writes (contiguous pool). ``rows``:
-        ``(rid, slot, blocks)``, ``blocks`` None on the contiguous pool."""
-        reqs = [self._reqs[rid] for rid, _, _ in rows]
-        lens = [len(r.tokens) for r in reqs]
+        ``(rid, slot, blocks)``, ``blocks`` None on the contiguous pool.
+
+        ``chunked`` rows ride the same wave with their first ``chunk``
+        tokens only and take a ``_chunk_state`` entry; the rest of the
+        prompt follows through :meth:`_advance_chunks`. At int KV the entry
+        keeps the chunk's f32 masters and their running amax, which the
+        next chunk replays as its prefix."""
+        allrows = list(rows) + list(chunked)
+        n_cold = len(rows)
+        reqs = [self._reqs[rid] for rid, _, _ in allrows]
+        lens = [len(r.tokens) if j < n_cold else min(len(r.tokens),
+                                                      self.chunk)
+                for j, r in enumerate(reqs)]
         bucket = _next_pow2(max(self.bucket_min, max(lens)))
-        a = _next_pow2(len(rows))
+        a = _next_pow2(len(allrows))
         prompts = np.zeros((a, bucket), np.int32)
         plen = np.zeros((a,), np.int32)
         sidx = np.full((a,), self.n_slots, np.int32)
-        for j, (rid, slot, _) in enumerate(rows):
-            prompts[j, bucket - lens[j]:] = np.asarray(reqs[j].tokens,
-                                                       np.int32)
+        for j, (rid, slot, _) in enumerate(allrows):
+            prompts[j, bucket - lens[j]:] = np.asarray(
+                reqs[j].tokens, np.int32)[:lens[j]]
             plen[j] = lens[j]
             sidx[j] = slot
         pid = self._bill(reqs)
-        if self.paged:
-            dest = np.full((a, self.n_lblk), self.allocator.n_blocks,
-                           np.int32)
-            for j, (_, _, blocks) in enumerate(rows):
-                dest[j, :len(blocks)] = blocks
-            tok0 = self.srv.admit_paged(pid, prompts, plen, sidx, dest,
-                                        self._tok, self._pos, self._caches)
-        else:
+        self.prefill_tokens += sum(lens)
+        if not self.paged:
             tok0 = self.srv.admit(pid, prompts, plen, sidx, self._tok,
                                   self._pos, self._caches)
+            self._post_admission(tok0, self.srv.engine.profile_names[pid],
+                                 [(j, rid, slot, None, None)
+                                  for j, (rid, slot, _) in enumerate(rows)])
+            return len(rows)
+        dest = np.full((a, self.n_lblk), self.allocator.n_blocks, np.int32)
+        for j, (_, _, blocks) in enumerate(allrows):
+            dest[j, :len(blocks)] = blocks
+        tok0, raw = self.srv.admit_paged(pid, prompts, plen, sidx, dest,
+                                         self._tok, self._pos, self._caches)
+        if self.registry is not None and rows:
+            self._register_prefixes(rows, reqs[:n_cold], raw, bucket)
+        for off, (rid, slot, blocks) in enumerate(chunked):
+            j = n_cold + off
+            st = {"rid": rid, "blocks": blocks, "done": lens[j],
+                  "map": list(blocks),   # logical → physical, shared span too
+                  "entry": None, "n_shared": 0,
+                  "fresh": True,         # chunk 2 waits for the next round
+                  "pid": pid,            # one profile for the whole prompt
+                  "mk": None, "mv": None, "ka": None, "va": None}
+            if raw is not None:
+                c0 = bucket - lens[j]
+                self._chunk_masters(st, raw, j, c0)
+            self._chunk_state[slot] = st
+            self.results[rid] = {"tokens": [], "profile_trace": []}
+            if self.record_events:
+                self.admission_log.append(rid)
         self._post_admission(tok0, self.srv.engine.profile_names[pid],
-                             [(j, rid, slot, blocks)
+                             [(j, rid, slot, blocks, None)
                               for j, (rid, slot, blocks) in enumerate(rows)])
-        return len(rows)
+        return len(allrows)
+
+    @staticmethod
+    def _chunk_masters(st: dict, raw, j: int, c0: int) -> None:
+        """Append wave row ``j``'s raw K/V from padded column ``c0`` on to
+        a chunk entry's f32 masters and fold them into its running amax."""
+        new_k, new_v = (_f32(x[:, j, c0:]) for x in raw)
+        ka = new_k.abs().amax(dim=(1, 3))
+        va = new_v.abs().amax(dim=(1, 3))
+        if st["mk"] is None:
+            st["mk"], st["mv"], st["ka"], st["va"] = new_k, new_v, ka, va
+            return
+        st["mk"] = torch.cat([st["mk"], new_k], dim=1)
+        st["mv"] = torch.cat([st["mv"], new_v], dim=1)
+        st["ka"] = torch.maximum(st["ka"], ka)
+        st["va"] = torch.maximum(st["va"], va)
+
+    def _register_prefixes(self, rows, reqs, raw, bucket: int) -> None:
+        """Offer each new prompt's block-aligned prefix chain for reuse
+        (:meth:`~repro_torch.serving.paged.PrefixRegistry.register_chain`).
+        At int KV (and kv16 with ``kv16_masters``) the chain's entries
+        share one f32 master buffer cut from the wave's raw K/V; at kv16
+        the bf16 blocks are the masters."""
+        bs = self.block_size
+        for j, (rid, slot, blocks) in enumerate(rows):
+            n = len(reqs[j].tokens)
+            j_max = (n - 1) // bs
+            mk = mv = None
+            if raw is not None and j_max >= 1:
+                c0 = bucket - n
+                mk, mv = (_f32(x[:, j, c0:c0 + j_max * bs]) for x in raw)
+            self.registry.register_chain(
+                self._prefix_keys.get(rid, []), j_max, blocks, mk, mv,
+                share_blocks=self.srv.scfg.kv_bits == 16)
+
+    def _call_continuation(self, pid: int, prompts, slen, sidx, dest,
+                           bt_rows, plen_pre, pp: int, pre: list):
+        """Assemble the prefix operands of one continuation wave and
+        dispatch it. ``pre``: one ``(n_tok, block_ids, mk, mv, ka, va)``
+        per wave row. A bf16 pool without masters gathers the prefix from
+        ``block_ids`` (:meth:`~repro_torch.serving.engine.AdaptiveServer.
+        admit_shared_pool`); otherwise the f32 masters, cut to ``n_tok``
+        (chain entries share one buffer) and padded to ``pp``, are replayed
+        with their raw amax. Returns ``(tok0, raw)``."""
+        cfg, srv = self.srv.cfg, self.srv
+        a = dest.shape[0]
+        if not srv.masters_mode:
+            pre_bids = np.full((a, pp // self.block_size),
+                               self.allocator.n_blocks, np.int32)
+            for j, (n_tok, bids, *_rest) in enumerate(pre):
+                nbl = n_tok // self.block_size
+                pre_bids[j, :nbl] = bids[:nbl]
+            return srv.admit_shared_pool(pid, prompts, slen, sidx, dest,
+                                         bt_rows, pre_bids, plen_pre,
+                                         self._tok, self._pos, self._caches)
+        dev = srv.device
+        kpre = torch.zeros((cfg.n_layers, a, pp, cfg.n_kv, cfg.hd),
+                           device=dev)
+        vpre = torch.zeros_like(kpre)
+        ka = torch.zeros((cfg.n_layers, a, cfg.n_kv), device=dev)
+        va = torch.zeros_like(ka)
+        for j, (n_tok, _, mk, mv, ka_j, va_j) in enumerate(pre):
+            kpre[:, j, :n_tok] = mk[:, :n_tok]
+            vpre[:, j, :n_tok] = mv[:, :n_tok]
+            if ka_j is not None:
+                ka[:, j], va[:, j] = ka_j, va_j
+        return srv.admit_shared(pid, prompts, slen, sidx, dest, bt_rows,
+                                kpre, vpre, ka, va, plen_pre, self._tok,
+                                self._pos, self._caches)
+
+    def _dispatch_shared(self, rows, chunked=()) -> int:
+        """One continuation wave of registry hits: suffix-only prefill over
+        the entries' prefixes, with ``bt_rows`` mapping the shared blocks
+        and the private tail and ``dest`` writing the private tail only.
+
+        ``chunked`` rows are hits whose suffix exceeds the chunk: they ride
+        with the suffix's first chunk and then advance one chunk per round
+        like a long cold prompt."""
+        bs = self.block_size
+        allrows = list(rows) + list(chunked)
+        n_full = len(rows)
+        reqs = [self._reqs[rid] for rid, _, _, _ in allrows]
+        sufs = []
+        for j, (r, (_, _, e, _)) in enumerate(zip(reqs, allrows)):
+            suf = np.asarray(r.tokens, np.int32)[e.n_tokens:]
+            sufs.append(suf if j < n_full else suf[:self.chunk])
+        sb = _next_pow2(max(self.bucket_min, max(len(x) for x in sufs)))
+        pp = bs * _next_pow2(max(-(-e.n_tokens // bs)
+                                 for _, _, e, _ in allrows))
+        a = _next_pow2(len(allrows))
+        nb_oob = self.allocator.n_blocks
+        prompts = np.zeros((a, sb), np.int32)
+        slen = np.zeros((a,), np.int32)
+        plen_pre = np.zeros((a,), np.int32)
+        sidx = np.full((a,), self.n_slots, np.int32)
+        dest = np.full((a, self.n_lblk), nb_oob, np.int32)
+        bt_rows = np.full((a, self.n_lblk), nb_oob, np.int32)
+        for j, ((rid, slot, e, blocks), suf) in enumerate(zip(allrows, sufs)):
+            prompts[j, sb - len(suf):] = suf                 # left-pad
+            slen[j] = len(suf)
+            plen_pre[j] = e.n_tokens
+            sidx[j] = slot
+            ns = e.n_tokens // bs if e.block_ids is not None else 0
+            if ns:
+                bt_rows[j, :ns] = e.block_ids[:ns]           # mapped, shared
+            bt_rows[j, ns:ns + len(blocks)] = blocks         # private tail
+            dest[j, ns:ns + len(blocks)] = blocks            # only these are
+        ents = [e for _, _, e, _ in allrows]                 # written (CoW)
+        pid = self._bill(reqs)
+        self.prefill_tokens += int(slen.sum())
+        tok0, raw = self._call_continuation(
+            pid, prompts, slen, sidx, dest, bt_rows, plen_pre, pp,
+            [(e.n_tokens, e.block_ids, e.master_k, e.master_v, e.k_amax,
+              e.v_amax) for e in ents])
+        for off, (rid, slot, e, blocks) in enumerate(chunked):
+            j = n_full + off
+            ns = e.n_tokens // bs if e.block_ids is not None else 0
+            st = {"rid": rid, "blocks": blocks,
+                  "map": ([int(b) for b in e.block_ids[:ns]] if ns else [])
+                  + list(blocks),
+                  "entry": e, "n_shared": ns,
+                  "done": e.n_tokens + len(sufs[j]),
+                  "fresh": True, "pid": pid,
+                  "mk": None, "mv": None, "ka": None, "va": None}
+            if raw is not None:
+                # the entry's prefix masters, then this wave's raw suffix
+                st["mk"] = _f32(e.master_k[:, :e.n_tokens])
+                st["mv"] = _f32(e.master_v[:, :e.n_tokens])
+                st["ka"], st["va"] = e.k_amax, e.v_amax
+                self._chunk_masters(st, raw, j, sb - len(sufs[j]))
+            self._chunk_state[slot] = st
+            self.results[rid] = {"tokens": [], "profile_trace": []}
+            if self.record_events:
+                self.admission_log.append(rid)
+        self._post_admission(tok0, self.srv.engine.profile_names[pid],
+                             [(j, rid, slot, blocks, e)
+                              for j, (rid, slot, e, blocks)
+                              in enumerate(rows)])
+        return len(allrows)
+
+    def _advance_chunks(self) -> None:
+        """Advance every mid-admission row by one chunk, in one
+        continuation wave per pinned profile. Rows admitted this round
+        (``fresh``) wait for the next: a decode segment runs between two
+        chunks of a prompt."""
+        if not self._chunk_state:
+            return
+        waves: dict[int, list] = {}
+        for slot in sorted(self._chunk_state):
+            st = self._chunk_state[slot]
+            if st.pop("fresh", False):
+                continue
+            t = np.asarray(self._reqs[st["rid"]].tokens, np.int32)
+            clen = min(self.chunk, len(t) - st["done"])
+            waves.setdefault(st["pid"], []).append(
+                (slot, st, t[st["done"]:st["done"] + clen]))
+        for pid, rows in waves.items():
+            self._dispatch_chunks(pid, rows)
+
+    def _dispatch_chunks(self, pid: int, rows) -> None:
+        """One continuation wave over ``(slot, state, chunk_tokens)`` rows
+        pinned to profile ``pid``. The prefix is the row's own processed
+        span: gathered from its mapped blocks at kv16 (a hit's shared
+        blocks included, read only), replayed from the accumulated masters
+        at int KV. ``dest`` rewrites every private block, which lands the
+        chunk and scrubs what the frozen row wrote between chunks (always
+        past the shared span). The wave bills nothing: the request paid
+        its one prefill inference at its first chunk. A row whose last
+        chunk lands goes live as a cold admission does."""
+        bs = self.block_size
+        sb = _next_pow2(max(self.bucket_min,
+                            max(len(c) for _, _, c in rows)))
+        pp = bs * _next_pow2(max(st["done"] // bs for _, st, _ in rows))
+        a = _next_pow2(len(rows))
+        nb_oob = self.allocator.n_blocks
+        prompts = np.zeros((a, sb), np.int32)
+        slen = np.zeros((a,), np.int32)
+        plen_pre = np.zeros((a,), np.int32)
+        sidx = np.full((a,), self.n_slots, np.int32)
+        dest = np.full((a, self.n_lblk), nb_oob, np.int32)
+        bt_rows = np.full((a, self.n_lblk), nb_oob, np.int32)
+        for j, (slot, st, chunk) in enumerate(rows):
+            prompts[j, sb - len(chunk):] = chunk             # left-pad
+            slen[j] = len(chunk)
+            plen_pre[j] = st["done"]
+            sidx[j] = slot
+            ns = st["n_shared"]
+            bt_rows[j, :len(st["map"])] = st["map"]
+            dest[j, ns:ns + len(st["blocks"])] = st["blocks"]
+        tok0, raw = self._call_continuation(
+            pid, prompts, slen, sidx, dest, bt_rows, plen_pre, pp,
+            [(st["done"], st["map"], st["mk"], st["mv"], st["ka"], st["va"])
+             for _, st, _ in rows])
+        self.chunk_waves += 1
+        self.prefill_tokens += int(slen.sum())
+        entry = {"kind": "admit", "toks": tok0,
+                 "name": self.srv.engine.profile_names[pid],
+                 "rows": [], "completes": []}
+        clear = []
+        for j, (slot, st, chunk) in enumerate(rows):
+            st["done"] += len(chunk)
+            if raw is not None:
+                self._chunk_masters(st, raw, j, sb - len(chunk))
+            rid = st["rid"]
+            req = self._reqs[rid]
+            if st["done"] < len(req.tokens):
+                continue                       # more chunks to go
+            del self._chunk_state[slot]
+            entry["rows"].append((j, rid))
+            self._register_chunked(rid, st)
+            if req.max_new == 1:               # done on arrival
+                entry["completes"].append(rid)
+                self._release_blocks(st["blocks"])
+                if st["entry"] is not None:
+                    self.registry.release(st["entry"])
+                clear.append(slot)
+                continue
+            self.slot_req[slot] = rid
+            self._slot_crit[slot] = self.policy.bind_critical(req)
+            self.remaining[slot] = req.max_new - 1
+            self._slot_blocks[slot] = (st["blocks"], st["entry"])
+            self._seed_spec(slot, req)
+        if clear:
+            self.srv.clear_rows(clear, self._caches)
+        if entry["rows"]:
+            self._inflight.append(entry)
+
+    def _register_chunked(self, rid: int, st: dict) -> None:
+        """Offer a finished chunked prompt's prefix chain for reuse, from
+        the row's mapped blocks (kv16; a hit's chain includes the shared
+        span) or its accumulated masters (one buffer for the chain)."""
+        if self.registry is None:
+            return
+        n = len(self._reqs[rid].tokens)
+        j_max = (n - 1) // self.block_size
+        mk = mv = None
+        if st["mk"] is not None and j_max >= 1:
+            mk = st["mk"][:, :j_max * self.block_size]
+            mv = st["mv"][:, :j_max * self.block_size]
+        self.registry.register_chain(
+            self._prefix_keys.get(rid, []), j_max, st["map"], mk, mv,
+            share_blocks=self.srv.scfg.kv_bits == 16)
 
     def _post_admission(self, tok0, pname: str, rows) -> None:
-        """Bookkeeping after a wave. ``max_new == 1`` rows complete at
-        admission: on the paged pool their blocks go straight back and
-        their table is cleared (a contiguous row has nothing to clear)."""
+        """Bookkeeping after a wave. ``rows``: ``(wave_row, rid, slot,
+        private_blocks, registry_entry)``. ``max_new == 1`` rows complete
+        at admission: on the paged pool their blocks and entry go straight
+        back and their table is cleared (a contiguous row has nothing to
+        clear)."""
         entry = {"kind": "admit", "toks": tok0, "name": pname,
                  "rows": [], "completes": []}
         clear = []
-        for j, rid, slot, blocks in rows:
+        for j, rid, slot, blocks, reg in rows:
             req = self._reqs[rid]
             self.results[rid] = {"tokens": [], "profile_trace": []}
             entry["rows"].append((j, rid))
@@ -285,14 +741,16 @@ class ContinuousScheduler:
             if req.max_new == 1:
                 entry["completes"].append(rid)
                 if self.paged:
-                    self.allocator.release(blocks)
+                    self._release_blocks(blocks)
+                    if reg is not None:
+                        self.registry.release(reg)
                     clear.append(slot)
                 continue
             self.slot_req[slot] = rid
             self._slot_crit[slot] = self.policy.bind_critical(req)
             self.remaining[slot] = req.max_new - 1
             if self.paged:
-                self._slot_blocks[slot] = blocks
+                self._slot_blocks[slot] = (blocks, reg)
             self._seed_spec(slot, req)
         if clear:
             self.srv.clear_rows(clear, self._caches)
@@ -332,6 +790,7 @@ class ContinuousScheduler:
         toks, ok, self._tok, self._pos, self._caches = self.srv.segment(
             sched, self._tok, self._pos, self._caches, self.remaining)
         self.segments_run += 1
+        self.segments_chunking += bool(self.paged and self._chunk_state)
         self.decode_steps += q
         entry = {"kind": "seg", "toks": toks, "ok": ok, "sched": sched,
                  "rows": [], "completes": []}
@@ -347,8 +806,7 @@ class ContinuousScheduler:
                 self._slot_crit[slot] = False
                 entry["completes"].append(rid)
                 if self.paged:
-                    self.allocator.release(self._slot_blocks[slot])
-                    self._slot_blocks[slot] = None
+                    self._retire_blocks(slot)
         self._inflight.append(entry)
 
     def _run_segment_spec(self) -> None:
@@ -385,6 +843,7 @@ class ContinuousScheduler:
                                   self._tok, self._pos, self._caches,
                                   self.remaining, quota)
         self.segments_run += 1
+        self.segments_chunking += bool(self._chunk_state)
         self.windows_run += n_iter
         self._inflight.append({
             "kind": "spec", "toks": toks, "ms": ms, "ok": ok,
@@ -435,8 +894,7 @@ class ContinuousScheduler:
                 self.slot_req[slot] = None               # retire → refill
                 self._slot_crit[slot] = False
                 e["completes"].append(rid)
-                self.allocator.release(self._slot_blocks[slot])
-                self._slot_blocks[slot] = None
+                self._retire_blocks(slot)
 
     def _flush(self, keep: int = 0) -> None:
         """Read in-flight token blocks into per-request results, leaving
@@ -476,16 +934,18 @@ class ContinuousScheduler:
 
     # ------------------------------------------------------------------ drive
     def step(self) -> bool:
-        """One engine round: admit, then run one segment with one kept in
-        flight (none in spec mode: delivered counts gate retirement).
-        Returns False once everything is drained."""
+        """One engine round: admit (and advance mid-admission chunks), then
+        run one segment with one kept in flight (none in spec mode:
+        delivered counts gate retirement). Returns False once everything
+        is drained; rows still chunking in keep the loop alive."""
         self.admit()
         if self.live_rows:
             self.run_segment()
             self._flush(keep=0 if self.spec else 1)
         else:
             self._flush()
-        return bool(self.live_rows or len(self.policy) or self._inflight)
+        return bool(self.live_rows or len(self.policy) or self._inflight
+                    or (self.paged and self._chunk_state))
 
     def run(self) -> list[dict]:
         """Drain queue + pool; results in submission order (entries already

@@ -8,7 +8,8 @@ unaligned shapes, two calls bitwise equal; the prefill paths, wgmma where
 TMA can describe the operands and mma.sync elsewhere, at M 17–2048 with
 ragged K and N),
 K4 (int8-KV decode attention on the contiguous cache) and K5 (per-tensor
-fake-quant: bit for bit).
+fake-quant: bit for bit); K1 and K2 on tables whose rows share prefix
+blocks, and a scheduler run with a registry hit on the card.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -234,6 +235,127 @@ def test_paged_attention_multi_kernel_wide_windows(bits, w, hkv, hg, d):
     _check_split_kernel(PA.paged_attention_multi,
                         PA.paged_attention_multi_ref, x,
                         dict(bits=bits, window=0), 2)
+
+
+def _shared_inputs(bits: int, gen: torch.Generator, *, w=None, b=6,
+                   hkv=2, hg=4, d=64, bs=8, n_lblk=12, n_shared=4):
+    """Tables whose live rows all map their first ``n_shared`` logical
+    blocks to the same physical blocks (a shared prefix), then private
+    tails to ragged positions with stale indices past them and both
+    sentinels; a dead last row. Returns the inputs and the same attention
+    on distinct tables (each row its own copy of the shared bytes)."""
+    nw = 1 if w is None else w
+    cap = n_lblk * bs
+    n_blocks = n_shared + b * (n_lblk - n_shared)
+    perm = torch.randperm(n_blocks, generator=gen).tolist()
+    shared = [perm.pop() for _ in range(n_shared)]
+    bt = torch.full((b, n_lblk), -1, dtype=torch.int32)
+    tidx = torch.full((n_blocks, bs), -1, dtype=torch.int32)
+    pos = torch.randint(n_shared * bs, cap - nw, (b,), generator=gen,
+                        dtype=torch.int32)
+    for lb, phys in enumerate(shared):
+        tidx[phys] = (lb * bs + torch.arange(bs)).int()
+    for r in range(b - 1):
+        bt[r, :n_shared] = torch.tensor(shared, dtype=torch.int32)
+        for lb in range(n_shared, n_lblk):
+            if lb * bs <= pos[r] + nw - 1:
+                phys = perm.pop()
+                bt[r, lb] = phys
+                t = lb * bs + torch.arange(bs)
+                tidx[phys] = torch.where(t <= pos[r] + nw + 1, t, -1).int()
+            elif lb % 2:
+                bt[r, lb] = n_blocks + lb
+    dk = d // 2 if bits == 4 else d
+    shape = (n_blocks, bs, hkv, dk)
+    if bits == 16:
+        k, v = (torch.randn(shape, generator=gen).bfloat16() for _ in "kv")
+    else:
+        lo = -128 if bits == 4 else -127
+        k, v = (torch.randint(lo, 128, shape, generator=gen).to(torch.int8)
+                for _ in "kv")
+    sshape = (b, hkv) if w is None else (b, w, hkv)
+    ks, vs = (0.01 + 0.04 * torch.rand(sshape, generator=gen) for _ in "kv")
+    qshape = (b, hkv, hg, d) if w is None else (b, w, hkv, hg, d)
+    q = torch.randn(qshape, generator=gen).bfloat16()
+    names = ("k_scale", "v_scale") if w is None else ("k_ladder", "v_ladder")
+    x = dict(q=q, k_pool=k, v_pool=v, token_idx=tidx, block_table=bt,
+             pos=pos, **dict(zip(names, (ks, vs))))
+    grow = b * n_shared
+    sid = torch.tensor(shared).repeat(b)
+    xd = dict(x, k_pool=torch.cat([k, k[sid]]), v_pool=torch.cat([v, v[sid]]),
+              token_idx=torch.cat([tidx, tidx[sid]]),
+              block_table=torch.where(bt >= n_blocks, bt + grow, bt))
+    xd["block_table"][:, :n_shared] = torch.where(
+        bt[:, :n_shared] >= 0,
+        n_blocks + torch.arange(grow).reshape(b, n_shared), -1).int()
+    return ({n: t.cuda() for n, t in x.items()},
+            {n: t.cuda() for n, t in xd.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,bits", [(None, 16), (None, 8), (None, 4),
+                                    (5, 16), (5, 8)])
+def test_paged_attention_kernels_on_shared_tables(bits, w):
+    """K1 (and K2 at W 5, which takes kv16 and kv8) read a prefix that
+    several rows map in place: within 1e-5 of the plain version, two calls
+    bitwise equal, and bitwise equal to the same attention on distinct
+    tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, xd = _shared_inputs(bits, torch.Generator().manual_seed(40 + bits),
+                           w=w)
+    fn, ref = ((PA.paged_attention, PA.paged_attention_ref) if w is None
+               else (PA.paged_attention_multi, PA.paged_attention_multi_ref))
+    _check_split_kernel(fn, ref, x, dict(bits=bits, window=0), 1)
+    assert torch.equal(fn(**x, bits=bits), fn(**xd, bits=bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_scheduler_registry_hit_on_card(kv_bits):
+    """A registry hit on the card (smoke config, f32 compute, TF32 off,
+    kernel backend): the shared admission's tokens equal those of the run
+    without the prefix cache, and every decode step went through K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            ServingConfig)
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg = get_smoke("granite-3-2b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    names = T.quant_layer_names(cfg)
+    engine = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab, 32).astype(np.int32)
+    reqs = [Request(tokens=np.concatenate(
+        [system, rng.integers(0, cfg.vocab, n).astype(np.int32)]),
+        max_new=8) for n in (5, 11, 3)]
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with use_compute_dtype(torch.float32):
+        for cache in (False, True):
+            sched = ContinuousScheduler(AdaptiveServer(
+                cfg, params, engine, ServingConfig(
+                    slots=64, max_batch=2, kv_bits=kv_bits, block_size=8,
+                    prefix_cache=cache, paged_backend="kernel"),
+                device="cuda"), quantum=4)
+            n0 = PA.paged_attention.launches
+            for r in reqs:
+                sched.submit(r)
+            out[cache] = [r["tokens"] for r in sched.run()]
+            assert PA.paged_attention.launches - n0 == \
+                cfg.n_layers * sched.decode_steps
+            assert sched.allocator.used_blocks == 0
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert sched.registry.hits == 2
+    assert out[True] == out[False]
 
 
 @pytest.mark.cuda

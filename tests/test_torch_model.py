@@ -84,9 +84,8 @@ def test_paged_decode_segments_match_reference(parts, kv_bits):
     cfg, tcfg, jp, tp, jeng, teng = parts
     B, slots, bs, nb = 4, 32, 8, 14
     scfg = dict(slots=slots, max_batch=B, kv_bits=kv_bits, block_size=bs,
-                pool_blocks=nb)
-    js = JServer(cfg, jp, jeng, JConfig(prefix_cache=False,
-                                        paged_backend="gather", **scfg))
+                pool_blocks=nb, prefix_cache=False)
+    js = JServer(cfg, jp, jeng, JConfig(paged_backend="gather", **scfg))
     prompts, plen = _prompts(cfg.vocab, 32, 4, seed=kv_bits)
     sidx = np.array([2, 0, 1, B], np.int32)       # wave row 3 is padding
     dest = np.full((4, slots // bs), nb, np.int32)
@@ -121,7 +120,9 @@ def test_paged_decode_segments_match_reference(parts, kv_bits):
                                  block_size=bs, pool_blocks=nb, device="cpu")
         tok = torch.zeros((B,), dtype=torch.int32)
         pos = torch.zeros((B,), dtype=torch.int32)
-        tok0 = ts.admit_paged(2, prompts, plen, sidx, dest, tok, pos, tc)
+        tok0, raw = ts.admit_paged(2, prompts, plen, sidx, dest, tok, pos,
+                                   tc)
+        assert raw is None                        # no masters without a cache
         assert tok0.numpy()[:3].tolist() == ref["tok0"].tolist()
         rem = remaining.copy()
         for s, want in zip(sched, ref["ys"]):

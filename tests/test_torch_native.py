@@ -242,8 +242,9 @@ def test_native_scheduler_matches_reference(parts, kv_bits, w_bits):
     rng = np.random.default_rng(13)
     reqs = [(rng.integers(0, 512, n).astype(np.int32), m, m == 6)
             for n, m in CASES]
-    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, block_size=8)
-    js = JServer(cfg, jn, jeng, JConfig(prefix_cache=False, **scfg))
+    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, block_size=8,
+                prefix_cache=False)
+    js = JServer(cfg, jn, jeng, JConfig(**scfg))
     jsched = JScheduler(js, quantum=4)
     for t, m, crit in reqs:
         jsched.submit(JRequest(tokens=t, max_new=m, accuracy_critical=crit))

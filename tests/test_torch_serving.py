@@ -72,10 +72,10 @@ def _manager(cls, stats):
 def test_scheduler_matches_reference(parts, case, kv_bits, managed):
     cfg, tcfg, jp, tp, jeng, teng, stats = parts
     reqs = _requests(case)
-    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, block_size=8)
+    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, block_size=8,
+                prefix_cache=False)
     jm = _manager(JManager, stats) if managed else None
-    js = JServer(cfg, jp, jeng, JConfig(prefix_cache=False, **scfg),
-                 manager=jm)
+    js = JServer(cfg, jp, jeng, JConfig(**scfg), manager=jm)
     jsched = JScheduler(js, quantum=4)
     for t, m, crit in reqs:
         jsched.submit(JRequest(tokens=t, max_new=m, accuracy_critical=crit))
@@ -103,9 +103,9 @@ def test_scheduler_matches_reference(parts, case, kv_bits, managed):
 def test_kv32_paged_pool_matches_reference(parts):
     cfg, tcfg, jp, tp, jeng, teng, stats = parts
     reqs = _requests("refill")
-    scfg = dict(slots=64, max_batch=4, kv_bits=32, block_size=8)
-    jsched = JScheduler(JServer(cfg, jp, jeng, JConfig(prefix_cache=False,
-                                                       **scfg)), quantum=4)
+    scfg = dict(slots=64, max_batch=4, kv_bits=32, block_size=8,
+                prefix_cache=False)
+    jsched = JScheduler(JServer(cfg, jp, jeng, JConfig(**scfg)), quantum=4)
     sched = ContinuousScheduler(AdaptiveServer(tcfg, tp, teng, ServingConfig(
         paged_backend="gather", **scfg), device="cpu"), quantum=4)
     assert sched.paged

@@ -59,8 +59,9 @@ def _both(parts, reqs, scfg, quantum=4, backends=("kernel",)):
     the same requests; returns the JAX results and the port's per
     backend."""
     cfg, tcfg, jp, tp, jeng, teng = parts
+    scfg = dict(scfg, prefix_cache=False)
     js = JScheduler(JServer(cfg, jp, jeng, JConfig(
-        prefix_cache=False, paged_backend="gather", **scfg)), quantum=quantum)
+        paged_backend="gather", **scfg)), quantum=quantum)
     for t, m in reqs:
         js.submit(JRequest(tokens=t, max_new=m))
     want = js.run()

@@ -281,9 +281,8 @@ def seg(parts):
     a factory for fresh port states."""
     cfg, tcfg, jp, tp, jeng, teng, _ = parts
     scfg = dict(slots=SLOTS, max_batch=B, kv_bits=16, block_size=BSZ,
-                pool_blocks=NB)
-    js = JServer(cfg, jp, jeng, JConfig(prefix_cache=False,
-                                        paged_backend="gather", **scfg))
+                pool_blocks=NB, prefix_cache=False)
+    js = JServer(cfg, jp, jeng, JConfig(paged_backend="gather", **scfg))
     prompts, plen, sidx, dest = _admit_inputs(cfg)
     jc = JT.init_paged_caches(cfg, B, SLOTS, kv_bits=16, block_size=BSZ,
                               pool_blocks=NB)
@@ -534,11 +533,11 @@ def test_spec_scheduler_matches_reference(parts, kv_bits, k, managed,
                                           drafter):
     cfg, tcfg, jp, tp, jeng, teng, stats = parts
     reqs = _mixed_requests(cfg.vocab)
-    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, block_size=8)
+    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, block_size=8,
+                prefix_cache=False)
     spec = dict(speculate=True, draft_k=k, draft_model=drafter)
     jm = _manager(JManager, stats) if managed else None
-    js = JServer(cfg, jp, jeng, JConfig(prefix_cache=False, **scfg, **spec),
-                 manager=jm)
+    js = JServer(cfg, jp, jeng, JConfig(**scfg, **spec), manager=jm)
     jsched = JScheduler(js, quantum=5)
     for t, m, crit in reqs:
         jsched.submit(JRequest(tokens=t, max_new=m, accuracy_critical=crit))

@@ -81,12 +81,11 @@ def _servers(parts, kv_bits, managed, backend, **kw):
     executables compile once; the manager, host state only, is swapped in)
     and a fresh port server, each with a fresh manager when ``managed``."""
     cfg, tcfg, jp, tp, jeng, teng, stats, _ = parts
-    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits)
+    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, prefix_cache=False)
     scfg.update(kw)
     key = tuple(sorted(scfg.items()))
     if key not in _JSERVERS:
-        _JSERVERS[key] = JServer(cfg, jp, jeng,
-                                 JConfig(prefix_cache=False, **scfg))
+        _JSERVERS[key] = JServer(cfg, jp, jeng, JConfig(**scfg))
     js = _JSERVERS[key]
     js.manager = jm = _manager(JManager, stats) if managed else None
     tm = _manager(ProfileManager, stats) if managed else None
