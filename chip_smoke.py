@@ -41,9 +41,14 @@ Phases:
     at a top-2 logit margin under 1e-3); a shared-system-prompt workload
     with the prefix cache gives the tokens of the run without it (both
     backends at kv16/kv8/kv4; ``prefill_chunk=32`` at kv16/kv8;
-    speculation at kv16), with the registry hits the host computes; then
-    the native path in bf16 at W8 and W4: prefill logits on the card (K3,
-    K5) against the CPU's;
+    speculation at kv16), with the registry hits the host computes;
+    preemption (two saver rows, one a copy-on-write sharer, evicted for a
+    critical arrival on a full 2-row pool, both backends at kv16 and kv8,
+    and speculative at kv16): every restore bitwise equal to its eviction
+    snapshot, the savers' tokens equal to the serve without the critical
+    arrival; speculation on the contiguous pool at kv16 and kv8 against
+    its greedy tokens; then the native path in bf16 at W8 and W4: prefill
+    logits on the card (K3, K5) against the CPU's;
  4. serve: the launcher's path on granite-3-2b's full 40-layer config in
     bf16 — 12 requests, 32 new tokens each — counting kernel launches
     (and K5's, which builds the weight images); then 4 requests × 16
@@ -62,14 +67,22 @@ Phases:
     requests through the launcher's static path (no ``--continuous``,
     ``--kv-bits 8``) and its contiguous pool (``--continuous --no-paged-kv
     --kv-bits 8``), counting K4 launches per layer per decode step, with
-    K1 and the kv8 einsum never;
+    K1 and the kv8 einsum never; then the contiguous pool with
+    ``--speculate --draft-k 4`` (windows, billed = delivered, tok/s);
  8. shared prefixes and chunked prefill through the launcher's
     ``--continuous`` path on the full config in bf16: 12 requests on one
     384-token system prompt at kv16 and kv8, with and without
     ``--no-prefix-cache`` (registry hits, prefill tokens, peak blocks,
     tok/s; K1 launches = 40 × decode steps, no gather; the shared blocks'
     bytes unchanged), then phase 4's requests with ``--prefill-chunk
-    128``.
+    128``;
+ 9. priority classes and preemption on the full config in bf16
+    (``--priority-classes 2 --preemption``): 8 saver requests fill the
+    pool, 4 critical ones arrive after 2 rounds; at kv16 and kv8 under slot
+    pressure and at kv16 under block pressure: preemptions = resumes >= 1,
+    the first restore bitwise equal to its snapshot, billed = delivered,
+    K1 = 40 × decode steps; tok/s, peak blocks and the critical requests'
+    rounds to their first token.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -2129,6 +2142,363 @@ def phase_prefix_serve(seed: int, greedy: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# preemption: phase 3's parity at 4 layers and phase 9's full-width serve
+# ---------------------------------------------------------------------------
+
+def row_bytes(sched, slot: int, n_tok: int) -> dict:
+    """Pool row ``slot``'s first ``n_tok`` positions (K, V and token_idx as
+    raw bytes, read through its table), its scales and its carry."""
+    kv = sched._caches["kv"]
+    bs = kv.k.shape[2]
+    bt = kv.block_table[0, slot, :-(-n_tok // bs)].long()
+
+    def pos(x):
+        g = x[:, bt]
+        g = g.reshape(g.shape[0], -1, *g.shape[3:])[:, :n_tok]
+        return g.view(torch.int16) if g.dtype == torch.bfloat16 else g.clone()
+
+    return {"k": pos(kv.k), "v": pos(kv.v), "token_idx": pos(kv.token_idx),
+            "k_scale": kv.k_scale[:, slot].clone(),
+            "v_scale": kv.v_scale[:, slot].clone(),
+            "tok": int(sched._tok[slot]), "pos": int(sched._pos[slot])}
+
+
+def watch_restores(sched) -> dict:
+    """Record each suspended row's bytes at its eviction and again right
+    after its resume wave (``row_bytes``); returns ``{rid: (before,
+    after)}``, filled as the serve runs."""
+    seen: dict = {}
+    snap_fn, resume_fn = sched._snapshot_row, sched._dispatch_resume
+
+    def snapshot(slot):
+        snap = snap_fn(slot)
+        seen.setdefault(snap.rid, []).append(
+            [snap.n_done, row_bytes(sched, slot, snap.n_done), None])
+        return snap
+
+    def resume(rows):
+        n = resume_fn(rows)
+        for rid, slot, _ in rows:
+            rec = seen[rid][-1]
+            rec[2] = row_bytes(sched, slot, rec[0])
+        return n
+
+    sched._snapshot_row, sched._dispatch_resume = snapshot, resume
+    return seen
+
+
+def restores_equal(seen: dict, first_only: bool = False) -> int:
+    """Check every recorded restore (or the first) bitwise: bytes, scales,
+    token_idx and carry equal the snapshot's. Returns the restores
+    checked."""
+    recs = [r for rid in sorted(seen) for r in seen[rid] if r[2] is not None]
+    if first_only:
+        recs = recs[:1]
+    if not recs:
+        raise AssertionError("no resume was recorded")
+    for n_done, was, now in recs:
+        for key, x in was.items():
+            y = now[key]
+            same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y)
+            if not same:
+                raise AssertionError(f"restore of a {n_done}-token row: "
+                                     f"{key} differs")
+    return len(recs)
+
+
+def phase_preempt_parity(seed: int) -> None:
+    """Preemption and contiguous speculation at full width (granite-3-2b
+    widths, 4 layers, f32, TF32 off, no manager): two saver rows on a
+    64-token system prompt (the second maps it copy-on-write), then a
+    critical arrival on the full 2-row pool, on the kernel and gather
+    backends at kv16 and kv8. The evicted row resumes bitwise (bytes,
+    scales, token_idx, carry) and every saver's tokens equal the same serve
+    without the critical arrival; K1 launches = 4 × decode steps. Then the
+    same at kv16 with speculation (K2 = 4 × windows), and the contiguous
+    pool with speculation at kv16 and kv8 against its greedy tokens (a flip
+    only at a top-2 margin under 1e-3, ``first_divergence``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    engine = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+    rng = np.random.default_rng(seed + 5)
+    system = rng.integers(0, cfg.vocab, 64).astype(np.int32)
+    savers = [Request(tokens=np.concatenate(
+        [system, rng.integers(0, cfg.vocab, n).astype(np.int32)]),
+        max_new=m, priority=1) for n, m in ((9, 24), (30, 20))]
+    crit = Request(tokens=rng.integers(0, cfg.vocab, 40).astype(np.int32),
+                   max_new=8, priority=0)
+
+    def run(bits, backend, arrival, **kw):
+        sched = ContinuousScheduler(AdaptiveServer(cfg, params, engine,
+                                    ServingConfig(
+            slots=256, kv_bits=bits, max_batch=2, block_size=16,
+            priority_classes=2, preemption=True, paged_backend=backend,
+            **kw), device="cuda"), quantum=4)
+        seen = watch_restores(sched)
+        PA.paged_attention.launches = PA.paged_attention_multi.launches = 0
+        A.paged_view.calls = 0
+        sched.submit(savers[0])
+        sched.step()
+        sched.submit(savers[1])
+        sched.step()
+        sched.step()
+        if arrival:
+            sched.submit(crit)
+        while sched.step():
+            pass
+        k1, k2 = PA.paged_attention.launches, PA.paged_attention_multi.launches
+        if backend == "kernel":
+            want = (0, cfg.n_layers * sched.windows_run) if sched.spec else \
+                (cfg.n_layers * sched.decode_steps, 0)
+            if (k1, k2) != want or A.paged_view.calls:
+                raise AssertionError(f"kv{bits} {backend}: K1/K2 launches "
+                                     f"{(k1, k2)} != {want}")
+        elif A.paged_view.calls == 0:
+            raise AssertionError("the gather backend never ran")
+        toks = [sched.results[i]["tokens"] for i in range(len(savers))]
+        if sched.allocator.used_blocks or sched.preemptions != sched.resumes:
+            raise AssertionError(f"kv{bits} {backend}: live blocks or "
+                                 f"unresumed rows left")
+        return toks, sched, seen
+
+    with use_compute_dtype(torch.float32):
+        for bits, backend, kw in [(16, "kernel", {}), (16, "gather", {}),
+                                  (8, "kernel", {}), (8, "gather", {}),
+                                  (16, "kernel", {"speculate": True,
+                                                  "draft_k": 4})]:
+            calm, _, _ = run(bits, backend, False, **kw)
+            toks, sched, seen = run(bits, backend, True, **kw)
+            if sched.preemptions < 1 or sched.registry.hits < 1:
+                raise AssertionError(f"kv{bits} {backend}: no preemption "
+                                     f"or no copy-on-write sharer")
+            n = restores_equal(seen)
+            same = toks == calm
+            label = "speculative " if kw else ""
+            print(f"[preempt] full width x4 layers, f32, kv{bits} "
+                  f"{label}{backend}: {sched.preemptions} preemptions, "
+                  f"{sched.resumes} resumes, {n} restores bitwise equal; "
+                  f"savers' tokens equal the serve without the critical "
+                  f"arrival: {same} ({sum(map(len, toks))} tokens)")
+            if not same:
+                raise AssertionError(f"kv{bits} {backend}{kw}: {toks} vs "
+                                     f"{calm}")
+        reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                        max_new=m) for n, m in
+                [(17, 9), (64, 12), (33, 5), (120, 10), (8, 7), (50, 11)]]
+        for bits in (16, 8):
+            out = {}
+            for spec in (False, True):
+                sched = ContinuousScheduler(AdaptiveServer(
+                    cfg, params, engine, ServingConfig(
+                        slots=256, kv_bits=bits, max_batch=4,
+                        paged_kv=False, speculate=spec, draft_k=4),
+                    device="cuda"), quantum=4)
+                for r in reqs:
+                    sched.submit(r)
+                out[spec] = [r["tokens"] for r in sched.run()]
+            same = out[True] == out[False]
+            print(f"[preempt] contiguous pool, full width x4 layers, f32, "
+                  f"kv{bits}: speculative (k=4, {sched.windows_run} windows) "
+                  f"vs greedy tokens identical: {same}")
+            if not same:
+                margin = first_divergence(cfg, params, engine, reqs,
+                                          out[True], out[False], bits)
+                if not margin < 1e-3:
+                    raise AssertionError(f"contiguous kv{bits} speculation "
+                                         f"diverges at a top-2 margin of "
+                                         f"{margin:.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_contiguous_spec_serve(seed: int) -> dict:
+    """The launcher's ``--continuous --no-paged-kv --speculate --draft-k 4``
+    path at ``--kv-bits 8`` on the full config in bf16: phase 4's 12
+    requests × 32 tokens. The verify windows attend through the plain
+    window attention (no Pallas kernel lies there in the reference either),
+    so K1, K2 and K4 launch never; billed tokens equal delivered ones."""
+    import gc
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.launch import serve as S
+
+    args = S.parse_args(["--full", "--requests", "12", "--max-new", "32",
+                         "--kv-bits", "8", "--quantum", "8", "--continuous",
+                         "--no-paged-kv", "--speculate", "--draft-k", "4",
+                         "--seed", str(seed)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, srv = S.build_server(args)
+    reqs = S.make_requests(cfg, args)
+    QK.qkv_attention.launches = PA.paged_attention.launches = 0
+    PA.paged_attention_multi.launches = 0
+    out = S.serve(srv, reqs, args.quantum, continuous=True)
+    results, sched, wall = out["results"], out["sched"], out["wall_s"]
+    launched = (PA.paged_attention.launches, PA.paged_attention_multi.launches,
+                QK.qkv_attention.launches)
+    for i, r in enumerate(results):
+        if len(r["tokens"]) != 32 or r["status"].value != "completed" or \
+                not all(0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"contiguous spec request {i}")
+    n_tok = sum(len(r["tokens"]) for r in results)
+    billed = len(sched.admission_log) + sum(n for _, n in sched.spec_billed)
+    print(f"[contig] contiguous pool kv8, --speculate --draft-k 4: "
+          f"{sched.windows_run} windows, tokens billed {billed} = delivered "
+          f"{n_tok}: {billed == n_tok}; K1/K2/K4 launches {launched}; "
+          f"{n_tok} tokens in {wall:.3f}s = {n_tok / wall:.2f} tok/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if sched.paged or billed != n_tok or any(launched) or \
+            sched.windows_run == 0:
+        raise AssertionError("the contiguous speculative serve went wrong")
+    del srv, out
+    return {"tok_s": n_tok / wall}
+
+
+def phase_preempt_serve(seed: int) -> None:
+    """Priority classes and preemption at full width: granite-3-2b as
+    published, bf16, ``slots=1024``, ``max_batch=8``, ``block_size=16``,
+    quantum 8, ``--priority-classes 2 --preemption`` (servers on the
+    launcher's params and manager). 8 saver requests (prompts 64–512 tokens
+    from seed 9, 32 new tokens) fill the pool; after 2 rounds 4 critical
+    requests arrive (prompts 64–256, 16 new tokens). Run at kv16 and kv8
+    under slot pressure, and at kv16 under block pressure (12 rows, so a
+    slot stays free, and ``pool_blocks`` just covering the 8 savers). Each
+    serve: ``preemptions == resumes >= 1``, every request completes with
+    ``max_new`` tokens, billed inferences = delivered tokens, the first
+    resume's bytes and scales bitwise equal to its eviction snapshot, K1 =
+    40 × decode steps. Printed: tok/s, peak blocks, the rounds from each
+    critical submission to its admission and to its first token on the
+    host, and the savers' tokens that agree with a serve without the
+    critical arrivals (a count: bf16 at 40 layers is not held to token
+    identity)."""
+    import copy
+    import dataclasses
+    import gc
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            RequestStatus)
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = S.parse_args(["--continuous", "--full", "--kv-bits", "16",
+                         "--quantum", "8", "--block-size", "16",
+                         "--priority-classes", "2", "--preemption",
+                         "--seed", str(seed)])
+    cfg, srv = S.build_server(args)
+    params, engine, scfg = srv.params, srv.engine, srv.scfg
+    mgr0 = copy.deepcopy(srv.manager)
+    del srv
+    rng = np.random.default_rng(9)
+    savers = [Request(tokens=rng.integers(0, cfg.vocab, int(n))
+                      .astype(np.int32), max_new=32, priority=1)
+              for n in rng.integers(64, 513, 8)]
+    crits = [Request(tokens=rng.integers(0, cfg.vocab, int(n))
+                     .astype(np.int32), max_new=16, priority=0)
+             for n in rng.integers(64, 257, 4)]
+    bs = scfg.block_size
+    saver_blocks = sum(-(-(len(r.tokens) + r.max_new) // bs) for r in savers)
+
+    def serve(label, arrival, **kw):
+        srv = AdaptiveServer(cfg, params, engine,
+                             dataclasses.replace(scfg, **kw),
+                             manager=copy.deepcopy(mgr0), device="cuda")
+        sched = ContinuousScheduler(srv, quantum=args.quantum)
+        seen = watch_restores(sched)
+        for r in savers:
+            sched.submit(r)
+        PA.paged_attention.launches = A.paged_view.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rnd, c_rids, first = 0, [], {}
+        more = True
+        while more:
+            if arrival and rnd == 2:
+                c_rids = [sched.submit(r) for r in crits]
+            more = sched.step()
+            rnd += 1
+            for rid in c_rids:
+                if rid not in first and sched.results.get(rid, {}).get(
+                        "tokens"):
+                    first[rid] = rnd - 2
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = PA.paged_attention.launches
+        allreq = savers + (crits if arrival else [])
+        results = [sched.results[i] for i in range(len(allreq))]
+        for i, (r, req) in enumerate(zip(results, allreq)):
+            if r["status"] is not RequestStatus.COMPLETED or \
+                    len(r["tokens"]) != req.max_new or \
+                    not all(0 <= t < cfg.vocab for t in r["tokens"]):
+                raise AssertionError(f"{label} request {i}: {r['status']}, "
+                                     f"{len(r['tokens'])} tokens")
+        n_tok = sum(len(r["tokens"]) for r in results)
+        billed = sum(n for _, n, _ in sched.events)
+        expect = cfg.n_layers * sched.decode_steps
+        if billed != n_tok or k1 != expect or A.paged_view.calls:
+            raise AssertionError(f"{label}: billed {billed} vs delivered "
+                                 f"{n_tok}, K1 {k1} vs {expect}")
+        st = sched.paged_stats()
+        line = (f"[preempt] {label}: {n_tok} tokens in {wall:.3f}s = "
+                f"{n_tok / wall:.2f} tok/s; peak_used_blocks "
+                f"{st['peak_used_blocks']} of {st['pool_blocks']}; "
+                f"preemptions {sched.preemptions}, resumes {sched.resumes}; "
+                f"K1 launches {k1} = {cfg.n_layers} x {sched.decode_steps} "
+                f"decode steps; billed {billed} = delivered {n_tok}")
+        if arrival:
+            if sched.preemptions < 1 or sched.preemptions != sched.resumes:
+                raise AssertionError(f"{label}: {sched.preemptions} "
+                                     f"preemptions, {sched.resumes} resumes")
+            restores_equal(seen, first_only=True)
+            adm = [sched.admission_log.index(r) for r in c_rids]
+            line += (f"; first resume bitwise equal to its eviction "
+                     f"snapshot; critical rounds to first token on the host "
+                     f"{[first[r] for r in c_rids]} (admission order "
+                     f"positions {adm})")
+        print(line)
+        del srv
+        return [r["tokens"] for r in results[:len(savers)]], sched
+
+    runs = [("kv16, slot pressure", {}), ("kv8, slot pressure",
+                                          {"kv_bits": 8}),
+            ("kv16, block pressure", {"max_batch": 12,
+                                      "pool_blocks": saver_blocks})]
+    for label, kw in runs:
+        toks, sched = serve(label, True, **kw)
+        calm, _ = serve(label + ", no critical arrivals", False, **kw)
+        n_same = sum(a == b for x, y in zip(toks, calm)
+                     for a, b in zip(x, y))
+        print(f"[preempt] {label}: {n_same} of {32 * len(savers)} saver "
+              f"tokens equal the serve without the critical arrivals "
+              f"(information only)")
+        del sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_profile(seed: int) -> None:
     """Where one decode segment's time goes (``--profile``): wall time on
     the host against device-busy time from ``torch.profiler``, with the
@@ -2205,7 +2575,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -2241,6 +2611,7 @@ def main() -> None:
     if 3 in phases:
         phase_parity(args.seed)
         phase_prefix_parity(args.seed)
+        phase_preempt_parity(args.seed)
         phase_native_parity(args.seed)
     served = phase_serve(args.seed) if 4 in phases else {"launches": 0}
     if 4 in phases:
@@ -2257,8 +2628,11 @@ def main() -> None:
     if 7 in phases:
         static = phase_contiguous_serve(args.seed, continuous=False)
         phase_contiguous_serve(args.seed, continuous=True)
+        phase_contiguous_spec_serve(args.seed)
     if 8 in phases:
         phase_prefix_serve(args.seed, served)
+    if 9 in phases:
+        phase_preempt_serve(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []

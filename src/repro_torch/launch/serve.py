@@ -6,13 +6,17 @@ Manager with an energy budget.
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \
       [--no-paged-kv] [--speculate --draft-k 4 --draft-model ngram]
       [--no-prefix-cache] [--prefill-chunk 128] [--kv16-masters]
+      [--priority-classes 2 --preemption --aging 4]
 
 As in the reference launcher, ``--continuous`` decides the path. Without
 it, the requests are served in static groups (``AdaptiveServer.serve``:
 length-sorted groups of up to ``max_batch`` rows, one ragged generate per
 group, on a contiguous KV cache). With it, they go through the continuous
 scheduler's slot pool: the paged block pool, or contiguous rows with
-``--no-paged-kv``. ``--speculate`` needs ``--continuous``.
+``--no-paged-kv``. ``--speculate`` and ``--preemption`` need
+``--continuous``; speculation runs on either pool, preemption on the paged
+one. Under ``--priority-classes n`` every third request rides class 0
+(critical), the rest the lowest class.
 
 Runs on the GPU unless ``--device cpu`` is given. ``--full`` serves the
 published configuration (granite-3-2b: 40 layers, d_model 2048) with
@@ -112,6 +116,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="drafter: 'ngram' (default, self-speculative "
                          "longest-suffix lookup) or 'repeat' (repeat the "
                          "current token)")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="request priority classes for the continuous "
+                         "scheduler: 1 = classless FIFO (default); >=2 "
+                         "builds the critical/.../saver ladder — class 0 "
+                         "admits first and is profile-bound to the "
+                         "accuracy target (every 3rd request rides class "
+                         "0, the rest the lowest class)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="a critical arrival that cannot admit evicts "
+                         "saver-class rows (snapshotted, resumed "
+                         "bit-exactly through the continuation wave); "
+                         "needs --continuous and the paged pool")
+    ap.add_argument("--aging", type=int, default=None, metavar="ROUNDS",
+                    help="anti-starvation: a request that has waited "
+                         "ROUNDS rounds at the head of its class climbs "
+                         "one level (default: off)")
     ap.add_argument("--budget-inferences", type=float, default=200,
                     help="energy budget in units of full-power inferences")
     ap.add_argument("--seed", type=int, default=0)
@@ -119,6 +139,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.preemption and not args.continuous:
+        raise SystemExit("--preemption needs --continuous (the slot pool)")
     if args.speculate and not args.continuous:
         raise SystemExit("--speculate needs --continuous (draft/verify "
                          "windows run through the slot-pool segment)")
@@ -147,6 +169,8 @@ def build_server(args: argparse.Namespace):
                          prefix_cache=args.prefix_cache,
                          paged_backend=args.paged_backend,
                          prefill_chunk=args.prefill_chunk,
+                         priority_classes=args.priority_classes,
+                         preemption=args.preemption, aging=args.aging,
                          speculate=args.speculate, draft_k=args.draft_k,
                          draft_model=args.draft_model,
                          kv16_masters=args.kv16_masters)
@@ -156,11 +180,14 @@ def build_server(args: argparse.Namespace):
 
 def make_requests(cfg, args: argparse.Namespace) -> list[Request]:
     """``args.requests`` prompts from ``args.seed``; every third request is
-    accuracy-critical, as in the reference launcher."""
+    accuracy-critical and of class 0, the rest of the lowest class, as in
+    the reference launcher."""
     rng = np.random.default_rng(args.seed)
     lo, hi = (64, 513) if args.full else (4, 24)
+    n_cls = max(1, args.priority_classes)
     return [Request(tokens=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
-                    max_new=args.max_new, accuracy_critical=(i % 3 == 0))
+                    max_new=args.max_new, accuracy_critical=(i % 3 == 0),
+                    priority=0 if i % 3 == 0 else n_cls - 1)
             for i, n in enumerate(rng.integers(lo, hi, args.requests))]
 
 
@@ -200,7 +227,8 @@ def main(argv=None) -> None:
     elif sched.paged:
         st = sched.paged_stats()
         print(f"{head}: peak {st['peak_used_blocks']}/{st['pool_blocks']} "
-              f"blocks of {st['block_size']} tokens")
+              f"blocks of {st['block_size']} tokens, preemptions "
+              f"{st['preemptions']} (resumes {st['resumes']})")
         if sched.registry is not None:
             print(f"[serve] prefix registry: {st['registry_hits']} hits, "
                   f"{st['registry_misses']} misses, "

@@ -12,7 +12,8 @@ Public entry points: ``init_params``, ``quant_layer_names``, ``forward``,
 ``overlay_params``, ``init_caches``, ``init_paged_caches``,
 ``decode_segment``, ``decode_many``, for continuation prefill
 ``forward_extend`` and ``prefill_extend``, and for speculative decoding
-``ngram_propose``, ``decode_step_spec`` and ``decode_segment_spec``.
+``ngram_propose``, ``decode_step_spec`` and ``decode_segment_spec``, and
+for preemption ``paged_row_masters`` and ``amax_for_scale``.
 """
 from __future__ import annotations
 
@@ -22,10 +23,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .attention import (KVCache, PagedKVCache, _mapped, _quantize_kv,
-                        decode_attention, decode_attention_window,
-                        gqa_attention, init_kv_cache, init_paged_kv_cache,
-                        kv_scale, paged_decode_attention,
+from .attention import (KVCache, PagedKVCache, _dequantize_kv, _mapped,
+                        _quantize_kv, decode_attention,
+                        decode_attention_window, gqa_attention,
+                        init_kv_cache, init_paged_kv_cache, kv_scale,
+                        paged_decode_attention,
                         paged_decode_attention_window, paged_view,
                         prefix_attention, stack_layers, update_kv_cache,
                         update_kv_cache_window, update_paged_kv_cache,
@@ -43,8 +45,9 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "prequant_decode_weights", "overlay_params", "paged_block_size",
            "init_caches", "init_paged_caches", "cache_bytes",
            "supports_prefix_sharing", "supports_speculation",
-           "decode_segment", "decode_many", "ngram_propose",
-           "decode_step_spec", "decode_segment_spec"]
+           "paged_row_masters", "amax_for_scale", "decode_segment",
+           "decode_many", "ngram_propose", "decode_step_spec",
+           "decode_segment_spec"]
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +344,78 @@ def supports_speculation(cfg: ModelConfig, kv_bits: int = 16) -> bool:
     back, and a ring could wrap a speculative tail onto live slots) plus
     kv16/kv8 — the packed int4 cache has no per-query dequant ladder."""
     return supports_prefix_sharing(cfg) and kv_bits in (8, 16)
+
+
+def paged_row_masters(kv_pool: PagedKVCache, slot: int, block_ids,
+                      n_tok: int):
+    """f32 K/V masters of one paged row's first ``n_tok`` tokens, the
+    preemption snapshot: the row's mapped blocks (``block_ids`` in logical
+    order, shared copy-on-write blocks included) gathered into ``(mk, mv)``
+    ``[L, n_tok, Hkv, hd]``. An int pool is dequantized under the row's
+    *current* scales: not what early tokens were written as (the running
+    scale has moved since), but exactly the values whose re-quantization
+    under that scale gives back the stored ints, which is what the resume
+    wave replays."""
+    bs = kv_pool.k.shape[2]                  # [L, n_blocks + 1, bs, Hkv, hd']
+    nb = -(-n_tok // bs)
+    bids = torch.as_tensor(np.asarray(list(block_ids)[:nb], np.int64),
+                           device=kv_pool.k.device)
+
+    def gather(pool, scale):
+        g = pool[:, bids]                    # [L, nb, bs, Hkv, hd']
+        g = g.reshape(g.shape[0], nb * bs, *g.shape[3:])[:, :n_tok]
+        if kv_pool.bits in (4, 8):
+            return _dequantize_kv(g, scale, kv_pool.bits)
+        return g.float()
+
+    return (gather(kv_pool.k, kv_pool.k_scale[:, slot]),
+            gather(kv_pool.v, kv_pool.v_scale[:, slot]))
+
+
+def amax_for_scale(scale: np.ndarray, qmax: float,
+                   strict: bool = True) -> np.ndarray:
+    """Invert :func:`~repro_torch.models.attention.kv_scale` element by
+    element: an f32 ``amax`` whose scale is bit-equal to ``scale``.
+
+    The resume wave recalibrates a row's scale from the amax it is given
+    (``kv_scale(max(prefix amax, suffix amax))`` with an empty suffix); an
+    exact preimage makes the restored scale, and with it every
+    re-quantized int, the suspended row's. ``kv_scale`` is one rounding of
+    ``amax · f32(1/qmax) + f32(1e-9)``, so the search starts at ``(s −
+    1e-9) / f32(1/qmax)`` and walks outwards by f32 ulps. Multiplying by
+    ``f32(1/qmax)`` can step over an f32 value, so a scale may have no
+    preimage: ``strict`` raises, otherwise the starting point comes back
+    and the caller forces the exact scale afterwards (re-quantization
+    itself tolerates a few-ulp scale error: ``round(i·(1 ± ε)) == i`` for
+    ``|i| <= qmax``)."""
+    s = np.asarray(scale, np.float32)
+    inv = np.float64(np.float32(1.0 / qmax))
+    eps = np.float64(np.float32(1e-9))
+
+    def fwd(a):
+        return np.float32(np.float64(a) * inv + eps)
+
+    out = np.empty_like(s)
+    for idx, sv in np.ndenumerate(s):
+        a0 = np.float32((np.float64(sv) - eps) / inv)
+        a = lo = hi = a0
+        for _ in range(64):
+            if fwd(a) == sv:
+                break
+            hi = np.nextafter(hi, np.float32(np.inf), dtype=np.float32)
+            if fwd(hi) == sv:
+                a = hi
+                break
+            lo = np.nextafter(lo, np.float32(-np.inf), dtype=np.float32)
+            if fwd(lo) == sv:
+                a = lo
+                break
+        else:
+            if strict:
+                raise ValueError(f"no amax preimage for scale {sv!r}")
+            a = a0
+        out[idx] = a
+    return out
 
 
 # ---------------------------------------------------------------------------

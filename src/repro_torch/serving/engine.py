@@ -76,11 +76,11 @@ class ServingConfig:
     backend (``"kernel"``, or ``"auto"`` on CUDA) the server checks at
     construction that each kernel it will launch takes the model's shapes
     — K1 on a paged pool (D even, ``<= 256``; any block size and Hg), K2
-    when ``speculate`` (the same, any ``draft_k``), K4 at kv8 (D a multiple
-    of 4, ``<= 256``, Hg ``<= 16``) — and raises a ``ValueError`` naming
-    ``paged_backend="gather"`` otherwise; it never switches backend by
-    itself. The check runs on every device, so the CPU sees the same
-    refusal as the card.
+    when ``speculate`` on a paged pool (the same, any ``draft_k``), K4 at
+    kv8 (D a multiple of 4, ``<= 256``, Hg ``<= 16``) — and raises a
+    ``ValueError`` naming ``paged_backend="gather"`` otherwise; it never
+    switches backend by itself. The check runs on every device, so the CPU
+    sees the same refusal as the card.
 
     Speculative decoding: ``speculate`` decodes through draft/verify
     windows — each segment window proposes ``draft_k`` tokens per row and
@@ -88,10 +88,11 @@ class ServingConfig:
     (:func:`repro_torch.models.transformer.decode_segment_spec`),
     delivering 1..``draft_k + 1`` tokens per row, the same tokens as greedy
     decode. Needs a ``supports_speculation`` stack (full causal attention,
-    kv16/kv8). ``draft_hist`` is the token history the n-gram drafter
-    sees. ``draft_model``: ``None``/``"ngram"`` = the n-gram drafter,
-    ``"repeat"`` = repeat the current token; a small-model drafter plugs
-    in as :class:`AdaptiveServer`'s ``draft_fn``.
+    kv16/kv8), on the paged or the contiguous pool. ``draft_hist`` is the
+    token history the n-gram drafter sees. ``draft_model``:
+    ``None``/``"ngram"`` = the n-gram drafter, ``"repeat"`` = repeat the
+    current token; a small-model drafter plugs in as
+    :class:`AdaptiveServer`'s ``draft_fn``.
 
     Shared prefixes and chunked prefill (paged pool, full causal attention
     only): ``prefix_cache`` — register block-aligned prompt prefixes and
@@ -108,6 +109,18 @@ class ServingConfig:
     too, so every continuation replays the prefix from the raw
     activations where it would otherwise gather the bf16 blocks (int
     pools always keep masters; other precisions are refused).
+
+    Priority classes and preemption (the continuous scheduler's policy,
+    :func:`~repro_torch.serving.policy.make_policy`):
+    ``priority_classes`` — 1 is the classless FIFO; ``n >= 2`` builds the
+    critical/…/saver ladder, where class 0 admits first and binds its rows'
+    waves and steps to the accuracy target. ``preemption`` — a critical
+    arrival that cannot admit evicts saver-class rows, which later resume
+    bit-exactly through the master-replay continuation wave
+    (:meth:`AdaptiveServer.admit_shared` with an empty suffix); needs the
+    paged pool on a ``supports_prefix_sharing`` stack. ``aging`` — rounds
+    a queued request waits at the head of its class before it climbs one
+    level (``None``: strict lowest-level-first).
     """
 
     slots: int = 4096
@@ -120,6 +133,9 @@ class ServingConfig:
     prefix_capacity: int = 32
     paged_backend: str = "auto"
     prefill_chunk: Optional[int] = None
+    priority_classes: int = 1
+    preemption: bool = False
+    aging: Optional[int] = None
     speculate: bool = False
     draft_k: int = 4
     draft_hist: int = 32
@@ -130,9 +146,10 @@ class ServingConfig:
 @dataclasses.dataclass
 class Request:
     """One generation request: a ``[S]`` int32 prompt, a token budget, and
-    the paper's accuracy-critical flag. ``priority``/``deadline_ms`` are the
-    reference's fields; the FIFO policy ignores the first and this slice
-    does not implement the second (it must stay ``None``)."""
+    the paper's accuracy-critical flag. ``priority`` is the class index
+    under a class-aware policy (0 = most urgent, clamped into the ladder;
+    the FIFO ignores it). ``deadline_ms`` is the reference's field, not
+    ported here (it must stay ``None``)."""
 
     tokens: np.ndarray
     max_new: int = 32
@@ -218,6 +235,16 @@ class AdaptiveServer:
                                  f"{serving.draft_model!r}: use None, "
                                  f"'ngram' or 'repeat' (or pass draft_fn)")
         self.draft_fn = draft_fn
+        # a preempted row resumes through the master-replay continuation
+        # wave (admit_shared, empty suffix) at every precision: its blocks
+        # are gone, so the kv16 pool-gather wave cannot serve it
+        self.can_restore = bool(serving.paged_kv
+                                and T.supports_prefix_sharing(cfg))
+        if serving.preemption and not self.can_restore:
+            raise ValueError(
+                "preemption requires the paged KV pool on a full-causal "
+                "attention stack (supports_prefix_sharing): suspended rows "
+                "resume through the continuation-prefill wave")
         self.paged_backend = pb
         self.block_size = T.paged_block_size(cfg, serving.slots,
                                              serving.block_size)
@@ -250,8 +277,8 @@ class AdaptiveServer:
     def _check_kernels(self) -> None:
         """Raise now, not at the first decode, if a kernel this server will
         launch cannot take the model's shapes: K1 on a paged pool, K2 when
-        speculating, K4 at kv8 (static serving and the contiguous pool read
-        an int8 cache through it)."""
+        speculating on it, K4 at kv8 (static serving and the contiguous
+        pool read an int8 cache through it)."""
         from repro_torch.kernels import paged_attention as PA
         from repro_torch.kernels import qkv_attention as QK
         cfg, scfg = self.cfg, self.scfg
@@ -260,7 +287,7 @@ class AdaptiveServer:
         if scfg.paged_kv:
             checks.append(("the paged-attention kernel (K1)",
                            PA.supports(d, hg, self.block_size)))
-        if scfg.speculate:
+        if scfg.speculate and scfg.paged_kv:
             checks.append(("the window kernel (K2)",
                            PA.supports(d, hg, self.block_size,
                                        scfg.draft_k + 1)))

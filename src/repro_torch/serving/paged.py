@@ -2,8 +2,8 @@
 
 Copy of ``repro/serving/paged.py`` (numpy-only); the one array reduction
 (``register_chain``'s raw amax) runs on torch tensors here. The scheduler
-uses :class:`BlockAllocator` and :class:`PrefixRegistry`;
-:class:`RowSnapshot` waits for preemption.
+uses :class:`BlockAllocator`, :class:`PrefixRegistry` and, for
+preemption, :class:`RowSnapshot`.
 
 The device side of the paged KV cache (:class:`repro_torch.models.attention.
 PagedKVCache`) is deliberately dumb — a pool of blocks and per-row block
@@ -81,7 +81,7 @@ class RowSnapshot:
     pre-eviction step (billing bookkeeping only — with an empty suffix no
     profile-dependent compute lands in the cache). ``k_amax``/``v_amax``
     (``[L, Hkv]``, int-KV only) are best-effort scale preimages
-    (:func:`repro.models.transformer.amax_for_scale`, ``strict=False``)
+    (:func:`repro_torch.models.transformer.amax_for_scale`, ``strict=False``)
     that land the restore recalibration on — or within a few ulp of —
     the suspended scales; ``k_scale``/``v_scale`` carry the exact
     suspended scales, forced over the restored row afterwards (see the
@@ -98,8 +98,8 @@ class RowSnapshot:
     v_amax: Any
     # Exact suspended scale rows ([L, Hkv] f32, int-KV only). The amax
     # preimage above is best-effort (``amax_for_scale(..., strict=False)``):
-    # XLA's reciprocal-multiply lowering of /qmax can emit scales true f32
-    # division never produces, so no preimage exists for the restore wave's
+    # ``kv_scale`` multiplies by f32(1/qmax), which can step over an f32
+    # value, so no preimage may exist for the restore wave's
     # recalibration to hit. Re-quantization is insensitive to the resulting
     # few-ulp scale drift (``round(i·(1±ε)) == i`` for ``|i| ≤ qmax``) — the
     # ints land bit-exact regardless — and the scheduler then FORCES these

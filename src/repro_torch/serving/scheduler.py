@@ -1,5 +1,6 @@
 """Continuous batching on the paged or the contiguous KV pool (port of
-``repro/serving/scheduler.py``: FIFO policy, cold admission waves).
+``repro/serving/scheduler.py``: the policy layer, admission waves,
+preemption with a bit-exact resume, speculation).
 
 The scheduler owns a fixed ``[max_batch]`` slot pool whose decode state —
 last token, position, the paged KV pool — lives on the device and is updated
@@ -22,9 +23,30 @@ come back one segment late
 so the next dispatch is queued before the previous tokens are read.
 
 The profile plan is made one segment ahead with
-:meth:`~repro_torch.core.manager.ProfileManager.plan_schedule_ragged` over
-the rows actually live at each step, so the energy ledger bills exactly the
-live rows; every billing event lands in :attr:`ContinuousScheduler.events`.
+:meth:`~repro_torch.core.manager.ProfileManager.plan_schedule_ragged` (or,
+under more than one priority class,
+:meth:`~repro_torch.core.manager.ProfileManager.plan_schedule_classes`)
+over the rows actually live at each step, so the energy ledger bills
+exactly the live rows; every billing event lands in
+:attr:`ContinuousScheduler.events`.
+
+**Policy** (:mod:`repro_torch.serving.policy`): the queue discipline,
+class→profile binding and victim choice. Under ``priority_classes > 1``
+class 0 admits first and pins every wave and step a class-0 row is live
+for to the accuracy target, in the saver regime too; ``aging`` promotes a
+starved class head one level per ``aging`` rounds.
+
+**Preemption** (``ServingConfig.preemption``, paged pool): a critical
+arrival that cannot admit evicts policy-chosen saver rows
+(:meth:`ContinuousScheduler.evict_row`): the victim's written span is
+snapshotted as f32 masters with its exact scales
+(:class:`~repro_torch.serving.paged.RowSnapshot`), its blocks go back
+(registered prefixes park in the LRU), its table is unmapped and it
+requeues at the front of its class. It later resumes through the
+master-replay continuation wave with an empty suffix: pure data movement,
+so the rebuilt cache bytes, scales and ``token_idx`` equal the suspended
+row's and it continues token-identically. Suspension and resume bill
+nothing.
 
 **Speculation** (``ServingConfig.speculate``): each segment runs
 ``ceil(quantum / W)`` draft/verify windows (``W = draft_k + 1``) with a
@@ -33,8 +55,9 @@ is data the host needs for retirement, history and billing, so spec mode
 is synchronous (``_flush(keep=0)``): the profile plan is provisional, and
 the ledger bills the tokens each window actually delivered at the flush
 (:attr:`ContinuousScheduler.spec_billed`, invariant 11 of the reference).
-Speculation runs on the paged pool only (not ported on the contiguous one),
-shared copy-on-write rows included.
+Speculation runs on either pool, shared copy-on-write rows and resumed rows
+included; a class with ``speculative=False`` advances one token per
+window.
 
 **Shared prefixes** (``ServingConfig.prefix_cache``): prompts are hashed at
 block granularity when submitted and matched against a
@@ -54,12 +77,11 @@ follows one chunk per admission round through continuation waves, between
 decode segments. A row mid-admission holds its slot and blocks with
 ``remaining == 0`` (frozen), its profile pinned for the whole prompt, and
 continuation waves bill nothing. Each round dispatches at most two prefill
-waves (cold, shared, chunk continuations per pinned profile).
+waves (cold, shared, resume, chunk continuations per pinned profile).
 
-Not ported yet (later slices): priorities and preemption (and so resume),
-deadlines, cancellation, shedding, fault injection and quarantine,
-durability. A row whose logits go non-finite raises at the flush (the
-reference quarantines it).
+Not ported yet (later slices): deadlines, cancellation, shedding, fault
+injection and quarantine, durability. A row whose logits go non-finite
+raises at the flush (the reference quarantines it).
 """
 from __future__ import annotations
 
@@ -70,8 +92,8 @@ import torch
 
 from repro_torch.models import transformer as T
 from .engine import AdaptiveServer, Request, RequestStatus, _next_pow2
-from .paged import BlockAllocator, PrefixRegistry, prefix_keys
-from .policy import SchedulingPolicy, make_policy
+from .paged import BlockAllocator, PrefixRegistry, RowSnapshot, prefix_keys
+from .policy import RowState, SchedulingPolicy, make_policy
 
 __all__ = ["ContinuousScheduler"]
 
@@ -89,8 +111,9 @@ class ContinuousScheduler:
     ``quantum`` = decode steps per segment; ``prefill_bucket`` = minimum
     power-of-two prompt padding; ``record_events`` keeps the billing events
     and admission order (for the ledger-oracle tests — a long-lived server
-    turns it off); ``policy`` defaults to the FIFO of
-    :func:`~repro_torch.serving.policy.make_policy`.
+    turns it off); ``policy`` defaults to
+    :func:`~repro_torch.serving.policy.make_policy` of the server's config
+    (the FIFO unless ``priority_classes``/``preemption`` say otherwise).
     """
 
     def __init__(self, server: AdaptiveServer, quantum: int = 8,
@@ -103,11 +126,14 @@ class ContinuousScheduler:
         cfg, scfg = server.cfg, server.scfg
         nslots = self.n_slots = scfg.max_batch
         self.policy = policy if policy is not None else make_policy(scfg)
-        if self.policy.preemptive or len(self.policy.classes) > 1:
-            raise NotImplementedError("priority classes and preemption are "
-                                      "not ported")
         dev = server.device
         self.paged = bool(scfg.paged_kv)
+        if self.policy.preemptive and (not self.paged or not scfg.preemption
+                                       or not server.can_restore):
+            raise ValueError(
+                "a preemptive policy needs the paged pool and a server "
+                "built with ServingConfig.preemption=True (the restore "
+                "wave) on a supports_prefix_sharing stack")
         if self.paged:
             self.block_size = server.block_size
             self.n_lblk = server.n_lblk
@@ -127,9 +153,6 @@ class ContinuousScheduler:
             self.chunk = server.chunk_tokens
             self._chunk_state: dict[int, dict] = {}
         else:
-            if scfg.speculate:
-                raise NotImplementedError("speculation on the contiguous "
-                                          "pool is not ported")
             self._caches = T.init_caches(cfg, nslots, scfg.slots,
                                          kv_bits=scfg.kv_bits, device=dev)
             self.allocator = None
@@ -139,7 +162,11 @@ class ContinuousScheduler:
         self.remaining = np.zeros((nslots,), np.int64)   # tokens left to emit
         self.slot_req: list[Optional[int]] = [None] * nslots
         self._slot_crit = np.zeros((nslots,), bool)
+        self._slot_level = np.zeros((nslots,), np.int32)  # priority class
         self._reqs: dict[int, Request] = {}
+        self._suspended: dict[int, RowSnapshot] = {}       # rid -> snapshot
+        self.preemptions = 0
+        self.resumes = 0
         self.results: dict[int, dict] = {}
         self._n = 0
         self.admission_log: list[int] = []               # rids, admission order
@@ -207,6 +234,8 @@ class ContinuousScheduler:
             "reclaimed_blocks": self.allocator.reclaimed_blocks,
             "peak_used_blocks": self.peak_used_blocks,
             "free_blocks": self.allocator.free_blocks,
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
             "kv_bytes": T.cache_bytes(self._caches),
             "registry_bytes": 0,
         }
@@ -262,7 +291,8 @@ class ContinuousScheduler:
 
     @property
     def pending(self) -> int:
-        """Requests queued but not yet admitted."""
+        """Requests queued but not yet admitted (suspended rows waiting to
+        resume count: they hold no slot)."""
         return len(self.policy)
 
     def poll_completed(self) -> list[tuple[int, dict]]:
@@ -295,9 +325,12 @@ class ContinuousScheduler:
         """Claim slots *and* blocks in policy order, then dispatch at most
         two prefill waves.
 
-        A candidate is **cold** (full ragged prefill; a prompt longer than
-        the chunk rides with its first chunk), **shared** (a registry hit:
-        suffix-only continuation; a hit with a long suffix chunks too) or
+        First a preemptive policy may evict victims for an urgent head that
+        would not fit (:meth:`_maybe_preempt`). A candidate is **cold**
+        (full ragged prefill; a prompt longer than the chunk rides with its
+        first chunk), **shared** (a registry hit: suffix-only continuation;
+        a hit with a long suffix chunks too), **resume** (a suspended row
+        replaying its snapshot; one pinned profile per round) or
         **deferred**: a cold candidate whose prefix an earlier candidate of
         this round's cold wave will register. It looks the registry up
         again once that wave has dispatched and rides the shared wave; if
@@ -308,9 +341,12 @@ class ContinuousScheduler:
         the two first (``kind_cap``), and a candidate needing a kind over
         the cap waits. Then the mid-admission chunks advance.
         """
+        self._maybe_preempt()
         free = [s for s in range(self.n_slots)
                 if self.slot_req[s] is None and s not in self._chunk_state]
         cold, shared, deferred, chunked, shared_chunked = [], [], [], [], []
+        resume: list = []
+        resume_pid: Optional[int] = None
         kinds: set = set()
         kind_cap = 2 - len({st["pid"] for st in self._chunk_state.values()
                             if not st.get("fresh")})
@@ -318,6 +354,21 @@ class ContinuousScheduler:
         while free and len(self.policy):
             rid = self.policy.head()
             req = self._reqs[rid]
+            if rid in self._suspended:
+                if "resume" not in kinds and len(kinds) >= kind_cap:
+                    break                # over budget: next round
+                snap = self._suspended[rid]
+                if resume and snap.pid != resume_pid:
+                    break                # one pinned-pid resume group/round
+                blocks = self.allocator.alloc(
+                    self._blocks_needed(len(req.tokens), req.max_new))
+                if blocks is None:
+                    break                # backpressure: the head waits
+                self.policy.pop_head()
+                resume.append((rid, free.pop(0), blocks))
+                resume_pid = snap.pid
+                kinds.add("resume")
+                continue
             plen = len(req.tokens)
             need = self._blocks_needed(plen, req.max_new)
             keys = self._prefix_keys.get(rid, [])
@@ -401,6 +452,8 @@ class ContinuousScheduler:
                 shared.append((rid, slot, entry, blocks))
         if shared or shared_chunked:
             n += self._dispatch_shared(shared, shared_chunked)
+        if resume:
+            n += self._dispatch_resume(resume)
         for rid in reversed(rollback):      # keep their relative order
             self.policy.push_front(rid, self._reqs[rid])
         if n:
@@ -420,6 +473,163 @@ class ContinuousScheduler:
             self.events.append((pid, len(reqs), crit))
         return pid
 
+    # ------------------------------------------------------------- preemption
+    def _maybe_preempt(self) -> None:
+        """The preemption trigger: the queue head's class may preempt and
+        the pool cannot take it (no free slot, or the allocator's free and
+        reclaimable blocks do not cover its private need). The policy picks
+        the victims (lowest class first, fewest tokens first, all or
+        nothing); each is suspended by :meth:`evict_row`, and all their
+        tables are unmapped in one clear."""
+        if not self.policy.preemptive:
+            return
+        rid = self.policy.head()
+        if rid is None:
+            return
+        req = self._reqs[rid]
+        need = self._blocks_needed(len(req.tokens), req.max_new)
+        if rid not in self._suspended and self.registry is not None:
+            # a hit maps its prefix blocks: count only the private need
+            entry = self.registry.lookup(self._prefix_keys.get(rid, []))
+            if entry is not None and entry.block_ids is not None:
+                need -= entry.n_tokens // self.block_size
+        have_slot = any(self.slot_req[s] is None
+                        and s not in self._chunk_state
+                        for s in range(self.n_slots))
+        need_slots = 0 if have_slot else 1
+        need_blocks = max(0, need - self.allocator.available_blocks)
+        if not need_slots and not need_blocks:
+            return
+        rows = []
+        for slot in range(self.n_slots):
+            vrid = self.slot_req[slot]
+            if vrid is None or slot in self._chunk_state:
+                continue
+            blocks, _ = self._slot_blocks[slot]
+            rows.append(RowState(
+                slot=slot, rid=vrid, level=int(self._slot_level[slot]),
+                generated=len(self.results[vrid]["tokens"]),
+                blocks=len(blocks),
+                preemptible=self.policy.klass(self._reqs[vrid]).preemptible))
+        victims = self.policy.pick_victims(req, rows, need_slots,
+                                           need_blocks)
+        if not victims:
+            return
+        for v in victims:
+            self.evict_row(v.slot)
+        self.srv.clear_rows([v.slot for v in victims], self._caches)
+
+    def _snapshot_row(self, slot: int) -> RowSnapshot:
+        """A live row's :class:`RowSnapshot`: its written span as f32
+        masters (:func:`~repro_torch.models.transformer.paged_row_masters`)
+        and, at int KV, its exact scales with their best-effort amax
+        preimages (:func:`~repro_torch.models.transformer.amax_for_scale`).
+        Every in-flight token must be flushed first, so that the snapshot
+        holds the row's true progress."""
+        rid = self.slot_req[slot]
+        req = self._reqs[rid]
+        res = self.results[rid]
+        g = len(res["tokens"])              # >= 1: admission emitted one
+        p_written = len(req.tokens) + g - 1  # KV positions 0..p_written-1
+        pid = self.srv.engine.profile_names.index(res["profile_trace"][-1])
+        blocks, reg = self._slot_blocks[slot]
+        ns = (reg.n_tokens // self.block_size
+              if reg is not None and reg.block_ids is not None else 0)
+        row_map = ([int(b) for b in reg.block_ids[:ns]] if ns else []) \
+            + list(blocks)
+        pool = self._caches["kv"]
+        mk, mv = T.paged_row_masters(pool, slot, row_map, p_written)
+        ka = va = ksc = vsc = None
+        kv_bits = self.srv.scfg.kv_bits
+        if kv_bits in (4, 8):
+            qmax = 127.0 if kv_bits == 8 else 7.0
+            dev = self.srv.device
+            ksc = pool.k_scale[:, slot].clone()
+            vsc = pool.v_scale[:, slot].clone()
+            ka = torch.as_tensor(T.amax_for_scale(
+                ksc.cpu().numpy(), qmax, strict=False), device=dev)
+            va = torch.as_tensor(T.amax_for_scale(
+                vsc.cpu().numpy(), qmax, strict=False), device=dev)
+        return RowSnapshot(
+            rid=rid, n_done=p_written, last_tok=int(res["tokens"][-1]),
+            pid=pid, master_k=mk, master_v=mv, k_amax=ka, v_amax=va,
+            k_scale=ksc, v_scale=vsc)
+
+    def evict_row(self, slot: int) -> int:
+        """Suspend one live pool row; returns its rid. Flush every
+        in-flight token, snapshot the row (:meth:`_snapshot_row`), release
+        its blocks (registered prefixes park in the LRU; a mapped
+        copy-on-write entry drops this sharer's references) and requeue the
+        request at the front of its class. The caller unmaps the slot's
+        table (:meth:`~repro_torch.serving.engine.AdaptiveServer.
+        clear_rows`), so the frozen row's writes cannot follow the freed
+        blocks to their next owner. The row resumes through
+        :meth:`_dispatch_resume`."""
+        rid = self.slot_req[slot]
+        assert rid is not None and slot not in self._chunk_state
+        self._flush(0)
+        self._suspended[rid] = self._snapshot_row(slot)
+        self._retire_blocks(slot)
+        self.slot_req[slot] = None
+        self._slot_crit[slot] = False
+        self._slot_level[slot] = 0
+        self.remaining[slot] = 0
+        self.policy.push_front(rid, self._reqs[rid])
+        self.preemptions += 1
+        return rid
+
+    def _dispatch_resume(self, rows) -> int:
+        """One continuation wave re-admitting suspended rows ``(rid, slot,
+        blocks)``. The prefix is everything the row had written (replayed
+        from its snapshot masters), the suffix is empty (``prompt_len =
+        0``) and ``dest`` is a fully private rebuild: pure data movement,
+        so the restored bytes, scales and ``token_idx`` equal the suspended
+        row's (kv16 masters round-trip through bf16; int re-quantization
+        under the snapshot's scale gives back every int, and the exact
+        scales are forced over the wave's recalibration). It bills nothing
+        and recomputes no token: the carry is re-pointed at the last
+        emitted token, and with ``pos = n_done`` it is the uninterrupted
+        row's. All rows share the snapshot-pinned profile."""
+        bs = self.block_size
+        snaps = [self._suspended.pop(rid) for rid, _, _ in rows]
+        pid = snaps[0].pid
+        sb = _next_pow2(self.bucket_min)            # empty suffixes
+        pp = bs * _next_pow2(max(-(-s.n_done // bs) for s in snaps))
+        a = _next_pow2(len(rows))
+        prompts = np.zeros((a, sb), np.int32)
+        slen = np.zeros((a,), np.int32)             # 0: nothing prefills
+        plen_pre = np.zeros((a,), np.int32)
+        sidx = np.full((a,), self.n_slots, np.int32)
+        dest = np.full((a, self.n_lblk), self.allocator.n_blocks, np.int32)
+        for j, ((_, slot, blocks), s) in enumerate(zip(rows, snaps)):
+            plen_pre[j] = s.n_done
+            sidx[j] = slot
+            dest[j, :len(blocks)] = blocks
+        self._call_continuation(
+            pid, prompts, slen, sidx, dest, dest, plen_pre, pp,
+            [(s.n_done, None, s.master_k, s.master_v, s.k_amax, s.v_amax)
+             for s in snaps], masters=True)
+        dev = self.srv.device
+        sl = torch.as_tensor([slot for _, slot, _ in rows], device=dev)
+        if snaps[0].k_scale is not None:
+            kv = self._caches["kv"]
+            kv.k_scale[:, sl] = torch.stack([s.k_scale for s in snaps], 1)
+            kv.v_scale[:, sl] = torch.stack([s.v_scale for s in snaps], 1)
+        self._tok[sl] = torch.as_tensor([s.last_tok for s in snaps],
+                                        dtype=torch.int32, device=dev)
+        for rid, slot, blocks in rows:
+            req = self._reqs[rid]
+            self.slot_req[slot] = rid
+            self._slot_crit[slot] = self.policy.bind_critical(req)
+            self._slot_level[slot] = self.policy.klass(req).level
+            self.remaining[slot] = \
+                req.max_new - len(self.results[rid]["tokens"])
+            self._slot_blocks[slot] = (blocks, None)
+            self._seed_spec(slot, req, history=self.results[rid]["tokens"])
+            self.resumes += 1
+        return len(rows)
+
+    # ------------------------------------------------------------------ waves
     def _dispatch_cold(self, rows, chunked=()) -> int:
         """One admission wave: full ragged prefill, then a block scatter
         (paged pool) or whole-row writes (contiguous pool). ``rows``:
@@ -516,17 +726,19 @@ class ContinuousScheduler:
                 share_blocks=self.srv.scfg.kv_bits == 16)
 
     def _call_continuation(self, pid: int, prompts, slen, sidx, dest,
-                           bt_rows, plen_pre, pp: int, pre: list):
+                           bt_rows, plen_pre, pp: int, pre: list,
+                           masters: bool = False):
         """Assemble the prefix operands of one continuation wave and
         dispatch it. ``pre``: one ``(n_tok, block_ids, mk, mv, ka, va)``
         per wave row. A bf16 pool without masters gathers the prefix from
         ``block_ids`` (:meth:`~repro_torch.serving.engine.AdaptiveServer.
-        admit_shared_pool`); otherwise the f32 masters, cut to ``n_tok``
-        (chain entries share one buffer) and padded to ``pp``, are replayed
-        with their raw amax. Returns ``(tok0, raw)``."""
+        admit_shared_pool`); otherwise, and always with ``masters`` (the
+        resume wave: its rows' blocks are gone), the f32 masters, cut to
+        ``n_tok`` (chain entries share one buffer) and padded to ``pp``,
+        are replayed with their raw amax. Returns ``(tok0, raw)``."""
         cfg, srv = self.srv.cfg, self.srv
         a = dest.shape[0]
-        if not srv.masters_mode:
+        if not srv.masters_mode and not masters:
             pre_bids = np.full((a, pp // self.block_size),
                                self.allocator.n_blocks, np.int32)
             for j, (n_tok, bids, *_rest) in enumerate(pre):
@@ -699,6 +911,7 @@ class ContinuousScheduler:
                 continue
             self.slot_req[slot] = rid
             self._slot_crit[slot] = self.policy.bind_critical(req)
+            self._slot_level[slot] = self.policy.klass(req).level
             self.remaining[slot] = req.max_new - 1
             self._slot_blocks[slot] = (st["blocks"], st["entry"])
             self._seed_spec(slot, req)
@@ -748,6 +961,7 @@ class ContinuousScheduler:
                 continue
             self.slot_req[slot] = rid
             self._slot_crit[slot] = self.policy.bind_critical(req)
+            self._slot_level[slot] = self.policy.klass(req).level
             self.remaining[slot] = req.max_new - 1
             if self.paged:
                 self._slot_blocks[slot] = (blocks, reg)
@@ -756,15 +970,40 @@ class ContinuousScheduler:
             self.srv.clear_rows(clear, self._caches)
         self._inflight.append(entry)
 
-    def _seed_spec(self, slot: int, req) -> None:
+    def _seed_spec(self, slot: int, req, history=None) -> None:
         """Reset slot ``slot``'s speculation state for its new occupant: an
         empty history (the admission flush lands the first token; a
         previous occupant's n-grams must never draft for this row) and the
-        request's class speculation binding."""
+        request's class speculation binding. ``history`` replays a resumed
+        row's delivered tokens, so its drafter warm-starts (drafting
+        quality only: verification never depends on the proposals)."""
         if not self.spec:
             return
         self._hist[slot] = -1
+        if history:
+            h = np.asarray(history[-self._hist.shape[1]:], np.int32)
+            self._hist[slot, -len(h):] = h
         self._slot_spec[slot] = self.policy.bind_speculative(req)
+
+    def _plan(self, n: int, draft_w: int = 1,
+              provisional: bool = False) -> np.ndarray:
+        """Profile ids for the next ``n`` steps (windows) over the live
+        rows: zeros without a manager; per-class planning when the policy
+        has more than one class (a bound class pins the steps its rows are
+        live for, as do the rows' own critical flags)."""
+        mgr = self.srv.manager
+        if mgr is None:
+            return np.zeros((n,), np.int32)
+        if len(self.policy.classes) > 1:
+            return mgr.plan_schedule_classes(
+                n, self.remaining, self._slot_level,
+                tuple(c.level for c in self.policy.classes
+                      if c.accuracy_critical),
+                row_critical=self._slot_crit, draft_w=draft_w,
+                provisional=provisional)
+        return mgr.plan_schedule_ragged(n, self.remaining, self._slot_crit,
+                                        draft_w=draft_w,
+                                        provisional=provisional)
 
     # --------------------------------------------------------------- decoding
     def run_segment(self) -> None:
@@ -776,12 +1015,8 @@ class ContinuousScheduler:
         if self.spec:
             return self._run_segment_spec()
         q = self.quantum
-        mgr = self.srv.manager
         rem = self.remaining
-        if mgr is None:
-            sched = np.zeros((q,), np.int32)
-        else:
-            sched = mgr.plan_schedule_ragged(q, rem, self._slot_crit)
+        sched = self._plan(q)
         if self.record_events:
             for i in range(q):
                 live_i = rem > i
@@ -804,6 +1039,7 @@ class ContinuousScheduler:
             if self.remaining[slot] == 0:                # retire → refillable
                 self.slot_req[slot] = None
                 self._slot_crit[slot] = False
+                self._slot_level[slot] = 0
                 entry["completes"].append(rid)
                 if self.paged:
                     self._retire_blocks(slot)
@@ -821,13 +1057,8 @@ class ContinuousScheduler:
         self._flush(0)      # land admissions first: fresh rows' history
         w = self.draft_w    # must hold their first token
         n_iter = max(1, -(-self.quantum // w))
-        mgr = self.srv.manager
         rem = self.remaining
-        if mgr is None:
-            sched = np.zeros((n_iter,), np.int32)
-        else:
-            sched = mgr.plan_schedule_ragged(n_iter, rem, self._slot_crit,
-                                             draft_w=w, provisional=True)
+        sched = self._plan(n_iter, draft_w=w, provisional=True)
         if self.record_events:
             # the PLANNED clamped bill per window (what the provisional
             # plan fed select()); the actuals land in `spec_billed`
@@ -843,7 +1074,7 @@ class ContinuousScheduler:
                                   self._tok, self._pos, self._caches,
                                   self.remaining, quota)
         self.segments_run += 1
-        self.segments_chunking += bool(self._chunk_state)
+        self.segments_chunking += bool(self.paged and self._chunk_state)
         self.windows_run += n_iter
         self._inflight.append({
             "kind": "spec", "toks": toks, "ms": ms, "ok": ok,
@@ -855,9 +1086,9 @@ class ContinuousScheduler:
     def _flush_spec(self, e: dict, arr: np.ndarray, names) -> None:
         """Land one speculative segment: distribute each window's delivered
         prefix, bill the ledger the tokens actually delivered, slide each
-        row's drafter history, then retire rows whose budget hit zero and
-        hand their blocks back (the segment already unmapped their
-        tables)."""
+        row's drafter history, then retire rows whose budget hit zero and,
+        on the paged pool, hand their blocks back (the segment already
+        unmapped their tables)."""
         ms = e["ms"].cpu().numpy()                        # [B, n_iter]
         ok = e["ok"].cpu().numpy()
         mgr = self.srv.manager
@@ -893,8 +1124,10 @@ class ContinuousScheduler:
             if self.remaining[slot] == 0 and delivered:
                 self.slot_req[slot] = None               # retire → refill
                 self._slot_crit[slot] = False
+                self._slot_level[slot] = 0
                 e["completes"].append(rid)
-                self._retire_blocks(slot)
+                if self.paged:
+                    self._retire_blocks(slot)
 
     def _flush(self, keep: int = 0) -> None:
         """Read in-flight token blocks into per-request results, leaving
@@ -934,10 +1167,13 @@ class ContinuousScheduler:
 
     # ------------------------------------------------------------------ drive
     def step(self) -> bool:
-        """One engine round: admit (and advance mid-admission chunks), then
-        run one segment with one kept in flight (none in spec mode:
-        delivered counts gate retirement). Returns False once everything
-        is drained; rows still chunking in keep the loop alive."""
+        """One engine round: age the queue, admit (and advance
+        mid-admission chunks, evict for an urgent head, resume suspended
+        rows), then run one segment with one kept in flight (none in spec
+        mode: delivered counts gate retirement). Returns False once
+        everything is drained; rows still chunking in, and suspended rows
+        (queued for their resume), keep the loop alive."""
+        self.policy.age_tick()           # anti-starvation promotion (if on)
         self.admit()
         if self.live_rows:
             self.run_segment()

@@ -9,7 +9,9 @@ TMA can describe the operands and mma.sync elsewhere, at M 17–2048 with
 ragged K and N),
 K4 (int8-KV decode attention on the contiguous cache) and K5 (per-tensor
 fake-quant: bit for bit); K1 and K2 on tables whose rows share prefix
-blocks, and a scheduler run with a registry hit on the card.
+blocks, a scheduler run with a registry hit on the card, and preemption on
+the kernel backend (the resumed row bitwise equal to the suspended one, the
+victim's unmapped table leaving the next owner's blocks unchanged).
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -673,3 +675,157 @@ def test_qkv_attention_kernel_in_a_cuda_graph():
     torch.testing.assert_close(
         out, QK.qkv_attention_cache_ref(q, k, v, ks, vs, lengths),
         atol=1e-5, rtol=0)
+
+
+def _smoke_server_parts():
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.models import transformer as T
+    cfg = get_smoke("granite-3-2b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    names = T.quant_layer_names(cfg)
+    return cfg, params, AdaptiveEngine(tuple(paper_profiles(names)),
+                                       QuantIndex(names))
+
+
+def _preempt_requests(cfg):
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(17)
+    sys_p = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+    savers = [Request(tokens=np.concatenate(
+        [sys_p, rng.integers(0, cfg.vocab, n).astype(np.int32)]),
+        max_new=m, priority=1) for n, m in ((4, 18), (7, 16))]
+    crit = Request(tokens=rng.integers(0, cfg.vocab, 7).astype(np.int32),
+                   max_new=4, priority=0)
+    return savers, crit
+
+
+def _row_bytes(sched, slot, n_tok):
+    """Pool row ``slot``'s first ``n_tok`` positions (K, V, token_idx as
+    raw bytes, through its table), its scales and its carry."""
+    kv = sched._caches["kv"]
+    bs = kv.k.shape[2]
+    bt = kv.block_table[0, slot, :-(-n_tok // bs)].long()
+
+    def pos(x):
+        g = x[:, bt]
+        g = g.reshape(g.shape[0], -1, *g.shape[3:])[:, :n_tok]
+        return g.view(torch.int16) if g.dtype == torch.bfloat16 else g
+
+    return {"k": pos(kv.k), "v": pos(kv.v), "tidx": pos(kv.token_idx),
+            "ks": kv.k_scale[:, slot].clone(),
+            "vs": kv.v_scale[:, slot].clone(),
+            "tok": int(sched._tok[slot]), "pos": int(sched._pos[slot])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_preemption_restore_bitwise_on_card(kv_bits):
+    """Preemption on the kernel backend (smoke config, f32, TF32 off): the
+    resumed row's bytes, scales, token_idx and carry equal the suspended
+    row's bit for bit; the savers' tokens equal a serve without the
+    critical arrival; every decode step went through K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg, params, engine = _smoke_server_parts()
+    savers, crit = _preempt_requests(cfg)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    toks = {}
+    with use_compute_dtype(torch.float32):
+        for arrival in (False, True):
+            sched = ContinuousScheduler(AdaptiveServer(
+                cfg, params, engine, ServingConfig(
+                    slots=64, max_batch=2, block_size=8, kv_bits=kv_bits,
+                    priority_classes=2, preemption=True,
+                    paged_backend="kernel"), device="cuda"), quantum=2)
+            before, after = {}, {}
+            snap_fn, resume_fn = sched._snapshot_row, sched._dispatch_resume
+
+            def snapshot(slot, _s=sched, _fn=snap_fn, _b=before):
+                snap = _fn(slot)
+                _b[snap.rid] = (snap.n_done,
+                                _row_bytes(_s, slot, snap.n_done))
+                return snap
+
+            def resume(rows, _s=sched, _fn=resume_fn, _b=before, _a=after):
+                n = _fn(rows)
+                for rid, slot, _ in rows:
+                    _a[rid] = _row_bytes(_s, slot, _b[rid][0])
+                return n
+
+            sched._snapshot_row, sched._dispatch_resume = snapshot, resume
+            n0 = PA.paged_attention.launches
+            sched.submit(savers[0])
+            sched.step()
+            sched.submit(savers[1])
+            sched.step()
+            sched.step()
+            if arrival:
+                sched.submit(crit)
+            while sched.step():
+                pass
+            assert PA.paged_attention.launches - n0 == \
+                cfg.n_layers * sched.decode_steps
+            toks[arrival] = [sched.results[i]["tokens"] for i in range(2)]
+            assert sched.allocator.used_blocks == 0
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert sched.preemptions >= 1 and sched.resumes == sched.preemptions
+    assert before and before.keys() == after.keys()
+    for rid, (_, was) in before.items():
+        for key, x in was.items():
+            y = after[rid][key]
+            assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y), (rid, key)
+    assert toks[True] == toks[False]
+
+
+@pytest.mark.cuda
+def test_unmapped_victim_table_keeps_next_owner_blocks():
+    """The evicted row's table is unmapped in the round that evicts it, so
+    the frozen victim's decode writes during the next segment (kernel
+    backend, in place) cannot land in blocks the critical row now owns:
+    every live row's written positions are unchanged by the segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg, params, engine = _smoke_server_parts()
+    savers, crit = _preempt_requests(cfg)
+    sched = ContinuousScheduler(AdaptiveServer(
+        cfg, params, engine, ServingConfig(
+            slots=64, max_batch=2, block_size=8, priority_classes=2,
+            preemption=True, paged_backend="kernel"), device="cuda"),
+        quantum=2)
+    sched.submit(savers[0])
+    sched.step()
+    sched.submit(savers[1])
+    sched.step()
+    sched.step()
+    sched.submit(crit)
+    sched._flush(0)
+    sched.admit()                       # evicts a saver, admits the critical
+    assert sched.preemptions == 1
+    kv = sched._caches["kv"]
+    victim = next(iter(sched._suspended))
+    owners = {s: r for s, r in enumerate(sched.slot_req) if r is not None}
+    assert victim not in owners.values()
+    free = [s for s in range(sched.n_slots) if sched.slot_req[s] is None]
+    for s in free:
+        assert bool((kv.block_table[:, s] == kv.n_blocks).all())
+    sched._flush(0)
+    was = {s: _row_bytes(sched, s, int(sched._pos[s])) for s in owners}
+    sched.run_segment()
+    sched._flush(0)
+    for s in owners:
+        now = _row_bytes(sched, s, was[s]["pos"])
+        for key in ("k", "v", "tidx"):
+            assert torch.equal(now[key], was[s][key]), (s, key)
+    while sched.step():
+        pass
+    assert sched.resumes == 1 and sched.allocator.used_blocks == 0

@@ -14,7 +14,11 @@ and inputs made from seeds with numpy.
   position bit-match a never-speculated twin (kv16, kv8);
 * the speculative ``ContinuousScheduler`` against JAX's: tokens, profile
   traces, billing events, ``spec_billed``, admission order, the ledger, and
-  spec tokens equal to greedy tokens.
+  spec tokens equal to greedy tokens;
+* speculation across preemption and resume (greedy's tokens, billed =
+  delivered), a class that opts out of speculation (one token per window),
+  and the contiguous pool (``paged_kv=False``) at kv16/kv8 with k 1 and 4,
+  each against the JAX scheduler.
 """
 import jax
 import jax.numpy as jnp
@@ -603,3 +607,153 @@ def test_spec_server_validation(parts):
         cfg = dataclasses.replace(tcfg, head_dim=hd)
         with pytest.raises(ValueError, match="head dim.*gather"):
             make(cfg, draft_k=40, paged_backend="kernel")
+
+
+# ---------------------------------------------------------------------------
+# speculation under preemption, per-class opt-out, the contiguous pool
+# ---------------------------------------------------------------------------
+
+def _spec_preempt_scenario(cfg):
+    """Two saver rows on a shared prefix, then a critical arrival on the
+    full pool (the reference's speculation-and-preemption scenario)."""
+    def scenario(sched, Req):
+        rng = np.random.default_rng(17)
+        sys_p = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+        reqs = [Req(tokens=np.concatenate(
+            [sys_p, rng.integers(0, cfg.vocab, n).astype(np.int32)]),
+            max_new=m, priority=1) for n, m in ((4, 18), (7, 16))]
+        sched.submit(reqs[0])
+        sched.step()
+        sched.submit(reqs[1])
+        sched.step()
+        sched.step()
+        sched.submit(Req(tokens=rng.integers(0, cfg.vocab, 7)
+                         .astype(np.int32), max_new=4, priority=0))
+        while sched.step():
+            pass
+        return {"preemptions": sched.preemptions, "resumes": sched.resumes,
+                "spec_billed": list(getattr(sched, "spec_billed", []))}
+    return scenario
+
+
+def test_spec_preempt_resume_token_identity(parts):
+    """A saver row evicted for a critical arrival resumes (its drafter
+    history replayed) and emits the greedy tokens; tokens, events,
+    ``spec_billed`` and counters equal the JAX scheduler's, billed tokens
+    equal delivered ones and no block is left live."""
+    from test_torch_prefix import run_pair
+    cfg, tcfg, _, tp, _, teng, _ = parts
+    scfg = dict(slots=64, max_batch=2, block_size=8, priority_classes=2,
+                preemption=True)
+    out = run_pair(parts, dict(speculate=True, draft_k=2, **scfg),
+                   _spec_preempt_scenario(cfg), quantum=4)
+    greedy = ContinuousScheduler(AdaptiveServer(
+        tcfg, tp, teng, ServingConfig(**scfg), device="cpu"), quantum=4)
+    _spec_preempt_scenario(cfg)(greedy, Request)
+    for sched in out.values():
+        assert sched.preemptions >= 1
+        assert sched.resumes == sched.preemptions
+        res = [sched.results[i] for i in range(3)]
+        assert [r["tokens"] for r in res] == \
+            [greedy.results[i]["tokens"] for i in range(3)]
+        delivered = sum(len(r["tokens"]) for r in res)
+        assert len(sched.admission_log) + sum(
+            n for _, n in sched.spec_billed) == delivered
+
+
+def test_spec_class_opt_out(parts):
+    """A class with ``speculative=False`` rides the verify windows but
+    advances one token per window; the other class speculates. Tokens,
+    traces, events and ``spec_billed`` equal the JAX scheduler's under the
+    same classes, and the tokens equal greedy decode's."""
+    import dataclasses
+    from repro.serving.policy import PriorityPolicy as JPolicy
+    from repro.serving.policy import default_classes as jclasses
+    from repro_torch.serving.policy import PriorityPolicy, default_classes
+    cfg, tcfg, jp, tp, jeng, teng, _ = parts
+    reqs = [(t, m, i % 2) for i, (t, m, _) in
+            enumerate(_mixed_requests(cfg.vocab, seed=11))]
+    scfg = dict(slots=64, max_batch=4, block_size=8, priority_classes=2)
+
+    def classes(mk):
+        crit, saver = mk(2)
+        return (crit, dataclasses.replace(saver, speculative=False))
+
+    jsched = JScheduler(JServer(cfg, jp, jeng, JConfig(
+        speculate=True, draft_k=3, **scfg)), quantum=5,
+        policy=JPolicy(classes(jclasses)))
+    for t, m, pr in reqs:
+        jsched.submit(JRequest(tokens=t, max_new=m, priority=pr))
+    want = jsched.run()
+    greedy = ContinuousScheduler(AdaptiveServer(
+        tcfg, tp, teng, ServingConfig(**scfg), device="cpu"), quantum=5)
+    for t, m, pr in reqs:
+        greedy.submit(Request(tokens=t, max_new=m, priority=pr))
+    greedy_toks = [r["tokens"] for r in greedy.run()]
+    for backend in ("gather", "kernel"):
+        sched = ContinuousScheduler(AdaptiveServer(
+            tcfg, tp, teng, ServingConfig(paged_backend=backend,
+                                          speculate=True, draft_k=3, **scfg),
+            device="cpu"), quantum=5, policy=PriorityPolicy(
+                classes(default_classes)))
+        windows = []
+        flush = sched._flush_spec
+
+        def record(e, arr, names, _flush=flush, _s=sched):
+            windows.append((e["ms"].numpy().copy(),
+                            [(s, _s._slot_spec[s]) for s, _ in e["rows"]]))
+            return _flush(e, arr, names)
+        sched._flush_spec = record
+        for t, m, pr in reqs:
+            sched.submit(Request(tokens=t, max_new=m, priority=pr))
+        got = sched.run()
+        for g, w in zip(got, want):
+            assert g["tokens"] == w["tokens"], backend
+            assert g["profile_trace"] == w["profile_trace"]
+        assert [r["tokens"] for r in got] == greedy_toks
+        assert sched.events == jsched.events
+        assert sched.spec_billed == jsched.spec_billed
+        on = [ms[s].max() for ms, rows in windows for s, spec in rows if spec]
+        off = [ms[s].max() for ms, rows in windows for s, spec in rows
+               if not spec]
+        assert off and max(off) <= 1 and on
+
+
+@pytest.mark.parametrize("kv_bits,k", [(16, 1), (16, 4), (8, 1), (8, 4)])
+def test_contiguous_spec_matches_reference(parts, kv_bits, k):
+    """Speculation on the contiguous pool (``paged_kv=False``): tokens,
+    traces, billing events, ``spec_billed`` and admission order equal the
+    JAX scheduler's with ``paged_kv=False, speculate=True``, on both
+    backends, and the tokens equal the port's greedy contiguous pool's."""
+    cfg, tcfg, jp, tp, jeng, teng, _ = parts
+    reqs = _mixed_requests(cfg.vocab)
+    scfg = dict(slots=64, max_batch=4, kv_bits=kv_bits, paged_kv=False)
+    spec = dict(speculate=True, draft_k=k)
+    jsched = JScheduler(JServer(cfg, jp, jeng, JConfig(**scfg, **spec)),
+                        quantum=5)
+    for t, m, crit in reqs:
+        jsched.submit(JRequest(tokens=t, max_new=m, accuracy_critical=crit))
+    want = jsched.run()
+    greedy = ContinuousScheduler(AdaptiveServer(
+        tcfg, tp, teng, ServingConfig(**scfg), device="cpu"), quantum=5)
+    for t, m, crit in reqs:
+        greedy.submit(Request(tokens=t, max_new=m, accuracy_critical=crit))
+    greedy_toks = [r["tokens"] for r in greedy.run()]
+    for backend in ("gather", "kernel"):
+        sched = ContinuousScheduler(AdaptiveServer(
+            tcfg, tp, teng, ServingConfig(paged_backend=backend, **scfg,
+                                          **spec), device="cpu"), quantum=5)
+        assert not sched.paged
+        for t, m, crit in reqs:
+            sched.submit(Request(tokens=t, max_new=m, accuracy_critical=crit))
+        got = sched.run()
+        for g, w, (_, mn, _) in zip(got, want, reqs):
+            assert g["tokens"] == w["tokens"], backend
+            assert g["profile_trace"] == w["profile_trace"]
+            assert g["status"].value == w["status"].value == "completed"
+            assert len(g["tokens"]) == mn
+        assert sched.events == jsched.events
+        assert sched.spec_billed == jsched.spec_billed
+        assert sched.admission_log == jsched.admission_log
+        assert sched.windows_run > 0
+        assert [r["tokens"] for r in got] == greedy_toks

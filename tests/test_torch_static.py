@@ -245,15 +245,6 @@ def test_kv32_matches_reference(parts, path):
         assert len(g["tokens"]) == m
 
 
-def test_contiguous_pool_rejects_speculation(parts):
-    _, tcfg, _, tp, _, teng, _, _ = parts
-    srv = AdaptiveServer(tcfg, tp, teng, ServingConfig(
-        slots=64, max_batch=2, kv_bits=8, paged_kv=False, speculate=True),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        ContinuousScheduler(srv)
-
-
 @pytest.mark.parametrize("argv,path", [
     ([], "static"), (["--continuous"], "paged"),
     (["--continuous", "--no-paged-kv"], "contiguous")])
