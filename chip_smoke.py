@@ -82,7 +82,19 @@ Phases:
     pressure and at kv16 under block pressure: preemptions = resumes >= 1,
     the first restore bitwise equal to its snapshot, billed = delivered,
     K1 = 40 × decode steps; tok/s, peak blocks and the critical requests'
-    rounds to their first token.
+    rounds to their first token;
+10. the per-layer KV precision policy (profile 0 all-16, profiles 1–5 a
+    striped 4/8/16 row, a small energy budget moving the serve into them):
+    at granite-3-2b widths, 4 layers, f32, the kernel backend's tokens
+    equal the gather backend's at kv16, kv8 and kv4, the all-16 policy
+    gives the tokens of no policy, the striped one changes a stream,
+    static kv8 gives the same tokens through K4 as through the einsum, and
+    the frontier search runs on the card; then the launcher's
+    ``--continuous --precision-policy`` on the full config in bf16 (phase
+    4's requests, a 40-layer striped row in the frontier's JSON format:
+    K1 = 40 × decode steps, billed = delivered, tok/s and peak memory
+    beside the serve without the policy, the refine's own cost per call)
+    and its static path at ``--kv-bits 8`` (K4 = 40 × decode steps).
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1469,26 +1481,38 @@ def static_parity(cfg, params, engine, reqs) -> None:
     QK.qkv_attention.launches = A.decode_attention.kv8_einsum_calls = 0
 
 
-def first_divergence(cfg, params, engine, reqs, spec, greedy, bits) -> float:
+def first_divergence(cfg, params, engine, reqs, spec, greedy, bits,
+                     traces=None, kv_table=None) -> float:
     """Where two token lists first differ: the request, the position, and
     the top-2 margin of the second list's logits there (a solo replay
     through ``decode_step`` on a contiguous cache, the reference's
-    arithmetic), which it returns."""
+    arithmetic), which it returns. ``traces`` (the second list's profile
+    names per token; default profile 0 throughout) and ``kv_table`` (a
+    precision policy) replay each token under its own profile's bits and
+    KV row."""
     from repro_torch.models import transformer as T
     for i, (a, b) in enumerate(zip(spec, greedy)):
         if a == b:
             continue
         j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        pids = ([0] * len(b) if traces is None else
+                [engine.profile_names.index(p) for p in traces[i]])
+
+        def rows(n):
+            return engine.table[pids[n]], (None if kv_table is None
+                                           else kv_table[pids[n]])
+
         tokens = torch.as_tensor(reqs[i].tokens[None], device="cuda")
-        table = engine.table
-        logits, caches = T.prefill(params, cfg, table[0], {"tokens": tokens},
+        bits_row, ks = rows(0)
+        logits, caches = T.prefill(params, cfg, bits_row, {"tokens": tokens},
                                    len(reqs[i].tokens) + len(b) + 1,
-                                   kv_bits=bits)
+                                   kv_bits=bits, kv_sched=ks)
         pos = torch.tensor([tokens.shape[1]], dtype=torch.int32, device="cuda")
         for n in range(j):
+            bits_row, ks = rows(n + 1)
             logits, caches = T.decode_step(
-                params, cfg, table[0], torch.tensor([[b[n]]], device="cuda"),
-                pos, caches)
+                params, cfg, bits_row, torch.tensor([[b[n]]], device="cuda"),
+                pos, caches, kv_sched=ks)
             pos = pos + 1
         top = logits[0].float().topk(2).values
         margin = float(top[0] - top[1])
@@ -1922,14 +1946,15 @@ def phase_native_serve(seed: int, requests: int, max_new: int,
     return {"k3": k3, "k5": k5, "tok_s": n_tok / wall, "peak": peak}
 
 
-def phase_contiguous_serve(seed: int, continuous: bool) -> dict:
+def phase_contiguous_serve(seed: int, continuous: bool,
+                           policy: str | None = None) -> dict:
     """The contiguous int8 cache on the full config in bf16: phase 4's 12
     requests × 32 tokens through the launcher at ``--kv-bits 8``, on the
     static path (no ``--continuous``: ``AdaptiveServer.serve``, groups of
     8 rows) or on the continuous scheduler's contiguous pool
-    (``--continuous --no-paged-kv``). Every layer of every decode step must
-    read the cache through K4: 40 × decode steps launches, K1 and the kv8
-    einsum never."""
+    (``--continuous --no-paged-kv``), with ``--precision-policy policy``
+    where given. Every layer of every decode step must read the cache
+    through K4: 40 × decode steps launches, K1 and the kv8 einsum never."""
     import gc
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import qkv_attention as QK
@@ -1940,11 +1965,15 @@ def phase_contiguous_serve(seed: int, continuous: bool) -> dict:
             "8", "--quantum", "8", "--seed", str(seed)]
     if continuous:
         argv += ["--continuous", "--no-paged-kv"]
+    if policy:
+        argv += ["--precision-policy", policy]
     args = S.parse_args(argv)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, srv = S.build_server(args)
+    if (srv.kv_table is not None) != bool(policy):
+        raise AssertionError("--precision-policy did not reach the server")
     reqs = S.make_requests(cfg, args)
     QK.qkv_attention.launches = PA.paged_attention.launches = 0
     A.decode_attention.kv8_einsum_calls = A.paged_view.calls = 0
@@ -1965,6 +1994,8 @@ def phase_contiguous_serve(seed: int, continuous: bool) -> dict:
     else:
         n_groups = -(-len(reqs) // srv.scfg.max_batch)
         steps, label = n_groups * (args.max_new - 1), "static serve"
+    if policy:
+        label += " with the precision policy"
     expect = cfg.n_layers * steps
     print(f"[contig] {label} kv8: K4 launches {k4} = {cfg.n_layers} layers x "
           f"{steps} decode steps: {k4 == expect}; K1 launches {k1}; kv8 "
@@ -2498,6 +2529,270 @@ def phase_preempt_serve(seed: int) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# phase 10: the per-layer KV precision policy
+# ---------------------------------------------------------------------------
+
+STRIPE = (4, 8, 16)
+
+
+def striped_row(n_layers: int) -> tuple:
+    return tuple(STRIPE[l % 3] for l in range(n_layers))
+
+
+def policy_json(n_layers: int) -> str:
+    """A striped ``n_layers`` schedule in the frontier's JSON format,
+    written under ``build/`` (not searched: ``score`` is null)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import precision_frontier as F
+    cfg = get_config("granite-3-2b")
+    row = list(striped_row(n_layers))
+    all16 = F.kv_bytes_per_token(cfg, [16] * n_layers)
+    out = {"arch": "granite-3-2b", "n_layers": n_layers, "max_drop": None,
+           "schedule": row, "score": None,
+           "bytes_per_token": F.kv_bytes_per_token(cfg, row),
+           "bytes_per_token_all16": all16,
+           "frontier": [{"schedule": [16] * n_layers, "score": 0.0,
+                         "bytes": all16}]}
+    path = Path(__file__).resolve().parent / "build" / "policy_striped.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out))
+    return str(path)
+
+
+def phase_policy_parity(seed: int) -> None:
+    """Phase 10 (a), at granite-3-2b widths, 4 layers, f32, TF32 off:
+    profile 0 keeps the all-16 row, profiles 1–5 ride a striped row (4, 8,
+    16, 4), and a manager with a 12-inference budget moves the serve into
+    the saver profiles. Phase 3's requests through the continuous
+    scheduler at kv16, kv8 and kv4: the kernel backend's tokens equal the
+    gather backend's (K1 = 4 × decode steps; the saver profiles' A4
+    activations put logits on a coarse grid, so a flip is allowed only
+    where the gather run's top-2 logits lie under 1e-3 apart, as for K4
+    below), the all-16 policy gives the tokens of no policy, and the
+    striped policy changes at least one stream. Static ``serve`` at kv8 under the policy: K4's tokens equal
+    the einsum's (a flip only at a top-2 margin under 1e-3). Then the
+    frontier search on the card."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.launch import precision_frontier as F
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    profs = paper_profiles(names)
+    engine = AdaptiveEngine(tuple(profs), QuantIndex(names))
+    stats = S.profile_stats(cfg, profs, T.param_count(params))
+    mgr0 = ProfileManager(stats, accuracy_target=0.985, accuracy_floor=0.95,
+                          budget_j=stats[0].energy_j * 12, low_energy=0.5)
+    row = striped_row(cfg.n_layers)
+    n_prof = len(profs)
+    policies = {"striped": ((16,) * cfg.n_layers,) + (row,) * (n_prof - 1),
+                "all-16": ((16,) * cfg.n_layers,) * n_prof, "none": None}
+    rng = np.random.default_rng(seed)
+    cases = [(17, 9), (64, 12), (33, 5), (120, 10), (8, 7), (96, 1), (50, 11)]
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new=m) for n, m in cases]
+    changed = 0
+    with use_compute_dtype(torch.float32):
+        for bits in (16, 8, 4):
+            out = {}
+            for label, backend in (("striped", "kernel"),
+                                   ("striped", "gather"),
+                                   ("all-16", "kernel"), ("none", "kernel")):
+                srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+                    slots=256, kv_bits=bits, max_batch=4, block_size=16,
+                    paged_backend=backend,
+                    precision_policy=policies[label]),
+                    manager=copy.deepcopy(mgr0), device="cuda")
+                PA.paged_attention.launches = A.paged_view.calls = 0
+                sched = ContinuousScheduler(srv, quantum=4)
+                for r in reqs:
+                    sched.submit(r)
+                res = sched.run()
+                k1, views = PA.paged_attention.launches, A.paged_view.calls
+                if backend == "kernel" and (
+                        k1 != cfg.n_layers * sched.decode_steps or views):
+                    raise AssertionError(f"kv{bits} {label}: K1 {k1} for "
+                                         f"{sched.decode_steps} steps")
+                if backend == "gather" and (k1 or not views):
+                    raise AssertionError(f"kv{bits} {label}: gather unused")
+                saver = {p for r in res for p in r["profile_trace"]} - \
+                    {engine.profile_names[0]}
+                if not saver:
+                    raise AssertionError("the serve never left profile 0")
+                out[(label, backend)] = [r["tokens"] for r in res]
+                if (label, backend) == ("striped", "gather"):
+                    traces = [r["profile_trace"] for r in res]
+                del srv, sched
+            same = out[("striped", "kernel")] == out[("striped", "gather")]
+            margin = float("inf") if same else first_divergence(
+                cfg, params, engine, reqs, out[("striped", "kernel")],
+                out[("striped", "gather")], bits, traces=traces,
+                kv_table=np.asarray(policies["striped"]))
+            passthrough = out[("all-16", "kernel")] == out[("none", "kernel")]
+            moved = sum(a != b for a, b in zip(out[("striped", "kernel")],
+                                               out[("none", "kernel")]))
+            changed += moved
+            print(f"[policy] full width x4 layers, f32, kv{bits}, striped "
+                  f"row {row} on profiles 1-5: kernel vs gather tokens "
+                  f"identical: {same}; all-16 policy = no policy: "
+                  f"{passthrough}; streams the striped row changed: {moved} "
+                  f"of {len(reqs)}")
+            if not (margin < 1e-3 or same) or not passthrough:
+                raise AssertionError(f"kv{bits}: {out}")
+        if not changed:
+            raise AssertionError("the striped policy changed no stream")
+        res = {}
+        for backend in ("kernel", "gather"):
+            srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+                slots=256, kv_bits=8, max_batch=4, paged_backend=backend,
+                precision_policy=policies["striped"]),
+                manager=copy.deepcopy(mgr0), device="cuda")
+            QK.qkv_attention.launches = A.decode_attention.kv8_einsum_calls = 0
+            res[backend] = srv.serve(reqs)
+            used = (QK.qkv_attention.launches,
+                    A.decode_attention.kv8_einsum_calls)
+            if (used[0] > 0) != (backend == "kernel") or \
+                    (used[1] > 0) != (backend == "gather"):
+                raise AssertionError(f"static {backend}: reads {used}")
+            del srv
+        toks = {b: [r["tokens"] for r in v] for b, v in res.items()}
+        same = toks["kernel"] == toks["gather"]
+        print(f"[policy] static serve kv8 under the striped policy: K4 vs "
+              f"einsum greedy tokens identical: {same} "
+              f"({sum(map(len, toks['kernel']))} tokens)")
+        if not same:
+            margin = first_divergence(
+                cfg, params, engine, reqs, toks["kernel"], toks["gather"], 8,
+                traces=[r["profile_trace"] for r in res["gather"]],
+                kv_table=np.asarray(policies["striped"]))
+            if not margin < 1e-3:
+                raise AssertionError(f"static kv8 policy: K4 tokens diverge "
+                                     f"at a top-2 margin of {margin:.3e}")
+        QK.qkv_attention.launches = A.decode_attention.kv8_einsum_calls = 0
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    front = F.search("granite-3-2b", 0.05, full=True, seed=seed,
+                     device="cuda", n_layers=4)
+    torch.cuda.synchronize()
+    print(f"[policy] frontier search on the card (granite-3-2b widths, 4 "
+          f"layers, f32 probe of 4 x 12 tokens, max-drop 0.05): schedule "
+          f"{front['schedule']}, score {front['score']:.5f}, bytes/token "
+          f"{front['bytes_per_token']:.0f} of "
+          f"{front['bytes_per_token_all16']:.0f}, frontier length "
+          f"{len(front['frontier'])}, {time.perf_counter() - t0:.2f}s")
+    if sorted(front) != sorted(["arch", "n_layers", "max_drop", "schedule",
+                                "score", "bytes_per_token", "frontier",
+                                "bytes_per_token_all16"]) or \
+            len(front["schedule"]) != 4:
+        raise AssertionError(f"frontier payload: {front}")
+
+
+def phase_policy_serve(seed: int, path: str) -> dict:
+    """Phase 10 (b): the launcher's ``--continuous --precision-policy``
+    path on the full 40-layer config in bf16, phase 4's 12 requests × 32
+    tokens, the policy a striped 40-layer row for profiles 1–5 read from
+    the frontier-format JSON ``path``. Served twice with the policy (the
+    launcher's server) and twice without it (a server on the same weights
+    and manager settings), in the order policy, none, none, policy: K1 =
+    40 × decode steps and billed = delivered in each; tok/s and peak
+    memory side by side. Then the refine's own cost: one ``kv_refine``
+    call at a decode step's K shape, per call (CUDA events around eager
+    calls) and on the device (a CUDA graph)."""
+    import copy
+    import dataclasses
+    import gc
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import AdaptiveServer, RequestStatus
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = S.parse_args(["--continuous", "--full", "--requests", "12",
+                         "--max-new", "32", "--kv-bits", "16",
+                         "--quantum", "8", "--block-size", "16",
+                         "--seed", str(seed), "--precision-policy", path])
+    cfg, srv = S.build_server(args)
+    if srv.kv_table is None or srv.kv_table[0].tolist() != [16] * 40 or \
+            srv.kv_table[1].tolist() != list(striped_row(cfg.n_layers)):
+        raise AssertionError("the launcher did not bind the policy rows")
+    params, engine, scfg = srv.params, srv.engine, srv.scfg
+    mgr0 = copy.deepcopy(srv.manager)
+    reqs = S.make_requests(cfg, args)
+    out = {"policy": [], "none": []}
+    for i, label in enumerate(("policy", "none", "none", "policy")):
+        if i:                       # the launcher's server serves first
+            srv = AdaptiveServer(cfg, params, engine, dataclasses.replace(
+                scfg, precision_policy=(scfg.precision_policy
+                                        if label == "policy" else None)),
+                manager=copy.deepcopy(mgr0), device="cuda")
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        PA.paged_attention.launches = A.paged_view.calls = 0
+        res = S.serve(srv, reqs, args.quantum, continuous=True)
+        k1, views = PA.paged_attention.launches, A.paged_view.calls
+        results, sched, wall = res["results"], res["sched"], res["wall_s"]
+        for i, r in enumerate(results):
+            if r["status"] is not RequestStatus.COMPLETED or \
+                    len(r["tokens"]) != 32 or \
+                    not all(0 <= t < cfg.vocab for t in r["tokens"]):
+                raise AssertionError(f"{label} request {i}: {r['status']}")
+        n_tok = sum(len(r["tokens"]) for r in results)
+        billed = sum(n for _, n, _ in sched.events)
+        expect = cfg.n_layers * sched.decode_steps
+        if k1 != expect or views or billed != n_tok:
+            raise AssertionError(f"{label}: K1 {k1} vs {expect}, gathers "
+                                 f"{views}, billed {billed} vs {n_tok}")
+        peak = torch.cuda.max_memory_allocated()
+        saver = sum(p != engine.profile_names[0]
+                    for r in results for p in r["profile_trace"])
+        print(f"[policy] serve {label}: {n_tok} tokens in {wall:.3f}s = "
+              f"{n_tok / wall:.2f} tok/s; K1 launches {k1} = "
+              f"{cfg.n_layers} x {sched.decode_steps} decode steps; billed "
+              f"{billed} = delivered {n_tok}; tokens under profiles 1-5: "
+              f"{saver}; peak_used_blocks "
+              f"{sched.paged_stats()['peak_used_blocks']}; peak memory "
+              f"{peak / 2**30:.2f} GiB")
+        out[label].append({"tok_s": n_tok / wall, "peak": peak, "k1": k1,
+                           "tokens": [r["tokens"] for r in results]})
+        del srv, sched, res
+    same = sum(a == b for x, y in zip(out["policy"][0]["tokens"],
+                                      out["none"][0]["tokens"])
+               for a, b in zip(x, y))
+    print(f"[policy] tokens equal with and without the policy: {same} of "
+          f"{12 * 32} (information only: bf16 at 40 layers)")
+    k = torch.randn(8, 1, 8, 64, device="cuda").bfloat16()
+    per_call = cuda_time_ms(lambda: A.kv_refine(k, 8))
+    device = graph_ms(lambda: A.kv_refine(k, 8))
+    refined = sum(b < 16 for b in striped_row(cfg.n_layers))
+    print(f"[policy] kv_refine at a decode step's K [8, 1, 8, 64] bf16: "
+          f"{per_call:.4f} ms per call, {device:.4f} ms on the device; "
+          f"2 x {refined} refined layers per step = "
+          f"{2 * refined * per_call:.2f} ms per decode step")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": out["policy"][0]["k1"]}
+
+
 
 def phase_profile(seed: int) -> None:
     """Where one decode segment's time goes (``--profile``): wall time on
@@ -2548,11 +2843,12 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_entry(name, source, replaces, launches, row) -> dict:
+def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     """One row of the kernel table: the main path's launch count and the
     phase-2 row of the kernel at its main-path shape (every kernel also
     carries its device time from a CUDA graph, K1–K4 their split count, K4
-    its step 0's device time, K5 its read-twice floor)."""
+    its step 0's device time, K5 its read-twice floor), plus ``extra``
+    keys (phase 10's launches under the precision policy)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -2570,12 +2866,13 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
         entry["prefill"] = row["prefill"]
     if "floor_ms" in row:
         entry["floor_ms"] = row["floor_ms"]
+    entry.update(extra)
     return entry
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -2633,6 +2930,13 @@ def main() -> None:
         phase_prefix_serve(args.seed, served)
     if 9 in phases:
         phase_preempt_serve(args.seed)
+    policy = {"k1": 0, "k4": 0}
+    if 10 in phases:
+        phase_policy_parity(args.seed)
+        path = policy_json(40)
+        policy["k1"] = phase_policy_serve(args.seed, path)["launches"]
+        policy["k4"] = phase_contiguous_serve(
+            args.seed, continuous=False, policy=path)["launches"]
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -2640,7 +2944,7 @@ def main() -> None:
         kernels.append(kernel_entry(
             "paged_attention", "paged_attention.cu",
             "src/repro/kernels/paged_attention.py:116", served["launches"],
-            rows["k1"]))
+            rows["k1"], policy_launches=policy["k1"]))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
@@ -2651,7 +2955,7 @@ def main() -> None:
         kernels.append(kernel_entry(
             "qkv_attention", "qkv_attention.cu",
             "src/repro/kernels/qkv_attention.py:68", static["launches"],
-            rows["k4"]))
+            rows["k4"], policy_launches=policy["k4"]))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
             native["k5"], rows["k5"]))

@@ -7,6 +7,7 @@ Manager with an energy budget.
       [--no-paged-kv] [--speculate --draft-k 4 --draft-model ngram]
       [--no-prefix-cache] [--prefill-chunk 128] [--kv16-masters]
       [--priority-classes 2 --preemption --aging 4]
+      [--precision-policy policy.json]
 
 As in the reference launcher, ``--continuous`` decides the path. Without
 it, the requests are served in static groups (``AdaptiveServer.serve``:
@@ -16,7 +17,10 @@ scheduler's slot pool: the paged block pool, or contiguous rows with
 ``--no-paged-kv``. ``--speculate`` and ``--preemption`` need
 ``--continuous``; speculation runs on either pool, preemption on the paged
 one. Under ``--priority-classes n`` every third request rides class 0
-(critical), the rest the lowest class.
+(critical), the rest the lowest class. ``--precision-policy`` reads the
+schedule ``python -m repro_torch.launch.precision_frontier --json`` wrote:
+profile 0 keeps KV at full precision in every layer, the other profiles
+ride the schedule.
 
 Runs on the GPU unless ``--device cpu`` is given. ``--full`` serves the
 published configuration (granite-3-2b: 40 layers, d_model 2048) with
@@ -26,6 +30,7 @@ configuration with prompts of 4–23 tokens, ``slots=256`` and 4 rows.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -41,7 +46,8 @@ from repro_torch.runtime import resolve_device
 from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 
-__all__ = ["profile_stats", "build_server", "serve", "main"]
+__all__ = ["profile_stats", "precision_policy", "build_server", "serve",
+           "main"]
 
 
 def profile_stats(cfg, profs, n_params: int,
@@ -96,13 +102,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "at --kv-bits 16 too (continuations replay the raw "
                          "activations instead of the bf16 blocks)")
     ap.add_argument("--paged-backend", default="auto",
-                    choices=["auto", "kernel", "gather"],
+                    choices=["auto", "kernel", "pallas", "gather"],
                     help="'kernel' attends in place through the paged-"
                          "attention kernel (and reads a contiguous kv8 "
                          "cache through the int8-KV decode kernel), "
                          "'gather' builds the dense per-segment view (and "
                          "reads a contiguous cache through the reference's "
-                         "einsum), 'auto' = kernel on CUDA")
+                         "einsum), 'auto' = kernel on CUDA; 'pallas' is "
+                         "the reference's name for 'kernel'")
     ap.add_argument("--speculate", action="store_true",
                     help="speculative decoding: each window drafts "
                          "--draft-k tokens (self-speculative n-gram lookup) "
@@ -132,6 +139,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="anti-starvation: a request that has waited "
                          "ROUNDS rounds at the head of its class climbs "
                          "one level (default: off)")
+    ap.add_argument("--precision-policy", default=None, metavar="PATH",
+                    help="per-layer KV bit-width policy JSON (written by "
+                         "python -m repro_torch.launch.precision_frontier "
+                         "--json): profile 0, the accuracy-critical "
+                         "binding, keeps every layer at 16 bits, every "
+                         "other profile rides the searched schedule")
     ap.add_argument("--budget-inferences", type=float, default=200,
                     help="energy budget in units of full-power inferences")
     ap.add_argument("--seed", type=int, default=0)
@@ -147,14 +160,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def precision_policy(path: str, n_layers: int, n_profiles: int) -> tuple:
+    """The ``[n_profiles, n_layers]`` policy from a frontier JSON's
+    ``schedule``: profile 0 gets the all-16 row, the others the
+    schedule. A schedule of another length is a ``SystemExit``."""
+    with open(path) as f:
+        row = tuple(int(b) for b in json.load(f)["schedule"])
+    if len(row) != n_layers:
+        raise SystemExit(f"--precision-policy schedule has {len(row)} "
+                         f"layers, model has {n_layers}")
+    return tuple((16,) * n_layers if i == 0 else row
+                 for i in range(n_profiles))
+
+
 def build_server(args: argparse.Namespace):
     """Model, engine, manager and server for ``args`` → (cfg, server)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = T.init_params(cfg, gen, device=device)
     names = T.quant_layer_names(cfg)
     profs = paper_profiles(names, inner_layers=[])
+    policy = (None if args.precision_policy is None else
+              precision_policy(args.precision_policy, cfg.n_layers,
+                               len(profs)))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, device=device)
     engine = AdaptiveEngine(tuple(profs), QuantIndex(names))
     stats = profile_stats(cfg, profs, T.param_count(params))
     mgr = ProfileManager(stats, accuracy_target=0.985, accuracy_floor=0.95,
@@ -173,7 +202,8 @@ def build_server(args: argparse.Namespace):
                          preemption=args.preemption, aging=args.aging,
                          speculate=args.speculate, draft_k=args.draft_k,
                          draft_model=args.draft_model,
-                         kv16_masters=args.kv16_masters)
+                         kv16_masters=args.kv16_masters,
+                         precision_policy=policy)
     return cfg, AdaptiveServer(cfg, params, engine, scfg, manager=mgr,
                                device=device)
 

@@ -29,7 +29,7 @@ __all__ = ["gqa_attention", "prefix_attention", "decode_attention",
            "PagedKVCache", "init_paged_kv_cache", "update_paged_kv_cache",
            "update_paged_kv_cache_window", "paged_view",
            "paged_decode_attention", "paged_decode_attention_window",
-           "stack_layers"]
+           "stack_layers", "kv_refine"]
 
 NEG_INF = -1e30
 
@@ -173,6 +173,35 @@ def init_kv_cache(batch: int, slots: int, hkv: int, d: int, *,
                              device=device),
         bits=bits,
     )
+
+
+def kv_refine(x: torch.Tensor, eff_bits: int) -> torch.Tensor:
+    """Per-layer precision-policy fake-quant of fresh K/V projections.
+
+    ``eff_bits`` is one entry of a profile's per-layer KV bit-width row
+    (host int). Applied right after the QKV projection and rope wherever
+    K/V are born (prefill, continuation suffixes, decode steps), so the
+    attention read, the cache write and the collected masters all see the
+    refined values; replayed masters were refined at birth and must not
+    pass here again (the recomputed scale is not bit-stable).
+
+    Per position: ``amax`` over the head dim, ``qmax = 2^(b − 1) − 1``,
+    ``scale = max(amax, 1e-9) / qmax`` (a true division, as the reference
+    computes it with a traced bit-width), round half to even, clip. In f32,
+    cast back to ``x.dtype``. ``eff_bits >= 16`` returns ``x`` itself: the
+    reference's f32 round trip is exact there. ``qmax`` divides as a
+    tensor: CUDA turns a division by a host scalar into a multiplication
+    by its reciprocal, one ulp off in some elements.
+    """
+    eff = int(eff_bits)
+    if eff >= 16:
+        return x
+    qmax = float(2 ** (min(eff, 15) - 1) - 1)
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-9) / amax.new_full((), qmax)
+    fq = torch.clamp(torch.round(xf / scale), -qmax, qmax) * scale
+    return fq.to(x.dtype)
 
 
 def kv_scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:

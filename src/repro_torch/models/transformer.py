@@ -14,6 +14,14 @@ Public entry points: ``init_params``, ``quant_layer_names``, ``forward``,
 ``forward_extend`` and ``prefill_extend``, and for speculative decoding
 ``ngram_propose``, ``decode_step_spec`` and ``decode_segment_spec``, and
 for preemption ``paged_row_masters`` and ``amax_for_scale``.
+
+The per-layer KV precision policy rides ``kv_sched`` (one bit-width per
+layer, host ints; ``decode_segment``/``decode_many`` take the ``[P, L]``
+``kv_table`` and pick the row by each step's profile): fresh K/V are
+refined (:func:`~repro_torch.models.attention.kv_refine`) right after the
+QKV projection in ``forward``, ``forward_extend`` and ``decode_step``, so
+the attention read, the cache write, the int-KV scale and the collected
+masters see the refined values. ``None`` runs exactly the policy-free ops.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ import torch
 from .attention import (KVCache, PagedKVCache, _dequantize_kv, _mapped,
                         _quantize_kv, decode_attention,
                         decode_attention_window, gqa_attention,
-                        init_kv_cache, init_paged_kv_cache, kv_scale,
+                        init_kv_cache, init_paged_kv_cache, kv_refine,
+                        kv_scale,
                         paged_decode_attention,
                         paged_decode_attention_window, paged_view,
                         prefix_attention, stack_layers, update_kv_cache,
@@ -201,6 +210,25 @@ def _attn_qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb,
     return q, k, v.reshape(b, s, cfg.n_kv, hd)
 
 
+def _kv_row(cfg: ModelConfig, kv_sched) -> Optional[list]:
+    """A policy row as ``n_layers`` host ints (``None`` stays ``None``)."""
+    if kv_sched is None:
+        return None
+    row = [int(b) for b in np.asarray(kv_sched).reshape(-1)]
+    if len(row) != cfg.n_layers:
+        raise ValueError(f"kv_sched has {len(row)} entries, the model "
+                         f"{cfg.n_layers} layers")
+    return row
+
+
+def _refine(k: torch.Tensor, v: torch.Tensor, ks: Optional[list], l: int):
+    """Layer ``l``'s fresh K/V under the policy row ``ks`` (or as they
+    are)."""
+    if ks is None:
+        return k, v
+    return kv_refine(k, ks[l]), kv_refine(v, ks[l])
+
+
 def _mlp_block(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor):
     return mlp(lp["mlp"], rms_norm(lp["norm_mlp"], x),
                lb[_site_idx(cfg, "mlp_in")], lb[_site_idx(cfg, "mlp_out")],
@@ -228,19 +256,23 @@ def _embed_inputs(cfg: ModelConfig, params: dict, bits_row, batch: dict):
 
 
 def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
-            collect: bool = False):
+            collect: bool = False, kv_sched=None):
     """Backbone over a full sequence → (hidden [B,S,d], aux, collected);
     ``collected`` is ``(k, v)``, each ``[L, B, S, Hkv, hd]``, with
-    ``collect`` (the prefill → cache handoff)."""
+    ``collect`` (the prefill → cache handoff). ``kv_sched`` (``[L]``
+    bit-widths, optional) refines each layer's fresh K/V before attention
+    and collection."""
     _require_dense(cfg)
     x, positions, valid = _embed_inputs(cfg, params, bits_row, batch)
     _, _, layer_bits = split_bits(cfg, bits_row)
+    sched = _kv_row(cfg, kv_sched)
     s = x.shape[1]
     ks, vs = [], []
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
         xin = rms_norm(lp["norm_attn"], x)
         q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
+        k, v = _refine(k, v, sched, l)
         attn = gqa_attention(q, k, v, causal=cfg.causal, window=cfg.window(s),
                              block_k=cfg.attn_block_k, kv_valid=valid)
         x = x + qlinear(lp["attn_out"], attn.reshape(*attn.shape[:2], -1),
@@ -442,7 +474,8 @@ def _masked_amax(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
-            slots: int, *, kv_bits: int = 16, return_raw_kv: bool = False):
+            slots: int, *, kv_bits: int = 16, return_raw_kv: bool = False,
+            kv_sched=None):
     """Full-sequence prefill → (last-token logits [B,V], caches).
 
     Ragged batches (``batch["prompt_len"]``, host ints): each left-padded
@@ -454,9 +487,12 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     collected (``(k, v)``, each ``[L, B, S, Hkv, hd]`` in padded column
     coordinates) as a third result: the full-precision masters a prefix
     registry keeps so later continuations replay the cold cache fill.
+    ``kv_sched`` (``[L]`` bit-widths, optional) is the precision policy's
+    row: the collected K/V, hence the cache, the int-KV scales and the raw
+    K/V, are the refined ones.
     """
     hidden, _, (k_all, v_all) = forward(params, cfg, bits_row, batch,
-                                        collect=True)
+                                        collect=True, kv_sched=kv_sched)
     b, s, _ = hidden.shape
     dev = hidden.device
     caches = init_caches(cfg, b, slots, kv_bits=kv_bits, device=dev)
@@ -500,12 +536,6 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
 # continuation prefill (shared prefixes, chunked prefill)
 # ---------------------------------------------------------------------------
 
-def _no_kv_sched(kv_sched) -> None:
-    if kv_sched is not None:
-        raise NotImplementedError("the per-layer KV precision policy "
-                                  "(kv_sched) is not ported")
-
-
 def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
                    prefix_k: torch.Tensor, prefix_v: torch.Tensor,
                    prefix_len: torch.Tensor, kv_sched=None):
@@ -518,10 +548,11 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     ``batch``: ``tokens [B, Sb]`` left-padded suffixes and ``prompt_len
     [B]`` their lengths. ``prefix_k``/``prefix_v [L, B, Pp, Hkv, hd]``:
     full-precision prefix K/V, zero past ``prefix_len [B]``. Returns
-    ``(hidden [B, Sb, d], (k, v) [L, B, Sb, Hkv, hd])``.
+    ``(hidden [B, Sb, d], (k, v) [L, B, Sb, Hkv, hd])``. ``kv_sched``
+    refines the fresh suffix K/V only: the prefix K/V were refined when
+    they were born.
     """
     _require_dense(cfg)
-    _no_kv_sched(kv_sched)
     assert supports_prefix_sharing(cfg), cfg.family
     eb, _, layer_bits = split_bits(cfg, bits_row)
     tokens = batch["tokens"]
@@ -537,11 +568,13 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     valid = local >= 0
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
                                                      device=dev))
+    sched = _kv_row(cfg, kv_sched)
     ks, vs = [], []
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
         xin = rms_norm(lp["norm_attn"], x)
         q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
+        k, v = _refine(k, v, sched, l)
         attn = prefix_attention(q, prefix_k[l], prefix_v[l], k, v,
                                 positions=positions, prefix_len=plen,
                                 suffix_valid=valid)
@@ -635,7 +668,7 @@ def prefill_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
 
 def decode_step(params: dict, cfg: ModelConfig, bits_row,
                 tokens: torch.Tensor, pos: torch.Tensor, caches: dict,
-                paged_backend: str = "gather"):
+                paged_backend: str = "gather", kv_sched=None):
     """One decode step. tokens ``[B,1]``, pos ``[B]`` int32 → (logits [B,V],
     caches), caches updated in place.
 
@@ -647,6 +680,8 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
     decode_attention` with ``kernel=True``); ``"gather"`` runs the
     reference's einsum. A ``"kv_view"`` entry (the gather backend of
     :func:`decode_segment`) takes every read and write of the step instead.
+    ``kv_sched`` (``[L]`` bit-widths, optional) refines the step's fresh
+    K/V before the cache write and the attention read.
     """
     _require_dense(cfg)
     eb, _, layer_bits = split_bits(cfg, bits_row)
@@ -654,10 +689,12 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
     positions = pos[:, None].to(torch.int32)
     b = tokens.shape[0]
     kv, view = caches["kv"], caches.get("kv_view")
+    sched = _kv_row(cfg, kv_sched)
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
         xin = rms_norm(lp["norm_attn"], x)
         q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
+        k, v = _refine(k, v, sched, l)
         if view is not None:
             c = update_kv_cache(view.layer(l), k, v, pos)
             attn = decode_attention(q, c, pos,
@@ -804,7 +841,8 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
                    tok0: torch.Tensor, pos0: torch.Tensor, caches: dict,
                    remaining, prequant: Optional[list] = None,
                    paged_backend: str = "gather",
-                   fault_step: Optional[torch.Tensor] = None):
+                   fault_step: Optional[torch.Tensor] = None,
+                   kv_table=None):
     """Greedy decode segment of ``len(schedule)`` steps from a mid-generation
     state — the continuous-batching quantum.
 
@@ -824,7 +862,8 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
     (:func:`decode_step`).
     ``fault_step [B]`` (optional) poisons a row's logits with NaN at that
     step; the returned ``row_ok [B]`` is a per-row finite check over live
-    steps.
+    steps. ``kv_table [P, L]`` (optional) is the precision policy: each
+    step refines its fresh K/V by the row of its profile.
 
     Returns ``(tokens [B, steps], row_ok [B], tok [B], pos [B], caches)``.
     """
@@ -834,6 +873,7 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
     if prequant is None:
         prequant = prequant_decode_weights(params, cfg, table)
     table = np.asarray(table)
+    kv_table = None if kv_table is None else np.asarray(kv_table)
     schedule = np.asarray(schedule).reshape(-1)
     dev = tok0.device
     rem = torch.as_tensor(np.asarray(remaining), dtype=torch.int32,
@@ -854,9 +894,10 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
     for i, pid in enumerate(schedule):
         pid = int(pid)
         live = rem > i
-        logits, caches = decode_step(overlay_params(params, prequant[pid]),
-                                     cfg, table[pid], tok[:, None], pos,
-                                     caches, paged_backend=paged_backend)
+        logits, caches = decode_step(
+            overlay_params(params, prequant[pid]), cfg, table[pid],
+            tok[:, None], pos, caches, paged_backend=paged_backend,
+            kv_sched=None if kv_table is None else kv_table[pid])
         if fs is not None:
             logits = torch.where((fs == i)[:, None],
                                  torch.full((), float("nan"), device=dev),
@@ -880,15 +921,17 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
 def decode_many(params: dict, cfg: ModelConfig, table, schedule,
                 logits0: torch.Tensor, pos0: torch.Tensor, caches: dict,
                 row_budget=None, prequant: Optional[list] = None,
-                paged_backend: str = "gather"):
+                paged_backend: str = "gather", kv_table=None):
     """Greedy decode of ``len(schedule)`` tokens from prefill logits (port
     of the reference's fused ``decode_many``): ``tokens[:, 0]`` is the
     argmax of ``logits0 [B, V]`` (produced under profile ``schedule[0]``),
     then :func:`decode_segment` runs ``schedule[1:]`` from ``pos0 [B]``
     with ``row_budget − 1`` tokens left per row. ``row_budget [B]``
     (default: every step) freezes a row at its budget: its later tokens
-    are −1. Returns ``(tokens [B, steps] int32, pids [steps], caches)``;
-    ``pids`` is the schedule, the realized per-step profile trace."""
+    are −1. ``kv_table [P, L]`` is the precision policy (its rows for the
+    decode steps; the caller's prefill took ``schedule[0]``'s). Returns
+    ``(tokens [B, steps] int32, pids [steps], caches)``; ``pids`` is the
+    schedule, the realized per-step profile trace."""
     schedule = np.asarray(schedule, np.int32).reshape(-1)
     steps = len(schedule)
     b = logits0.shape[0]
@@ -899,7 +942,8 @@ def decode_many(params: dict, cfg: ModelConfig, table, schedule,
     out0 = torch.where(live0, tok0, -1)
     ys, _, _, _, caches = decode_segment(
         params, cfg, table, schedule[1:], torch.where(live0, tok0, 0), pos0,
-        caches, budget - 1, prequant=prequant, paged_backend=paged_backend)
+        caches, budget - 1, prequant=prequant, paged_backend=paged_backend,
+        kv_table=kv_table)
     return torch.cat([out0[:, None], ys], dim=1), schedule, caches
 
 

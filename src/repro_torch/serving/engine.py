@@ -50,17 +50,18 @@ def _next_pow2(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    """Deployment knobs. Only the fields this port implements exist; later
-    slices add theirs as they port them, so no field is silently ignored.
+    """Deployment knobs, the reference's fields one for one.
 
     ``slots`` — per-row KV capacity in tokens (must cover ``prompt_len +
     max_new``). ``kv_bits`` — KV storage: 16 (bf16), 8 (int8), 4 (packed
     int4) or 32 (f32, gather backend only). ``max_batch`` — decode rows:
     the static group width of :meth:`AdaptiveServer.serve` and the size of
-    the scheduler's slot pool. ``paged_kv`` — the scheduler's pool is a
-    global block pool with per-row block tables; ``False`` keeps contiguous
-    ``[max_batch, slots]`` rows (the static paths always decode on a
-    contiguous cache). ``block_size`` — tokens per KV block.
+    the scheduler's slot pool. ``greedy`` — argmax decoding, the
+    reference's only mode (``False`` is refused). ``paged_kv`` — the
+    scheduler's pool is a global block pool with per-row block tables;
+    ``False`` keeps contiguous ``[max_batch, slots]`` rows (the static
+    paths always decode on a contiguous cache). ``block_size`` — tokens
+    per KV block.
     ``pool_blocks`` — physical blocks (``None``: ``max_batch ·
     ceil(slots / block_size)``, the contiguous footprint).
 
@@ -70,7 +71,8 @@ class ServingConfig:
     contiguous kv8 cache through the int8-KV decode kernel (K4);
     ``"gather"`` builds the per-segment dense view of a paged pool and
     reads a contiguous kv8 cache through the reference's einsum;
-    ``"auto"`` is the kernel on CUDA and gather on the CPU. Contiguous kv16
+    ``"auto"`` is the kernel on CUDA and gather on the CPU; ``"pallas"``
+    (the reference's name for its kernel) is ``"kernel"``. Contiguous kv16
     and kv4 caches have no kernel, in the reference either: they run the
     reference's ``decode_attention`` on every backend. On the kernel
     backend (``"kernel"``, or ``"auto"`` on CUDA) the server checks at
@@ -121,11 +123,24 @@ class ServingConfig:
     paged pool on a ``supports_prefix_sharing`` stack. ``aging`` — rounds
     a queued request waits at the head of its class before it climbs one
     level (``None``: strict lowest-level-first).
+
+    ``precision_policy`` — the per-layer KV precision policy: a
+    ``[n_profiles, n_layers]`` nested tuple of bit-widths in (4, 8, 16),
+    typically the row :meth:`~repro_torch.core.manager.ProfileManager.
+    search_precision` found (``python -m repro_torch.launch.
+    precision_frontier``). Each profile binds its row; at 8 or 4 bits the
+    fresh K/V of that layer are fake-quantized
+    (:func:`~repro_torch.models.attention.kv_refine`) wherever they are
+    born, and 16 is an exact passthrough, so an all-16 row for the
+    accuracy-critical profile keeps its tokens those of no policy. The
+    pool stays at ``kv_bits``. ``None`` (default) runs the policy-free ops.
+    Incompatible with ``speculate`` (the verify windows take no row).
     """
 
     slots: int = 4096
     kv_bits: int = 16
     max_batch: int = 8
+    greedy: bool = True
     paged_kv: bool = True
     block_size: int = 16
     pool_blocks: Optional[int] = None
@@ -141,6 +156,7 @@ class ServingConfig:
     draft_hist: int = 32
     draft_model: Optional[str] = None
     kv16_masters: bool = False
+    precision_policy: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -200,10 +216,15 @@ class AdaptiveServer:
                 "kv16_masters only applies to bf16 pools (kv_bits=16): "
                 f"a kv{serving.kv_bits} pool is lossy and always keeps "
                 "full-precision masters")
+        if not serving.greedy:
+            raise ValueError("greedy=False: greedy decoding is the only "
+                             "mode, as in the reference")
         pb = serving.paged_backend
-        if pb not in ("auto", "kernel", "gather"):
-            raise ValueError(f"paged_backend must be auto|kernel|gather, "
-                             f"got {pb!r}")
+        if pb not in ("auto", "kernel", "pallas", "gather"):
+            raise ValueError(f"paged_backend must be auto|kernel|pallas|"
+                             f"gather, got {pb!r}")
+        if pb == "pallas":               # the reference's name for it
+            pb = "kernel"
         has_kernel = serving.kv_bits in (4, 8, 16)
         if pb == "auto":
             pb = "kernel" if self.device.type == "cuda" and has_kernel \
@@ -235,6 +256,26 @@ class AdaptiveServer:
                                  f"{serving.draft_model!r}: use None, "
                                  f"'ngram' or 'repeat' (or pass draft_fn)")
         self.draft_fn = draft_fn
+        # the precision policy's [P, L] table (host ints): a profile's row
+        # reaches every model call it makes
+        self.kv_table: Optional[np.ndarray] = None
+        if serving.precision_policy is not None:
+            if serving.speculate:
+                raise ValueError(
+                    "precision_policy is incompatible with speculate=True: "
+                    "draft/verify windows do not thread the per-layer KV "
+                    "schedule")
+            pol = np.asarray(serving.precision_policy, np.int32)
+            n_prof = len(engine.profile_names)
+            if pol.shape != (n_prof, cfg.n_layers):
+                raise ValueError(
+                    f"precision_policy must have shape [n_profiles="
+                    f"{n_prof}, n_layers={cfg.n_layers}], got "
+                    f"{tuple(pol.shape)}")
+            if not np.isin(pol, (4, 8, 16)).all():
+                raise ValueError(
+                    "precision_policy entries must be 4, 8 or 16")
+            self.kv_table = pol
         # a preempted row resumes through the master-replay continuation
         # wave (admit_shared, empty suffix) at every precision: its blocks
         # are gone, so the kv16 pool-gather wave cannot serve it
@@ -304,6 +345,11 @@ class AdaptiveServer:
         """``params`` with profile ``pid``'s weight images grafted on."""
         return T.overlay_params(self.params, self.prequant[int(pid)])
 
+    def kv_sched(self, pid: int) -> Optional[np.ndarray]:
+        """Profile ``pid``'s row of the precision policy (``None``: no
+        policy)."""
+        return None if self.kv_table is None else self.kv_table[int(pid)]
+
     def _select_profile(self, critical: bool) -> int:
         if self.manager is None:
             return 0
@@ -322,7 +368,8 @@ class AdaptiveServer:
         return T.prefill(self.profile_params(pid), self.cfg,
                          self.engine.table[int(pid)], batch, slots,
                          kv_bits=self.scfg.kv_bits,
-                         return_raw_kv=return_raw_kv)
+                         return_raw_kv=return_raw_kv,
+                         kv_sched=self.kv_sched(pid))
 
     # ----------------------------------------------------------- static path
     def generate(self, prompts: np.ndarray, max_new: int,
@@ -366,7 +413,7 @@ class AdaptiveServer:
         toks, pids, _ = T.decode_many(
             self.params, self.cfg, self.engine.table, schedule, logits, pos0,
             caches, row_budget=rb, prequant=self.prequant,
-            paged_backend=self.paged_backend)
+            paged_backend=self.paged_backend, kv_table=self.kv_table)
         names = self.engine.profile_names
         return {"tokens": toks.cpu().tolist(),        # the one sync, at the end
                 "profile_trace": [names[int(p)] for p in pids]}
@@ -392,7 +439,8 @@ class AdaptiveServer:
             tok = torch.as_tensor(nxt[:, None], device=self.device)
             logits, caches = T.decode_step(
                 self.profile_params(pid), self.cfg, self.engine.table[pid],
-                tok, pos, caches, paged_backend=self.paged_backend)
+                tok, pos, caches, paged_backend=self.paged_backend,
+                kv_sched=self.kv_sched(pid))
             if self.manager is not None:
                 self.manager.account(pid, b)
             nxt = logits.float().cpu().numpy().argmax(axis=-1).astype(np.int32)
@@ -512,7 +560,7 @@ class AdaptiveServer:
             batch, self.slots_p, kv_bits=self.scfg.kv_bits,
             prefix_k=prefix_k, prefix_v=prefix_v, prefix_len=plen,
             prefix_k_amax=k_amax, prefix_v_amax=v_amax,
-            return_raw_kv=self._collect_masters)
+            return_raw_kv=self._collect_masters, kv_sched=self.kv_sched(pid))
         raw = out[2] if self._collect_masters else None
         tok0 = self._land(out[0], out[1], plen + np.asarray(suffix_len),
                           slots_idx, dest, bt_rows, tok, pos, caches)
@@ -604,7 +652,7 @@ class AdaptiveServer:
                                 schedule, tok, pos, caches, remaining,
                                 prequant=self.prequant,
                                 paged_backend=self.paged_backend,
-                                fault_step=fs)
+                                fault_step=fs, kv_table=self.kv_table)
 
     def segment_spec(self, schedule: np.ndarray, hist: np.ndarray,
                      spec_on: np.ndarray, tok: torch.Tensor,

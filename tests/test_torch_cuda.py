@@ -11,7 +11,9 @@ K4 (int8-KV decode attention on the contiguous cache) and K5 (per-tensor
 fake-quant: bit for bit); K1 and K2 on tables whose rows share prefix
 blocks, a scheduler run with a registry hit on the card, and preemption on
 the kernel backend (the resumed row bitwise equal to the suspended one, the
-victim's unmapped table leaving the next owner's blocks unchanged).
+victim's unmapped table leaving the next owner's blocks unchanged); the
+precision policy's ``kv_refine`` on the card (the CPU's bits, no host sync)
+and a mixed-row paged serve through K1 (the gather backend's tokens).
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -829,3 +831,66 @@ def test_unmapped_victim_table_keeps_next_owner_blocks():
     while sched.step():
         pass
     assert sched.resumes == 1 and sched.allocator.used_blocks == 0
+
+
+@pytest.mark.cuda
+def test_kv_refine_on_card_equals_cpu_without_syncs():
+    """The precision policy's fake-quant on the card equals the CPU's bit
+    for bit (f32 and bf16, 4/8/16 bits, an all-zero row) and makes no
+    host sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.models.attention import kv_refine
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 17, 8, 64, generator=gen) * 3
+    x[0, 0] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype)
+        xg = xc.cuda()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [kv_refine(xg, b) for b in (4, 8, 16)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for b, g in zip((4, 8, 16), got):
+            assert torch.equal(g.cpu(), kv_refine(xc, b)), (dtype, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_mixed_row_paged_decode_kernel_equals_gather(kv_bits):
+    """A mixed precision-policy row (4/8 on the smoke config's two layers)
+    through the continuous scheduler: K1 in every layer of every step on
+    the kernel backend, the gather backend's tokens, f32, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            ServingConfig)
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg, params, engine = _smoke_server_parts()
+    row = tuple((4, 8, 16)[l % 3] for l in range(cfg.n_layers))
+    policy = tuple(row for _ in engine.profile_names)
+    rng = np.random.default_rng(37)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new=m) for n, m in [(7, 6), (9, 5), (17, 6)]]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    toks = {}
+    with use_compute_dtype(torch.float32):
+        for backend in ("kernel", "gather"):
+            sched = ContinuousScheduler(AdaptiveServer(
+                cfg, params, engine, ServingConfig(
+                    slots=64, max_batch=4, block_size=8, kv_bits=kv_bits,
+                    paged_backend=backend, precision_policy=policy),
+                device="cuda"), quantum=4)
+            n0 = PA.paged_attention.launches
+            for r in reqs:
+                sched.submit(r)
+            toks[backend] = [r["tokens"] for r in sched.run()]
+            k1 = PA.paged_attention.launches - n0
+            assert k1 == (cfg.n_layers * sched.decode_steps
+                          if backend == "kernel" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert toks["kernel"] == toks["gather"]

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, importing the whole port
-loads no JAX, and its entry points refuse to fall back to the CPU when no
-GPU is present and the CPU was not asked for."""
+"""The PyTorch port stands alone: no module of ``src/repro_torch`` (the
+precision frontier search included) and not ``chip_smoke.py`` imports JAX
+or the JAX package, importing the whole port loads no JAX, and its entry
+points refuse to fall back to the CPU when no GPU is present and the CPU
+was not asked for."""
 import ast
 import pathlib
 import subprocess
@@ -80,6 +81,21 @@ def test_no_silent_cpu_fallback(monkeypatch):
     srv = AdaptiveServer(cfg, params, eng,
                          ServingConfig(slots=32, max_batch=2), device="cpu")
     assert srv.paged_backend == "gather"           # auto on the CPU
+
+
+def test_precision_frontier_stands_alone(monkeypatch):
+    """The frontier search is a port module like the others (its imports
+    are checked above) and, like every entry point, refuses to fall back
+    to the CPU."""
+    from repro_torch.launch import precision_frontier as F
+    assert PORT / "launch" / "precision_frontier.py" in _port_files()
+    assert not _imported_roots(PORT / "launch" / "precision_frontier.py") \
+        & FORBIDDEN
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        F.search("granite-3-2b", 0.05)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        F.main([])
 
 
 def test_compute_dtype_follows_device_and_override():

@@ -10,7 +10,7 @@ the port's backends (``kernel`` runs the kernels' plain versions here):
   critical-class wave selects at the accuracy target in the saver regime;
 * preemption (``_preempt_scenario``: two saver rows, the second a
   copy-on-write sharer of the first's prefix, then a critical arrival on a
-  full pool) at kv16 and kv8: tokens, traces, billing events, admission
+  full pool) at kv16, kv8 and kv4: tokens, traces, billing events, admission
   order and counters equal the JAX scheduler's, the savers' tokens equal
   the port's run without the critical arrival, and ``preemptions ==
   resumes >= 1``; the resumed row's bytes, scales, ``token_idx`` and
@@ -316,7 +316,7 @@ def _preempt_cfg(kv_bits, **kw):
                 priority_classes=2, preemption=True, **kw)
 
 
-@pytest.mark.parametrize("kv_bits", [16, 8])
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
 def test_preempt_resume_token_identity(parts, kv_bits):
     """A preempted-then-resumed row, the copy-on-write sharer included,
     emits the tokens of the run without the critical arrival, and every
@@ -343,7 +343,7 @@ def test_preempt_resume_token_identity(parts, kv_bits):
 
 
 @pytest.mark.parametrize("backend", ["gather", "kernel"])
-@pytest.mark.parametrize("kv_bits", [16, 8])
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
 def test_restore_is_bitwise(parts, kv_bits, backend):
     """The resume wave rebuilds the suspended row exactly: its bytes at
     every written position (the shared span now private), its scales,

@@ -204,13 +204,15 @@ def test_prefill_extend_logits_match_reference(parts, kv_bits):
         n = plen[j] + slen[j]
         assert tidx[j, :n].tolist() == list(range(n))
         assert (tidx[j, n:] == -1).all()
-    with pytest.raises(NotImplementedError):
-        T.prefill_extend(tp, tcfg, teng.table[2],
-                         {"tokens": torch.from_numpy(suf),
-                          "prompt_len": slen}, 48,
-                         prefix_k=torch.from_numpy(mk),
-                         prefix_v=torch.from_numpy(mv), prefix_len=plen,
-                         kv_sched=np.full((cfg.n_layers,), 8))
+    # an all-16 precision-policy row is an exact passthrough
+    pl, _ = T.prefill_extend(
+        tp, tcfg, teng.table[2],
+        {"tokens": torch.from_numpy(suf), "prompt_len": slen}, 48,
+        kv_bits=kv_bits, prefix_k=torch.from_numpy(mk),
+        prefix_v=torch.from_numpy(mv), prefix_len=plen,
+        prefix_k_amax=torch.from_numpy(ka), prefix_v_amax=torch.from_numpy(va),
+        kv_sched=np.full((cfg.n_layers,), 16))
+    assert torch.equal(pl, tl)
 
 
 @pytest.mark.parametrize("kv_bits", [8, 4])

@@ -178,7 +178,8 @@ def test_kv_scale_matches_jax_bitwise(site, bits, monkeypatch):
         tcfg = C.get_smoke("granite-3-2b")
         b, s = prompts.shape
 
-        def raw_forward(params, cfg, bits_row, batch, collect=False):
+        def raw_forward(params, cfg, bits_row, batch, collect=False,
+                        kv_sched=None):
             return (torch.zeros(b, s, cfg.d_model), None,
                     (torch.from_numpy(rk.copy()), torch.from_numpy(rv.copy())))
 
