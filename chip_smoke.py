@@ -94,7 +94,21 @@ Phases:
     4's requests, a 40-layer striped row in the frontier's JSON format:
     K1 = 40 × decode steps, billed = delivered, tok/s and peak memory
     beside the serve without the policy, the refine's own cost per call)
-    and its static path at ``--kv-bits 8`` (K4 = 40 × decode steps).
+    and its static path at ``--kv-bits 8`` (K4 = 40 × decode steps);
+11. fault-tolerant serving: (a) at granite-3-2b widths, 4 layers, f32,
+    one scenario (a recoverable NaN, a NaN on every attempt that exhausts
+    ``retry_budget=2``, a dry allocator round, a flush stall the watchdog
+    flags, a live copy-on-write sharer and a queued request cancelled, a
+    deadline expired through a virtual clock, ``paranoid``) through the
+    kernel and gather backends at kv16, kv8 and kv4, on the contiguous kv8
+    pool (K4) and speculatively at kv16 (K2): statuses, tokens, retries,
+    events and the robustness counters equal across backends, the
+    recovered tokens equal a clean accuracy-critical run's, 0 used blocks
+    at drain; (b) the launcher's ``--continuous --inject-faults
+    --paranoid`` on the full config in bf16 beside the serve without
+    faults (K1 = 40 × decode steps, faults detected = NaNs injected, tok/s,
+    the audit's host ms per step), then a direct serve with a shed policy,
+    a cancel and an expiry (billed = delivered, 0 used blocks).
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -2794,6 +2808,350 @@ def phase_policy_serve(seed: int, path: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 11: fault-tolerant serving
+# ---------------------------------------------------------------------------
+
+FAULT_KEYS = ("cancelled", "expired", "shed", "failed", "recovered",
+              "faults_detected", "alloc_injected_rounds", "watchdog_stalls",
+              "injected_nan", "injected_alloc", "injected_stall")
+
+
+def fault_scenario(cfg, sched, Request, box) -> list:
+    """Phase 11 (a)'s scenario on ``sched`` (its clock reads ``box``), on
+    a 6-row pool: 0 plain; 1 a recoverable NaN (attempt 0); 2 a NaN on
+    every attempt; 3 registers a 48-token system prompt that 4 maps
+    copy-on-write in the same round (intra-wave dedup); 5 carries a 5 s
+    deadline; 6 is cancelled while queued. 4 is cancelled live after
+    round 2, the clock jumps past 5's deadline after round 3, and the
+    scheduler drains. Returns the requests."""
+    rng = np.random.default_rng(11)
+    sys_p = rng.integers(0, cfg.vocab, 48).astype(np.int32)
+
+    def rand(n):
+        return rng.integers(0, cfg.vocab, n).astype(np.int32)
+
+    reqs = [Request(tokens=rand(17), max_new=9),
+            Request(tokens=rand(33), max_new=10),
+            Request(tokens=rand(20), max_new=8),
+            Request(tokens=np.concatenate([sys_p, rand(5)]), max_new=12),
+            Request(tokens=np.concatenate([sys_p, rand(9)]), max_new=30),
+            Request(tokens=rand(12), max_new=40, deadline_ms=5000.0),
+            Request(tokens=rand(8), max_new=5)]
+    for r in reqs:
+        sched.submit(r)
+    if not sched.cancel(6):
+        raise AssertionError("the queued request did not cancel")
+    sched.step()
+    sched.step()
+    if not sched.cancel(4):
+        raise AssertionError("the live sharer did not cancel")
+    sched.step()
+    box[0] = 10.0
+    while sched.step():
+        pass
+    return reqs
+
+
+def phase_fault_parity(seed: int) -> dict:
+    """Phase 11 (a), at granite-3-2b widths, 4 layers, f32, TF32 off, no
+    manager: :func:`fault_scenario` under a ``FaultSchedule`` (``nan_at``
+    {1: (0,), 2: (0, 1, 2)}, a dry allocator in round 4, a 50 ms stall at
+    flush 3), ``retry_budget=2``, ``watchdog_s=0.02``, ``paranoid=True``
+    and a virtual clock that advances by each injected stall (so the
+    watchdog flags exactly that round). Run through the kernel and the
+    gather backends on the paged pool at kv16, kv8 and kv4, on the
+    contiguous kv8 pool (K4 against the einsum) and speculatively at kv16
+    (K2). Each run: the expected statuses, 4 faults detected, request 1
+    retried once and request 2 three times, one watchdog stall, the
+    kernel's launches per step (or its absence on the other backend) and
+    0 used blocks at drain. Within each pair: statuses, reasons, retries,
+    traces, billing events, decode steps (windows) and the robustness
+    counters equal, and the tokens equal (K4 may flip one only under a
+    1e-3 top-2 margin, as in phase 3); the recovered request's tokens
+    equal a clean ``accuracy_critical=True`` run's. Returns the kernel
+    runs' K2 and K4 launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            ServingConfig)
+    from repro_torch.serving.faults import FaultSchedule
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    engine = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+    want = ["completed", "completed", "failed", "completed", "cancelled",
+            "expired", "cancelled"]
+    variants = [("paged kv16", dict(kv_bits=16)),
+                ("paged kv8", dict(kv_bits=8)),
+                ("paged kv4", dict(kv_bits=4)),
+                ("contiguous kv8", dict(kv_bits=8, paged_kv=False)),
+                ("speculative kv16", dict(kv_bits=16, speculate=True,
+                                          draft_k=4))]
+    launches = {"k2": 0, "k4": 0}
+
+    def reset():
+        PA.paged_attention.launches = 0
+        PA.paged_attention_multi.launches = 0
+        QK.qkv_attention.launches = 0
+        A.paged_view.calls = 0
+        A.decode_attention.kv8_einsum_calls = 0
+
+    with use_compute_dtype(torch.float32):
+        for label, kw in variants:
+            scfg = dict(slots=256, max_batch=6, block_size=16, **kw)
+            spec = bool(kw.get("speculate"))
+            runs = {}
+            for backend in ("kernel", "gather"):
+                srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+                    paged_backend=backend, **scfg), device="cuda")
+                box = [0.0]
+                faults = FaultSchedule(nan_at={1: (0,), 2: (0, 1, 2)},
+                                       alloc_at=(4,), stall_at=(3,),
+                                       stall_s=0.05)
+                sched = ContinuousScheduler(
+                    srv, quantum=4, faults=faults, retry_budget=2,
+                    watchdog_s=0.02, paranoid=True,
+                    clock=lambda b=box, f=faults:
+                        b[0] + f.injected_stall * f.stall_s)
+                reset()
+                reqs = fault_scenario(cfg, sched, Request, box)
+                k1, k2, k4 = (PA.paged_attention.launches,
+                              PA.paged_attention_multi.launches,
+                              QK.qkv_attention.launches)
+                views = A.paged_view.calls
+                einsum = A.decode_attention.kv8_einsum_calls
+                res = [sched.results[i] for i in range(7)]
+                got = [r["status"].value for r in res]
+                stats = sched.robustness_stats()
+                if got != want or stats["watchdog_stalls"] != 1 or \
+                        stats["faults_detected"] != 4 or \
+                        res[1].get("retries") != 1 or \
+                        res[2].get("retries") != 3 or \
+                        res[2]["reason"] != "retry budget exhausted" or \
+                        res[2]["tokens"]:
+                    raise AssertionError(f"{label} {backend}: {got}, "
+                                         f"{stats}")
+                paged = sched.paged
+                if paged:
+                    sched.check()
+                    if sched.allocator.used_blocks:
+                        raise AssertionError(
+                            f"{label} {backend}: "
+                            f"{sched.allocator.used_blocks} blocks left")
+                kern = backend == "kernel"
+                per_step = cfg.n_layers * sched.decode_steps
+                reads = {"K1": k1 == (per_step if kern and paged
+                                      and not spec else 0),
+                         "K2": (k2 > 0) == (kern and paged and spec),
+                         "K4": k4 == (per_step if kern and not paged else 0),
+                         "gather": (views > 0) == (not kern and paged),
+                         "einsum": (einsum == 0 if kern
+                                    else paged or einsum > 0)}
+                if not all(reads.values()):
+                    raise AssertionError(f"{label} {backend}: reads {reads}:"
+                                         f" {k1} {k2} {k4} {views} {einsum}")
+                if kern and spec:
+                    launches["k2"] = k2
+                if kern and not paged:
+                    launches["k4"] = k4
+                runs[backend] = {
+                    "status": got, "tokens": [r["tokens"] for r in res],
+                    "traces": [r["profile_trace"] for r in res],
+                    "retries": [r.get("retries") for r in res],
+                    "reasons": [r.get("reason") for r in res],
+                    "events": list(sched.events),
+                    "stats": {k: stats.get(k) for k in FAULT_KEYS},
+                    "steps": (sched.windows_run if spec
+                              else sched.decode_steps),
+                    "k": (k1, k2, k4)}
+                del srv, sched
+            srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+                paged_backend="kernel", **scfg), device="cuda")
+            clean = ContinuousScheduler(srv, quantum=4)
+            crid = clean.submit(Request(tokens=reqs[1].tokens, max_new=10,
+                                        accuracy_critical=True))
+            clean_tok = clean.run()[crid]["tokens"]
+            del srv, clean
+            a, b = runs["kernel"], runs["gather"]
+            same = {k: a[k] == b[k] for k in a if k != "k"}
+            recovered = a["tokens"][1] == clean_tok
+            unit = "windows" if spec else "decode steps"
+            print(f"[faults] full width x4 layers, f32, {label}: statuses "
+                  f"{a['status']}, retries {a['retries'][1]}/"
+                  f"{a['retries'][2]}, counters {a['stats']}; kernel vs "
+                  f"gather equal: {same}; recovered tokens = clean critical "
+                  f"run: {recovered}; {a['steps']} {unit}, kernel launches "
+                  f"K1/K2/K4 {a['k']}")
+            if not all(v for k, v in same.items() if k != "tokens") or \
+                    not recovered:
+                raise AssertionError(f"{label}: {same}")
+            if not same["tokens"]:
+                if paged:
+                    raise AssertionError(f"{label}: {a['tokens']} vs "
+                                         f"{b['tokens']}")
+                margin = first_divergence(cfg, params, engine, reqs,
+                                          a["tokens"], b["tokens"], 8)
+                if not margin < 1e-3:
+                    raise AssertionError(f"{label}: K4 tokens diverge at a "
+                                         f"top-2 margin of {margin:.3e}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fault_serve(seed: int) -> dict:
+    """Phase 11 (b), on the full 40-layer config in bf16 at kv16: phase 4's
+    12 requests × 32 tokens through the launcher's ``--continuous
+    --inject-faults --paranoid`` path, beside the same serve without the
+    flags, in the order plain, faults, faults, plain (the manager reset to
+    the launcher's before each). Each faulted serve: ``faults_detected ==
+    injected_nan``, every request completed with 32 tokens or failed with
+    none, delivered = 32 × (12 − failed), K1 = 40 × decode steps, 0 used
+    blocks; printed with the counters, tok/s and the paranoid audit's host
+    ms per step. Each plain serve: billed = delivered = 384. Then a
+    direct ``ContinuousScheduler`` on the same server with a virtual
+    clock and ``ShedPolicy(max_queue=8)`` over the 12 submissions (the
+    last 4 shed), one live cancel after round 2 and request 5's 5 s
+    deadline passed after round 3: billed = delivered (nothing is
+    discarded without a quarantine), K1 = 40 × decode steps, the pool
+    back to 0 used blocks. Returns a faulted serve's K1 launches."""
+    import copy
+    import dataclasses
+    import gc
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import RequestStatus
+    from repro_torch.serving.policy import ShedPolicy
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = ["--continuous", "--full", "--requests", "12", "--max-new", "32",
+            "--kv-bits", "16", "--quantum", "8", "--block-size", "16",
+            "--seed", str(seed)]
+    flags = {"plain": S.parse_args(base),
+             "faults": S.parse_args(base + ["--inject-faults",
+                                            "--paranoid"])}
+    cfg, srv = S.build_server(flags["faults"])
+    mgr0 = copy.deepcopy(srv.manager)
+    reqs = S.make_requests(cfg, flags["plain"])
+    audit: list = []
+    check = ContinuousScheduler.check
+
+    def timed_check(self):
+        t0 = time.perf_counter()
+        check(self)
+        audit.append(time.perf_counter() - t0)
+
+    k1_faults = 0
+    for label in ("plain", "faults", "faults", "plain"):
+        args = flags[label]
+        srv.manager = copy.deepcopy(mgr0)
+        PA.paged_attention.launches = A.paged_view.calls = 0
+        n_audit = len(audit)
+        ContinuousScheduler.check = timed_check
+        try:
+            out = S.serve(srv, reqs, args.quantum, continuous=True,
+                          sched_kw=S.scheduler_kwargs(args))
+        finally:
+            ContinuousScheduler.check = check
+        k1, views = PA.paged_attention.launches, A.paged_view.calls
+        results, sched, wall = out["results"], out["sched"], out["wall_s"]
+        rs = sched.robustness_stats()
+        failed = [i for i, r in enumerate(results)
+                  if r["status"] is RequestStatus.FAILED]
+        for i, r in enumerate(results):
+            n = 0 if i in failed else 32
+            if r["status"] not in (RequestStatus.COMPLETED,
+                                   RequestStatus.FAILED) or \
+                    len(r["tokens"]) != n or \
+                    not all(0 <= t < cfg.vocab for t in r["tokens"]):
+                raise AssertionError(f"{label} request {i}: {r['status']}")
+        n_tok = sum(len(r["tokens"]) for r in results)
+        billed = sum(n for _, n, _ in sched.events)
+        expect = cfg.n_layers * sched.decode_steps
+        sched.check()
+        if k1 != expect or views or n_tok != 32 * (12 - len(failed)) or \
+                sched.allocator.used_blocks:
+            raise AssertionError(f"{label}: K1 {k1} vs {expect}, gathers "
+                                 f"{views}, delivered {n_tok}")
+        line = (f"[faults] serve {label}: {n_tok} tokens in {wall:.3f}s = "
+                f"{n_tok / wall:.2f} tok/s; {sched.decode_steps} decode "
+                f"steps, K1 launches {k1} = {cfg.n_layers} x "
+                f"{sched.decode_steps}; billed {billed}, delivered {n_tok}")
+        if label == "plain":
+            if billed != n_tok or n_tok != 384:
+                raise AssertionError(f"plain: billed {billed} vs {n_tok}")
+            print(line)
+            continue
+        if rs["faults_detected"] != rs["injected_nan"] or \
+                rs["faults_detected"] == 0 or \
+                rs["alloc_injected_rounds"] != 1:
+            raise AssertionError(f"faults: {rs}")
+        k1_faults = k1
+        spent = audit[n_audit:]
+        print(f"{line}; faults_detected {rs['faults_detected']} = "
+              f"injected_nan {rs['injected_nan']}, recovered "
+              f"{rs['recovered']}, failed {rs['failed']}, "
+              f"alloc_injected_rounds {rs['alloc_injected_rounds']}, "
+              f"retried requests {[i for i, r in enumerate(results) if r.get('retries')]}; "
+              f"paranoid audit {1e3 * sum(spent) / len(spent):.4f} ms of "
+              f"host per step over {len(spent)} steps")
+        del out, sched
+    srv.manager = copy.deepcopy(mgr0)
+    box = [0.0]
+    sched = ContinuousScheduler(srv, quantum=8, shed=ShedPolicy(max_queue=8),
+                                clock=lambda: box[0], paranoid=True)
+    PA.paged_attention.launches = 0
+    for i, r in enumerate(reqs):
+        sched.submit(dataclasses.replace(r, deadline_ms=5000.0) if i == 5
+                     else r)
+    sched.step()
+    sched.step()
+    if not sched.cancel(2):
+        raise AssertionError("request 2 did not cancel")
+    sched.step()
+    box[0] = 10.0
+    while sched.step():
+        pass
+    k1 = PA.paged_attention.launches
+    got = [sched.results[i]["status"].value for i in range(12)]
+    want = (["completed"] * 2 + ["cancelled"] + ["completed"] * 2
+            + ["expired"] + ["completed"] * 2 + ["shed"] * 4)
+    n_tok = sum(len(r["tokens"]) for r in sched.results.values())
+    billed = sum(n for _, n, _ in sched.events)
+    rs = sched.robustness_stats()
+    sched.check()
+    print(f"[faults] direct serve, ShedPolicy(max_queue=8), one cancel, one "
+          f"deadline: statuses {got}; delivered "
+          f"{[len(sched.results[i]['tokens']) for i in range(12)]}; billed "
+          f"{billed} = delivered {n_tok}: {billed == n_tok}; K1 {k1} = "
+          f"{cfg.n_layers} x {sched.decode_steps}; used blocks "
+          f"{sched.allocator.used_blocks}; counters "
+          f"{ {k: rs[k] for k in ('cancelled', 'expired', 'shed')} }")
+    if got != want or billed != n_tok or sched.allocator.used_blocks or \
+            k1 != cfg.n_layers * sched.decode_steps:
+        raise AssertionError("the direct fault-tolerant serve")
+    del srv, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": k1_faults}
+
+
 def phase_profile(seed: int) -> None:
     """Where one decode segment's time goes (``--profile``): wall time on
     the host against device-busy time from ``torch.profiler``, with the
@@ -2848,7 +3206,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     phase-2 row of the kernel at its main-path shape (every kernel also
     carries its device time from a CUDA graph, K1–K4 their split count, K4
     its step 0's device time, K5 its read-twice floor), plus ``extra``
-    keys (phase 10's launches under the precision policy)."""
+    keys (phase 10's launches under the precision policy, phase 11's
+    under injected faults)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -2872,7 +3231,7 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -2937,6 +3296,10 @@ def main() -> None:
         policy["k1"] = phase_policy_serve(args.seed, path)["launches"]
         policy["k4"] = phase_contiguous_serve(
             args.seed, continuous=False, policy=path)["launches"]
+    faults = {"k1": 0, "k2": 0, "k4": 0}
+    if 11 in phases:
+        faults.update(phase_fault_parity(args.seed))
+        faults["k1"] = phase_fault_serve(args.seed)["launches"]
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -2944,18 +3307,20 @@ def main() -> None:
         kernels.append(kernel_entry(
             "paged_attention", "paged_attention.cu",
             "src/repro/kernels/paged_attention.py:116", served["launches"],
-            rows["k1"], policy_launches=policy["k1"]))
+            rows["k1"], policy_launches=policy["k1"],
+            fault_launches=faults["k1"]))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
-            rows["k2"]))
+            rows["k2"], fault_launches=faults["k2"]))
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
             native["k3"], rows["k3"]))
         kernels.append(kernel_entry(
             "qkv_attention", "qkv_attention.cu",
             "src/repro/kernels/qkv_attention.py:68", static["launches"],
-            rows["k4"], policy_launches=policy["k4"]))
+            rows["k4"], policy_launches=policy["k4"],
+            fault_launches=faults["k4"]))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
             native["k5"], rows["k5"]))

@@ -8,6 +8,8 @@ Manager with an energy budget.
       [--no-prefix-cache] [--prefill-chunk 128] [--kv16-masters]
       [--priority-classes 2 --preemption --aging 4]
       [--precision-policy policy.json]
+      [--inject-faults --fault-seed 0 --retry-budget 2 --paranoid]
+      [--deadline-ms 5000 --shed 8]
 
 As in the reference launcher, ``--continuous`` decides the path. Without
 it, the requests are served in static groups (``AdaptiveServer.serve``:
@@ -22,6 +24,16 @@ schedule ``python -m repro_torch.launch.precision_frontier --json`` wrote:
 profile 0 keeps KV at full precision in every layer, the other profiles
 ride the schedule.
 
+Fault tolerance (``--continuous`` only): ``--inject-faults`` arms a seeded
+fault schedule (one guaranteed recoverable NaN in request 1, random NaNs
+at about one per four requests, one dry allocator round), each NaN row
+quarantined and retried at the accuracy target within ``--retry-budget``;
+``--deadline-ms`` gives every request a deadline, ``--shed N`` refuses the
+least urgent request once the queue passes ``N``; ``--paranoid`` audits
+the block pool after every step. Each request's line then shows its
+terminal status, a ``robustness:`` line the counters, and the closing
+audit prints "block-pool audit clean".
+
 Runs on the GPU unless ``--device cpu`` is given. ``--full`` serves the
 published configuration (granite-3-2b: 40 layers, d_model 2048) with
 prompts of 64–512 tokens, ``slots=1024`` and 8 rows; without it, the smoke
@@ -32,6 +44,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,10 +57,12 @@ from repro_torch.core.profiles import paper_profiles
 from repro_torch.models import transformer as T
 from repro_torch.runtime import resolve_device
 from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
+from repro_torch.serving.faults import FaultSchedule
+from repro_torch.serving.policy import ShedPolicy
 from repro_torch.serving.scheduler import ContinuousScheduler
 
-__all__ = ["profile_stats", "precision_policy", "build_server", "serve",
-           "main"]
+__all__ = ["profile_stats", "precision_policy", "build_server",
+           "scheduler_kwargs", "serve", "main"]
 
 
 def profile_stats(cfg, profs, n_params: int,
@@ -145,6 +160,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--json): profile 0, the accuracy-critical "
                          "binding, keeps every layer at 16 bits, every "
                          "other profile rides the searched schedule")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request completion deadline in ms from "
+                         "submission: a request past it (or predicted "
+                         "unable to meet it at admission) finalizes "
+                         "EXPIRED; a live row is reaped at the next flush "
+                         "boundary (needs --continuous)")
+    ap.add_argument("--shed", type=int, default=None, metavar="DEPTH",
+                    help="overload shedding: once the queue passes DEPTH, "
+                         "the least urgent request finalizes SHED instead "
+                         "of queuing (needs --continuous)")
+    ap.add_argument("--inject-faults", action="store_true",
+                    help="seeded chaos: NaN logits in live decode rows "
+                         "(quarantined and retried at the accuracy "
+                         "target) and one dry allocator round (needs "
+                         "--continuous)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault schedule (with --inject-faults)")
+    ap.add_argument("--retry-budget", type=int, default=2,
+                    help="quarantine retries per request before it "
+                         "finalizes FAILED (default: 2)")
+    ap.add_argument("--paranoid", action="store_true",
+                    help="audit the block pool (refcounts against the "
+                         "free/LRU/live partition) after every scheduler "
+                         "step (needs --continuous)")
     ap.add_argument("--budget-inferences", type=float, default=200,
                     help="energy budget in units of full-power inferences")
     ap.add_argument("--seed", type=int, default=0)
@@ -154,6 +193,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.preemption and not args.continuous:
         raise SystemExit("--preemption needs --continuous (the slot pool)")
+    if not args.continuous and (args.deadline_ms is not None
+                                or args.shed is not None
+                                or args.inject_faults or args.paranoid):
+        raise SystemExit("--deadline-ms/--shed/--inject-faults/--paranoid "
+                         "need --continuous (the fault-tolerant scheduler)")
     if args.speculate and not args.continuous:
         raise SystemExit("--speculate needs --continuous (draft/verify "
                          "windows run through the slot-pool segment)")
@@ -210,27 +254,46 @@ def build_server(args: argparse.Namespace):
 
 def make_requests(cfg, args: argparse.Namespace) -> list[Request]:
     """``args.requests`` prompts from ``args.seed``; every third request is
-    accuracy-critical and of class 0, the rest of the lowest class, as in
-    the reference launcher."""
+    accuracy-critical and of class 0, the rest of the lowest class, each
+    with ``args.deadline_ms``, as in the reference launcher."""
     rng = np.random.default_rng(args.seed)
     lo, hi = (64, 513) if args.full else (4, 24)
     n_cls = max(1, args.priority_classes)
     return [Request(tokens=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
                     max_new=args.max_new, accuracy_critical=(i % 3 == 0),
-                    priority=0 if i % 3 == 0 else n_cls - 1)
+                    priority=0 if i % 3 == 0 else n_cls - 1,
+                    deadline_ms=args.deadline_ms)
             for i, n in enumerate(rng.integers(lo, hi, args.requests))]
 
 
+def scheduler_kwargs(args: argparse.Namespace) -> dict:
+    """The :class:`ContinuousScheduler`'s robustness arguments from the
+    flags. ``--inject-faults`` builds the reference launcher's schedule:
+    one guaranteed recoverable NaN (request 1, first attempt), random NaNs
+    at ``p = 0.25`` capped at a quarter of the requests, and a dry
+    allocator in admission round 2."""
+    faults = None
+    if args.inject_faults:
+        faults = FaultSchedule(args.fault_seed, p_nan=0.25,
+                               max_nan=max(1, args.requests // 4),
+                               nan_at={min(1, args.requests - 1): (0,)},
+                               alloc_at=(2,))
+    return {"shed": (ShedPolicy(max_queue=args.shed)
+                     if args.shed is not None else None),
+            "faults": faults, "retry_budget": args.retry_budget,
+            "paranoid": args.paranoid}
+
+
 def serve(srv: AdaptiveServer, reqs: list[Request], quantum: int, *,
-          continuous: bool) -> dict:
-    """Serve ``reqs``: through a fresh :class:`ContinuousScheduler` drained
-    to the end (``continuous``), else in static groups
-    (:meth:`AdaptiveServer.serve`). Returns the results (submission
+          continuous: bool, sched_kw: Optional[dict] = None) -> dict:
+    """Serve ``reqs``: through a fresh :class:`ContinuousScheduler` (built
+    with ``sched_kw``) drained to the end (``continuous``), else in static
+    groups (:meth:`AdaptiveServer.serve`). Returns the results (submission
     order), the scheduler (``None`` on the static path), and the wall
     time."""
     sched = None
     if continuous:
-        sched = ContinuousScheduler(srv, quantum=quantum)
+        sched = ContinuousScheduler(srv, quantum=quantum, **(sched_kw or {}))
         for r in reqs:
             sched.submit(r)
     if srv.device.type == "cuda":
@@ -247,7 +310,8 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     cfg, srv = build_server(args)
     out = serve(srv, make_requests(cfg, args), args.quantum,
-                continuous=args.continuous)
+                continuous=args.continuous,
+                sched_kw=scheduler_kwargs(args) if args.continuous else None)
     results, sched, wall = out["results"], out["sched"], out["wall_s"]
     head = (f"[serve] {cfg.name} on {srv.device} ({srv.paged_backend} "
             f"backend, kv{srv.scfg.kv_bits})")
@@ -270,9 +334,27 @@ def main(argv=None) -> None:
     else:
         print(f"{head}: contiguous pool of {sched.n_slots} rows")
     for i, r in enumerate(results):
-        status = f" [{r['status'].value}]" if "status" in r else ""
+        status = ""
+        if "status" in r:
+            status = f" [{r['status'].value}" + (
+                f": {r['reason']}]" if r.get("reason") else "]")
+        retries = r.get("retries", 0)
+        if retries:
+            status += (f" (recovered after {retries} escalated "
+                       f"retr{'y' if retries == 1 else 'ies'})")
         print(f"[serve] req{i}: {len(r['tokens'])} tokens{status}, "
               f"profiles used: {sorted(set(r['profile_trace']))}")
+    if sched is not None and (args.inject_faults or args.shed is not None
+                              or args.deadline_ms is not None
+                              or args.paranoid):
+        rs = sched.robustness_stats()
+        print(f"[serve] robustness: cancelled={rs['cancelled']} "
+              f"expired={rs['expired']} shed={rs['shed']} "
+              f"failed={rs['failed']} recovered={rs['recovered']} "
+              f"faults_detected={rs['faults_detected']}")
+        sched.check()    # the whole pool audit (raises on any leak)
+        print("[serve] block-pool audit clean: refcounts, free list, and "
+              "LRU partition the pool exactly")
     n_tok = sum(len(r["tokens"]) for r in results)
     mgr = srv.manager
     if sched is None:

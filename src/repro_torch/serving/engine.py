@@ -32,9 +32,14 @@ __all__ = ["ServingConfig", "AdaptiveServer", "Request", "RequestStatus"]
 
 
 class RequestStatus(str, enum.Enum):
-    """Terminal outcome of one request (the reference's enum; this slice
-    reaches ``COMPLETED`` only — cancellation, deadlines, shedding and
-    quarantine come with the fault-tolerance slice)."""
+    """Terminal outcome of one request (the reference's enum): every
+    request the continuous scheduler accepts leaves through exactly one.
+    ``COMPLETED`` — all tokens delivered; ``CANCELLED`` —
+    :meth:`~repro_torch.serving.scheduler.ContinuousScheduler.cancel`;
+    ``EXPIRED`` — ``Request.deadline_ms`` passed, or admission predicted it
+    unreachable; ``SHED`` — a :class:`~repro_torch.serving.policy.
+    ShedPolicy` judged the pool overloaded at submission; ``FAILED`` —
+    quarantine retries exhausted."""
 
     COMPLETED = "completed"
     CANCELLED = "cancelled"
@@ -164,8 +169,11 @@ class Request:
     """One generation request: a ``[S]`` int32 prompt, a token budget, and
     the paper's accuracy-critical flag. ``priority`` is the class index
     under a class-aware policy (0 = most urgent, clamped into the ladder;
-    the FIFO ignores it). ``deadline_ms`` is the reference's field, not
-    ported here (it must stay ``None``)."""
+    the FIFO ignores it). ``deadline_ms`` is a completion deadline in
+    milliseconds from submission (``None``: none): the continuous scheduler
+    finalizes a request past it ``EXPIRED`` (a live row is reaped at the
+    next flush boundary with the tokens it generated) and rejects one at
+    admission whose deadline its step-time estimate rules unreachable."""
 
     tokens: np.ndarray
     max_new: int = 32
@@ -643,8 +651,9 @@ class AdaptiveServer:
                 pos: torch.Tensor, caches: dict, remaining: np.ndarray,
                 fault_step: Optional[np.ndarray] = None):
         """One decode segment over the pool (``decode_segment`` on the
-        server's images and backend). Returns ``(tokens, row_ok, tok, pos,
-        caches)``."""
+        server's images and backend). ``fault_step [B]`` poisons a row's
+        logits with NaN at that step (−1: never). Returns ``(tokens,
+        row_ok, tok, pos, caches)``."""
         fs = (None if fault_step is None else
               torch.as_tensor(fault_step, dtype=torch.int32,
                               device=self.device))
@@ -657,20 +666,23 @@ class AdaptiveServer:
     def segment_spec(self, schedule: np.ndarray, hist: np.ndarray,
                      spec_on: np.ndarray, tok: torch.Tensor,
                      pos: torch.Tensor, caches: dict, remaining: np.ndarray,
-                     quota: np.ndarray):
+                     quota: np.ndarray,
+                     fault_step: Optional[np.ndarray] = None):
         """One speculative segment over the pool: ``len(schedule)``
         draft/verify windows (``decode_segment_spec`` on the server's
         images, backend and drafter). ``hist``/``spec_on``/``quota`` are
         the host's per-row drafter history, opt-out mask and quantum in
-        delivered tokens. Returns ``(tokens, delivered, row_ok, tok, pos,
-        caches)``."""
+        delivered tokens; ``fault_step [B]`` poisons a row's verify window
+        at that index (−1: never). Returns ``(tokens, delivered, row_ok,
+        tok, pos, caches)``."""
         return T.decode_segment_spec(
             self.params, self.cfg, self.engine.table, schedule, tok, pos,
             caches, remaining, quota=quota,
             hist0=torch.as_tensor(hist, device=self.device),
             spec_on=torch.as_tensor(spec_on, device=self.device),
             prequant=self.prequant, paged_backend=self.paged_backend,
-            draft_k=self.scfg.draft_k, draft_fn=self.draft_fn)
+            fault_step=fault_step, draft_k=self.scfg.draft_k,
+            draft_fn=self.draft_fn)
 
     def clear_rows(self, slots_idx, caches: dict) -> dict:
         """Unmap the block tables of pool rows ``slots_idx`` (retirement),

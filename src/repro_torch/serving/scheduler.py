@@ -79,21 +79,43 @@ decode segments. A row mid-admission holds its slot and blocks with
 continuation waves bill nothing. Each round dispatches at most two prefill
 waves (cold, shared, resume, chunk continuations per pinned profile).
 
-Not ported yet (later slices): deadlines, cancellation, shedding, fault
-injection and quarantine, durability. A row whose logits go non-finite
-raises at the flush (the reference quarantines it).
+**Fault tolerance**: every request leaves through exactly one terminal
+:class:`~repro_torch.serving.engine.RequestStatus`. ``COMPLETED`` (all
+tokens delivered); ``CANCELLED`` (:meth:`ContinuousScheduler.cancel`: a
+queued request drops at once, a live row is reaped at the next flush
+boundary, so it is billed exactly the tokens it delivered); ``EXPIRED``
+(``Request.deadline_ms`` passed, or admission predicts from the step-time
+EMA that it cannot be met); ``SHED`` (a
+:class:`~repro_torch.serving.policy.ShedPolicy` judged the pool overloaded
+at submission: the least urgent party goes); ``FAILED`` (quarantine
+retries exhausted). A row whose logits go non-finite (the per-row finite
+check rides the decode segment) is *quarantined*: its blocks go back as
+on eviction, its tokens are discarded (argmax over NaN is garbage), it
+escalates to ``accuracy_critical=True`` and requeues at the front of its
+class after ``1, 2, 4, ...`` rounds of backoff, up to ``retry_budget``
+retries; the retry recomputes its whole prompt cold, so its tokens equal
+a clean accuracy-critical run's. A seeded
+:class:`~repro_torch.serving.faults.FaultSchedule` injects NaN logits
+(as data through the one segment), dry allocator rounds and flush stalls;
+a :class:`~repro_torch.serving.faults.Watchdog` flags slow rounds, and
+:meth:`ContinuousScheduler.check` (after every step with ``paranoid``)
+audits the block pool's refcounts. Not ported yet: durability (the
+reference's write-ahead journal and checkpoints).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models import transformer as T
 from .engine import AdaptiveServer, Request, RequestStatus, _next_pow2
+from .faults import FaultSchedule, Watchdog
 from .paged import BlockAllocator, PrefixRegistry, RowSnapshot, prefix_keys
-from .policy import RowState, SchedulingPolicy, make_policy
+from .policy import RowState, SchedulingPolicy, ShedPolicy, make_policy
 
 __all__ = ["ContinuousScheduler"]
 
@@ -114,11 +136,25 @@ class ContinuousScheduler:
     turns it off); ``policy`` defaults to
     :func:`~repro_torch.serving.policy.make_policy` of the server's config
     (the FIFO unless ``priority_classes``/``preemption`` say otherwise).
+
+    Robustness knobs: ``shed`` (a :class:`~repro_torch.serving.policy.
+    ShedPolicy` checked at :meth:`submit`), ``faults`` (a seeded
+    :class:`~repro_torch.serving.faults.FaultSchedule`), ``retry_budget``
+    (quarantine retries before ``FAILED``), ``watchdog_s`` (the per-step
+    budget of a :class:`~repro_torch.serving.faults.Watchdog`), ``clock``
+    (replaces ``time.monotonic``: tests inject virtual time) and
+    ``paranoid`` (run :meth:`check` after every step).
     """
 
     def __init__(self, server: AdaptiveServer, quantum: int = 8,
                  prefill_bucket: int = 8, record_events: bool = True,
-                 policy: Optional[SchedulingPolicy] = None):
+                 policy: Optional[SchedulingPolicy] = None,
+                 shed: Optional[ShedPolicy] = None,
+                 faults: Optional[FaultSchedule] = None,
+                 retry_budget: int = 2,
+                 watchdog_s: Optional[float] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 paranoid: bool = False):
         self.srv = server
         self.quantum = int(quantum)
         self.bucket_min = int(prefill_bucket)
@@ -192,6 +228,28 @@ class ContinuousScheduler:
             # (pid, delivered) per verify window, in billing order: the
             # flush-side twin of the planned `events`
             self.spec_billed: list[tuple[int, int]] = []
+        # robustness: deadlines, cancellation, quarantine, shedding
+        self.clock = clock if clock is not None else time.monotonic
+        self.shed = shed
+        self.faults = faults
+        self.retry_budget = int(retry_budget)
+        self.watchdog = (Watchdog(float(watchdog_s))
+                         if watchdog_s is not None else None)
+        self.paranoid = bool(paranoid)
+        self._deadline: dict[int, float] = {}     # rid -> absolute deadline
+        self._to_reap: dict[int, RequestStatus] = {}     # slot -> status
+        self._nf_rows: list[int] = []             # rids w/ non-finite logits
+        self._quarantine_q: list[tuple[int, int]] = []   # (ready_round, rid)
+        self._attempts: dict[int, int] = {}       # rid -> quarantine retries
+        self._q_t0: dict[int, float] = {}         # rid -> first-fault time
+        self._round = 0
+        self._seg_dt: Optional[float] = None      # step wall-time EMA
+        self._flush_idx = 0
+        self.draining = False                     # admit nothing new
+        self.cancelled = self.expired = self.shed_count = self.failed = 0
+        self.recovered = self.faults_detected = 0
+        self.alloc_injected_rounds = 0
+        self.recovery_latency: list[float] = []   # seconds, fault -> done
 
     # ------------------------------------------------------------- paged util
     def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
@@ -253,9 +311,10 @@ class ContinuousScheduler:
         the pool raises ``ValueError`` here: more blocks than the pool has,
         or, on a prefix-sharing pool, ``prompt + max_new >=`` the row's
         virtual length (its ring position could wrap onto a shared
-        block)."""
-        if request.deadline_ms is not None:
-            raise NotImplementedError("deadlines are not ported")
+        block). The deadline starts now. Under a :class:`ShedPolicy` that
+        trips, one request finalizes ``SHED``: the queue's class tail if
+        it is strictly less urgent than the arrival, else the arrival (a
+        saver flood never displaces queued critical work)."""
         if self.paged and request.max_new > 0:
             plen = len(request.tokens)
             if self.registry is not None \
@@ -273,11 +332,29 @@ class ContinuousScheduler:
         rid = self._n
         self._n += 1
         self._reqs[rid] = request
+        if request.deadline_ms is not None:
+            self._deadline[rid] = self.clock() + request.deadline_ms / 1e3
         if request.max_new <= 0:        # nothing to generate: done on arrival
             self.results[rid] = {"tokens": [], "profile_trace": [],
                                  "status": RequestStatus.COMPLETED}
             self._done.append(rid)
             return rid
+        if self.shed is not None and self.shed.triggered(
+                len(self.policy) + 1, self._predicted_misses()):
+            tail = self.policy.shed_tail()
+            if tail is not None and tail[1] > self.policy.klass(
+                    request).level:
+                vrid = tail[0]
+                self.policy.remove(vrid)
+                self._suspended.pop(vrid, None)
+                self._finalize(vrid, RequestStatus.SHED,
+                               reason="overload: displaced by a more "
+                                      "urgent arrival")
+            else:
+                self._finalize(rid, RequestStatus.SHED,
+                               reason="overload: queue depth or deadline "
+                                      "pressure over threshold")
+                return rid
         if self.paged and self.registry is not None:
             self._prefix_keys[rid] = prefix_keys(
                 np.asarray(request.tokens, np.int32), self.block_size)
@@ -303,8 +380,259 @@ class ContinuousScheduler:
         for rid in done:
             out.append((rid, self.results.pop(rid)))
             self._reqs.pop(rid, None)
+            self._deadline.pop(rid, None)
+            self._attempts.pop(rid, None)
+            self._q_t0.pop(rid, None)
             if self.paged:
                 self._prefix_keys.pop(rid, None)
+        return out
+
+    # ------------------------------------------- request lifecycle (terminal)
+    def _finalize(self, rid: int, status: RequestStatus,
+                  reason: Optional[str] = None) -> None:
+        """Retire a request through its one terminal status: stamp the
+        result (tokens already read stay on it: a cancelled or expired
+        request keeps, and was billed for, what it generated), count it
+        and queue it for :meth:`poll_completed`."""
+        res = self.results.setdefault(rid,
+                                      {"tokens": [], "profile_trace": []})
+        res["status"] = status
+        if reason is not None:
+            res["reason"] = reason
+        if rid in self._attempts:
+            res["retries"] = self._attempts[rid]
+        self._done.append(rid)
+        if status is RequestStatus.CANCELLED:
+            self.cancelled += 1
+        elif status is RequestStatus.EXPIRED:
+            self.expired += 1
+        elif status is RequestStatus.SHED:
+            self.shed_count += 1
+        elif status is RequestStatus.FAILED:
+            self.failed += 1
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request wherever it sits; True if it took.
+
+        A queued request (suspended and quarantine-backoff ones included)
+        drops at once with ``CANCELLED``. A live or mid-chunk row is
+        *marked* and reaped at the next flush boundary: every dispatched
+        token is read first, so the ledger bills exactly what the request
+        generated, and its blocks go back as on eviction. False for unknown
+        rids and for requests already terminal — one whose last tokens are
+        in flight completes as ``COMPLETED``."""
+        return self._cancel(rid)
+
+    def _cancel(self, rid: int) -> bool:
+        if rid not in self._reqs or "status" in self.results.get(rid, {}):
+            return False
+        if self.policy.remove(rid):
+            self._suspended.pop(rid, None)
+            self._finalize(rid, RequestStatus.CANCELLED)
+            return True
+        for i, (_rdy, qrid) in enumerate(self._quarantine_q):
+            if qrid == rid:
+                del self._quarantine_q[i]
+                self._finalize(rid, RequestStatus.CANCELLED)
+                return True
+        for slot in range(self.n_slots):
+            if self.slot_req[slot] == rid:
+                if slot in self._to_reap:
+                    return False             # already marked for the reaper
+                self._to_reap[slot] = RequestStatus.CANCELLED
+                return True
+        if self.paged:
+            for slot, st in self._chunk_state.items():
+                if st["rid"] == rid:
+                    if slot in self._to_reap:
+                        return False
+                    self._to_reap[slot] = RequestStatus.CANCELLED
+                    return True
+        if rid in self._nf_rows:
+            # flagged non-finite, its slot already retired: cancellation
+            # preempts the quarantine retry
+            self._nf_rows.remove(rid)
+            self._finalize(rid, RequestStatus.CANCELLED)
+            return True
+        return False
+
+    def _eta_s(self, rid: int) -> float:
+        """Predicted seconds to finish ``rid`` if admitted now: its
+        remaining tokens at the step-time EMA (0.0 before a first segment
+        calibrates it: admission never rejects blind)."""
+        if self._seg_dt is None:
+            return 0.0
+        req = self._reqs[rid]
+        left = req.max_new - len(self.results.get(rid, {}).get("tokens", ()))
+        return -(-left // self.quantum) * self._seg_dt
+
+    def _deadline_unreachable(self, rid: int) -> bool:
+        dl = self._deadline.get(rid)
+        return dl is not None and self.clock() + self._eta_s(rid) > dl
+
+    def _predicted_misses(self) -> int:
+        """Queued requests already predicted to miss their deadlines (the
+        :class:`ShedPolicy`'s second trigger)."""
+        if self._seg_dt is None or not self._deadline:
+            return 0
+        return sum(1 for rid in self.policy.rids()
+                   if self._deadline_unreachable(rid))
+
+    def _expire(self) -> None:
+        """Retire every request past its deadline: queued, suspended and
+        backoff requests finalize ``EXPIRED`` now; live and mid-chunk rows
+        are marked for the flush-boundary reap (they keep the tokens they
+        generated)."""
+        if not self._deadline:
+            return
+        now = self.clock()
+        for rid in self.policy.rids():
+            dl = self._deadline.get(rid)
+            if dl is not None and now > dl:
+                self.policy.remove(rid)
+                self._suspended.pop(rid, None)
+                self._finalize(rid, RequestStatus.EXPIRED)
+        if self._quarantine_q:
+            keep = []
+            for rdy, rid in self._quarantine_q:
+                dl = self._deadline.get(rid)
+                if dl is not None and now > dl:
+                    self._finalize(rid, RequestStatus.EXPIRED)
+                else:
+                    keep.append((rdy, rid))
+            self._quarantine_q = keep
+        for slot in range(self.n_slots):
+            if slot in self._to_reap:
+                continue
+            rid = self.slot_req[slot]
+            if rid is None and self.paged and slot in self._chunk_state:
+                rid = self._chunk_state[slot]["rid"]
+            if rid is None:
+                continue
+            dl = self._deadline.get(rid)
+            if dl is not None and now > dl:
+                self._to_reap[slot] = RequestStatus.EXPIRED
+
+    def _vacate(self, slot: int) -> None:
+        """Free live row ``slot``: hand its blocks back (paged pool) and
+        zero its host state. The caller unmaps its table."""
+        if self.paged:
+            self._retire_blocks(slot)
+        self.slot_req[slot] = None
+        self._slot_crit[slot] = False
+        self._slot_level[slot] = 0
+        self.remaining[slot] = 0
+
+    def _reap_marked(self) -> None:
+        """Flush-boundary reap of cancelled and expired rows: read every
+        dispatched token first (billed == delivered), then release each
+        marked row's blocks and unmap the tables in one clear — the
+        eviction machinery without the snapshot."""
+        if not self._to_reap:
+            return
+        self._flush(0)
+        marked, self._to_reap = self._to_reap, {}
+        clear = []
+        for slot, status in marked.items():
+            if self.paged and slot in self._chunk_state:
+                st = self._chunk_state.pop(slot)
+                rid = st["rid"]
+                self._release_blocks(st["blocks"])
+                if st["entry"] is not None:
+                    self.registry.release(st["entry"])
+                clear.append(slot)
+                if rid in self._nf_rows:
+                    self._nf_rows.remove(rid)
+                self._finalize(rid, status)
+                continue
+            rid = self.slot_req[slot]
+            if rid is None:
+                continue         # completed inside the in-flight segment
+            if rid in self._nf_rows:
+                self._nf_rows.remove(rid)    # cancel/expiry beats quarantine
+            self._vacate(slot)
+            if self.paged:
+                clear.append(slot)
+            self._finalize(rid, status)
+        if clear:
+            self.srv.clear_rows(clear, self._caches)
+
+    def _process_quarantine(self) -> None:
+        """Quarantine and escalated retry of rows flagged non-finite.
+
+        The row's blocks go back as on eviction, but no snapshot is taken
+        and the attempt's tokens are discarded: everything argmaxed after
+        the bad logits is garbage, so the retry restarts from the prompt.
+        The retry binds ``accuracy_critical=True`` (one rung up, to the
+        accuracy target) and requeues at the front of its class after
+        ``1 << (attempt - 1)`` rounds; past ``retry_budget`` retries the
+        request finalizes ``FAILED``."""
+        if not self._nf_rows:
+            return
+        self._flush(0)           # may flag more rows; drain what's known
+        rows, self._nf_rows = self._nf_rows, []
+        clear = []
+        for rid in rows:
+            slot = next((s for s in range(self.n_slots)
+                         if self.slot_req[s] == rid), None)
+            if slot is not None:
+                self._vacate(slot)
+                if self.paged:
+                    clear.append(slot)
+            self.faults_detected += 1
+            attempt = self._attempts.get(rid, 0) + 1
+            self._attempts[rid] = attempt
+            self._q_t0.setdefault(rid, self.clock())
+            self.results[rid] = {"tokens": [], "profile_trace": []}
+            if attempt > self.retry_budget:
+                self._q_t0.pop(rid, None)
+                self._finalize(rid, RequestStatus.FAILED,
+                               reason="retry budget exhausted")
+                continue
+            req = self._reqs[rid]
+            if not req.accuracy_critical:
+                self._reqs[rid] = dataclasses.replace(
+                    req, accuracy_critical=True)
+            self._quarantine_q.append(
+                (self._round + (1 << (attempt - 1)), rid))
+        if clear:
+            self.srv.clear_rows(clear, self._caches)
+
+    def check(self) -> None:
+        """Audit the paged pool (no-op on the contiguous one): rebuild the
+        expected per-block refcounts — one per live row's private block,
+        per mid-chunk row's private block, and per registry sharer of each
+        entry block — and hand them to :meth:`~repro_torch.serving.paged.
+        BlockAllocator.check`, which also verifies the free/LRU/live
+        partition. Raises ``RuntimeError`` on any divergence."""
+        if not self.paged:
+            return
+        exp = np.zeros((self.allocator.n_blocks,), np.int64)
+        for sb in self._slot_blocks:
+            if sb is not None:
+                for b in sb[0]:
+                    exp[int(b)] += 1
+        for st in self._chunk_state.values():
+            for b in st["blocks"]:
+                exp[int(b)] += 1
+        if self.registry is not None:
+            self.registry.add_expected_refs(exp)
+        self.allocator.check(expected=exp)
+
+    def robustness_stats(self) -> dict:
+        """Fault-tolerance counters."""
+        out = {"cancelled": self.cancelled, "expired": self.expired,
+               "shed": self.shed_count, "failed": self.failed,
+               "recovered": self.recovered,
+               "faults_detected": self.faults_detected,
+               "alloc_injected_rounds": self.alloc_injected_rounds,
+               "recovery_latency_s": list(self.recovery_latency),
+               "watchdog_stalls": (self.watchdog.stalls
+                                   if self.watchdog is not None else 0)}
+        if self.faults is not None:
+            out.update(injected_nan=self.faults.injected_nan,
+                       injected_alloc=self.faults.injected_alloc,
+                       injected_stall=self.faults.injected_stall)
         return out
 
     # -------------------------------------------------------------- admission
@@ -312,13 +640,26 @@ class ContinuousScheduler:
         """Fill free slots from the queue in policy order; returns the
         number of requests admitted. The contiguous pool runs one cold wave
         gated on free rows; the paged pool classifies candidates by the
-        wave they need (:meth:`_admit_paged_waves`)."""
+        wave they need (:meth:`_admit_paged_waves`). A candidate whose
+        deadline the step-time EMA rules unreachable finalizes ``EXPIRED``
+        instead. Nothing admits while ``draining``, nor in a round the
+        :class:`FaultSchedule` declares the allocator dry."""
+        if self.draining:
+            return 0
+        if self.faults is not None and self.faults.alloc_dry(self._round):
+            self.alloc_injected_rounds += 1
+            return 0
         if self.paged:
             return self._admit_paged_waves()
         free = [s for s in range(self.n_slots) if self.slot_req[s] is None]
         rows = []
         while free and len(self.policy):
-            rows.append((self.policy.pop_head(), free.pop(0), None))
+            rid = self.policy.pop_head()
+            if self._deadline_unreachable(rid):
+                self._finalize(rid, RequestStatus.EXPIRED,
+                               reason="deadline unreachable at admission")
+                continue
+            rows.append((rid, free.pop(0), None))
         return self._dispatch_cold(rows) if rows else 0
 
     def _admit_paged_waves(self) -> int:
@@ -353,6 +694,12 @@ class ContinuousScheduler:
         pending: dict[bytes, int] = {}   # key -> tokens this wave registers
         while free and len(self.policy):
             rid = self.policy.head()
+            if self._deadline_unreachable(rid):
+                self.policy.pop_head()
+                self._suspended.pop(rid, None)
+                self._finalize(rid, RequestStatus.EXPIRED,
+                               reason="deadline unreachable at admission")
+                continue
             req = self._reqs[rid]
             if rid in self._suspended:
                 if "resume" not in kinds and len(kinds) >= kind_cap:
@@ -371,7 +718,11 @@ class ContinuousScheduler:
                 continue
             plen = len(req.tokens)
             need = self._blocks_needed(plen, req.max_new)
-            keys = self._prefix_keys.get(rid, [])
+            # a quarantine retry looks nothing up: a hit would map blocks
+            # prefilled under another profile, and the retry must equal a
+            # clean run at the escalated one, so it recomputes cold
+            keys = (self._prefix_keys.get(rid, [])
+                    if self._attempts.get(rid, 0) == 0 else [])
             entry, wait, n_shared = None, False, 0
             if self.registry is not None:
                 entry = self.registry.lookup(keys)
@@ -569,11 +920,7 @@ class ContinuousScheduler:
         assert rid is not None and slot not in self._chunk_state
         self._flush(0)
         self._suspended[rid] = self._snapshot_row(slot)
-        self._retire_blocks(slot)
-        self.slot_req[slot] = None
-        self._slot_crit[slot] = False
-        self._slot_level[slot] = 0
-        self.remaining[slot] = 0
+        self._vacate(slot)
         self.policy.push_front(rid, self._reqs[rid])
         self.preemptions += 1
         return rid
@@ -1005,6 +1352,21 @@ class ContinuousScheduler:
                                         draft_w=draft_w,
                                         provisional=provisional)
 
+    def _fault_operand(self) -> np.ndarray:
+        """The segment's ``fault_step [B]`` operand: all −1 (never fires)
+        unless the :class:`FaultSchedule` targets a live row's current
+        attempt, which is poisoned at the segment's first step (first
+        verify window). It always rides the segment as data."""
+        fault = np.full((self.n_slots,), -1, np.int32)
+        if self.faults is not None:
+            for slot in range(self.n_slots):
+                rid = self.slot_req[slot]
+                if rid is None or self.remaining[slot] <= 0:
+                    continue
+                if self.faults.want_nan(rid, self._attempts.get(rid, 0)):
+                    fault[slot] = 0
+        return fault
+
     # --------------------------------------------------------------- decoding
     def run_segment(self) -> None:
         """One decode segment: plan ``quantum`` steps against the live rows,
@@ -1023,7 +1385,8 @@ class ContinuousScheduler:
                 self.events.append((int(sched[i]), int(live_i.sum()),
                                     bool((self._slot_crit & live_i).any())))
         toks, ok, self._tok, self._pos, self._caches = self.srv.segment(
-            sched, self._tok, self._pos, self._caches, self.remaining)
+            sched, self._tok, self._pos, self._caches, self.remaining,
+            self._fault_operand())
         self.segments_run += 1
         self.segments_chunking += bool(self.paged and self._chunk_state)
         self.decode_steps += q
@@ -1072,7 +1435,8 @@ class ContinuousScheduler:
         toks, ms, ok, self._tok, self._pos, self._caches = \
             self.srv.segment_spec(sched, self._hist, self._slot_spec,
                                   self._tok, self._pos, self._caches,
-                                  self.remaining, quota)
+                                  self.remaining, quota,
+                                  self._fault_operand())
         self.segments_run += 1
         self.segments_chunking += bool(self.paged and self._chunk_state)
         self.windows_run += n_iter
@@ -1088,7 +1452,8 @@ class ContinuousScheduler:
         prefix, bill the ledger the tokens actually delivered, slide each
         row's drafter history, then retire rows whose budget hit zero and,
         on the paged pool, hand their blocks back (the segment already
-        unmapped their tables)."""
+        unmapped their tables). A row whose verify windows went non-finite
+        goes to quarantine, as on the greedy path."""
         ms = e["ms"].cpu().numpy()                        # [B, n_iter]
         ok = e["ok"].cpu().numpy()
         mgr = self.srv.manager
@@ -1102,11 +1467,6 @@ class ContinuousScheduler:
                 mgr.account(int(sched[i]), n_tok)
             if self.record_events:
                 self.spec_billed.append((int(sched[i]), n_tok))
-        bad = [rid for slot, rid in e["rows"]
-               if ms[slot].any() and not ok[slot]]
-        if bad:
-            raise RuntimeError(f"non-finite logits in requests {bad} "
-                               f"(quarantine is not ported)")
         for slot, rid in e["rows"]:
             res = self.results[rid]
             delivered: list[int] = []
@@ -1120,6 +1480,8 @@ class ContinuousScheduler:
                 cat = np.concatenate([self._hist[slot],
                                       np.asarray(delivered, np.int32)])
                 self._hist[slot] = cat[-h:]
+            if delivered and not ok[slot] and rid not in self._nf_rows:
+                self._nf_rows.append(rid)
             self.remaining[slot] -= len(delivered)
             if self.remaining[slot] == 0 and delivered:
                 self.slot_req[slot] = None               # retire → refill
@@ -1132,7 +1494,14 @@ class ContinuousScheduler:
     def _flush(self, keep: int = 0) -> None:
         """Read in-flight token blocks into per-request results, leaving
         the newest ``keep`` entries unread (one segment ahead of the host).
-        A request completes once its tokens are read."""
+        A request completes once its tokens are read. Fault detection lands
+        here: a live row whose finite check failed is routed to quarantine
+        (:meth:`_process_quarantine`) instead of completing."""
+        if self.faults is not None and len(self._inflight) > keep:
+            stall = self.faults.flush_stall(self._flush_idx)
+            self._flush_idx += 1
+            if stall > 0.0:
+                time.sleep(stall)        # injected stall: watchdog fodder
         names = self.srv.engine.profile_names
         while len(self._inflight) > keep:
             e = self._inflight.pop(0)
@@ -1150,38 +1519,70 @@ class ContinuousScheduler:
                 self._flush_spec(e, arr, names)
             else:
                 ok = e["ok"].cpu().numpy()
-                bad = [rid for slot, rid, n in e["rows"]
-                       if n > 0 and not ok[slot]]
-                if bad:
-                    raise RuntimeError(
-                        f"non-finite logits in requests {bad} (quarantine "
-                        f"is not ported)")
                 for slot, rid, n in e["rows"]:
                     res = self.results[rid]
                     res["tokens"].extend(arr[slot, :n].tolist())
                     res["profile_trace"].extend(
                         names[p] for p in e["sched"][:n])
+                    if n > 0 and not ok[slot] and rid not in self._nf_rows:
+                        self._nf_rows.append(rid)
             for rid in e["completes"]:
-                self.results[rid]["status"] = RequestStatus.COMPLETED
+                if rid in self._nf_rows:
+                    continue             # quarantine owns this row now
+                res = self.results[rid]
+                res["status"] = RequestStatus.COMPLETED
+                if rid in self._attempts:
+                    res["retries"] = self._attempts[rid]
+                if rid in self._q_t0:
+                    self.recovery_latency.append(
+                        self.clock() - self._q_t0.pop(rid))
+                    self.recovered += 1
                 self._done.append(rid)
 
     # ------------------------------------------------------------------ drive
     def step(self) -> bool:
-        """One engine round: age the queue, admit (and advance
+        """One engine round: expire overdue requests, reap cancelled and
+        expired rows, quarantine flagged ones and requeue ripe retries at
+        the front of their class; age the queue, admit (and advance
         mid-admission chunks, evict for an urgent head, resume suspended
         rows), then run one segment with one kept in flight (none in spec
-        mode: delivered counts gate retirement). Returns False once
-        everything is drained; rows still chunking in, and suspended rows
-        (queued for their resume), keep the loop alive."""
+        mode: delivered counts gate retirement). The step-time EMA counts
+        rounds that ran a segment; then the watchdog, and ``paranoid``'s
+        :meth:`check`. Returns False once everything is drained; rows still
+        chunking in, suspended rows, rows to reap or quarantine and
+        backoff retries keep the loop alive."""
+        self._round += 1
+        t0 = self.clock()
+        self._expire()
+        self._reap_marked()
+        self._process_quarantine()
+        if self._quarantine_q:
+            ripe = [(r, rid) for r, rid in self._quarantine_q
+                    if r <= self._round]
+            if ripe:
+                self._quarantine_q = [x for x in self._quarantine_q
+                                      if x[0] > self._round]
+                for _, rid in reversed(ripe):    # keep their relative order
+                    self.policy.push_front(rid, self._reqs[rid])
         self.policy.age_tick()           # anti-starvation promotion (if on)
         self.admit()
-        if self.live_rows:
+        ran = bool(self.live_rows)
+        if ran:
             self.run_segment()
             self._flush(keep=0 if self.spec else 1)
         else:
             self._flush()
+        dt = self.clock() - t0
+        if ran:
+            self._seg_dt = (dt if self._seg_dt is None
+                            else 0.5 * dt + 0.5 * self._seg_dt)
+        if self.watchdog is not None:
+            self.watchdog.record(f"round {self._round}", dt)
+        if self.paranoid:
+            self.check()
         return bool(self.live_rows or len(self.policy) or self._inflight
-                    or (self.paged and self._chunk_state))
+                    or (self.paged and self._chunk_state)
+                    or self._to_reap or self._nf_rows or self._quarantine_q)
 
     def run(self) -> list[dict]:
         """Drain queue + pool; results in submission order (entries already

@@ -13,7 +13,11 @@ blocks, a scheduler run with a registry hit on the card, and preemption on
 the kernel backend (the resumed row bitwise equal to the suspended one, the
 victim's unmapped table leaving the next owner's blocks unchanged); the
 precision policy's ``kv_refine`` on the card (the CPU's bits, no host sync)
-and a mixed-row paged serve through K1 (the gather backend's tokens).
+and a mixed-row paged serve through K1 (the gather backend's tokens); fault
+tolerance on the kernel backend (a reaped and a quarantined row's table
+unmapped before the next segment, so the blocks' next owner keeps its
+bytes; a NaN in a copy-on-write sharer leaving the shared blocks and the
+neighbour's bytes, scales and tokens those of the serve without it).
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -894,3 +898,141 @@ def test_mixed_row_paged_decode_kernel_equals_gather(kv_bits):
                           if backend == "kernel" else 0)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     assert toks["kernel"] == toks["gather"]
+
+
+def _fault_sched(cfg, params, engine, faults=None, **kw):
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    return ContinuousScheduler(AdaptiveServer(
+        cfg, params, engine, ServingConfig(
+            slots=64, block_size=8, paged_backend="kernel", **kw),
+        device="cuda"), quantum=2, faults=faults, paranoid=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["reap", "quarantine"])
+def test_reaped_and_quarantined_tables_unmapped_before_next_segment(how):
+    """A cancelled row reaped at the flush boundary, or a NaN row
+    quarantined, has its table unmapped before the next segment: its
+    freed blocks go to a new request in another slot, and the frozen row's
+    in-place decode writes (kernel backend) leave every live row's written
+    positions unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.faults import FaultSchedule
+    cfg, params, engine = _smoke_server_parts()
+    rng = np.random.default_rng(19)
+
+    def req(n, m):
+        return Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                       max_new=m)
+
+    x, a, b, c = req(6, 2), req(10, 6), req(10, 20), req(7, 9)
+    sched = _fault_sched(
+        cfg, params, engine, max_batch=3, pool_blocks=7, prefix_cache=False,
+        faults=FaultSchedule(nan_at={1: (0,)}) if how == "quarantine"
+        else None)
+    for r in (x, a, b):
+        sched.submit(r)
+    while "status" not in sched.results.get(0, {}):
+        sched.step()
+    slot_a = sched.slot_req.index(1)
+    blocks_a = set(sched._slot_blocks[slot_a][0])
+    if how == "reap":
+        assert sched.cancel(1)
+        sched._reap_marked()
+        assert sched.results[1]["status"].value == "cancelled"
+    else:
+        sched._flush(0)
+        assert 1 in sched._nf_rows
+        sched._process_quarantine()
+        assert sched.faults_detected == 1
+    kv = sched._caches["kv"]
+    assert sched.slot_req[slot_a] is None
+    assert bool((kv.block_table[:, slot_a] == kv.n_blocks).all())
+    sched.submit(c)
+    assert sched.admit() == 1
+    slot_c = sched.slot_req.index(3)
+    assert slot_c != slot_a
+    assert set(sched._slot_blocks[slot_c][0]) & blocks_a
+    sched._flush(0)
+    owners = [s for s, r in enumerate(sched.slot_req) if r is not None]
+    was = {s: _row_bytes(sched, s, int(sched._pos[s])) for s in owners}
+    sched.run_segment()
+    sched._flush(0)
+    for s in owners:
+        now = _row_bytes(sched, s, was[s]["pos"])
+        for key in ("k", "v", "tidx", "ks", "vs"):
+            assert torch.equal(now[key], was[s][key]), (how, s, key)
+    while sched.step():
+        pass
+    assert sched.allocator.used_blocks == 0
+    done = {rid: r["status"].value for rid, r in sched.results.items()}
+    assert done[0] == done[2] == done[3] == "completed"
+    assert done[1] == ("cancelled" if how == "reap" else "completed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_nan_injection_leaves_neighbour_and_shared_blocks(kv_bits):
+    """A NaN poisons a copy-on-write sharer on the kernel backend (f32,
+    TF32 off): the shared prefix blocks, the neighbour row's written
+    positions and its scales are bitwise those of the same serve without
+    the fault, the neighbour's tokens too, and the recovered row's tokens
+    equal a clean accuracy-critical run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.faults import FaultSchedule
+    cfg, params, engine = _smoke_server_parts()
+    rng = np.random.default_rng(23)
+    base = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+    prompts = [np.concatenate([base, rng.integers(0, cfg.vocab, n)
+                               .astype(np.int32)]) for n in (3, 5)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen = {}
+    with use_compute_dtype(torch.float32):
+        for faulty in (False, True):
+            sched = _fault_sched(
+                cfg, params, engine, max_batch=2, kv_bits=kv_bits,
+                faults=FaultSchedule(nan_at={1: (0,)}) if faulty else None)
+            sched.submit(Request(tokens=prompts[0], max_new=12))
+            sched.step()                     # registers the shared prefix
+            sched.submit(Request(tokens=prompts[1], max_new=12))
+            for _ in range(3):
+                sched.step()
+            sched._flush(0)
+            kv = sched._caches["kv"]
+            slot = sched.slot_req.index(0)
+            e = max(sched.registry._entries.values(),
+                    key=lambda x: x.n_tokens)
+            shared = (None if e.block_ids is None else
+                      kv.k[:, torch.as_tensor(e.block_ids).long()].clone())
+            seen[faulty] = (_row_bytes(sched, slot, int(sched._pos[slot])),
+                            shared)
+            assert sched.faults_detected == int(faulty)
+            while sched.step():
+                pass
+            seen[faulty] += (sched.results[0]["tokens"],
+                             sched.results[1], sched.registry.hits)
+            assert sched.allocator.used_blocks == 0
+        crit = _fault_sched(cfg, params, engine, max_batch=2,
+                            kv_bits=kv_bits)
+        crit.submit(Request(tokens=prompts[1], max_new=12,
+                            accuracy_critical=True))
+        clean = crit.run()[0]["tokens"]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    (row0, sh0, tok0, _, hits0), (row1, sh1, tok1, res1, _) = \
+        seen[False], seen[True]
+    for key, x in row0.items():
+        y = row1[key]
+        assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x == y), key
+    assert hits0 >= 1
+    if sh0 is not None:
+        assert torch.equal(sh0, sh1)
+    assert tok0 == tok1
+    assert res1["retries"] == 1 and res1["tokens"] == clean

@@ -72,23 +72,35 @@ def _raw(x) -> np.ndarray:
     return a.view(np.int16 if a.dtype.itemsize == 2 else a.dtype).copy()
 
 
-def run_pair(parts, scfg, scenario, *, quantum=4, managed=False):
+def _stats(sched) -> dict:
+    """``robustness_stats()`` without the wall-clock latencies."""
+    out = sched.robustness_stats()
+    out.pop("recovery_latency_s")
+    return out
+
+
+def run_pair(parts, scfg, scenario, *, quantum=4, managed=False,
+             sched_kw=None):
     """Run ``scenario(sched, Request) -> observations`` on the JAX
-    scheduler and on the port's with each backend; check that results,
-    traces, billing events, admission order, registry counters and
-    observations agree and that the port's pool drains to 0 live blocks.
-    Returns the port's schedulers."""
+    scheduler and on the port's with each backend; check that results
+    (tokens, traces, status, reason, retries), billing events, admission
+    order, registry counters, robustness counters and observations agree
+    and that the port's pool drains to 0 live blocks. ``sched_kw(side)``
+    (side ``"jax"``, ``"gather"`` or ``"kernel"``) gives each scheduler
+    its own keyword arguments (a ``FaultSchedule`` is stateful); without
+    it every request must complete. Returns the port's schedulers."""
     cfg, tcfg, jp, tp, jeng, teng, stats = parts
+    kw = sched_kw or (lambda side: {})
     jm = _manager(JManager, stats) if managed else None
     jsched = JScheduler(JServer(cfg, jp, jeng, JConfig(**scfg), manager=jm),
-                        quantum=quantum)
+                        quantum=quantum, **kw("jax"))
     want = scenario(jsched, JRequest)
     out = {}
     for backend in ("gather", "kernel"):
         tm = _manager(ProfileManager, stats) if managed else None
         srv = AdaptiveServer(tcfg, tp, teng, ServingConfig(
             paged_backend=backend, **scfg), manager=tm, device="cpu")
-        sched = ContinuousScheduler(srv, quantum=quantum)
+        sched = ContinuousScheduler(srv, quantum=quantum, **kw(backend))
         got = scenario(sched, Request)
         assert got.keys() == want.keys()
         for key in want:
@@ -98,19 +110,26 @@ def run_pair(parts, scfg, scenario, *, quantum=4, managed=False):
         for rid in jres:
             assert res[rid]["tokens"] == jres[rid]["tokens"], (backend, rid)
             assert res[rid]["profile_trace"] == jres[rid]["profile_trace"]
-            assert res[rid]["status"].value == jres[rid]["status"].value \
-                == "completed"
+            assert res[rid]["status"].value == jres[rid]["status"].value
+            if sched_kw is None:
+                assert res[rid]["status"].value == "completed"
+            for key in ("reason", "retries"):
+                assert res[rid].get(key) == jres[rid].get(key), (rid, key)
         assert sched.events == jsched.events
         assert sched.admission_log == jsched.admission_log
+        if jsched.spec:
+            assert sched.spec_billed == jsched.spec_billed
+        assert _stats(sched) == _stats(jsched), backend
         if jsched.registry is not None:
             for name in ("hits", "misses", "invalidated"):
                 assert getattr(sched.registry, name) == \
                     getattr(jsched.registry, name), name
             assert len(sched.registry) == len(jsched.registry)
-        assert sched.allocator.used_blocks == 0 == \
-            jsched.allocator.used_blocks
-        assert sched.allocator.lru_blocks == jsched.allocator.lru_blocks
-        assert sched.peak_used_blocks == jsched.peak_used_blocks
+        if jsched.paged:
+            assert sched.allocator.used_blocks == 0 == \
+                jsched.allocator.used_blocks
+            assert sched.allocator.lru_blocks == jsched.allocator.lru_blocks
+            assert sched.peak_used_blocks == jsched.peak_used_blocks
         if managed:
             assert tm.spent_j == jm.spent_j
         out[backend] = sched
