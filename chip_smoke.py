@@ -108,7 +108,22 @@ Phases:
     --paranoid`` on the full config in bf16 beside the serve without
     faults (K1 = 40 × decode steps, faults detected = NaNs injected, tok/s,
     the audit's host ms per step), then a direct serve with a shed policy,
-    a cancel and an expiry (billed = delivered, 0 used blocks).
+    a cancel and an expiry (billed = delivered, 0 used blocks);
+12. crash-consistent serving: (a) at granite-3-2b widths, 4 layers, f32,
+    the reference durability test's servers (kv16 with speculation, kv8
+    with chunked prefill, two classes, copy-on-write prefixes) on the
+    kernel and gather backends: abandoned after each of at most 8 round
+    boundaries and recovered (checkpoint + journal) into a new server,
+    every serve ends with the uninterrupted tokens, a clean audit and 0
+    blocks in use, K1 = 4 × decode steps and K2 = 4 × windows after the
+    restart; a corrupted leaf re-prefills its request, a drained run
+    restarts and completes; (b) a real crash at full width: the launcher's
+    ``--full --continuous --journal-dir D --checkpoint-every 8`` as a child
+    process, SIGKILLed after its second cut, restarted on ``D``, beside an
+    uninterrupted child and one without the journal: every first-boot rid
+    has exactly one ``final`` record with the uninterrupted tokens; bytes
+    and ms per cut, ms per fsync'd record, ``recovery_s``, tok/s with and
+    without the journal.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -3152,6 +3167,399 @@ def phase_fault_serve(seed: int) -> dict:
     return {"launches": k1_faults}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: crash-consistent serving
+# ---------------------------------------------------------------------------
+
+DURABLE_DIR = Path(__file__).resolve().parent / "build" / "durable"
+DURABLE_BASE = dict(slots=64, max_batch=4, block_size=8, pool_blocks=64,
+                    priority_classes=2)
+DURABLE_CONFIGS = {"kv16-spec": dict(speculate=True, draft_k=2),
+                   "kv8-chunked": dict(kv_bits=8, prefill_chunk=16)}
+
+
+def durable_workload(cfg, Request, seed: int = 0) -> list:
+    """Phase 12 (a)'s workload (the reference's durability test's): two
+    classes, a 16-token system prefix two block-aligned prompts share
+    copy-on-write, and a 40-token prompt that chunks at 16."""
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+
+    def mk(n):
+        return rng.integers(0, cfg.vocab, n).astype(np.int32)
+
+    return [Request(tokens=np.concatenate([sys_p, mk(5)]), max_new=6,
+                    priority=1),
+            Request(tokens=np.concatenate([sys_p, mk(7)]), max_new=5,
+                    priority=0),
+            Request(tokens=mk(40), max_new=4, priority=1),
+            Request(tokens=mk(6), max_new=8, priority=0),
+            Request(tokens=mk(9), max_new=6, priority=1),
+            Request(tokens=mk(5), max_new=4, priority=0)]
+
+
+def durable_pattern(sched, reqs, stop_after=None) -> int:
+    """Four requests up front, the rest after round 1; stops after
+    ``stop_after`` rounds (the crash). Returns the rounds stepped."""
+    for r in reqs[:4]:
+        sched.submit(r)
+    steps = 0
+    while stop_after is None or steps < stop_after:
+        more = sched.step()
+        steps += 1
+        if steps == 1 and len(reqs) > 4:
+            for r in reqs[4:]:
+                sched.submit(r)
+            more = True
+        if not more:
+            break
+    return steps
+
+
+def durable_finish(sched, reqs) -> None:
+    """Run a recovered scheduler to the end, submitting the arrivals the
+    crash predates."""
+    for r in reqs[sched._n:]:
+        sched.submit(r)
+    while sched.step():
+        pass
+
+
+def durable_done(sched, n: int, want, label: str) -> list:
+    """Every request completed with ``want``'s tokens (when given), the
+    pool audit clean and no block in use; returns the tokens."""
+    from repro_torch.serving.engine import RequestStatus
+    got = [list(sched.results[i]["tokens"]) for i in range(n)]
+    bad = [i for i in range(n)
+           if sched.results[i]["status"] is not RequestStatus.COMPLETED]
+    sched.check()
+    if bad or sched.allocator.used_blocks or (want is not None
+                                              and got != want):
+        raise AssertionError(f"{label}: not completed {bad}, "
+                             f"{sched.allocator.used_blocks} blocks in use, "
+                             f"tokens equal: {want is None or got == want}")
+    return got
+
+
+def phase_durable_parity(seed: int) -> dict:
+    """Phase 12 (a), at granite-3-2b widths, 4 layers, f32, TF32 off: the
+    reference durability test's two servers (kv16 with speculation,
+    ``draft_k=2``; kv8 with ``prefill_chunk=16``; both two classes with
+    copy-on-write prefixes) on the kernel and the gather backends. For
+    each of at most 8 round boundaries the scheduler journals and
+    checkpoints every round, is abandoned there, and recovers into a new
+    ``AdaptiveServer`` built from the same parameters (no device state
+    carries over): statuses and tokens equal the uninterrupted serve's,
+    ``check()`` clean, 0 blocks in use; from the restart on K1 launches =
+    4 × decode steps (kv8) and K2 launches = 4 × windows (kv16-spec) on
+    the kernel backend, neither on the gather one. Kernel tokens equal
+    gather tokens. Then a live row's master-K leaf flipped in the newest
+    cut re-prefills that request from its prompt, and a drained run
+    restarted cold completes. Returns the kernel runs' K1/K2 launches
+    after the restarts."""
+    import dataclasses
+    import gc
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.durability import Durability, recover
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            ServingConfig)
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    engine = AdaptiveEngine(tuple(paper_profiles(names, inner_layers=[])),
+                            QuantIndex(names))
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    launches = {"k1": 0, "k2": 0}
+
+    def server(which, backend):
+        return AdaptiveServer(cfg, params, engine, ServingConfig(
+            paged_backend=backend, **DURABLE_BASE,
+            **DURABLE_CONFIGS[which]), device="cuda")
+
+    def reset():
+        PA.paged_attention.launches = 0
+        PA.paged_attention_multi.launches = 0
+        A.paged_view.calls = 0
+
+    def serve_all(srv, reqs):
+        sched = ContinuousScheduler(srv, quantum=4)
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        return sched
+
+    with use_compute_dtype(torch.float32):
+        for which in DURABLE_CONFIGS:
+            spec = which == "kv16-spec"
+            toks = {}
+            for backend in ("kernel", "gather"):
+                srv = server(which, backend)
+                reqs = durable_workload(cfg, Request)
+                twin_s = ContinuousScheduler(srv, quantum=4)
+                rounds = durable_pattern(twin_s, reqs)
+                twin = durable_done(twin_s, 6, None, f"{which} {backend}")
+                toks[backend] = twin
+                kern = backend == "kernel"
+                seen = {"k1": 0, "k2": 0, "steps": 0, "windows": 0,
+                        "resumed": 0, "chunk": 0, "recovery_s": []}
+                for k in range(min(rounds, 8)):
+                    jd = DURABLE_DIR / f"{which}-{backend}-k{k}"
+                    s1 = ContinuousScheduler(srv, quantum=4)
+                    Durability(s1, str(jd), checkpoint_every=1)
+                    durable_pattern(s1, durable_workload(cfg, Request),
+                                    stop_after=k)
+                    del s1                           # the crash
+                    fresh = server(which, backend)
+                    reset()
+                    s2 = recover(fresh, str(jd), checkpoint_every=1,
+                                 quantum=4)
+                    durable_finish(s2, durable_workload(cfg, Request))
+                    k1, k2 = (PA.paged_attention.launches,
+                              PA.paged_attention_multi.launches)
+                    views = A.paged_view.calls
+                    durable_done(s2, 6, twin, f"{which} {backend} k={k}")
+                    steps = cfg.n_layers * s2.decode_steps
+                    windows = cfg.n_layers * s2.windows_run
+                    want = ((0, windows) if kern and spec else
+                            (steps, 0) if kern else (0, 0))
+                    if (k1, k2) != want or (kern and views) or \
+                            (not kern and s2.decode_steps and not views):
+                        raise AssertionError(
+                            f"{which} {backend} k={k}: K1/K2 {k1}/{k2}, "
+                            f"expected {want}; gathers {views}")
+                    info = s2.recover_info
+                    seen["k1"] += k1
+                    seen["k2"] += k2
+                    seen["steps"] += s2.decode_steps
+                    seen["windows"] += s2.windows_run
+                    seen["resumed"] += info["resumed_rows"]
+                    seen["chunk"] += info["chunk_rows"]
+                    seen["recovery_s"].append(info["recovery_s"])
+                    del fresh, s2
+                if not seen["resumed"] + seen["chunk"]:
+                    raise AssertionError(f"{which} {backend}: no crash "
+                                         f"point left a row to resume")
+                if kern:
+                    launches["k2" if spec else "k1"] += \
+                        seen["k2" if spec else "k1"]
+                print(f"[durable] full width x4 layers, f32, {which} "
+                      f"{backend}: {min(rounds, 8)} crash boundaries of "
+                      f"{rounds} rounds, each recovered into a new server "
+                      f"with the uninterrupted tokens; {seen['resumed']} "
+                      f"rows resumed, {seen['chunk']} chunk rows rebuilt; "
+                      f"after the restarts K1 {seen['k1']}, K2 "
+                      f"{seen['k2']} over {seen['steps']} decode steps "
+                      f"({seen['windows']} windows) of {cfg.n_layers} "
+                      f"layers; recovery_s "
+                      f"{[round(x, 4) for x in seen['recovery_s']]}")
+                del srv, twin_s
+                gc.collect()
+            print(f"[durable] {which}: kernel tokens = gather tokens: "
+                  f"{toks['kernel'] == toks['gather']}")
+            if toks["kernel"] != toks["gather"]:
+                raise AssertionError(f"{which}: kernel vs gather tokens")
+        # a corrupted leaf re-prefills its request from the prompt
+        srv = server("kv16-spec", "kernel")
+        reqs = durable_workload(cfg, Request, 7)
+        twin = durable_done(serve_all(srv, reqs), 6, None, "corrupt twin")
+        for k in range(2, 8):
+            jd = DURABLE_DIR / f"corrupt-k{k}"
+            s1 = ContinuousScheduler(srv, quantum=4)
+            dur = Durability(s1, str(jd), checkpoint_every=1)
+            durable_pattern(s1, reqs, stop_after=k)
+            sdir = Path(dur.manager.directory) / \
+                f"step_{dur.manager.latest_step():09d}"
+            with np.load(sdir / "arrays.npz") as z:
+                flat = {n: z[n] for n in z.files}
+            victims = [n for n in flat
+                       if n.startswith("rows/") and n.endswith("/mk")]
+            if not victims:
+                continue
+            flat[victims[0]] = flat[victims[0]] + 1.0
+            np.savez(sdir / "arrays.npz", **flat)
+            s2 = recover(server("kv16-spec", "kernel"), str(jd),
+                         checkpoint_every=1, quantum=4)
+            rid = int(victims[0].split("/")[1])
+            refilled = s2.recover_info["refilled"]
+            durable_finish(s2, reqs)
+            durable_done(s2, 6, twin, "corrupted leaf")
+            print(f"[durable] corrupted leaf {victims[0]} at round {k}: "
+                  f"refilled {refilled} from the prompt, tokens = the "
+                  f"uninterrupted serve's")
+            if refilled != [rid]:
+                raise AssertionError(f"refilled {refilled}, not [{rid}]")
+            break
+        else:
+            raise AssertionError("no cut held a live row to corrupt")
+        # drain, final cut, cold restart
+        reqs = durable_workload(cfg, Request, 13)[:5]
+        twin = durable_done(serve_all(srv, reqs), 5, None, "drain twin")
+        jd = DURABLE_DIR / "drain"
+        s1 = ContinuousScheduler(srv, quantum=4)
+        dur = Durability(s1, str(jd), checkpoint_every=2)
+        for r in reqs:
+            s1.submit(r)
+        s1.step()
+        s1.drain()
+        queued = s1.pending
+        dur.checkpoint()
+        s2 = recover(server("kv16-spec", "kernel"), str(jd),
+                     checkpoint_every=2, quantum=4)
+        if queued != 1 or s2.pending != 1 or s2.draining:
+            raise AssertionError(f"drain: {queued} queued, {s2.pending} "
+                                 f"after the restart")
+        durable_finish(s2, reqs)
+        durable_done(s2, 5, twin, "drain restart")
+        print("[durable] drain: 4 admitted rows finished, 1 request left "
+              "queued, the cold restart completed it with the "
+              "uninterrupted tokens")
+    del params, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    return launches
+
+
+def _durable_child(args: list, log: Path) -> subprocess.Popen:
+    """``python -m repro_torch.launch.serve args`` from the checkout, its
+    output in ``log``."""
+    import os
+    env = dict(os.environ)
+    root = Path(__file__).resolve().parent
+    env["PYTHONPATH"] = str(root / "src")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve",
+                             *args], cwd=root, env=env,
+                            stdout=log.open("w"), stderr=subprocess.STDOUT)
+
+
+def _finals(jd: Path) -> dict:
+    from repro_torch.serving.durability import RequestJournal
+    out: dict = {}
+    for _, rec in RequestJournal.scan(str(jd / "journal.jsonl")):
+        if rec["t"] == "final":
+            out.setdefault(rec["rid"], []).append(rec)
+    return out
+
+
+def _child_line(log: Path, head: str) -> str:
+    lines = [x for x in log.read_text().splitlines() if x.startswith(head)]
+    if not lines:
+        raise AssertionError(f"no '{head}' line in {log}:\n"
+                             f"{log.read_text()[-3000:]}")
+    return lines[-1]
+
+
+def _tok_s(log: Path) -> float:
+    """The launcher's tok/s (its "[serve] N tokens in Ts (R tok/s" line)."""
+    line = [x for x in log.read_text().splitlines()
+            if x.startswith("[serve] ") and " tok/s" in x]
+    if not line:
+        raise AssertionError(f"no tok/s line in {log}")
+    return float(line[-1].split("(")[1].split(" tok/s")[0])
+
+
+def phase_durable_serve(seed: int) -> dict:
+    """Phase 12 (b), a real crash at full width (40 layers, bf16, kv16):
+    phase 4's 12 requests (80 new tokens each, so that the serve outlasts
+    two cuts at ``--checkpoint-every 8``) through ``python -m
+    repro_torch.launch.serve --full --continuous --journal-dir D
+    --checkpoint-every 8``. The first child is killed with SIGKILL once
+    the journal holds the second ``ckpt`` record past its boot's own; the
+    same command then runs on ``D`` (it recovers, then serves its own 12
+    submissions), an uninterrupted child runs on a fresh directory, and
+    one without ``--journal-dir``. Every rid of the first boot has exactly
+    one ``final`` record in ``D``, with the uninterrupted child's tokens.
+    Prints each cut's bytes and host ms, ms per fsync'd record,
+    ``recovery_s`` and tok/s with and without the journal."""
+    import gc
+    import shutil
+    import signal
+    from repro_torch.serving.durability import RequestJournal
+
+    gc.collect()
+    torch.cuda.empty_cache()        # the children need the card's memory
+    base = ["--full", "--continuous", "--requests", "12", "--max-new", "80",
+            "--kv-bits", "16", "--quantum", "8", "--block-size", "16",
+            "--seed", str(seed), "--checkpoint-every", "8"]
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    DURABLE_DIR.mkdir(parents=True)
+    crash, clean = DURABLE_DIR / "crash", DURABLE_DIR / "clean"
+    logs = {k: DURABLE_DIR / f"{k}.log" for k in
+            ("boot1", "boot2", "clean", "plain")}
+    t0 = time.perf_counter()
+    child = _durable_child(base + ["--journal-dir", str(crash)],
+                           logs["boot1"])
+    ckpts = 0
+    while ckpts < 3:
+        if child.poll() is not None:
+            raise AssertionError(
+                f"the first boot ended (rc {child.returncode}) after "
+                f"{ckpts} ckpt records:\n{logs['boot1'].read_text()[-3000:]}")
+        time.sleep(0.05)
+        ckpts = sum(1 for _, r in RequestJournal.scan(
+            str(crash / "journal.jsonl")) if r["t"] == "ckpt")
+    child.send_signal(signal.SIGKILL)
+    child.wait(timeout=60)
+    t_kill = time.perf_counter() - t0
+    recs = [r for _, r in RequestJournal.scan(str(crash / "journal.jsonl"))]
+    first = sorted(r["rid"] for r in recs if r["t"] == "submit")
+    done_before = sorted(r["rid"] for r in recs if r["t"] == "final")
+    kill_round = max((r.get("round", 0) for r in recs), default=0)
+    print(f"[durable] boot 1 SIGKILLed {t_kill:.1f}s after start, at round "
+          f"~{kill_round}, after {ckpts} ckpt records; {len(first)} rids "
+          f"journaled, {len(done_before)} final before the kill")
+    for name, args in (("boot2", ["--journal-dir", str(crash)]),
+                       ("plain", []),
+                       ("clean", ["--journal-dir", str(clean)])):
+        proc = _durable_child(base + args, logs[name])
+        if proc.wait(timeout=600) != 0:
+            raise AssertionError(f"{name} failed:\n"
+                                 f"{logs[name].read_text()[-3000:]}")
+    got, want = _finals(crash), _finals(clean)
+    if first != list(range(12)) or sorted(want) != list(range(12)):
+        raise AssertionError(f"rids: boot 1 {first}, clean {sorted(want)}")
+    for rid in first:
+        if len(got.get(rid, [])) != 1:
+            raise AssertionError(f"rid {rid}: {len(got.get(rid, []))} "
+                                 f"final records")
+        a, b = got[rid][0], want[rid][0]
+        if a["status"] != "completed" or len(a["tokens"]) != 80 or \
+                a["tokens"] != b["tokens"]:
+            pos = next((i for i, (x, y) in enumerate(
+                zip(a["tokens"], b["tokens"])) if x != y), None)
+            raise AssertionError(f"rid {rid}: {a['status']}, tokens "
+                                 f"diverge from the uninterrupted serve's "
+                                 f"at position {pos}")
+    later = sorted(r for r in got if r >= 12)
+    if later != list(range(12, 24)) or any(len(got[r]) != 1 for r in later):
+        raise AssertionError(f"boot 2's own requests: {later}")
+    recovered = _child_line(logs["boot2"], "[serve] recovered")
+    print(f"[durable] boot 2: {recovered[len('[serve] '):]}")
+    for name in ("boot2", "clean"):
+        print(f"[durable] {name}: "
+              f"{_child_line(logs[name], '[serve] durability:')[8:]}")
+    tok = {name: _tok_s(logs[name]) for name in ("plain", "clean", "boot2")}
+    print(f"[durable] all 12 first-boot rids have one final record each, "
+          f"with the uninterrupted serve's tokens; boot 2's own 12 "
+          f"completed. tok/s without --journal-dir {tok['plain']:.2f}, with "
+          f"it {tok['clean']:.2f} (uninterrupted), {tok['boot2']:.2f} "
+          f"(boot 2, 24 requests after recovery)")
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    return tok
+
+
 def phase_profile(seed: int) -> None:
     """Where one decode segment's time goes (``--profile``): wall time on
     the host against device-busy time from ``torch.profiler``, with the
@@ -3231,7 +3639,7 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -3300,6 +3708,10 @@ def main() -> None:
     if 11 in phases:
         faults.update(phase_fault_parity(args.seed))
         faults["k1"] = phase_fault_serve(args.seed)["launches"]
+    durable = {"k1": 0, "k2": 0}
+    if 12 in phases:
+        durable.update(phase_durable_parity(args.seed))
+        phase_durable_serve(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -3308,11 +3720,12 @@ def main() -> None:
             "paged_attention", "paged_attention.cu",
             "src/repro/kernels/paged_attention.py:116", served["launches"],
             rows["k1"], policy_launches=policy["k1"],
-            fault_launches=faults["k1"]))
+            fault_launches=faults["k1"], durable_launches=durable["k1"]))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
-            rows["k2"], fault_launches=faults["k2"]))
+            rows["k2"], fault_launches=faults["k2"],
+            durable_launches=durable["k2"]))
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
             native["k3"], rows["k3"]))

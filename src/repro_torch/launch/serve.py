@@ -10,6 +10,7 @@ Manager with an energy budget.
       [--precision-policy policy.json]
       [--inject-faults --fault-seed 0 --retry-budget 2 --paranoid]
       [--deadline-ms 5000 --shed 8]
+      [--journal-dir DIR --checkpoint-every 8 --drain-on-sigterm]
 
 As in the reference launcher, ``--continuous`` decides the path. Without
 it, the requests are served in static groups (``AdaptiveServer.serve``:
@@ -34,6 +35,19 @@ the block pool after every step. Each request's line then shows its
 terminal status, a ``robustness:`` line the counters, and the closing
 audit prints "block-pool audit clean".
 
+Crash-consistent serving (``--continuous`` only): ``--journal-dir DIR``
+journals every request edge write-ahead into ``DIR/journal.jsonl`` and
+cuts a live-state checkpoint into ``DIR/checkpoints/`` every
+``--checkpoint-every`` rounds (0: the journal alone). A boot on a
+non-empty ``DIR`` recovers first (the newest checkpoint, then the journal
+past it; the ``[serve] recovered`` line says what came back) and then
+submits its own requests after the recovered ones; a ``[serve]
+durability:`` line gives each cut's bytes and host ms, the fsync'd records
+and the recovery's time. ``--drain-on-sigterm`` turns a SIGTERM into a
+drain: admission stops, every admitted row finishes, a final checkpoint is
+cut (with ``--journal-dir``) and the queued requests stay journaled for
+the next process.
+
 Runs on the GPU unless ``--device cpu`` is given. ``--full`` serves the
 published configuration (granite-3-2b: 40 layers, d_model 2048) with
 prompts of 64–512 tokens, ``slots=1024`` and 8 rows; without it, the smoke
@@ -43,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 import time
 from typing import Optional
 
@@ -56,13 +71,14 @@ from repro_torch.core.manager import ProfileManager, ProfileStats
 from repro_torch.core.profiles import paper_profiles
 from repro_torch.models import transformer as T
 from repro_torch.runtime import resolve_device
+from repro_torch.serving.durability import recover
 from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
 from repro_torch.serving.faults import FaultSchedule
 from repro_torch.serving.policy import ShedPolicy
 from repro_torch.serving.scheduler import ContinuousScheduler
 
 __all__ = ["profile_stats", "precision_policy", "build_server",
-           "scheduler_kwargs", "serve", "main"]
+           "scheduler_kwargs", "serve", "durability_line", "main"]
 
 
 def profile_stats(cfg, profs, n_params: int,
@@ -184,6 +200,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="audit the block pool (refcounts against the "
                          "free/LRU/live partition) after every scheduler "
                          "step (needs --continuous)")
+    ap.add_argument("--journal-dir", default=None, metavar="DIR",
+                    help="crash-consistent serving: a write-ahead request "
+                         "journal and live-state checkpoints under DIR; a "
+                         "non-empty DIR is recovered at boot (the newest "
+                         "checkpoint, then the journal past it) and every "
+                         "accepted request resumes token-identically "
+                         "(needs --continuous)")
+    ap.add_argument("--checkpoint-every", type=int, default=8,
+                    metavar="ROUNDS",
+                    help="live-state checkpoint cadence in scheduler rounds "
+                         "(default: 8; 0 = the journal alone, which loses "
+                         "nothing either: a checkpoint bounds the "
+                         "recompute of a recovery). Only with --journal-dir")
+    ap.add_argument("--drain-on-sigterm", action="store_true",
+                    help="graceful shutdown: SIGTERM stops admission, runs "
+                         "every admitted row to a terminal status, cuts a "
+                         "final checkpoint (with --journal-dir) and exits; "
+                         "queued requests stay journaled for the next "
+                         "process (needs --continuous)")
     ap.add_argument("--budget-inferences", type=float, default=200,
                     help="energy budget in units of full-power inferences")
     ap.add_argument("--seed", type=int, default=0)
@@ -201,6 +236,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.speculate and not args.continuous:
         raise SystemExit("--speculate needs --continuous (draft/verify "
                          "windows run through the slot-pool segment)")
+    if (args.journal_dir or args.drain_on_sigterm) and not args.continuous:
+        raise SystemExit("--journal-dir/--drain-on-sigterm need --continuous "
+                         "(durability hooks live on the slot-pool scheduler)")
     return args
 
 
@@ -285,34 +323,86 @@ def scheduler_kwargs(args: argparse.Namespace) -> dict:
 
 
 def serve(srv: AdaptiveServer, reqs: list[Request], quantum: int, *,
-          continuous: bool, sched_kw: Optional[dict] = None) -> dict:
-    """Serve ``reqs``: through a fresh :class:`ContinuousScheduler` (built
-    with ``sched_kw``) drained to the end (``continuous``), else in static
-    groups (:meth:`AdaptiveServer.serve`). Returns the results (submission
-    order), the scheduler (``None`` on the static path), and the wall
-    time."""
-    sched = None
+          continuous: bool, sched_kw: Optional[dict] = None,
+          sched: Optional[ContinuousScheduler] = None,
+          stop: Optional[dict] = None) -> dict:
+    """Serve ``reqs``: through a :class:`ContinuousScheduler` stepped to
+    the end (``continuous``; ``sched`` if given, such as a recovered one,
+    else a fresh one built with ``sched_kw``), else in static groups
+    (:meth:`AdaptiveServer.serve`). Once ``stop["drain"]`` is set (the
+    SIGTERM handler) the scheduler drains, cuts a final checkpoint if it
+    is journaled, and the serve ends with the queued requests' results
+    ``None``. Returns the results (by rid), the scheduler (``None`` on
+    the static path), the wall time and whether it drained."""
     if continuous:
-        sched = ContinuousScheduler(srv, quantum=quantum, **(sched_kw or {}))
+        if sched is None:
+            sched = ContinuousScheduler(srv, quantum=quantum,
+                                        **(sched_kw or {}))
         for r in reqs:
             sched.submit(r)
     if srv.device.type == "cuda":
         torch.cuda.synchronize(srv.device)
     t0 = time.perf_counter()
-    results = sched.run() if continuous else srv.serve(reqs)
+    drained = False
+    if continuous:
+        while sched.step():
+            if stop is not None and stop["drain"]:
+                sched.drain()
+                if sched.durable is not None:
+                    sched.durable.checkpoint()
+                drained = True
+                break
+        results = [sched.results.get(i) for i in range(sched._n)]
+    else:
+        results = srv.serve(reqs)
     if srv.device.type == "cuda":
         torch.cuda.synchronize(srv.device)
     return {"results": results, "sched": sched,
-            "wall_s": time.perf_counter() - t0}
+            "wall_s": time.perf_counter() - t0, "drained": drained}
+
+
+def durability_line(sched: ContinuousScheduler) -> str:
+    """The journaled scheduler's costs: each checkpoint cut's leaf bytes
+    and host ms (capture and commit), the fsync'd journal records with
+    their mean host ms, and the boot's recovery time."""
+    dur = sched.durable
+    cuts = ", ".join(f"{b} B in {1e3 * t:.3f} ms" for b, t in dur.cuts)
+    j = dur.journal
+    per = 1e3 * j.sync_s / j.synced if j.synced else 0.0
+    return (f"[serve] durability: {len(dur.cuts)} checkpoint cuts [{cuts}]; "
+            f"{j.synced} fsync'd records, {per:.4f} ms each; recovery "
+            f"{1e3 * sched.recover_info['recovery_s']:.3f} ms")
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    stop = {"drain": False}
+    if args.drain_on_sigterm:
+        # installed before the (slow) build: a TERM during warm-up drains
+        # at the first step boundary instead of killing the process
+        signal.signal(signal.SIGTERM, lambda *_: stop.update(drain=True))
     cfg, srv = build_server(args)
+    sched_kw = scheduler_kwargs(args) if args.continuous else None
+    sched = None
+    if args.journal_dir:
+        sched = recover(srv, args.journal_dir,
+                        checkpoint_every=args.checkpoint_every,
+                        quantum=args.quantum, **sched_kw)
+        ri = sched.recover_info
+        if ri["resumed_rows"] or ri["chunk_rows"] or ri["replayed"]:
+            print(f"[serve] recovered from {args.journal_dir}: "
+                  f"{ri['resumed_rows']} live rows resumable, "
+                  f"{ri['chunk_rows']} mid-prompt chunk rows rebuilt, "
+                  f"{ri['replayed']} journal records replayed, "
+                  f"{len(ri['refilled'])} re-prefilled after corruption "
+                  f"({ri['recovery_s'] * 1e3:.0f} ms)")
     out = serve(srv, make_requests(cfg, args), args.quantum,
-                continuous=args.continuous,
-                sched_kw=scheduler_kwargs(args) if args.continuous else None)
+                continuous=args.continuous, sched_kw=sched_kw, sched=sched,
+                stop=stop)
     results, sched, wall = out["results"], out["sched"], out["wall_s"]
+    if out["drained"]:
+        print(f"[serve] SIGTERM drain: {sched.pending} request(s) left "
+              f"queued (journaled) after finishing all admitted rows")
     head = (f"[serve] {cfg.name} on {srv.device} ({srv.paged_backend} "
             f"backend, kv{srv.scfg.kv_bits})")
     if sched is None:
@@ -334,6 +424,9 @@ def main(argv=None) -> None:
     else:
         print(f"{head}: contiguous pool of {sched.n_slots} rows")
     for i, r in enumerate(results):
+        if r is None:                # still queued after a SIGTERM drain
+            print(f"[serve] req{i}: queued (journaled for the next process)")
+            continue
         status = ""
         if "status" in r:
             status = f" [{r['status'].value}" + (
@@ -355,7 +448,9 @@ def main(argv=None) -> None:
         sched.check()    # the whole pool audit (raises on any leak)
         print("[serve] block-pool audit clean: refcounts, free list, and "
               "LRU partition the pool exactly")
-    n_tok = sum(len(r["tokens"]) for r in results)
+    if args.journal_dir:
+        print(durability_line(sched))
+    n_tok = sum(len(r["tokens"]) for r in results if r)
     mgr = srv.manager
     if sched is None:
         steps = "static groups"

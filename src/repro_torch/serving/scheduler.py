@@ -99,8 +99,14 @@ a clean accuracy-critical run's. A seeded
 (as data through the one segment), dry allocator rounds and flush stalls;
 a :class:`~repro_torch.serving.faults.Watchdog` flags slow rounds, and
 :meth:`ContinuousScheduler.check` (after every step with ``paranoid``)
-audits the block pool's refcounts. Not ported yet: durability (the
-reference's write-ahead journal and checkpoints).
+audits the block pool's refcounts.
+
+**Durability** (:mod:`repro_torch.serving.durability`): an attached
+``durable`` layer is told of every lifecycle edge at the reference's
+points, in the reference's order (submit, cancel, finalize and deliver
+records, write-ahead; flush, admit and round-end markers, the round end
+driving the checkpoint cadence); :meth:`ContinuousScheduler.drain` stops
+admission and finishes every admitted row.
 """
 from __future__ import annotations
 
@@ -245,6 +251,11 @@ class ContinuousScheduler:
         self._round = 0
         self._seg_dt: Optional[float] = None      # step wall-time EMA
         self._flush_idx = 0
+        # durability layer (serving/durability.py): when attached, it is
+        # told of every lifecycle edge (submit, cancel, finalize, deliver:
+        # fsync'd write-ahead records) and flush boundary (checkpoint
+        # cadence, crash-point markers); None costs nothing
+        self.durable = None
         self.draining = False                     # admit nothing new
         self.cancelled = self.expired = self.shed_count = self.failed = 0
         self.recovered = self.faults_detected = 0
@@ -332,6 +343,10 @@ class ContinuousScheduler:
         rid = self._n
         self._n += 1
         self._reqs[rid] = request
+        if self.durable is not None:
+            # write-ahead: the submit record is durable before the request
+            # can be observed, so a crash never loses an accepted request
+            self.durable.on_submit(rid, request)
         if request.deadline_ms is not None:
             self._deadline[rid] = self.clock() + request.deadline_ms / 1e3
         if request.max_new <= 0:        # nothing to generate: done on arrival
@@ -376,6 +391,10 @@ class ContinuousScheduler:
         """``(rid, result)`` pairs finished since the last poll; ownership
         of each result passes to the caller."""
         done, self._done = self._done, []
+        if done and self.durable is not None:
+            # deliver record before the hand-over: recovery drops exactly
+            # the rids the caller owns and delivers the rest again
+            self.durable.on_deliver(done)
         out = []
         for rid in done:
             out.append((rid, self.results.pop(rid)))
@@ -410,6 +429,8 @@ class ContinuousScheduler:
             self.shed_count += 1
         elif status is RequestStatus.FAILED:
             self.failed += 1
+        if self.durable is not None:
+            self.durable.on_final(rid)
 
     def cancel(self, rid: int) -> bool:
         """Cancel a request wherever it sits; True if it took.
@@ -421,7 +442,10 @@ class ContinuousScheduler:
         generated, and its blocks go back as on eviction. False for unknown
         rids and for requests already terminal — one whose last tokens are
         in flight completes as ``COMPLETED``."""
-        return self._cancel(rid)
+        took = self._cancel(rid)
+        if took and self.durable is not None:
+            self.durable.on_cancel(rid)
+        return took
 
     def _cancel(self, rid: int) -> bool:
         if rid not in self._reqs or "status" in self.results.get(rid, {}):
@@ -1503,6 +1527,7 @@ class ContinuousScheduler:
             if stall > 0.0:
                 time.sleep(stall)        # injected stall: watchdog fodder
         names = self.srv.engine.profile_names
+        drained = len(self._inflight) > keep
         while len(self._inflight) > keep:
             e = self._inflight.pop(0)
             arr = e["toks"].cpu().numpy()                # waits for the device
@@ -1538,6 +1563,10 @@ class ContinuousScheduler:
                         self.clock() - self._q_t0.pop(rid))
                     self.recovered += 1
                 self._done.append(rid)
+                if self.durable is not None:
+                    self.durable.on_final(rid)
+        if drained and self.durable is not None:
+            self.durable.on_flush()      # crash-point / consistency-cut mark
 
     # ------------------------------------------------------------------ drive
     def step(self) -> bool:
@@ -1565,7 +1594,9 @@ class ContinuousScheduler:
                 for _, rid in reversed(ripe):    # keep their relative order
                     self.policy.push_front(rid, self._reqs[rid])
         self.policy.age_tick()           # anti-starvation promotion (if on)
-        self.admit()
+        n_adm = self.admit()
+        if n_adm and self.durable is not None:
+            self.durable.on_admit(n_adm)
         ran = bool(self.live_rows)
         if ran:
             self.run_segment()
@@ -1576,6 +1607,8 @@ class ContinuousScheduler:
         if ran:
             self._seg_dt = (dt if self._seg_dt is None
                             else 0.5 * dt + 0.5 * self._seg_dt)
+        if self.durable is not None:
+            self.durable.on_step_end()   # checkpoint cadence
         if self.watchdog is not None:
             self.watchdog.record(f"round {self._round}", dt)
         if self.paranoid:
@@ -1590,3 +1623,17 @@ class ContinuousScheduler:
         while self.step():
             pass
         return [self.results.get(i) for i in range(self._n)]
+
+    def drain(self) -> None:
+        """Graceful shutdown: stop admitting, then step until every
+        admitted row (live, chunking, in flight, to reap, quarantined) is
+        terminal. Queued requests stay queued: a durability layer
+        checkpoints them for the next process. The launcher's
+        ``--drain-on-sigterm`` drives this."""
+        self.draining = True
+        if self.durable is not None:
+            self.durable.on_drain()
+        while (self.live_rows or self._inflight
+               or (self.paged and self._chunk_state)
+               or self._to_reap or self._nf_rows or self._quarantine_q):
+            self.step()

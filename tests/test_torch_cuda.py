@@ -1036,3 +1036,95 @@ def test_nan_injection_leaves_neighbour_and_shared_blocks(kv_bits):
         assert torch.equal(sh0, sh1)
     assert tok0 == tok1
     assert res1["retries"] == 1 and res1["tokens"] == clean
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_recovery_on_card_lands_masters_on_cuda(tmp_path, kv_bits):
+    """Crash recovery on the kernel backend (smoke config, f32, TF32 off):
+    a scheduler abandoned mid-serve is recovered into a new server; the
+    restored snapshots' masters (and int-KV scales) lie on the card, the
+    resumed rows decode through K1 (launches = layers × decode steps after
+    the restart) and the tokens equal the uninterrupted serve's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving import durability as D
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg, params, engine = _smoke_server_parts()
+    savers, crit = _preempt_requests(cfg)
+    reqs = savers + [crit]
+
+    def server():
+        return AdaptiveServer(cfg, params, engine, ServingConfig(
+            slots=64, max_batch=4, block_size=8, kv_bits=kv_bits,
+            paged_backend="kernel"), device="cuda")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with use_compute_dtype(torch.float32):
+            twin = ContinuousScheduler(server(), quantum=2)
+            for r in reqs:
+                twin.submit(r)
+            want = [r["tokens"] for r in twin.run()]
+            s1 = ContinuousScheduler(server(), quantum=2)
+            D.Durability(s1, str(tmp_path), checkpoint_every=1)
+            for r in reqs:
+                s1.submit(r)
+            for _ in range(3):
+                s1.step()
+            seen = []
+            apply = D._apply_checkpoint
+
+            def spy(s, tree, meta, pending, info):
+                apply(s, tree, meta, pending, info)
+                seen.extend(s._suspended.values())
+
+            D._apply_checkpoint = spy
+            try:
+                s2 = D.recover(server(), str(tmp_path), quantum=2)
+            finally:
+                D._apply_checkpoint = apply
+            assert seen and s2.recover_info["resumed_rows"] == len(seen)
+            for snap in seen:
+                assert snap.master_k.device.type == "cuda"
+                assert snap.master_v.device.type == "cuda"
+                if kv_bits == 8:
+                    assert snap.k_scale.device.type == "cuda"
+            n0 = PA.paged_attention.launches
+            while s2.step():
+                pass
+            assert PA.paged_attention.launches - n0 == \
+                cfg.n_layers * s2.decode_steps > 0
+            assert [s2.results[i]["tokens"] for i in range(3)] == want
+            s2.check()
+            assert s2.allocator.used_blocks == 0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_cuda(tmp_path):
+    """A checkpoint restores onto the card: with a template every leaf is
+    a tensor there of the template's dtype (bf16 bitwise), without one
+    ``device="cuda"`` places the host arrays there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.checkpoint.manager import restore, save
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t = {"mk": torch.randn(2, 9, 2, 4, generator=gen, device="cuda"),
+         "w": torch.randn(5, 7, generator=gen,
+                          device="cuda").to(torch.bfloat16),
+         "ids": torch.arange(6, dtype=torch.int32, device="cuda")}
+    save(str(tmp_path), 1, t)
+    out, _ = restore(str(tmp_path), {k: torch.empty_like(v)
+                                     for k, v in t.items()}, device="cuda")
+    bare, _ = restore(str(tmp_path), device="cuda")
+    for got in (out, bare):
+        for k, v in t.items():
+            assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+            a, b = ((x.view(torch.int16) if x.dtype == torch.bfloat16
+                     else x) for x in (got[k], v))
+            assert torch.equal(a, b), k
