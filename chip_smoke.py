@@ -123,7 +123,23 @@ Phases:
     uninterrupted child and one without the journal: every first-boot rid
     has exactly one ``final`` record with the uninterrupted tokens; bytes
     and ms per cut, ms per fsync'd record, ``recovery_s``, tok/s with and
-    without the journal.
+    without the journal;
+13. the paper's CNN (``CNNConfig()``: 64 channels, 28x28, f32, TF32 off):
+    (a) K5 bitwise against its plain version at the six per-tensor sites
+    of a batch-256 forward at bits 16/8/4, with the scale it returns for
+    the straight-through mask; (b) one training step (forward and
+    backward) at A8-W8 and Mixed through K5 and through the plain version
+    swapped in, cuDNN deterministic: loss and gradients bitwise equal;
+    (c) the forward of all six profiles on the card against the port on
+    the CPU under the tests' tie rule; (d) the launcher's Table 1
+    (``run_table1(steps=120)``: per-profile QAT, fake and native accuracy,
+    latency at batch 256 and 1 by CUDA events, modelled power and energy)
+    and Fig. 4 (the merged A8-W8 + Mixed engine, overhead, battery),
+    failing under 0.75 test accuracy, a native engine more than 0.5 points
+    from the fake path, or no K5 launch; K5's launches over (d) are its
+    ``cnn_launches``; (e) where the time goes: the A8-W8 forward's eager
+    latency beside its device time from a CUDA graph, and one training
+    step's device-busy share under ``torch.profiler``.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -3598,6 +3614,273 @@ def phase_profile(seed: int) -> None:
               f"{e.count:6d}x  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper's CNN (QAT through K5, the native engine, Table 1 /
+# Fig. 4)
+# ---------------------------------------------------------------------------
+
+def cnn_site_inputs(gen) -> list:
+    """The six per-tensor fake-quant sites of one full-width CNN forward
+    at batch 256 (``CNNConfig()``): (label, tensor) with values shaped
+    like each site's (digit pixels in [0, 1], BN-normalised activations,
+    He-scaled weights)."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    return [
+        ("conv0 act [256,28,28,1]",
+         torch.rand((256, 28, 28, 1), generator=gen, device="cuda")),
+        ("conv0 w [3,3,1,64]", randn(3, 3, 1, 64, scale=1 / 3)),
+        ("conv1 act [256,14,14,64]", randn(256, 14, 14, 64)),
+        ("conv1 w [3,3,64,64]", randn(3, 3, 64, 64, scale=1 / 24)),
+        ("fc act [256,3136]", randn(256, 3136)),
+        ("fc w [3136,10]", randn(3136, 10, scale=0.02)),
+    ]
+
+
+def phase_cnn_sites(seed: int) -> None:
+    """Phase 13 (a): K5 against its plain version, bitwise, at the CNN's
+    six sites at batch 256 and bits 16 / 8 / 4, the scale it returns for
+    the straight-through mask equal to the plain scalar; each site's
+    device time (CUDA graph) beside the plain version and its bound."""
+    from repro_torch.kernels import aquant as AQ
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    for label, x in cnn_site_inputs(gen):
+        for bits in (16, 8, 4):
+            got, s = AQ.aquant(x, bits, True, return_scale=True)
+            torch.cuda.synchronize()
+            want, ws = AQ.aquant_ref(x, bits, True, return_scale=True)
+            if not (torch.equal(got.view(torch.int32),
+                                want.view(torch.int32))
+                    and torch.equal(s, ws)):
+                raise AssertionError(
+                    f"K5 differs from its plain version at the CNN's "
+                    f"{label}, bits {bits}: max err "
+                    f"{float((got - want).abs().max()):g}, scale "
+                    f"{float(s):g} vs {float(ws):g}")
+        nbytes = 2 * x.numel() * 4
+        dev = graph_ms(lambda: AQ.aquant(x, 8, True))
+        plain = cuda_time_ms(lambda: AQ.aquant_ref(x, 8, True), iters=50,
+                             warmup=5)
+        print(f"[cnn] K5 at {label} ({x.numel()} f32): bitwise equal at "
+              f"bits 16/8/4, scale equal; bits 8 device {dev:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {nbytes / H100_BYTES_PER_S * 1e3:.4f} "
+              f"ms (bytes: {nbytes} B)")
+    AQ.aquant.launches = 0                # comparison launches do not count
+
+
+def _cnn_batch(n: int, device) -> dict:
+    from repro_torch.data.digits import make_dataset
+    x, y = make_dataset(n, seed=2, difficulty="hard")
+    return {"images": torch.as_tensor(x, device=device),
+            "labels": torch.as_tensor(y, device=device)}
+
+
+def phase_cnn_grad(seed: int) -> None:
+    """Phase 13 (b) and (c) at full width (``CNNConfig()``: 64 channels,
+    28x28), batch 256, f32, TF32 off, cuDNN deterministic. (b) one
+    ``cnn_loss`` forward and backward at A8-W8 and Mixed through K5 (6
+    launches: every quantizer's forward; the straight-through masks read
+    the scale K5 returned), then with ``quantizers.aquant`` swapped for
+    the plain version: loss and every gradient bitwise equal. (c) the
+    forward of all six profiles on the card against the port on the CPU
+    under the tests' tie rule (``cnn.tie_aware_check``)."""
+    from repro_torch.core import quantizers as QZ
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.models import cnn as C
+    profs = paper_profiles(C.CNN_LAYERS, inner_layers=["conv1"])
+    table = profile_table(profs, C.CNN_LAYERS)
+    names = [p.name for p in profs]
+    params = C.init_cnn(C.CNNConfig(),
+                        torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    batch = _cnn_batch(256, "cuda")
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name in ("A8-W8", "Mixed"):
+            row = table[names.index(name)]
+            n0 = AQ.aquant.launches
+            (l1, m1), g1 = C.cnn_loss_and_grad(params, row, batch)
+            torch.cuda.synchronize()
+            n_k5 = AQ.aquant.launches - n0
+            if n_k5 != 6:
+                raise AssertionError(f"K5 launched {n_k5} times in one "
+                                     f"{name} training step, not 6")
+            kernel_aquant = QZ.aquant
+            QZ.aquant = AQ.aquant_ref
+            try:
+                (l2, _), g2 = C.cnn_loss_and_grad(params, row, batch)
+            finally:
+                QZ.aquant = kernel_aquant
+            same = torch.equal(l1, l2) and all(
+                torch.equal(g1[ln][k], g2[ln][k]) for ln in g1
+                for k in g1[ln])
+            if not same:
+                raise AssertionError(f"{name}: loss or gradients through K5 "
+                                     f"differ from the plain version's")
+            gmax = max(float(g.abs().max()) for p in g1.values()
+                       for g in p.values())
+            print(f"[cnn] (b) {name} training step at full width, batch "
+                  f"256: loss {float(l1):.6f}, acc {float(m1['acc']):.4f}, "
+                  f"largest gradient {gmax:.4g}; K5 {n_k5} launches; loss "
+                  f"and all 10 gradients bitwise equal with the plain "
+                  f"version")
+        cpu = {ln: {k: v.cpu() for k, v in p.items()}
+               for ln, p in params.items()}
+        x_cpu = batch["images"].cpu()
+        with torch.no_grad():
+            for pid, name in enumerate(names):
+                ref = C.cnn_sites(cpu, table[pid], x_cpu)
+                got = C.cnn_sites(params, table[pid], batch["images"])
+                flips = C.tie_aware_check(ref, got, table[pid])
+                d = float((got["logits"].cpu() - ref["logits"]).abs().max())
+                print(f"[cnn] (c) {name}: card vs CPU logits max diff "
+                      f"{d:.3g}, quantized activations differing per site "
+                      f"{flips}: tie rule holds")
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    AQ.aquant.launches = 0
+
+
+def phase_cnn_paper(seed: int) -> dict:
+    """Phase 13 (d): the launcher's ``run_table1(steps=120)`` and
+    ``run_fig4`` at full width on the card, K5's launches counted over
+    both. Fails if a profile's test accuracy is under 0.75 (the
+    reference's own bar), if a native engine's accuracy (each profile's
+    own, and A8-W8 / Mixed through the merged engine) is more than 0.5
+    points from the fake path's, or if K5 never launched."""
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.launch import repro_cnn as L
+    AQ.aquant.launches = 0
+    t0 = time.perf_counter()
+    t1 = L.run_table1(steps=120)
+    f4 = L.run_fig4(t1)
+    wall = time.perf_counter() - t0
+    launches = AQ.aquant.launches
+    rows = t1["rows"]
+    print(f"[cnn] (d) Table 1 on {t1['device']} ({card_line()}), 120 steps "
+          f"per profile, {wall:.1f} s with the measurements; K5 "
+          f"{launches} launches")
+    for name, r in rows.items():
+        paper = L.PAPER_TABLE1.get(name)
+        print(f"[cnn] (d) {name}: accuracy fake {r['accuracy_pct']:.2f}% / "
+              f"native {r['native_accuracy_pct']:.2f}%; latency b256 fake "
+              f"{r['fake_b256_ms']:.4f} ms / native "
+              f"{r['native_b256_ms']:.4f} ms, b1 fake {r['fake_b1_ms']:.4f} "
+              f"ms / native {r['native_b1_ms']:.4f} ms; per image "
+              f"{r['latency_us']:.4f} us; modelled power "
+              f"{r['power_w_model']:.2f} W, energy "
+              f"{r['energy_j_model']:.4g} J; weight bytes "
+              f"{r['weight_bytes']}; trained in {r['train_s']:.2f} s"
+              + (f" (paper, KRIA FPGA: {paper['acc']}%, "
+                 f"{paper['power_mw']} mW)" if paper else ""))
+    m = f4["merge"]
+    b = f4["battery"]
+    print(f"[cnn] (d) Fig. 4: shared {m['shared_layers']}, switched "
+          f"{m['switched_layers']}, merged {m['merged_bytes']} B, "
+          f"overhead_vs_largest {m['overhead_vs_largest']:.4f}; merged "
+          f"engine accuracy {f4['merged_native_accuracy_pct']}; "
+          f"power_saving_pct {f4['power_saving_pct']}, accuracy_drop_pct "
+          f"{f4['accuracy_drop_pct']}; battery adaptive "
+          f"{b['adaptive']['classifications']} vs non-adaptive "
+          f"{b['non_adaptive']['classifications']} classifications "
+          f"(+{b['extra_classifications_pct']}%)")
+    bad = [n for n, r in rows.items() if r["accuracy_pct"] < 75.0]
+    if bad:
+        raise AssertionError(f"test accuracy under 0.75 after 120 steps: "
+                             f"{ {n: rows[n]['accuracy_pct'] for n in bad} }")
+    gaps = {n: abs(r["native_accuracy_pct"] - r["accuracy_pct"])
+            for n, r in rows.items()}
+    gaps.update({f"merged {n}": abs(a - rows[n]["accuracy_pct"])
+                 for n, a in f4["merged_native_accuracy_pct"].items()})
+    if max(gaps.values()) > 0.5:
+        raise AssertionError(f"native engine more than 0.5 points from "
+                             f"the fake path: {gaps}")
+    if launches == 0:
+        raise AssertionError("K5 never launched on the CNN path")
+    return {"k5": launches}
+
+
+def phase_cnn_profile(seed: int) -> None:
+    """Phase 13 (e): where the CNN's time goes at full width, A8-W8, f32,
+    TF32 off. The forward at batch 256 and 1, fake path and native
+    engine: eager latency (CUDA events, the launcher's ``measure_ms``)
+    beside the device time of the same forward replayed from a CUDA
+    graph; then one training step (forward, backward, AdamW) under
+    ``torch.profiler``: wall time, device-busy time and share, K5's
+    device time, and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.merge import merge_plan
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.launch import repro_cnn as L
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
+    profs = paper_profiles(C.CNN_LAYERS, inner_layers=["conv1"])
+    row = profile_table(profs, C.CNN_LAYERS)[2]             # A8-W8
+    params = C.init_cnn(C.CNNConfig(),
+                        torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    plan = merge_plan([profs[2]])
+    images = C.quantize_cnn_images(params, plan)
+    batch = _cnn_batch(256, "cuda")
+    dev = torch.device("cuda")
+    with L._f32(), torch.no_grad():
+        for b in (256, 1):
+            x = batch["images"][:b]
+            for path, fn in (
+                    ("fake", lambda: C.cnn_forward(params, row, x)),
+                    ("native", lambda: C.cnn_forward_native(
+                        params, images, plan, [0, 0, 0], row, x))):
+                eager = L.measure_ms(fn, dev)
+                device = graph_ms(fn)
+                print(f"[cnn] (e) A8-W8 {path} forward at batch {b}: eager "
+                      f"{eager:.4f} ms (CUDA events), device {device:.4f} "
+                      f"ms (CUDA graph), device busy "
+                      f"{100 * device / eager:.1f}% of the eager call")
+    acfg = AdamConfig(lr=1e-3, total_steps=120, warmup_steps=10)
+    opt = adam_init(params)
+
+    def step():
+        _, g = C.cnn_loss_and_grad(params, row, batch)
+        return adam_update(acfg, g, opt, params)
+
+    with L._f32():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 5
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) is not None
+          and str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / 5   # ms
+    k5 = sum(e.self_device_time_total for e in ev
+             if "amax_kernel" in e.key or "quant_kernel" in e.key) / 1e3 / 5
+    n = sum(e.count for e in ev) / 5
+    print(f"[cnn] (e) one A8-W8 training step at batch 256 (mean of 5): "
+          f"wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}%), {n:.0f} device kernels, "
+          f"K5 {k5:.4f} ms of device time")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[cnn] (e)   {e.self_device_time_total / 1e3 / 5:9.4f} ms "
+              f"{e.count / 5:5.0f}x  {e.key[:90]}")
+    AQ.aquant.launches = 0
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3615,7 +3898,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     carries its device time from a CUDA graph, K1–K4 their split count, K4
     its step 0's device time, K5 its read-twice floor), plus ``extra``
     keys (phase 10's launches under the precision policy, phase 11's
-    under injected faults)."""
+    under injected faults, phase 12's after restarts, phase 13's on the
+    CNN path)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -3639,7 +3923,7 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -3712,6 +3996,12 @@ def main() -> None:
     if 12 in phases:
         durable.update(phase_durable_parity(args.seed))
         phase_durable_serve(args.seed)
+    cnn = {"k5": 0}
+    if 13 in phases:
+        phase_cnn_sites(args.seed)
+        phase_cnn_grad(args.seed)
+        cnn = phase_cnn_paper(args.seed)
+        phase_cnn_profile(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -3736,7 +4026,7 @@ def main() -> None:
             fault_launches=faults["k4"]))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
-            native["k5"], rows["k5"]))
+            native["k5"], rows["k5"], cnn_launches=cnn["k5"]))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ import numpy as np
 from .merge import MergePlan, merge_plan
 from .profiles import Profile, profile_table
 
-__all__ = ["QuantIndex", "AdaptiveEngine"]
+__all__ = ["QuantIndex", "AdaptiveEngine", "switch_images"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +83,16 @@ class AdaptiveEngine:
         if weight_shapes is not None:
             rep["resources"] = plan.resource_bytes(weight_shapes)
         return rep
+
+
+def switch_images(selector: int, images: Sequence[Any],
+                  fn: Callable[[Any], Any]):
+    """Native-path runtime selection among pre-quantized weight images.
+
+    ``images`` holds one entry per *distinct* spec of a switched layer (the
+    deduplicated "actors" of the MDC merge); ``selector`` is the host index
+    from the merge plan's selector row. A single image (a shared layer)
+    involves no switch at all — mirroring MDC sharing."""
+    if len(images) == 1:
+        return fn(images[0])
+    return fn(images[int(selector)])

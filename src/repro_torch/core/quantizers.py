@@ -5,8 +5,14 @@ Rounding is half away from zero (``sign·floor(|x|+0.5)``, HLS ``AP_RND``),
 and every dynamic scale is an exact power of two (:func:`~repro_torch.core.
 qtypes.exp2_int`). Bit-widths are host integers: the port keeps the bits
 table on the host and passes each layer's entry as a Python int, so a
-``bits >= 17`` row is a plain passthrough. The straight-through gradients
-wait for the training slice.
+``bits >= 17`` row is a plain passthrough.
+
+The three fake-quants carry the reference's straight-through gradient (its
+``custom_vjp``s): ``dL/dx = g`` where ``qmin·s <= x <= qmax·s`` and 0
+outside, compared in f32; ``bits`` gets none. Only a call that records a
+graph (grad mode on, ``x.requires_grad``) goes through the
+``autograd.Function``, which saves ``x`` and the scale and builds the mask
+in ``backward``; inference calls run the forward alone, as before.
 
 ``quantize_native`` / ``dequantize`` produce and consume the integer
 carriers (:class:`QTensor`: int8, or int4 packed two per byte) of the
@@ -32,20 +38,53 @@ def round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
 
 
+class _StraightThrough(torch.autograd.Function):
+    """``y = quantize(x)[0]`` forward; ``g · [qmin·s <= x <= qmax·s]``
+    backward, with ``s = quantize(x)[1]`` saved beside ``x``."""
+
+    @staticmethod
+    def forward(ctx, x, quantize, qmin, qmax):
+        y, scale = quantize(x)
+        ctx.save_for_backward(x, scale)
+        ctx.qrange = (qmin, qmax)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        qmin, qmax = ctx.qrange
+        xf = x.float()
+        mask = (xf >= qmin * scale) & (xf <= qmax * scale)
+        return g * mask.to(g.dtype), None, None, None
+
+
+def _quantize(x: torch.Tensor, quantize, qmin, qmax) -> torch.Tensor:
+    """``quantize(x)[0]``, through the straight-through ``Function`` only
+    when autograd records this call."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _StraightThrough.apply(x, quantize, qmin, qmax)
+    return quantize(x)[0]
+
+
 def fake_quant(x: torch.Tensor, spec: QuantSpec,
                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Quantize→dequantize ``x`` onto the grid of ``spec`` (float in/out);
-    the scale is calibrated from ``max|x|`` unless given."""
+    the scale is calibrated from ``max|x|`` unless given. Gradient:
+    straight through inside the clip range, zero outside."""
     if spec.is_float:
         return x
     if spec.stochastic:
         raise NotImplementedError("stochastic rounding is not ported")
-    xf = x.float()
-    s = compute_scale(xf, spec) if scale is None else \
-        torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     qmin, qmax = qrange(spec)
-    q = torch.clamp(round_half_away(xf / s), qmin, qmax)
-    return (q * s).to(x.dtype)
+
+    def quantize(x):
+        xf = x.float()
+        s = compute_scale(xf, spec) if scale is None else \
+            torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+        q = torch.clamp(round_half_away(xf / s), qmin, qmax)
+        return (q * s).to(x.dtype), s
+
+    return _quantize(x, quantize, qmin, qmax)
 
 
 def fake_quant_dynamic(x: torch.Tensor, bits: int,
@@ -54,10 +93,17 @@ def fake_quant_dynamic(x: torch.Tensor, bits: int,
     grid; ``signed_sym`` is accepted for signature parity and ignored, as
     in the reference). ``bits >= 17`` is the identity. This is K5's
     function: CUDA tensors go through the kernel, CPU tensors through its
-    plain version (:func:`repro_torch.kernels.aquant.aquant`)."""
+    plain version (:func:`repro_torch.kernels.aquant.aquant`); under
+    autograd the kernel also hands back the scale for the gradient's clip
+    band."""
     bits = int(bits)
     if bits >= 17:                       # float passthrough
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        qmin, qmax = qrange_dynamic(bits)
+        return _StraightThrough.apply(
+            x, lambda t: aquant(t, bits, po2=True, return_scale=True),
+            qmin, qmax)
     return aquant(x, bits, po2=True)
 
 
@@ -69,12 +115,16 @@ def fake_quant_dynamic_token(x: torch.Tensor, bits: int,
     bits = int(bits)
     if bits >= 17:                       # float passthrough
         return x
-    xf = x.float()
     qmin, qmax = qrange_dynamic(bits)
-    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-9)
-    scale = exp2_int(torch.ceil(torch.log2(amax / max(-qmin, qmax))))
-    q = torch.clamp(round_half_away(xf / scale), qmin, qmax)
-    return (q * scale).to(x.dtype)
+
+    def quantize(x):
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-9)
+        scale = exp2_int(torch.ceil(torch.log2(amax / max(-qmin, qmax))))
+        q = torch.clamp(round_half_away(xf / scale), qmin, qmax)
+        return (q * scale).to(x.dtype), scale
+
+    return _quantize(x, quantize, qmin, qmax)
 
 
 class QTensor(NamedTuple):

@@ -41,7 +41,7 @@ _ARGTYPES = {
     "paged_attention": [_P] * 11 + [_I] * 15 + [_F, _P],
     "paged_attention_multi": [_P] * 11 + [_I] * 15 + [_F, _P],
     "qmatmul": [_P] * 5 + [_I] * 10 + [_F] * 3 + [_P],
-    "aquant": [_P] * 3 + [_L] + [_I] * 4 + [_P],
+    "aquant": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "qkv_attention": [_P] * 9 + [_I] * 9 + [_L] * 6 + [_F, _P],
 }
 

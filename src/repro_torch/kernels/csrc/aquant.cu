@@ -26,7 +26,9 @@
 // itself, derive the scale, and quantize its grid-stride slice. The scalar
 // never leaves the device and nothing is synchronised with the host. x is
 // read twice (once per pass), the output written once: 1.5x the bound's
-// bytes; a single pass with a grid-wide barrier is later work.
+// bytes; a single pass with a grid-wide barrier is later work. Block 0 also
+// writes the scale it derived to scale_out when the caller asks for it (the
+// straight-through gradient's clip band is [qmin·scale, qmax·scale]).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,7 +81,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 quant_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n,
              const float* __restrict__ partial, int n_partial, int bits,
-             int po2) {
+             int po2, float* __restrict__ scale_out) {
   float m = 0.f;
   for (int i = threadIdx.x; i < n_partial; i += kThreads)
     m = fmaxf(m, partial[i]);
@@ -87,6 +89,8 @@ quant_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n,
   const float amax = fmaxf(m, 1e-9f);
   float scale = amax / (float)(1 << (bits - 1));
   if (po2) scale = ldexpf(1.0f, (int)ceilf(log2f(scale)));
+  if (scale_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    *scale_out = scale;
   const float qmax = (float)((1 << (bits - 1)) - 1);
   const float qmin = -(float)(1 << (bits - 1));
   const int64_t stride = (int64_t)gridDim.x * kThreads;
@@ -101,8 +105,9 @@ quant_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n,
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* out, float* partial, int64_t n,
-                   int bits, int po2, int n_partial, cudaStream_t stream) {
+cudaError_t launch(const void* x, void* out, float* partial, float* scale_out,
+                   int64_t n, int bits, int po2, int n_partial,
+                   cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   amax_kernel<T><<<n_partial, kThreads, 0, stream>>>(xt, n, partial);
   cudaError_t e = cudaGetLastError();
@@ -110,24 +115,28 @@ cudaError_t launch(const void* x, void* out, float* partial, int64_t n,
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 4096) blocks = 4096;
   quant_kernel<T><<<(int)blocks, kThreads, 0, stream>>>(
-      xt, static_cast<T*>(out), n, partial, n_partial, bits, po2);
+      xt, static_cast<T*>(out), n, partial, n_partial, bits, po2, scale_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // out = fake_quant(x) over all n elements of the contiguous x (f32 or bf16,
-// x_bf16 says which); partial is scratch of n_partial floats (1..1024).
+// x_bf16 says which); partial is scratch of n_partial floats (1..1024);
+// scale_out, unless null, receives the one f32 scale of the grid.
 // Returns cudaGetLastError() of the launches.
 extern "C" int repro_aquant(const void* x, void* out, float* partial,
-                            int64_t n, int x_bf16, int bits, int po2,
-                            int n_partial, void* stream_ptr) {
+                            float* scale_out, int64_t n, int x_bf16,
+                            int bits, int po2, int n_partial,
+                            void* stream_ptr) {
   if (n < 0 || bits < 2 || bits > 16 || n_partial < 1 || n_partial > 1024)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t e = x_bf16
-      ? launch<__nv_bfloat16>(x, out, partial, n, bits, po2, n_partial, stream)
-      : launch<float>(x, out, partial, n, bits, po2, n_partial, stream);
+      ? launch<__nv_bfloat16>(x, out, partial, scale_out, n, bits, po2,
+                              n_partial, stream)
+      : launch<float>(x, out, partial, scale_out, n, bits, po2, n_partial,
+                      stream);
   return (int)e;
 }

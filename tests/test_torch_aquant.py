@@ -82,3 +82,24 @@ def test_aquant_wrapper_rejects_what_the_kernel_cannot_take():
         AQ.aquant(x.half(), 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         AQ.aquant(x, 8)
+
+
+@pytest.mark.parametrize("bits,po2", [(8, True), (4, True), (16, True),
+                                      (8, False), (2, True)])
+def test_aquant_return_scale_is_the_grid(bits, po2):
+    """``return_scale`` hands back the 0-d f32 scale of the grid: the
+    output is the plain call's bit for bit and lies on multiples of it,
+    and it equals the reference's ``compute_scale`` (po2 scales here are
+    2^-6..2^1, where JAX's CPU ``exp2`` is exact)."""
+    from repro.core.qtypes import QuantSpec, compute_scale
+    x = _x(40, 24, mult=3000.0 if bits == 16 else 0.9)
+    y, s = AQ.aquant(torch.from_numpy(x), bits, po2, return_scale=True)
+    assert s.shape == () and s.dtype == torch.float32
+    assert torch.equal(y, AQ.aquant(torch.from_numpy(x), bits, po2))
+    y2, s2 = AQ.aquant_ref(torch.from_numpy(x), bits, po2, return_scale=True)
+    assert torch.equal(y2, y) and torch.equal(s2, s)
+    q = y.double() / s.double()
+    assert float((q - torch.round(q)).abs().max()) <= (0 if po2 else 1e-4)
+    want = np.asarray(compute_scale(jnp.asarray(x),
+                                    QuantSpec(bits=bits, po2_scale=po2)))
+    assert np.array_equal(np.float32(s.item()), want.reshape(()))

@@ -1128,3 +1128,72 @@ def test_checkpoint_restores_onto_cuda(tmp_path):
             a, b = ((x.view(torch.int16) if x.dtype == torch.bfloat16
                      else x) for x in (got[k], v))
             assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 28, 28, 1), (3, 3, 8, 8),
+                                   (16, 392), (392, 10)])
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_aquant_kernel_returns_its_scale(shape, bits):
+    """K5 with ``return_scale`` at the CNN's site shapes (small batch):
+    the output bitwise the plain version's, the scale the plain scalar,
+    one launch, the same output as without the scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(bits)
+    x = torch.randn(shape, generator=gen, device="cuda") * 1.7
+    n0 = AQ.aquant.launches
+    got, s = AQ.aquant(x, bits, True, return_scale=True)
+    torch.cuda.synchronize()
+    assert AQ.aquant.launches == n0 + 1
+    want, ws = AQ.aquant_ref(x, bits, True, return_scale=True)
+    assert s.shape == () and s.device.type == "cuda"
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(s, ws)
+    assert torch.equal(got, AQ.aquant(x, bits, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", ["A8-W8", "Mixed", "A16-W4"])
+def test_cnn_gradient_kernel_equals_plain(profile, monkeypatch):
+    """One CNN training step's loss and gradients at a small width: K5
+    (forward, scale for the straight-through mask) against its plain
+    version swapped in, bit for bit (cuDNN deterministic, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    from repro_torch.core import quantizers as QZ
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.models import cnn as C
+    profs = paper_profiles(C.CNN_LAYERS, inner_layers=["conv1"])
+    row = profile_table(profs, C.CNN_LAYERS)[
+        [p.name for p in profs].index(profile)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = C.init_cnn(C.CNNConfig(channels=16), gen, "cuda")
+    batch = {"images": torch.rand((32, 28, 28, 1), generator=gen,
+                                  device="cuda"),
+             "labels": torch.arange(32, device="cuda") % 10}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        n0 = AQ.aquant.launches
+        (l1, _), g1 = C.cnn_loss_and_grad(params, row, batch)
+        torch.cuda.synchronize()
+        assert AQ.aquant.launches - n0 == sum(
+            int(b) < 17 for b in row.reshape(-1))
+        monkeypatch.setattr(QZ, "aquant", AQ.aquant_ref)
+        (l2, _), g2 = C.cnn_loss_and_grad(params, row, batch)
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    assert torch.equal(l1, l2)
+    for ln in g1:
+        for k in g1[ln]:
+            assert torch.equal(g1[ln][k], g2[ln][k]), (ln, k)
+            assert g1[ln][k].abs().sum() > 0 or k == "b"

@@ -1,6 +1,8 @@
 """Quantizers of the PyTorch port against the JAX reference and an exact
-numpy model: int4 packing, the KV quantizer, both rounding rules, and the
-dynamic fake-quant grids (bits 2-8, 16, and the >= 17 passthrough).
+numpy model: int4 packing, the KV quantizer, both rounding rules, the
+dynamic fake-quant grids (bits 2-8, 16, and the >= 17 passthrough), and
+the straight-through gradients of the three fake-quants against
+``jax.grad`` of the reference's ``custom_vjp``s.
 
 The port builds power-of-two scales exactly; the reference's CPU ``exp2`` is
 off by up to ~1e-6 relative for integer exponents with |k| >= 13, so against
@@ -225,3 +227,116 @@ def test_kv_scale_matches_jax_bitwise(site, bits, monkeypatch):
            + np.float64(np.float32(1e-9))).astype(np.float32)
     div = (amax / qmax + np.float32(1e-9)).astype(np.float32)
     assert not np.array_equal(fma, div)
+
+
+def test_ste_gradient_mask():
+    """The reference's ``tests/test_quantizers.py::test_ste_gradient_mask``
+    on the port, and bitwise against ``jax.grad``."""
+    x = np.asarray([-100.0, -0.5, 0.0, 0.5, 100.0], np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    QZ.fake_quant(xt, Q.QuantSpec(bits=8), torch.tensor(0.01)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), [0, 1, 1, 1, 0], atol=1e-6)
+    want = jax.grad(lambda v: JQZ.fake_quant(v, JQ.QuantSpec(bits=8),
+                                             jnp.asarray(0.01)).sum())(
+        jnp.asarray(x))
+    assert np.array_equal(xt.grad.numpy(), np.asarray(want))
+
+
+def _edge_input(bits: int, shape, seed: int, per_token: bool = False):
+    """Random values plus elements at and just past the top of each grid's
+    clip band (``qmax·s``), so the masks have zeros and edge ones. The
+    scales stay near 2^0, where JAX's CPU ``exp2`` is exact, and ``amax``
+    stays off ``2^(b−1)·s`` (``qmin·s``), where JAX's ``log2`` may pick the
+    next grid. At 16 bits JAX's band itself is off (its ``exp2(15)`` is
+    32767.984375, so its ``qmax`` is not 32767): no edge elements there."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * (1000.0 if bits >= 12 else 1.3)
+         ).astype(np.float32)
+    if bits >= 12:
+        return x
+    rows = x.reshape(-1, shape[-1]) if per_token else x.reshape(1, -1)
+    for r in rows:
+        amax = np.float32(np.abs(r).max())
+        e = int(np.ceil(np.log2(amax / np.float32(2 ** (bits - 1)))))
+        s = np.ldexp(np.float32(1), e)
+        qmax = np.float32(2 ** (bits - 1) - 1)
+        r[:4] = [qmax * s, -qmax * s, np.nextafter(qmax * s, 2 * amax),
+                 -np.nextafter(qmax * s, 2 * amax)]
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16, 17])
+@pytest.mark.parametrize("kind", ["dynamic", "token"])
+def test_ste_dynamic_grad_bitwise_vs_jax(kind, bits, dtype):
+    """``fake_quant_dynamic`` (K5's function) and its per-token variant:
+    the gradient ``g · [qmin·s <= x <= qmax·s]`` (in f32, passthrough at
+    ``bits >= 17``) equals ``jax.grad`` of the reference bit for bit, in
+    f32 and bf16."""
+    x = _edge_input(bits, (6, 40), bits, per_token=kind == "token")
+    g = np.random.default_rng(bits + 1).standard_normal(x.shape).astype(
+        np.float32)
+    fn, jfn = ((QZ.fake_quant_dynamic, JQZ.fake_quant_dynamic)
+               if kind == "dynamic" else
+               (QZ.fake_quant_dynamic_token, JQZ.fake_quant_dynamic_token))
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    y = fn(xt, bits, SIGNED_SYM)
+    (y * torch.from_numpy(g).to(tdt)).sum().backward()
+    jdt = getattr(jnp, dtype)
+    want = jax.grad(lambda v: (jfn(v, jnp.int32(bits), SIGNED_SYM)
+                               * jnp.asarray(g, jdt)).sum())(
+        jnp.asarray(x, jdt))
+    got = xt.grad.float().numpy()
+    assert np.array_equal(got, np.asarray(want, np.float32))
+    if bits < 12 and dtype == "float32":   # bf16 rounds the edges inward
+        assert (got == 0).any() and (got != 0).any()
+    with torch.no_grad():
+        assert torch.equal(y.detach(), fn(xt.detach(), bits))
+    if bits == 16:                # the port's band is exact: qmax·s passes
+        xe = x.copy()
+        xe.flat[0] = np.float32(32767) * np.ldexp(np.float32(1), int(np.ceil(
+            np.log2(np.abs(x).max() / np.float32(32768)))))
+        xe = torch.from_numpy(xe).requires_grad_(True)
+        fn(xe, 16).sum().backward()
+        assert xe.grad.flatten()[0] == 1
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("bits,po2", [(8, True), (4, True), (6, False)])
+def test_ste_fake_quant_grad_bitwise_vs_jax(bits, po2, per_channel):
+    """The static-spec ``fake_quant`` with its calibrated scale (per tensor
+    or per channel) and with a given scale: ``jax.grad`` bit for bit."""
+    x = _edge_input(bits, (5, 12), 3 * bits + po2)
+    g = np.random.default_rng(bits).standard_normal(x.shape).astype(
+        np.float32)
+    spec = Q.QuantSpec(bits=bits, po2_scale=po2, per_channel=per_channel)
+    jspec = JQ.QuantSpec(bits=bits, po2_scale=po2, per_channel=per_channel)
+    for scale in (None, 0.02):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        s = None if scale is None else torch.tensor(scale)
+        (QZ.fake_quant(xt, spec, s) * torch.from_numpy(g)).sum().backward()
+        js = None if scale is None else jnp.asarray(scale)
+        want = jax.grad(lambda v: (JQZ.fake_quant(v, jspec, js)
+                                   * jnp.asarray(g)).sum())(jnp.asarray(x))
+        assert np.array_equal(xt.grad.numpy(), np.asarray(want))
+        assert (xt.grad == 0).any()
+
+
+def test_ste_only_where_autograd_records():
+    """Inference calls (no grad mode, or an input that needs none) run the
+    forward alone and record no graph; a training call goes through the
+    straight-through ``Function`` with the same values."""
+    x = torch.randn(4, 8, generator=torch.Generator().manual_seed(0))
+    for fn in (lambda t: QZ.fake_quant_dynamic(t, 8),
+               lambda t: QZ.fake_quant_dynamic_token(t, 4),
+               lambda t: QZ.fake_quant(t, Q.QuantSpec(bits=8))):
+        plain = fn(x)
+        assert plain.grad_fn is None
+        xr = x.clone().requires_grad_(True)
+        with torch.no_grad():
+            assert fn(xr).grad_fn is None
+        y = fn(xr)
+        assert type(y.grad_fn).__name__ == "_StraightThroughBackward"
+        assert torch.equal(y.detach(), plain)
+    assert QZ.fake_quant_dynamic(x.requires_grad_(True), 17) is x
