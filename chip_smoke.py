@@ -140,6 +140,25 @@ Phases:
     ``cnn_launches``; (e) where the time goes: the A8-W8 forward's eager
     latency beside its device time from a CUDA graph, and one training
     step's device-busy share under ``torch.profiler``.
+14. the mamba2 SSM family at mamba2-130m's full width (24 layers, d_model
+    768, 24 SSD heads of 64, d_state 128, chunk 256, vocab 50280, tied
+    embeddings): (a) in f32, TF32 off: prefill(31) + decode_step against
+    forward(32) at ``rel < 5e-5``, a ragged serve of prompts 4/300/517
+    against each prompt's solo generate, generate against
+    generate_stepwise, and a ``ContinuousScheduler`` asked for the paged
+    pool running contiguous with the static serve's tokens (a greedy flip
+    only at a top-2 margin under 1e-3); (b) K5 bit for bit on the
+    ``ssm_in``/``ssm_out``/tied-table images at bits 8 and 4, and K3 at
+    ``ssm_in`` (N 3352, rows not 16-byte aligned: bytewise split-K decode,
+    mma.sync prefill) and ``ssm_out`` (N 768) at M 1/8/16/512/4096, W8 and
+    W4, bf16 and f32 x, each with its route and device time beside
+    torch.matmul's; (c) the launcher's ``--arch mamba2-130m --full
+    --continuous`` workload (12 requests, 32 new tokens, 8 rows, bf16) with
+    fake-quant weights, then from ``to_native`` at W8 and W4: tok/s, peak
+    memory, the SSM state's bytes, K5 launches, K3 launches = 2 x 24 x
+    (decode steps + prefill waves) on the native runs; (d) under
+    ``torch.profiler``: one admission wave and one decode segment, their
+    device-busy share and top device operations.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -729,6 +748,94 @@ def qmatmul_bound(m, k, n, bits) -> dict:
 GRANITE_LINEARS = ((2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048))
 
 
+def k3_case(gen, m: int, k: int, n: int, bits: int, xdtype,
+            time_step0: bool = False) -> dict:
+    """One K3 call against its plain version (the tolerance and the times
+    of :func:`phase_qmatmul`'s docstring): random ``[k, n]`` weights
+    quantized per channel, ``x [m, k]`` in ``xdtype``; raises where they
+    disagree or two calls differ, prints the line and returns its row
+    (with the call's route, step 0's device time where ``time_step0`` and
+    the route is wgmma, and the operands)."""
+    from repro_torch.core.qtypes import QuantSpec
+    from repro_torch.core.quantizers import quantize_native
+    from repro_torch.kernels import qmatmul as QM
+    u = 2.0 ** -24
+    f32 = torch.float32
+    w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+    spec = QuantSpec(bits=bits, per_channel=True, channel_axis=-1,
+                     po2_scale=False)
+    qt = quantize_native(w, spec)
+    scale = qt.scale.reshape(-1).contiguous()
+    x = torch.randn((m, k), generator=gen, device="cuda").to(xdtype)
+    label = f"M={m} K={k} N={n} W{bits}" + (" f32 x" if xdtype == f32
+                                             else "")
+    got = QM.qmatmul(x, qt.data, scale, bits=bits)
+    route = QM.qmatmul.last_route
+    again = QM.qmatmul(x, qt.data, scale, bits=bits)
+    torch.cuda.synchronize()
+    want = QM.qmatmul_ref(x, qt.data, scale, bits)
+    wb = QM.dequant_ref(qt.data, scale, bits).bfloat16().float()
+    tol = 4 * k * u * (x.bfloat16().float().abs() @ wb.abs())
+    diff = (got - want).abs()
+    err = float(diff.max())
+    worst = float((diff / tol.clamp_min(1e-30)).max())
+    same = torch.equal(got, again)
+    if not bool((diff <= tol).all()) or not same:
+        raise AssertionError(f"K3 disagrees with its plain version at "
+                             f"{label} ({route}): max err {err:.3e}, "
+                             f"{worst:.2f}x the tolerance; two calls "
+                             f"equal: {same}")
+    big = m * k * n > 1e9
+    ws = rotating(lambda: qt.data.clone(), qt.data.numel())
+    kern = lambda wq: QM.qmatmul(x, wq, scale, bits=bits)  # noqa: E731
+    ms = cycle_time_ms(kern, ws, 50 if big else 200)
+    dev = cycle_graph_ms(kern, ws)
+    step0 = None
+    if route == "wgmma" and time_step0:
+        rule = QM.route_of          # the mma.sync kernel takes any call
+        QM.route_of = lambda *a: "mma_sync"  # noqa: E731
+        step0 = cycle_graph_ms(kern, ws)
+        QM.route_of = rule
+    plain = cycle_time_ms(lambda wq: QM.qmatmul_ref(x, wq, scale, bits),
+                          ws[:4], 10 if big else 50)
+    del ws
+    x16 = x.bfloat16()
+    wl = rotating(lambda: wb.bfloat16(), wb.numel() * 2)
+    lib = cycle_time_ms(lambda w16: torch.matmul(x16, w16), wl,
+                        50 if big else 200)
+    lib_dev = cycle_graph_ms(lambda w16: torch.matmul(x16, w16), wl)
+    del wl
+    bd = qmatmul_bound(m, k, n, bits)
+    if route == "splitk":
+        cols, splits, per = QM.split_plan(m, k, n, bits)
+        plan = (f"{-(-n // cols)} column tiles x {splits} splits of "
+                f"{per} rows")
+    elif route == "wgmma":
+        rows, cols, splits = QM.prefill_rows(m), QM.WGMMA_COLS, 1
+        plan = (f"{-(-m // rows)} x {-(-n // cols)} tiles of {rows} x "
+                f"{cols}")
+    else:
+        splits = 1
+        plan = f"{-(-m // 64)} x {-(-n // 128)} tiles of 64 x 128"
+    old = "" if step0 is None else (
+        f"; step 0 (mma.sync) device {step0:.4f} ms, "
+        f"{step0 / dev:.2f}x the new kernel")
+    print(f"[K3] {label}: route {route} ({plan}); max_abs_err={err:.3e} "
+          f"({worst:.3f}x tol), two calls bitwise equal; device "
+          f"{dev:.4f} ms, per call {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"torch.matmul bf16 device {lib_dev:.4f} / per call "
+          f"{lib:.4f} ms ({dev / lib_dev:.2f}x), bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+          f"{bd['bound_ms'] / dev:.3f} of it); "
+          f"{bd['flops'] / dev / 1e9:.1f} TFLOP/s, "
+          f"{bd['bytes'] / dev / 1e6:.1f} GB/s on the device{old}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "library_ms": lib,
+            "library_device_ms": lib_dev, "splits": splits, **bd,
+            "route": route, "label": label, "step0": step0, "x": x,
+            "qt": qt, "scale": scale, "got": got}
+
+
 def phase_qmatmul(seed: int) -> dict:
     """K3 against its plain version on the card: decode (M = 8) and prefill
     (M = 2048, and 4096 at W8) at granite-3-2b's four linear shapes, int8
@@ -757,12 +864,9 @@ def phase_qmatmul(seed: int) -> dict:
     ways. Step 0: the mma.sync prefill kernel, given (by setting the
     wrapper's rule aside) the bf16 granite cases the rule sends to wgmma,
     timed on the device the same way."""
-    from repro_torch.core.qtypes import QuantSpec
-    from repro_torch.core.quantizers import quantize_native
     from repro_torch.kernels import qmatmul as QM
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    u = 2.0 ** -24
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(m, k, n, bits, bf16) for m in (8, 2048)
              for k, n in GRANITE_LINEARS for bits in (8, 4)]
@@ -779,85 +883,23 @@ def phase_qmatmul(seed: int) -> dict:
     fused_at = {(2048, 2048, 2048, 8), (4096, 2048, 2048, 8)}
     main, main_prefill, decode, prefill = None, None, [], {}
     for m, k, n, bits, xdtype in cases:
-        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
-        spec = QuantSpec(bits=bits, per_channel=True, channel_axis=-1,
-                         po2_scale=False)
-        qt = quantize_native(w, spec)
-        scale = qt.scale.reshape(-1).contiguous()
-        x = torch.randn((m, k), generator=gen, device="cuda").to(xdtype)
-        label = f"M={m} K={k} N={n} W{bits}" + (" f32 x" if xdtype == f32
-                                                 else "")
-        got = QM.qmatmul(x, qt.data, scale, bits=bits)
-        route = QM.qmatmul.last_route
+        r = k3_case(gen, m, k, n, bits, xdtype, time_step0=(
+            (k, n) in GRANITE_LINEARS and bits == 8))
+        route, label, dev, step0 = (r["route"], r["label"], r["device_ms"],
+                                    r["step0"])
         if (m > 16 and (k, n) in GRANITE_LINEARS and xdtype == bf16
                 and route != "wgmma"):
             raise AssertionError(f"K3 at the main path's {label} took "
                                  f"{route}, not the wgmma kernel")
-        again = QM.qmatmul(x, qt.data, scale, bits=bits)
-        torch.cuda.synchronize()
-        want = QM.qmatmul_ref(x, qt.data, scale, bits)
-        wb = QM.dequant_ref(qt.data, scale, bits).bfloat16().float()
-        tol = 4 * k * u * (x.bfloat16().float().abs() @ wb.abs())
-        diff = (got - want).abs()
-        err = float(diff.max())
-        worst = float((diff / tol.clamp_min(1e-30)).max())
-        same = torch.equal(got, again)
-        if not bool((diff <= tol).all()) or not same:
-            raise AssertionError(f"K3 disagrees with its plain version at "
-                                 f"{label} ({route}): max err {err:.3e}, "
-                                 f"{worst:.2f}x the tolerance; two calls "
-                                 f"equal: {same}")
-        big = m * k * n > 1e9
-        ws = rotating(lambda: qt.data.clone(), qt.data.numel())
-        kern = lambda wq: QM.qmatmul(x, wq, scale, bits=bits)  # noqa: E731
-        ms = cycle_time_ms(kern, ws, 50 if big else 200)
-        dev = cycle_graph_ms(kern, ws)
-        step0 = None
-        if route == "wgmma" and (k, n) in GRANITE_LINEARS and bits == 8:
-            rule = QM.route_of          # the mma.sync kernel takes any call
-            QM.route_of = lambda *a: "mma_sync"  # noqa: E731
-            step0 = cycle_graph_ms(kern, ws)
-            QM.route_of = rule
-        plain = cycle_time_ms(lambda wq: QM.qmatmul_ref(x, wq, scale, bits),
-                              ws[:4], 10 if big else 50)
-        del ws
-        x16 = x.bfloat16()
-        wl = rotating(lambda: wb.bfloat16(), wb.numel() * 2)
-        lib = cycle_time_ms(lambda w16: torch.matmul(x16, w16), wl,
-                            50 if big else 200)
-        lib_dev = cycle_graph_ms(lambda w16: torch.matmul(x16, w16), wl)
-        del wl
-        bd = qmatmul_bound(m, k, n, bits)
-        if route == "splitk":
-            cols, splits, per = QM.split_plan(m, k, n, bits)
-            plan = (f"{-(-n // cols)} column tiles x {splits} splits of "
-                    f"{per} rows")
-        elif route == "wgmma":
-            rows, cols, splits = QM.prefill_rows(m), QM.WGMMA_COLS, 1
-            plan = (f"{-(-m // rows)} x {-(-n // cols)} tiles of {rows} x "
-                    f"{cols}")
-        else:
-            splits = 1
-            plan = f"{-(-m // 64)} x {-(-n // 128)} tiles of 64 x 128"
-        old = "" if step0 is None else (
-            f"; step 0 (mma.sync) device {step0:.4f} ms, "
-            f"{step0 / dev:.2f}x the new kernel")
-        print(f"[K3] {label}: route {route} ({plan}); max_abs_err={err:.3e} "
-              f"({worst:.3f}x tol), two calls bitwise equal; device "
-              f"{dev:.4f} ms, per call {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"torch.matmul bf16 device {lib_dev:.4f} / per call "
-              f"{lib:.4f} ms ({dev / lib_dev:.2f}x), bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
-              f"{bd['bound_ms'] / dev:.3f} of it); "
-              f"{bd['flops'] / dev / 1e9:.1f} TFLOP/s, "
-              f"{bd['bytes'] / dev / 1e6:.1f} GB/s on the device{old}")
-        row = {"max_abs_err": err, "ms": ms, "device_ms": dev,
-               "plain_ms": plain, "library_ms": lib,
-               "library_device_ms": lib_dev, "splits": splits, **bd}
+        x, qt, scale, got = r["x"], r["qt"], r["scale"], r["got"]
+        row = {key: r[key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "splits", "bound_ms", "bound_by", "bytes",
+            "flops")}
         if m <= 16 and (k, n) in GRANITE_LINEARS:
             decode.append((label, dev))
         if step0 is not None:
-            prefill[(m, k, n)] = (dev, step0, lib_dev)
+            prefill[(m, k, n)] = (dev, step0, r["library_device_ms"])
         if (m, k, n, bits) == (8, 2048, 16384, 8):
             main = row
         if (m, k, n, bits) == (2048, 2048, 16384, 8):
@@ -959,6 +1001,42 @@ def qmatmul_prefill_sweep(seed: int) -> None:
     QM.qmatmul.launches = 0
 
 
+def k5_case(label: str, x, bits: int, po2: bool, timed: bool) -> dict:
+    """K5 on ``x`` against its plain version, bit for bit (raises where
+    they differ); with ``timed`` also its device time from a CUDA graph,
+    per call and the plain version's beside the bytes bound (x read once)
+    and the read-twice floor. Returns the kernel-table row (``None``
+    untimed)."""
+    from repro_torch.kernels import aquant as AQ
+    view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    got = AQ.aquant(x, bits, po2)
+    torch.cuda.synchronize()
+    want = AQ.aquant_ref(x, bits, po2)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got.view(view), want.view(view)):
+        raise AssertionError(f"K5 differs from its plain version at {label} "
+                             f"bits={bits} po2={po2}: max err {err:g}")
+    if not timed:
+        print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal")
+        return None
+    nbytes = 2 * x.numel() * x.element_size()
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    floor = 1.5 * bound                 # x read twice: the amax comes first
+    ms = cuda_time_ms(lambda: AQ.aquant(x, bits, po2), iters=50, warmup=5)
+    dev = graph_ms(lambda: AQ.aquant(x, bits, po2))
+    plain = cuda_time_ms(lambda: AQ.aquant_ref(x, bits, po2), iters=10,
+                         warmup=2)
+    print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal; device "
+          f"{dev:.4f} ms, per call {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound:.4f} ms (bytes: {nbytes} B, x read once, {bound / dev:.3f}"
+          f" of it), read-twice floor {floor:.4f} ms, "
+          f"{nbytes / dev / 1e6:.1f} GB/s; no single PyTorch call computes "
+          f"it")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "library_ms": None, "library_device_ms": None,
+            "bound_ms": bound, "bound_by": "bytes", "floor_ms": floor}
+
+
 def phase_aquant(seed: int) -> dict:
     """K5 against its plain version on the card, bit for bit: the shapes of
     the prequant images ([2048, 16384], [8192, 2048]) and the tied head's
@@ -967,11 +1045,6 @@ def phase_aquant(seed: int) -> dict:
     f32 step above it, where ceil(log2(.)) decides the grid."""
     from repro_torch.kernels import aquant as AQ
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
-
-    def bits_of(t):
-        return t.view(torch.int16 if t.dtype == torch.bfloat16
-                      else torch.int32)
-
     cases = []
     for shape in ((2048, 16384), (8192, 2048), (2048, 49155)):
         x = torch.randn(shape, generator=gen, device="cuda") * 0.05
@@ -990,39 +1063,11 @@ def phase_aquant(seed: int) -> dict:
                   for po2 in (True, False)]
     main = None
     for label, x, bits, po2 in cases:
-        got = AQ.aquant(x, bits, po2)
-        torch.cuda.synchronize()
-        want = AQ.aquant_ref(x, bits, po2)
-        same = torch.equal(bits_of(got), bits_of(want))
-        err = float((got.float() - want.float()).abs().max())
-        if not same:
-            raise AssertionError(f"K5 differs from its plain version at "
-                                 f"{label} bits={bits} po2={po2}: max err "
-                                 f"{err:g}")
         timed = "+" not in label and "= 2^" not in label and (
             bits == 8 or "49155" in label)
-        if timed:
-            nbytes = 2 * x.numel() * x.element_size()
-            bound = nbytes / H100_BYTES_PER_S * 1e3
-            floor = 1.5 * bound         # x read twice: the amax comes first
-            ms = cuda_time_ms(lambda: AQ.aquant(x, bits, po2), iters=50,
-                              warmup=5)
-            dev = graph_ms(lambda: AQ.aquant(x, bits, po2))
-            plain = cuda_time_ms(lambda: AQ.aquant_ref(x, bits, po2),
-                                 iters=10, warmup=2)
-            print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal; "
-                  f"device {dev:.4f} ms, per call {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bound:.4f} ms (bytes: {nbytes} B"
-                  f", x read once), read-twice floor {floor:.4f} ms, "
-                  f"{nbytes / dev / 1e6:.1f} GB/s; no single PyTorch call "
-                  f"computes it")
-            if label.startswith("2048x49155") and bits == 8 and po2:
-                main = {"max_abs_err": err, "ms": ms, "device_ms": dev,
-                        "plain_ms": plain, "library_ms": None,
-                        "library_device_ms": None, "bound_ms": bound,
-                        "bound_by": "bytes", "floor_ms": floor}
-        else:
-            print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal")
+        row = k5_case(label, x, bits, po2, timed)
+        if label.startswith("2048x49155") and bits == 8 and po2:
+            main = row
     AQ.aquant.launches = 0                # comparison launches do not count
     return main
 
@@ -3881,6 +3926,306 @@ def phase_cnn_profile(seed: int) -> None:
               f"{e.count / 5:5.0f}x  {e.key[:90]}")
     AQ.aquant.launches = 0
 
+# ---------------------------------------------------------------------------
+# phase 14: the mamba2 SSM family at mamba2-130m's full width
+# ---------------------------------------------------------------------------
+
+MAMBA2 = "mamba2-130m"
+MAMBA2_LINEARS = ((768, 3352), (1536, 768))    # ssm_in, ssm_out as (K, N)
+
+
+def mamba2_state_bytes(rows: int) -> int:
+    """f32 SSM state of ``rows`` rows of mamba2-130m: 24 layers of ``h``
+    (24 heads x 64 x d_state 128) and the conv window (3 x conv_dim
+    1792)."""
+    return rows * 24 * (24 * 64 * 128 + 3 * 1792) * 4
+
+
+def check_tokens(cfg, params, engine, reqs, got, want, what: str) -> None:
+    """``got`` must equal ``want`` token for token; a greedy flip passes
+    only where the top-2 logits of ``want``'s solo replay lie within 1e-3
+    (another batching moves the chunk boundaries of the f32 sums)."""
+    same = got == want
+    print(f"[mamba2] (a) {what}: tokens identical: {same} "
+          f"({sum(map(len, got))} tokens)")
+    if not same:
+        margin = first_divergence(cfg, params, engine, reqs, got, want, 16)
+        if not margin < 1e-3:
+            raise AssertionError(f"{what}: tokens diverge at a top-2 margin "
+                                 f"of {margin:.3e}")
+
+
+def phase_ssm_parity(seed: int) -> None:
+    """Phase 14 (a): mamba2-130m's full config (24 layers, d_model 768,
+    chunk 256), random weights from ``seed``, f32, TF32 off. Prefill of 31
+    tokens then one ``decode_step`` against ``forward`` over 32 at the float
+    profile (the reference's relation, ``rel < 5e-5``); a ragged ``serve``
+    of prompts 4, 300 and 517 (inside one chunk, past the first chunk, three
+    chunks) against each prompt's solo ``generate``; ``generate`` against
+    ``generate_stepwise``; a ``ContinuousScheduler`` asked for the paged
+    pool runs contiguous and gives the static serve's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import Profile, paper_profiles, profile_table
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(MAMBA2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    with use_compute_dtype(torch.float32):
+        br = profile_table([Profile.float32(names)], names)[0]
+        toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen,
+                             device="cuda")
+        hidden, _, _ = T.forward(params, cfg, br, {"tokens": toks})
+        full = T._logits(cfg, params, br, hidden[:, -1:])[:, 0]
+        _, caches = T.prefill(params, cfg, br, {"tokens": toks[:, :31]}, 36)
+        dec, _ = T.decode_step(params, cfg, br, toks[:, 31:],
+                               torch.full((2,), 31, dtype=torch.int32,
+                                          device="cuda"), caches)
+        rel = float((dec - full).abs().max()) / max(
+            1e-9, float(full.abs().max()))
+        print(f"[mamba2] (a) full width ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}), f32: prefill(31) + decode_step vs forward(32)"
+              f" logits rel {rel:.3e} (< 5e-5: {rel < 5e-5})")
+        if not rel < 5e-5:
+            raise AssertionError(f"prefill + decode != forward: rel {rel}")
+        engine = AdaptiveEngine(tuple(paper_profiles(names)),
+                                QuantIndex(names))
+        rng = np.random.default_rng(seed)
+        reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                        max_new=8) for n in (4, 300, 517)]
+        srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+            slots=1024, max_batch=4), device="cuda")
+        ragged = [r["tokens"] for r in srv.serve(reqs)]
+        solo = [srv.generate(r.tokens[None], r.max_new)["tokens"][0]
+                for r in reqs]
+        check_tokens(cfg, params, engine, reqs, ragged, solo,
+                     "ragged serve of prompts 4/300/517 vs solo generate")
+        prompts = np.stack([reqs[1].tokens,
+                            rng.integers(0, cfg.vocab, 300).astype(np.int32)])
+        fused = srv.generate(prompts, 8)["tokens"]
+        stepwise = srv.generate_stepwise(prompts, 8)["tokens"]
+        print(f"[mamba2] (a) generate vs generate_stepwise (2 x 300 "
+              f"tokens, 8 new): identical: {fused == stepwise}")
+        if fused != stepwise:
+            raise AssertionError(f"generate {fused} != stepwise {stepwise}")
+        sched = ContinuousScheduler(AdaptiveServer(
+            cfg, params, engine, ServingConfig(slots=1024, max_batch=4,
+                                               paged_kv=True),
+            device="cuda"), quantum=4)
+        print(f"[mamba2] (a) ContinuousScheduler with paged_kv=True: paged "
+              f"{sched.paged}, caches {sorted(sched._caches)}")
+        if sched.paged or set(sched._caches) != {"ssm"}:
+            raise AssertionError("an SSM stack must run the contiguous pool")
+        for r in reqs:
+            sched.submit(r)
+        res = sched.run()
+        check_tokens(cfg, params, engine, reqs,
+                     [res[i]["tokens"] for i in range(len(reqs))], ragged,
+                     "continuous scheduler vs static serve")
+    del params, srv, sched
+    torch.cuda.empty_cache()
+
+
+def phase_ssm_kernels(seed: int) -> None:
+    """Phase 14 (b): K5 and K3 at mamba2-130m's shapes against their plain
+    versions. K5 bit for bit on each weight image it builds — ``ssm_in``
+    ``[768, 3352]``, ``ssm_out`` ``[1536, 768]`` (one layer each), the
+    tied embedding table ``50280 x 768`` — at bits 8 and 4, device time
+    from a CUDA graph beside the bytes bound. K3 (:func:`k3_case`: the
+    tolerance, device time with cold weights beside torch.matmul's) at M 1,
+    8 and 16 (decode, the split-K kernel) and 512 and 4096 (a prefill wave
+    of 1 and 8 rows of 512), at ``ssm_in`` (N 3352: rows of 3352 bytes at
+    W8 and 1676 at W4, not 16-byte multiples, so decode loads bytewise and
+    prefill takes the mma.sync kernel) and ``ssm_out`` (N 768), W8 and W4,
+    bf16 and f32 x; then K3's device time per decode step (M 8) and per
+    prefill wave (M 4096), 24 layers x both linears, bf16 W8."""
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import qmatmul as QM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    sites = [("ssm_in 768x3352", (768, 3352), 768 ** -0.5),
+             ("ssm_out 1536x768", (1536, 768), 1536 ** -0.5),
+             ("embed / tied head 50280x768", (50280, 768), 0.02)]
+    for label, shape, std in sites:
+        x = torch.randn(shape, generator=gen, device="cuda") * std
+        for bits in (8, 4):
+            k5_case(f"mamba2 {label}", x, bits, True, timed=True)
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev_ms = {}
+    for k, n in MAMBA2_LINEARS:
+        for bits in (8, 4):
+            for xdtype in (bf16, f32):
+                for m in (1, 8, 16, 512, 4096):
+                    r = k3_case(gen, m, k, n, bits, xdtype)
+                    dev_ms[(m, k, n, bits, xdtype)] = (
+                        r["device_ms"], r["library_device_ms"])
+    for m, what in ((8, "decode step"), (4096, "prefill wave")):
+        k3 = 24 * sum(dev_ms[(m, k, n, 8, bf16)][0] for k, n in MAMBA2_LINEARS)
+        lib = 24 * sum(dev_ms[(m, k, n, 8, bf16)][1]
+                       for k, n in MAMBA2_LINEARS)
+        bound = 24 * sum(qmatmul_bound(m, k, n, 8)["bound_ms"]
+                         for k, n in MAMBA2_LINEARS)
+        print(f"[mamba2] (b) K3 per {what} at M={m} W8 bf16: 24 layers x "
+              f"ssm_in + ssm_out device {k3:.4f} ms, torch.matmul bf16 "
+              f"{lib:.4f} ms, bound {bound:.4f} ms")
+    QM.qmatmul.launches = AQ.aquant.launches = 0   # comparisons do not count
+
+
+def phase_ssm_serve(seed: int, w_bits=None) -> dict:
+    """Phase 14 (c): the launcher's ``--arch mamba2-130m --full
+    --continuous`` workload — 12 requests, prompts of 64–512 tokens from
+    ``seed``, 32 new tokens, 8 rows, bf16 — with fake-quant weights
+    (``w_bits`` None: the launcher's own ``build_server``) or from
+    ``to_native(params, w_bits)`` (the f32 masters freed first). The
+    counts are zeroed just before the server is built (its weight images
+    are K5's work) and read after the serve. The pool must be contiguous
+    and hold ``mamba2_state_bytes(8)``; every request completes with 32
+    in-vocabulary tokens; K5 launches; on the native runs K3 launches 2 x
+    24 x (decode steps + prefill waves) and the dequantize-then-matmul
+    branch never, on the fake-quant run K3 never."""
+    import gc
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import qmatmul as QM
+    from repro_torch.launch import serve as S
+    from repro_torch.models import layers as LY
+    from repro_torch.models import transformer as T
+    from repro_torch.models.native import to_native
+    from repro_torch.serving.engine import (AdaptiveServer, RequestStatus,
+                                            ServingConfig)
+
+    args = S.parse_args(["--arch", MAMBA2, "--continuous", "--full",
+                         "--requests", "12", "--max-new", "32",
+                         "--quantum", "8", "--seed", str(seed)])
+    tag = "fake-quant" if w_bits is None else f"native W{w_bits}"
+    nat = None
+    if w_bits is not None:
+        from repro_torch.configs import get_config
+        cfg = get_config(args.arch)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        params = T.init_params(cfg, gen, device="cuda")
+        nat = to_native(params, w_bits)
+        del params
+        gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    QM.qmatmul.launches = AQ.aquant.launches = LY.dequant_matmul.calls = 0
+    if nat is None:
+        cfg, srv = S.build_server(args)
+    else:
+        names = T.quant_layer_names(cfg)
+        profs = paper_profiles(names, inner_layers=[])
+        engine = AdaptiveEngine(tuple(profs), QuantIndex(names))
+        stats = S.profile_stats(cfg, profs, T.param_count(nat))
+        mgr = ProfileManager(stats, accuracy_target=0.985,
+                             accuracy_floor=0.95,
+                             budget_j=stats[0].energy_j
+                             * args.budget_inferences, low_energy=0.5)
+        srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
+            slots=1024, max_batch=8), manager=mgr, device="cuda")
+    reqs = S.make_requests(cfg, args)
+    out = S.serve(srv, reqs, args.quantum, continuous=True)
+    k3, k5, deq = (QM.qmatmul.launches, AQ.aquant.launches,
+                   LY.dequant_matmul.calls)
+    results, sched, wall = out["results"], out["sched"], out["wall_s"]
+    for i, r in enumerate(results):
+        if r["status"] is not RequestStatus.COMPLETED or len(r["tokens"]) != 32:
+            raise AssertionError(f"mamba2 {tag} request {i}: {r['status']}, "
+                                 f"{len(r['tokens'])} tokens")
+        if not all(0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"mamba2 {tag} request {i}: token out of "
+                                 f"vocab")
+    state = sched.paged_stats()["kv_bytes"]
+    want_state = mamba2_state_bytes(sched.n_slots)
+    steps = sched.decode_steps
+    waves = len(sched.events) - steps          # one billing event per wave
+    want_k3 = 2 * cfg.n_layers * (steps + waves) if w_bits else 0
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r["tokens"]) for r in results)
+    print(f"[mamba2] (c) {tag}: {len(results)} requests, prompts "
+          f"{min(len(r.tokens) for r in reqs)}-"
+          f"{max(len(r.tokens) for r in reqs)}, {n_tok} tokens in "
+          f"{wall:.3f}s = {n_tok / wall:.2f} tok/s; {steps} decode steps, "
+          f"{waves} prefill waves, {sched.segments_run} segments; peak "
+          f"memory {peak / 2**30:.3f} GiB; SSM state {state} B = 8 x 24 x "
+          f"(24*64*128 + 3*1792) x 4 B: {state == want_state}; paged "
+          f"{sched.paged}")
+    print(f"[mamba2] (c) {tag}: K5 launches {k5}; K3 launches {k3} = 2 x "
+          f"{cfg.n_layers} layers x ({steps} decode steps + {waves} prefill "
+          f"waves) = {want_k3}: {k3 == want_k3}; dequant-matmul calls {deq}")
+    if sched.paged or state != want_state:
+        raise AssertionError(f"mamba2 {tag}: the SSM pool is not the "
+                             f"contiguous {want_state} B state")
+    if k5 == 0 or k3 != want_k3 or deq:
+        raise AssertionError(f"mamba2 {tag} did not run through K5 and K3 "
+                             f"as counted")
+    del srv, sched, out, nat
+    torch.cuda.empty_cache()
+    return {"k3": k3, "k5": k5, "tok_s": n_tok / wall, "peak": peak}
+
+
+def phase_ssm_profile(seed: int) -> None:
+    """Phase 14 (d): where the time goes on phase 14 (c)'s fake-quant
+    server, bf16, under ``torch.profiler``: one admission wave of 8
+    prompts (the chunked SSD prefill; a first wave on another scheduler
+    warms the server) and one decode segment of 8 steps after a warm one:
+    wall time, device-busy time and share, and the device operations that
+    take the most."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve as S
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    args = S.parse_args(["--arch", MAMBA2, "--full", "--requests", "8",
+                         "--max-new", "32", "--seed", str(seed)])
+    cfg, srv = S.build_server(args)
+    reqs = S.make_requests(cfg, args)
+    warm = ContinuousScheduler(srv, quantum=8)
+    for r in reqs:
+        warm.submit(r)
+    warm.admit()
+    del warm
+    sched = ContinuousScheduler(srv, quantum=8)
+    for r in reqs:
+        sched.submit(r)
+
+    def traced(label, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        print(f"[mamba2] (d) {label}: wall {wall:.3f} ms, device busy "
+              f"{busy:.3f} ms ({100 * busy / wall:.1f}%), "
+              f"{sum(e.count for e in ev)} device kernels")
+        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"[mamba2] (d)   {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x  {e.key[:90]}")
+
+    lens = sorted(len(r.tokens) for r in reqs)
+    traced(f"one admission wave (8 prompts of {lens[0]}-{lens[-1]} tokens, "
+           f"the chunked SSD prefill of {cfg.n_layers} layers)", sched.admit)
+    sched.run_segment()                        # warm
+    sched._flush()
+    traced(f"one decode segment (8 steps x {cfg.n_layers} layers, 8 rows)",
+           lambda: (sched.run_segment(), sched._flush()))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3899,7 +4244,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     its step 0's device time, K5 its read-twice floor), plus ``extra``
     keys (phase 10's launches under the precision policy, phase 11's
     under injected faults, phase 12's after restarts, phase 13's on the
-    CNN path)."""
+    CNN path, phase 14's on the mamba2 path: K3's native W8 serve, K5's
+    fake-quant one)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -3923,7 +4269,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -4002,6 +4349,14 @@ def main() -> None:
         phase_cnn_grad(args.seed)
         cnn = phase_cnn_paper(args.seed)
         phase_cnn_profile(args.seed)
+    mamba2 = {"k3": 0, "k5": 0}
+    if 14 in phases:
+        phase_ssm_parity(args.seed)
+        phase_ssm_kernels(args.seed)
+        mamba2["k5"] = phase_ssm_serve(args.seed)["k5"]
+        mamba2["k3"] = phase_ssm_serve(args.seed, 8)["k3"]
+        phase_ssm_serve(args.seed, 4)
+        phase_ssm_profile(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -4018,7 +4373,7 @@ def main() -> None:
             durable_launches=durable["k2"]))
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
-            native["k3"], rows["k3"]))
+            native["k3"], rows["k3"], mamba2_launches=mamba2["k3"]))
         kernels.append(kernel_entry(
             "qkv_attention", "qkv_attention.cu",
             "src/repro/kernels/qkv_attention.py:68", static["launches"],
@@ -4026,7 +4381,8 @@ def main() -> None:
             fault_launches=faults["k4"]))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
-            native["k5"], rows["k5"], cnn_launches=cnn["k5"]))
+            native["k5"], rows["k5"], cnn_launches=cnn["k5"],
+            mamba2_launches=mamba2["k5"]))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Architecture registry of the port. The dense granite-3-2b is the first
-slice; the other families of ``repro.configs`` follow with their models."""
+"""Architecture registry of the port: the dense granite-3-2b and the SSM
+mamba2-130m; the other families of ``repro.configs`` follow with their
+models."""
 from __future__ import annotations
 
 import importlib
@@ -8,6 +9,7 @@ from .common import ModelConfig, smoke_of
 
 _MODULES = {
     "granite-3-2b": "granite_3_2b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 ARCHS = tuple(_MODULES)

@@ -1,18 +1,21 @@
-"""Config helpers (port of ``repro/configs/common.py``, dense family)."""
+"""Config helpers (port of ``repro/configs/common.py``, dense and SSM
+families)."""
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.models.ssm import SSMConfig
 from repro_torch.models.transformer import ModelConfig
 
-__all__ = ["ModelConfig", "smoke_of"]
+__all__ = ["ModelConfig", "SSMConfig", "smoke_of"]
 
 
 def smoke_of(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the reference's
-    widths: 2 layers, d_model 64, 4/2 heads of 16, d_ff 128, vocab 512)."""
-    if cfg.moe is not None or cfg.ssm is not None:
-        raise NotImplementedError("MoE and SSM families are not ported yet")
+    widths: 2 layers, d_model 64, 4/2 heads of 16, d_ff 128, vocab 512; an
+    SSM stack gets 8 SSD heads of 16, d_state 16 and chunk 16)."""
+    if cfg.moe is not None:
+        raise NotImplementedError("the MoE family is not ported yet")
     kw = dict(
         name=cfg.name + "-smoke",
         n_layers=2,
@@ -29,5 +32,10 @@ def smoke_of(cfg: ModelConfig, **overrides) -> ModelConfig:
         sliding_window=16 if cfg.sliding_window else 0,
         remat=False,
     )
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(d_state=16, head_dim=16, expand=2,
+                              d_conv=4, n_groups=1, chunk=16)
+        kw["n_heads"] = 8   # d_inner 128 / head_dim 16
+        kw["n_kv"] = 8 if cfg.family == "ssm" else 2
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)

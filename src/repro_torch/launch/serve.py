@@ -48,10 +48,14 @@ drain: admission stops, every admitted row finishes, a final checkpoint is
 cut (with ``--journal-dir``) and the queued requests stay journaled for
 the next process.
 
-Runs on the GPU unless ``--device cpu`` is given. ``--full`` serves the
-published configuration (granite-3-2b: 40 layers, d_model 2048) with
-prompts of 64–512 tokens, ``slots=1024`` and 8 rows; without it, the smoke
-configuration with prompts of 4–23 tokens, ``slots=256`` and 4 rows.
+Runs on the GPU unless ``--device cpu`` is given. ``--arch`` picks
+granite-3-2b (the default) or mamba2-130m; an SSM stack keeps the
+contiguous pool under ``--continuous`` (``--no-paged-kv`` is implied) and
+refuses ``--speculate`` and ``--preemption``, as the reference does.
+``--full`` serves the published configuration (granite-3-2b: 40 layers,
+d_model 2048; mamba2-130m: 24 layers, d_model 768) with prompts of 64–512
+tokens, ``slots=1024`` and 8 rows; without it, the smoke configuration
+with prompts of 4–23 tokens, ``slots=256`` and 4 rows.
 """
 from __future__ import annotations
 

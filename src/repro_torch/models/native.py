@@ -1,10 +1,10 @@
 """Fake-mode → native-mode parameter conversion (port of
-``repro/models/native.py``, dense family).
+``repro/models/native.py``, dense and SSM families).
 
 Walks a parameter tree and replaces every quantizable linear's float master
 ``w`` with its integer carrier ``wq`` (:class:`~repro_torch.core.quantizers.
-QTensor`: per-output-channel float scales, int8 or packed int4). Norms and
-biases stay float. Layer-stacked ``[L, ...]`` leaves get per-layer scales
+QTensor`: per-output-channel float scales, int8 or packed int4). Norms,
+biases, the SSD block's conv weights and its per-head scalars stay float. Layer-stacked ``[L, ...]`` leaves get per-layer scales
 ``[L, 1, N]``, as the reference's ``vmap(quantize_native)`` gives them.
 """
 from __future__ import annotations
@@ -18,8 +18,9 @@ from repro_torch.core.quantizers import QTensor, quantize_native
 
 __all__ = ["to_native", "NATIVE_SITES"]
 
-# dict-valued linear sites of the dense family (each holds {"w": ..})
-_LINEAR_KEYS = {"qkv", "attn_out", "w_in", "w_out", "lm_head", "embed"}
+# dict-valued linear sites of the dense and SSM families ({"w": ..} each)
+_LINEAR_KEYS = {"qkv", "attn_out", "w_in", "w_out", "in_proj", "out_proj",
+                "lm_head", "embed"}
 NATIVE_SITES = tuple(sorted(_LINEAR_KEYS))
 
 

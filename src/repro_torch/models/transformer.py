@@ -1,5 +1,5 @@
-"""LM assembly for the port (port of ``repro/models/transformer.py``, dense
-family).
+"""LM assembly for the port (port of ``repro/models/transformer.py``, the
+dense and the SSM families).
 
 Parameters and caches keep the reference's stacked ``[L, ...]`` layout, so
 conversion is one to one and the per-layer loop indexes layer ``l``. The
@@ -22,6 +22,14 @@ refined (:func:`~repro_torch.models.attention.kv_refine`) right after the
 QKV projection in ``forward``, ``forward_extend`` and ``decode_step``, so
 the attention read, the cache write, the int-KV scale and the collected
 masters see the refined values. ``None`` runs exactly the policy-free ops.
+
+The SSM family (mamba2) swaps each layer's attention and MLP for one SSD
+block (:mod:`repro_torch.models.ssm`, sites ``ssm_in``/``ssm_out``) behind
+an RMS norm: ``forward``/``prefill`` run the chunked scan and hand each
+row's final state off as ``caches["ssm"]`` (an ``SSMState`` stacked ``[L,
+...]``, no ``"kv"``), and ``decode_step`` advances that state in place.
+Continuation prefill and speculation stay attention-only, as in the
+reference (``supports_prefix_sharing``/``supports_speculation``).
 """
 from __future__ import annotations
 
@@ -41,6 +49,8 @@ from .attention import (KVCache, PagedKVCache, _dequantize_kv, _mapped,
                         prefix_attention, stack_layers, update_kv_cache,
                         update_kv_cache_window, update_paged_kv_cache,
                         update_paged_kv_cache_window)
+from .ssm import (SSMState, init_ssm, init_ssm_state, ssd_forward,
+                  ssm_decode_step)
 from .layers import (SIGNED_SYM, embed_lookup, init_embed, init_linear,
                      init_norm, qlinear, rms_norm)
 from .mlp import init_mlp, mlp
@@ -66,7 +76,8 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's config, field for field (the port implements the
-    dense family; ``moe``/``ssm`` stay ``None``)."""
+    dense and SSM families; ``moe`` stays ``None``, ``ssm`` is a
+    :class:`~repro_torch.models.ssm.SSMConfig`)."""
 
     name: str
     family: str
@@ -103,18 +114,36 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def has_attn(self) -> bool:
+        return self.family in ("dense", "moe", "hybrid", "vlm", "audio")
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_mlp(self) -> bool:
+        return self.family in ("dense", "hybrid", "vlm", "audio")
+
     def window(self, skv: int) -> int:
         return self.sliding_window if self.sliding_window else skv + 1
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.sliding_window or cfg.mrope
-            or cfg.norm != "rms" or not cfg.causal or cfg.frontend):
+def _require_ported(cfg: ModelConfig) -> None:
+    """Admit the families the port implements: dense full attention and
+    the pure SSM stack (hybrid, MoE, VLM, audio and sliding windows are
+    refused)."""
+    if (cfg.family not in ("dense", "ssm") or cfg.sliding_window
+            or cfg.mrope or cfg.norm != "rms" or not cfg.causal
+            or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense full-attention family is ported")
+            f"{cfg.name}: only the dense full-attention and the SSM "
+            f"families are ported")
 
 
-_SITES = {"dense": ("qkv", "attn_out", "mlp_in", "mlp_out")}
+_SITES = {"dense": ("qkv", "attn_out", "mlp_in", "mlp_out"),
+          "ssm": ("ssm_in", "ssm_out")}
 _GLOBAL_SITES = ("embed", "lm_head")
 
 
@@ -147,11 +176,28 @@ def _site_idx(cfg: ModelConfig, name: str) -> int:
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     """Random parameters with the reference's distributions: linears
     ``N(0, 1/d_in)``, embedding ``N(0, 0.02²)``, untied head ``N(0, 0.02²)``,
-    norms at one. Layers are drawn stacked ``[L, ...]`` from ``gen``, which
-    must live on ``device``."""
-    _require_dense(cfg)
+    norms at one, SSD blocks as :func:`~repro_torch.models.ssm.init_ssm`.
+    Layers are drawn stacked ``[L, ...]`` from ``gen``, which must live on
+    ``device``."""
+    _require_ported(cfg)
+    L, d = cfg.n_layers, cfg.d_model
+    if cfg.family == "ssm":
+        layers = {"ssm": init_ssm(gen, d, cfg.ssm, layers=L, device=device),
+                  "norm_ssm": init_norm(d, layers=L, device=device)}
+    else:
+        layers = _init_dense_layers(cfg, gen, device)
+    p = {"layers": layers, "norm_f": init_norm(d, device=device),
+         "embed": init_embed(gen, cfg.vocab, d, device=device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_linear(gen, d, cfg.vocab, scale=0.02,
+                                   device=device)
+    return p
+
+
+def _init_dense_layers(cfg: ModelConfig, gen: torch.Generator,
+                       device) -> dict:
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
-    layers = {
+    return {
         "qkv": init_linear(gen, d, (cfg.n_heads + 2 * cfg.n_kv) * hd,
                            bias=cfg.qkv_bias, layers=L, device=device),
         "attn_out": init_linear(gen, cfg.n_heads * hd, d, layers=L,
@@ -161,12 +207,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
                         device=device),
         "norm_mlp": init_norm(d, layers=L, device=device),
     }
-    p = {"layers": layers, "norm_f": init_norm(d, device=device),
-         "embed": init_embed(gen, cfg.vocab, d, device=device)}
-    if not cfg.tie_embeddings:
-        p["lm_head"] = init_linear(gen, d, cfg.vocab, scale=0.02,
-                                   device=device)
-    return p
 
 
 def _leaves(tree):
@@ -259,12 +299,16 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
             collect: bool = False, kv_sched=None):
     """Backbone over a full sequence → (hidden [B,S,d], aux, collected);
     ``collected`` is ``(k, v)``, each ``[L, B, S, Hkv, hd]``, with
-    ``collect`` (the prefill → cache handoff). ``kv_sched`` (``[L]``
-    bit-widths, optional) refines each layer's fresh K/V before attention
-    and collection."""
-    _require_dense(cfg)
+    ``collect`` (the prefill → cache handoff) — on the SSM stack each
+    layer's final state ``(h [L, B, H, P, N], conv_tail [L, B, K−1,
+    convdim])``. ``kv_sched`` (``[L]`` bit-widths, optional) refines each
+    layer's fresh K/V before attention and collection; the SSM stack has
+    none."""
+    _require_ported(cfg)
     x, positions, valid = _embed_inputs(cfg, params, bits_row, batch)
     _, _, layer_bits = split_bits(cfg, bits_row)
+    if cfg.family == "ssm":
+        return _forward_ssm(params, cfg, layer_bits, x, valid, collect)
     sched = _kv_row(cfg, kv_sched)
     s = x.shape[1]
     ks, vs = [], []
@@ -285,6 +329,29 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     aux = torch.zeros((), device=x.device)
     collected = (torch.stack(ks), torch.stack(vs)) if collect else ()
     return x, aux, collected
+
+
+def _ssm_bits(cfg: ModelConfig, lb):
+    return lb[_site_idx(cfg, "ssm_in")], lb[_site_idx(cfg, "ssm_out")]
+
+
+def _forward_ssm(params: dict, cfg: ModelConfig, layer_bits, x, valid,
+                 collect: bool):
+    """:func:`forward`'s SSM stack: ``x + ssd(rms_norm(x))`` per layer."""
+    hs, tails = [], []
+    for l in range(cfg.n_layers):
+        lp = _layer(params["layers"], l)
+        out = ssd_forward(lp["ssm"], rms_norm(lp["norm_ssm"], x),
+                          *_ssm_bits(cfg, layer_bits[l]), cfg.ssm,
+                          return_final_state=collect, valid=valid)
+        if collect:
+            out, (h, tail) = out
+            hs.append(h)
+            tails.append(tail)
+        x = x + out
+    x = rms_norm(params["norm_f"], x)
+    aux = torch.zeros((), device=x.device)
+    return x, aux, (torch.stack(hs), torch.stack(tails)) if collect else ()
 
 
 def _lm_head_params(cfg: ModelConfig, params: dict) -> dict:
@@ -314,10 +381,23 @@ def _kv_dtype(kv_bits: int) -> torch.dtype:
 
 def init_caches(cfg: ModelConfig, batch: int, slots: int, *,
                 kv_bits: int = 16, device=None) -> dict:
-    """Contiguous decode caches, stacked ``[L, ...]``."""
-    one = init_kv_cache(batch, slots, cfg.n_kv, cfg.hd, bits=kv_bits,
-                        dtype=_kv_dtype(kv_bits), device=device)
-    return {"kv": stack_layers(one, cfg.n_layers)}
+    """Contiguous decode caches, stacked ``[L, ...]``: ``"kv"`` on an
+    attention stack, ``"ssm"`` (O(1) per row) on an SSM stack."""
+    caches = {}
+    if cfg.has_attn:
+        one = init_kv_cache(batch, slots, cfg.n_kv, cfg.hd, bits=kv_bits,
+                            dtype=_kv_dtype(kv_bits), device=device)
+        caches["kv"] = stack_layers(one, cfg.n_layers)
+    return _with_ssm_state(cfg, batch, caches, device)
+
+
+def _with_ssm_state(cfg: ModelConfig, batch: int, caches: dict,
+                    device) -> dict:
+    if cfg.has_ssm:
+        caches["ssm"] = stack_layers(
+            init_ssm_state(batch, cfg.d_model, cfg.ssm, device=device),
+            cfg.n_layers)
+    return caches
 
 
 def paged_block_size(cfg: ModelConfig, slots: int, block_size: int) -> int:
@@ -338,18 +418,23 @@ def init_paged_caches(cfg: ModelConfig, batch: int, slots: int, *,
     """Paged decode caches: ``pool_blocks`` physical blocks of
     ``block_size`` tokens shared by ``batch`` rows, each with a
     ``[ceil(slots / block_size)]`` block table; ``None`` provisions the
-    contiguous footprint."""
-    bs = paged_block_size(cfg, slots, block_size)
-    n_lblk = -(-slots // bs)
-    nb = batch * n_lblk if pool_blocks is None else int(pool_blocks)
-    one = init_paged_kv_cache(batch, nb, bs, n_lblk, cfg.n_kv, cfg.hd,
-                              bits=kv_bits, dtype=_kv_dtype(kv_bits),
-                              device=device)
-    return {"kv": stack_layers(one, cfg.n_layers)}
+    contiguous footprint. SSM state stays dense, as in
+    :func:`init_caches`."""
+    caches = {}
+    if cfg.has_attn:
+        bs = paged_block_size(cfg, slots, block_size)
+        n_lblk = -(-slots // bs)
+        nb = batch * n_lblk if pool_blocks is None else int(pool_blocks)
+        one = init_paged_kv_cache(batch, nb, bs, n_lblk, cfg.n_kv, cfg.hd,
+                                  bits=kv_bits, dtype=_kv_dtype(kv_bits),
+                                  device=device)
+        caches["kv"] = stack_layers(one, cfg.n_layers)
+    return _with_ssm_state(cfg, batch, caches, device)
 
 
 def cache_bytes(caches) -> int:
-    """Device bytes held by a cache tree (pools, tables, scales)."""
+    """Device bytes held by a cache tree (pools, tables, scales, SSM
+    state)."""
     total = 0
     for c in caches.values():
         for f in dataclasses.fields(c):
@@ -364,9 +449,7 @@ def supports_prefix_sharing(cfg: ModelConfig) -> bool:
     blocks can be mapped by any row: full causal attention, no SSM
     recurrence, no MoE capacity dispatch (which couples tokens across the
     batch), no sliding-window ring."""
-    has_attn = cfg.family in ("dense", "moe", "hybrid", "vlm", "audio")
-    has_ssm = cfg.family in ("ssm", "hybrid")
-    return (has_attn and not has_ssm and cfg.family != "moe"
+    return (cfg.has_attn and not cfg.has_ssm and cfg.family != "moe"
             and not cfg.sliding_window and cfg.causal)
 
 
@@ -490,9 +573,19 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     ``kv_sched`` (``[L]`` bit-widths, optional) is the precision policy's
     row: the collected K/V, hence the cache, the int-KV scales and the raw
     K/V, are the refined ones.
+
+    On the SSM stack the caches are ``{"ssm": SSMState}``, each row's
+    final scan state (``slots`` plays no part), and the raw K/V are
+    ``None``.
     """
-    hidden, _, (k_all, v_all) = forward(params, cfg, bits_row, batch,
-                                        collect=True, kv_sched=kv_sched)
+    hidden, _, collected = forward(params, cfg, bits_row, batch,
+                                   collect=True, kv_sched=kv_sched)
+    if cfg.family == "ssm":
+        h_all, tails = collected
+        caches = {"ssm": SSMState(h=h_all, conv=tails.float())}
+        logits = _logits(cfg, params, bits_row, hidden[:, -1:])[:, 0]
+        return (logits, caches, None) if return_raw_kv else (logits, caches)
+    k_all, v_all = collected
     b, s, _ = hidden.shape
     dev = hidden.device
     caches = init_caches(cfg, b, slots, kv_bits=kv_bits, device=dev)
@@ -552,7 +645,7 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     refines the fresh suffix K/V only: the prefix K/V were refined when
     they were born.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     assert supports_prefix_sharing(cfg), cfg.family
     eb, _, layer_bits = split_bits(cfg, bits_row)
     tokens = batch["tokens"]
@@ -681,11 +774,21 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
     reference's einsum. A ``"kv_view"`` entry (the gather backend of
     :func:`decode_segment`) takes every read and write of the step instead.
     ``kv_sched`` (``[L]`` bit-widths, optional) refines the step's fresh
-    K/V before the cache write and the attention read.
+    K/V before the cache write and the attention read. On the SSM stack
+    each layer advances its row of ``caches["ssm"]`` by one token
+    (``pos`` and ``kv_sched`` play no part).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     eb, _, layer_bits = split_bits(cfg, bits_row)
     x = embed_lookup(params["embed"], tokens, eb)
+    if cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            lp = _layer(params["layers"], l)
+            x = x + ssm_decode_step(lp["ssm"], rms_norm(lp["norm_ssm"], x),
+                                    caches["ssm"].layer(l),
+                                    *_ssm_bits(cfg, layer_bits[l]), cfg.ssm)
+        x = rms_norm(params["norm_f"], x)
+        return _logits(cfg, params, bits_row, x)[:, 0], caches
     positions = pos[:, None].to(torch.int32)
     b = tokens.shape[0]
     kv, view = caches["kv"], caches.get("kv_view")
@@ -740,7 +843,7 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
     embed.wq, f32).T)`` hoisted. Every image goes through
     :func:`fake_quant_dynamic` (K5 on the card).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     table = np.asarray(table)
     dev = params["norm_f"]["g"].device
     cd = compute_dtype(dev) if dtype is None else dtype
@@ -780,12 +883,16 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
             ov["lm_head"] = {"wfq": image("lm_head", params["lm_head"]["w"],
                                           int(hb[1]))}
         lov: dict = {}
-        if "w" in lp["qkv"]:
+        if cfg.has_attn and "w" in lp["qkv"]:
             lov["qkv"] = site("qkv", lp["qkv"]["w"])
             lov["attn_out"] = site("attn_out", lp["attn_out"]["w"])
-        if "w" in lp["mlp"]["w_in"]:
+        if cfg.has_mlp and "w" in lp["mlp"]["w_in"]:
             lov["mlp"] = {"w_in": site("mlp_in", lp["mlp"]["w_in"]["w"]),
                           "w_out": site("mlp_out", lp["mlp"]["w_out"]["w"])}
+        if cfg.has_ssm and "w" in lp["ssm"]["in_proj"]:
+            sp = lp["ssm"]
+            lov["ssm"] = {"in_proj": site("ssm_in", sp["in_proj"]["w"]),
+                          "out_proj": site("ssm_out", sp["out_proj"]["w"])}
         ov["layers"] = lov
         overlays.append(ov)
     return overlays
@@ -1008,7 +1115,8 @@ def decode_step_spec(params: dict, cfg: ModelConfig, bits_row,
     a paged pool attends in place (``"kernel"``, the window kernel) or
     through the dense view (``"gather"``).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
+    assert supports_speculation(cfg), cfg.family
     eb, _, layer_bits = split_bits(cfg, bits_row)
     x = embed_lookup(params["embed"], tokens, eb)
     b, w = tokens.shape

@@ -65,8 +65,9 @@ class ServingConfig:
     reference's only mode (``False`` is refused). ``paged_kv`` — the
     scheduler's pool is a global block pool with per-row block tables;
     ``False`` keeps contiguous ``[max_batch, slots]`` rows (the static
-    paths always decode on a contiguous cache). ``block_size`` — tokens
-    per KV block.
+    paths always decode on a contiguous cache); an SSM stack has no KV to
+    page, and its scheduler keeps the contiguous pool of SSM state rows
+    whatever ``paged_kv`` says. ``block_size`` — tokens per KV block.
     ``pool_blocks`` — physical blocks (``None``: ``max_batch ·
     ceil(slots / block_size)``, the contiguous footprint).
 
@@ -327,10 +328,13 @@ class AdaptiveServer:
         """Raise now, not at the first decode, if a kernel this server will
         launch cannot take the model's shapes: K1 on a paged pool, K2 when
         speculating on it, K4 at kv8 (static serving and the contiguous
-        pool read an int8 cache through it)."""
+        pool read an int8 cache through it). A stack without attention
+        launches none of them."""
         from repro_torch.kernels import paged_attention as PA
         from repro_torch.kernels import qkv_attention as QK
         cfg, scfg = self.cfg, self.scfg
+        if not cfg.has_attn:
+            return
         hg, d = cfg.n_heads // cfg.n_kv, cfg.hd
         checks = []
         if scfg.paged_kv:
@@ -500,11 +504,11 @@ class AdaptiveServer:
         ``admit_fn``): a ragged prefill of the left-padded ``prompts [a,
         bucket]`` into ``[a, slots]`` rows, first tokens by on-device
         argmax, and each row written whole over pool row ``slots_idx[j]``
-        (a retired request's stale ``token_idx`` entries must not survive).
-        Wave rows whose ``slots_idx`` is out of range (padding) are
-        skipped, where the reference's scatter drops them. Updates
-        ``tok``/``pos``/``caches`` in place and returns the wave's first
-        tokens ``[a]``."""
+        (a retired request's stale ``token_idx`` entries, or its SSM state
+        ``h``/``conv``, must not survive). Wave rows whose ``slots_idx``
+        is out of range (padding) are skipped, where the reference's
+        scatter drops them. Updates ``tok``/``pos``/``caches`` in place
+        and returns the wave's first tokens ``[a]``."""
         logits, rows = self._prefill(pid, prompts, self.scfg.slots,
                                      prompt_len)
         tok0 = logits.argmax(dim=-1).to(torch.int32)
@@ -512,9 +516,12 @@ class AdaptiveServer:
         live = np.nonzero(sidx < tok.shape[0])[0]
         j = torch.as_tensor(live, device=self.device)
         s = torch.as_tensor(sidx[live], device=self.device)
-        pool, row = caches["kv"], rows["kv"]
-        for name in ("k", "v", "k_scale", "v_scale", "token_idx"):
-            getattr(pool, name)[:, s] = getattr(row, name)[:, j]
+        for key in caches:                       # "kv" and/or "ssm"
+            pool, row = caches[key], rows[key]
+            for f in dataclasses.fields(pool):
+                x = getattr(pool, f.name)
+                if isinstance(x, torch.Tensor):
+                    x[:, s] = getattr(row, f.name)[:, j]
         tok[s] = tok0[j]
         pos[s] = torch.as_tensor(np.asarray(prompt_len)[live],
                                  dtype=torch.int32, device=self.device)
@@ -686,8 +693,11 @@ class AdaptiveServer:
 
     def clear_rows(self, slots_idx, caches: dict) -> dict:
         """Unmap the block tables of pool rows ``slots_idx`` (retirement),
-        so a retired row's residual writes land in the write sink."""
-        pool = caches["kv"]
+        so a retired row's residual writes land in the write sink. A cache
+        without KV (the SSM stack) has nothing to unmap."""
+        pool = caches.get("kv")
+        if pool is None:
+            return caches
         s = [int(x) for x in slots_idx if 0 <= int(x) < pool.block_table.shape[1]]
         if s:
             pool.block_table[:, torch.as_tensor(s, device=self.device)] = \

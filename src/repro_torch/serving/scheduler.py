@@ -169,7 +169,9 @@ class ContinuousScheduler:
         nslots = self.n_slots = scfg.max_batch
         self.policy = policy if policy is not None else make_policy(scfg)
         dev = server.device
-        self.paged = bool(scfg.paged_kv)
+        # an SSM stack has no KV to page: its O(1) state rides the
+        # contiguous pool whatever ``paged_kv`` asks for
+        self.paged = bool(scfg.paged_kv) and cfg.has_attn
         if self.policy.preemptive and (not self.paged or not scfg.preemption
                                        or not server.can_restore):
             raise ValueError(

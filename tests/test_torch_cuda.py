@@ -1197,3 +1197,98 @@ def test_cnn_gradient_kernel_equals_plain(profile, monkeypatch):
         for k in g1[ln]:
             assert torch.equal(g1[ln][k], g2[ln][k]), (ln, k)
             assert g1[ln][k].abs().sum() > 0 or k == "b"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,route", [(1, "splitk"), (8, "splitk"),
+                                     (16, "splitk"), (512, "mma_sync")])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmatmul_at_mamba2_ssm_in(m, route, bits):
+    """K3 at mamba2-130m's ``ssm_in`` (K 768, N 3352): weight rows of 3352
+    bytes at W8 and 1676 at W4 are not 16-byte multiples, so decode runs
+    split-K with bytewise loads and prefill the mma.sync kernel; within the
+    summation-order bound, two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, w_q, scale = _qmatmul_case(m, 768, 3352, bits, torch.bfloat16,
+                                  m + bits)
+    got = QM.qmatmul(x, w_q, scale, bits=bits)
+    assert QM.qmatmul.last_route == route
+    again = QM.qmatmul(x, w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = QM.qmatmul_ref(x, w_q, scale, bits)
+    wb = QM.dequant_ref(w_q, scale, bits).bfloat16().float()
+    tol = 4 * 768 * 2.0 ** -24 * (x.bfloat16().float().abs() @ wb.abs())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_aquant_on_a_mamba2_ssm_in_image(bits):
+    """K5 on one layer's ``ssm_in`` weight image, ``[768, 3352]`` f32, bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(bits)
+    x = (torch.randn((768, 3352), generator=gen) / 768 ** 0.5).cuda()
+    got = AQ.aquant(x, bits, True)
+    torch.cuda.synchronize()
+    want = AQ.aquant_ref(x, bits, True)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_mamba2_serve_on_card_equals_cpu():
+    """The 2-layer mamba2 smoke model served (ragged static groups and the
+    continuous scheduler) on the card in f32, TF32 off, gives the CPU's
+    tokens; the card builds its weight images through K5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            ServingConfig)
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg = get_smoke("mamba2-130m")
+    names = T.quant_layer_names(cfg)
+    engine = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(23)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new=m) for n, m in ((4, 6), (9, 3), (17, 8),
+                                            (40, 5), (6, 7))]
+    flag = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with use_compute_dtype(torch.float32):
+            for dev in ("cpu", "cuda"):
+                p = _to(params, dev)
+                n0 = AQ.aquant.launches
+                srv = AdaptiveServer(cfg, p, engine, ServingConfig(
+                    slots=64, max_batch=4), device=dev)
+                static = [r["tokens"] for r in srv.serve(reqs)]
+                sched = ContinuousScheduler(srv, quantum=4)
+                assert not sched.paged
+                for r in reqs:
+                    sched.submit(r)
+                res = sched.run()
+                out[dev] = (static, [res[i]["tokens"]
+                                     for i in range(len(reqs))])
+                if dev == "cuda":
+                    assert AQ.aquant.launches > n0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert out["cuda"] == out["cpu"]
+    assert out["cpu"][0] == out["cpu"][1]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
