@@ -159,6 +159,25 @@ Phases:
     (decode steps + prefill waves) on the native runs; (d) under
     ``torch.profiler``: one admission wave and one decode segment, their
     device-busy share and top device operations.
+15. the hybrid family at hymba-1.5b's full width (32 layers, d_model 1600,
+    25 query heads over 5 KV heads, a sliding window of 1024, 50 SSD heads
+    of 64, d_state 16, untied head of 32001): (a) in f32, TF32 off:
+    prefill(31) + decode_step against forward(32) at ``rel < 5e-5``;
+    prefill(1000) into ``slots=2048`` (a ring of 1024) and 60
+    teacher-forced decode steps across position 1024 against forward(1060)
+    (the block-skipping window prefill) at every decoded position, ``rel <
+    5e-5``, and the same steps on a bf16 paged pool through K1 (window
+    1024 on the wrapped ring) against the gather backend; (b) K1 at Hg 5 on
+    wrapped rings (kv16/8/4, windows 1024 and 1000), K4 at Hg 5 at the
+    static serve's lengths, K3 at every hymba site (``ssm_in`` N 6482 and
+    the head N 32001 take the bytewise split-K and mma.sync routes), K5 bit
+    for bit on hymba's images at bits 8 and 4, each timed beside its
+    library call and bound; (c) the launcher's ``--arch hymba-1.5b --full``
+    workload on the paged pool (K1 = 32 x decode steps), ``--kv-bits 8``
+    static (K4 = 32 x 62) and from ``to_native(params, 8)`` (K3 = 193 x
+    (decode steps + prefill waves)): tok/s, peak memory, KV and SSM bytes;
+    (d) under ``torch.profiler``: one admission wave and one decode
+    segment.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -4174,18 +4193,19 @@ def phase_ssm_serve(seed: int, w_bits=None) -> dict:
     return {"k3": k3, "k5": k5, "tok_s": n_tok / wall, "peak": peak}
 
 
-def phase_ssm_profile(seed: int) -> None:
-    """Phase 14 (d): where the time goes on phase 14 (c)'s fake-quant
-    server, bf16, under ``torch.profiler``: one admission wave of 8
-    prompts (the chunked SSD prefill; a first wave on another scheduler
-    warms the server) and one decode segment of 8 steps after a warm one:
-    wall time, device-busy time and share, and the device operations that
-    take the most."""
+def phase_ssm_profile(seed: int, arch: str = MAMBA2,
+                      tag: str = "mamba2") -> None:
+    """Phase 14 (d), and 15 (d) with ``arch`` hymba-1.5b: where the time
+    goes on the (c) phase's fake-quant server, bf16, under
+    ``torch.profiler``: one admission wave of 8 prompts (the chunked SSD
+    prefill; a first wave on another scheduler warms the server) and one
+    decode segment of 8 steps after a warm one: wall time, device-busy
+    time and share, and the device operations that take the most."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve as S
     from repro_torch.serving.scheduler import ContinuousScheduler
 
-    args = S.parse_args(["--arch", MAMBA2, "--full", "--requests", "8",
+    args = S.parse_args(["--arch", arch, "--full", "--requests", "8",
                          "--max-new", "32", "--seed", str(seed)])
     cfg, srv = S.build_server(args)
     reqs = S.make_requests(cfg, args)
@@ -4210,20 +4230,401 @@ def phase_ssm_profile(seed: int) -> None:
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
         busy = sum(e.self_device_time_total for e in ev) / 1e3
-        print(f"[mamba2] (d) {label}: wall {wall:.3f} ms, device busy "
+        print(f"[{tag}] (d) {label}: wall {wall:.3f} ms, device busy "
               f"{busy:.3f} ms ({100 * busy / wall:.1f}%), "
               f"{sum(e.count for e in ev)} device kernels")
         for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"[mamba2] (d)   {e.self_device_time_total / 1e3:9.3f} ms "
+            print(f"[{tag}] (d)   {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:6d}x  {e.key[:90]}")
 
     lens = sorted(len(r.tokens) for r in reqs)
     traced(f"one admission wave (8 prompts of {lens[0]}-{lens[-1]} tokens, "
-           f"the chunked SSD prefill of {cfg.n_layers} layers)", sched.admit)
+           f"the prefill of {cfg.n_layers} layers)", sched.admit)
     sched.run_segment()                        # warm
     sched._flush()
     traced(f"one decode segment (8 steps x {cfg.n_layers} layers, 8 rows)",
            lambda: (sched.run_segment(), sched._flush()))
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the hybrid family (hymba-1.5b) at full width
+# ---------------------------------------------------------------------------
+
+HYMBA = "hymba-1.5b"
+# (site, K, N) of hymba-1.5b's linears, one layer each, and the untied head
+HYMBA_LINEARS = (("qkv", 1600, 2240), ("attn_out", 1600, 1600),
+                 ("ssm_in", 1600, 6482), ("ssm_out", 3200, 1600),
+                 ("mlp_in", 1600, 11008), ("mlp_out", 5504, 1600),
+                 ("lm_head", 1600, 32001))
+
+
+def hymba_state_bytes(rows: int) -> int:
+    """f32 SSM state of ``rows`` rows of hymba-1.5b: 32 layers of ``h``
+    (50 heads x 64 x d_state 16) and the conv window (3 x conv_dim
+    3232)."""
+    return rows * 32 * (50 * 64 * 16 + 3 * 3232) * 4
+
+
+def paged_from_dense(kv, bs: int):
+    """A paged pool holding the rows of the contiguous stacked cache ``kv``
+    (``[L, B, slots, ...]``): row ``b``'s table maps blocks ``b·n_lblk ..``
+    in order, plus the pool's write sink."""
+    from repro_torch.models.attention import PagedKVCache
+    L, B, slots = kv.token_idx.shape
+    n_lblk = slots // bs
+    nb = B * n_lblk
+
+    def blocks(x, fill):
+        out = torch.full((L, nb + 1, bs, *x.shape[3:]), fill, dtype=x.dtype,
+                         device=x.device)
+        out[:, :nb] = x.reshape(L, nb, bs, *x.shape[3:])
+        return out
+
+    table = torch.arange(nb, dtype=torch.int32, device=kv.k.device)
+    return PagedKVCache(
+        k=blocks(kv.k, 0), v=blocks(kv.v, 0), k_scale=kv.k_scale.clone(),
+        v_scale=kv.v_scale.clone(), token_idx=blocks(kv.token_idx, -1),
+        block_table=table.reshape(1, B, n_lblk).expand(L, -1, -1).clone(),
+        n_blocks=nb, bits=kv.bits)
+
+
+def phase_hybrid_parity(seed: int) -> dict:
+    """Phase 15 (a): hymba-1.5b's full config (32 layers, d_model 1600, 25
+    query heads over 5 KV heads, a sliding window of 1024, 50 SSD heads of
+    64, d_state 16, chunk 256, untied head of 32001), random weights from
+    ``seed``, f32, TF32 off. Prefill of 31 tokens into an f32 cache then
+    one ``decode_step`` against ``forward`` over 32 at the float profile
+    (``rel < 5e-5``). Then prefill of 1000 tokens into ``slots=2048`` (a
+    ring of ``min(2048, 1024)`` slots), and 60 teacher-forced decode steps
+    across position 1024 (the ring wraps) against ``forward`` over 1060
+    (past the window: the block-skipping prefill) at every decoded
+    position, ``rel < 5e-5`` each, on the f32 contiguous cache; the same
+    steps on a bf16 paged pool of blocks of 16 through K1 (window 1024 on
+    the wrapped ring; 32 x 60 launches) against the gather backend on the
+    same pool within ``rel < 1e-4``, and beside ``forward`` (reported)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import Profile, profile_table
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(HYMBA)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    names = T.quant_layer_names(cfg)
+    dev = "cuda"
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1e-9, float(b.abs().max()))
+
+    with use_compute_dtype(torch.float32):
+        br = profile_table([Profile.float32(names)], names)[0]
+        toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen, device=dev)
+        hidden, _, _ = T.forward(params, cfg, br, {"tokens": toks})
+        full = T._logits(cfg, params, br, hidden[:, -1:])[:, 0]
+        _, caches = T.prefill(params, cfg, br, {"tokens": toks[:, :31]}, 36,
+                              kv_bits=32)
+        dec, _ = T.decode_step(params, cfg, br, toks[:, 31:],
+                               torch.full((2,), 31, dtype=torch.int32,
+                                          device=dev), caches)
+        r = rel(dec, full)
+        print(f"[hymba] (a) full width ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}), f32: prefill(31) + decode_step vs forward(32)"
+              f" logits rel {r:.3e} (< 5e-5: {r < 5e-5})")
+        if not r < 5e-5:
+            raise AssertionError(f"prefill + decode != forward: rel {r}")
+        p0, n_dec = 1000, 60
+        toks = torch.randint(0, cfg.vocab, (2, p0 + n_dec), generator=gen,
+                             device=dev)
+        t0 = time.perf_counter()
+        hidden, _, _ = T.forward(params, cfg, br, {"tokens": toks})
+        want = T._logits(cfg, params, br, hidden[:, p0 - 1:])
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        del hidden
+        runs = {}
+        for kv_bits, backend in ((32, None), (16, "kernel"), (16, "gather")):
+            logits, caches = T.prefill(params, cfg, br,
+                                       {"tokens": toks[:, :p0]}, 2048,
+                                       kv_bits=kv_bits)
+            ring = caches["kv"].token_idx.shape[-1]
+            if ring != 1024:
+                raise AssertionError(f"a hymba row holds {ring} slots, "
+                                     f"not min(2048, 1024)")
+            if backend is not None:
+                caches["kv"] = paged_from_dense(caches["kv"], 16)
+            PA.paged_attention.launches = 0
+            rels = [rel(logits, want[:, 0])]
+            for i in range(n_dec):
+                pos = torch.full((2,), p0 + i, dtype=torch.int32, device=dev)
+                logits, caches = T.decode_step(
+                    params, cfg, br, toks[:, p0 + i:p0 + i + 1], pos, caches,
+                    paged_backend=backend or "gather")
+                rels.append(rel(logits, want[:, i + 1]))
+            runs[(kv_bits, backend)] = (logits, rels,
+                                        PA.paged_attention.launches)
+            top = int(caches["kv"].token_idx.max())
+            if top != p0 + n_dec - 1:
+                raise AssertionError(f"the ring's newest token is {top}")
+        _, rels32, _ = runs[(32, None)]
+        print(f"[hymba] (a) forward(1060) in {t_fwd:.3f}s (block-skipping "
+              f"window attention); prefill(1000) into slots=2048 (a ring of "
+              f"1024) + {n_dec} decode steps across position 1024, f32 "
+              f"cache: logits rel vs forward max {max(rels32):.3e} over "
+              f"{len(rels32)} positions (< 5e-5: {max(rels32) < 5e-5})")
+        if not max(rels32) < 5e-5:
+            raise AssertionError(f"decode across the window != forward: "
+                                 f"{rels32}")
+        kl, krels, k1 = runs[(16, "kernel")]
+        gl, grels, g1 = runs[(16, "gather")]
+        kg = rel(kl, gl)
+        print(f"[hymba] (a) bf16 paged pool (blocks of 16, window 1024 on "
+              f"the wrapped ring): K1 launches {k1} = {cfg.n_layers} x "
+              f"{n_dec}: {k1 == cfg.n_layers * n_dec}; gather backend "
+              f"launches {g1}; last logits K1 vs gather rel {kg:.3e} "
+              f"(< 1e-4: {kg < 1e-4}); rel vs forward max K1 "
+              f"{max(krels):.3e}, gather {max(grels):.3e}")
+        if k1 != cfg.n_layers * n_dec or g1 or not kg < 1e-4:
+            raise AssertionError("the paged hymba decode through K1 "
+                                 "disagrees with the gather backend")
+    PA.paged_attention.launches = 0
+    del params, caches, runs
+    torch.cuda.empty_cache()
+    return {"rel_decode": max(rels32)}
+
+
+def ring_inputs(gen, *, bits, B=8, Hkv=5, Hg=5, D=64, bs=16, n_lblk=64):
+    """K1's operands on a sliding-window ring as hymba's paged pool holds
+    it: each live row maps ``n_lblk`` shuffled physical blocks, and slot
+    ``j`` holds the newest token ``t <= pos`` with ``t % cap == j`` (every
+    token of ``pos − cap + 1 .. pos`` once the ring has wrapped). Rows at
+    positions 300 (not wrapped), cap − 1, cap, cap + 5, 2·cap + 17, 3·cap
+    − 1 and 5000; the last row dead (all entries unmapped)."""
+    cap = n_lblk * bs
+    x = paged_inputs(gen, bits=bits, B=B, Hkv=Hkv, Hg=Hg, D=D, bs=bs,
+                     n_lblk=n_lblk)
+    n_blocks = x["token_idx"].shape[0]
+    pos = [300, cap - 1, cap, cap + 5, 2 * cap + 17, 3 * cap - 1, 5000, 0]
+    pos = torch.tensor(pos[:B], dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda")
+    bt = perm[:B * n_lblk].reshape(B, n_lblk).int()
+    bt[-1] = -1
+    tidx = x["token_idx"].clone()
+    slot = torch.arange(cap, device="cuda")
+    for b in range(B - 1):
+        p = int(pos[b])
+        t = p - (p - slot) % cap
+        tidx[bt[b].long()] = torch.where(t >= 0, t, -1).int().reshape(
+            n_lblk, bs)
+    return dict(x, token_idx=tidx, block_table=bt, pos=pos)
+
+
+def phase_hybrid_kernels(seed: int) -> None:
+    """Phase 15 (b): the kernels at hymba-1.5b's shapes against their plain
+    versions. K1 at Hkv 5, Hg 5, D 64 on wrapped rings of 1024 slots
+    (blocks of 16) at kv16/kv8/kv4, with window 1024 (hymba's: every live
+    slot is inside it) timed beside SDPA (kv16) and its bound, and window
+    1000 (the mask bites) untimed; K4 at 8 rows x 5 KV heads, Hg 5, S 1024
+    at the static serve's own lengths, bf16 and f32 q, beside SDPA and its
+    bound; K3 (:func:`k3_case`) at every hymba site — decode (M 8) and a
+    prefill wave (M 4096) at W8, ``ssm_in`` (N 6482: 3241-byte packed rows)
+    also at W4 and with f32 x, the head (N 32001, odd: no W4) at M 8 —
+    each with its route, device time beside torch.matmul's and its bound;
+    K5 bit for bit on every site's weight image, the head and the
+    embedding table at bits 8 and 4 (``ssm_in``, ``mlp_in`` and the head
+    timed)."""
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.kernels import qmatmul as QM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    fn, ref = PA.paged_attention, PA.paged_attention_ref
+    for bits in (16, 8, 4):
+        x = ring_inputs(gen, bits=bits)
+        kw = dict(bits=bits, window=1024)
+        lab = f"hymba ring Hkv 5 Hg 5 kv{bits} window 1024"
+        check_case("K1", fn, ref, x, kw, lab)
+        check_case("K1", fn, ref, x, dict(bits=bits, window=1000),
+                   f"hymba ring Hkv 5 Hg 5 kv{bits} window 1000")
+        splits, per, rt, nrow = plan_of(PA, x)
+        ms = cuda_time_ms(lambda: fn(**x, **kw))
+        dev = graph_ms(lambda: fn(**x, **kw))
+        plain = cuda_time_ms(lambda: ref(**x, **kw), iters=50)
+        lib = lib_dev = None
+        if bits == 16:
+            lib, lib_dev = library_times(lambda: sdpa_fn(x))
+        bd = paged_bound(x, bits)
+        print(f"[K1] {lab}: {splits} splits x {per} tiles, {rt} row tile(s) "
+              f"of {nrow}; device {dev:.4f} ms, per call {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa {_ms(lib)} (device {_ms(lib_dev)}), "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+              f"{bd['bytes']} B, {bd['flops']} flop, {bd['keys']} keys)")
+    for label, lens in serve_lengths(seed):
+        for qdtype in (torch.bfloat16, torch.float32):
+            x = qkv_inputs(gen, lens, hkv=5, hg=5, qdtype=qdtype)
+            lab = (f"hymba {label} Hkv 5 Hg 5 "
+                   f"{'bf16' if qdtype == torch.bfloat16 else 'f32'} q")
+            check_k4(QK, x, lab)
+            if qdtype != torch.bfloat16:
+                continue
+            copies = k4_copies(x)
+            dev = k4_device_ms(QK, x, copies)
+            del copies
+            lib = qkv_sdpa_times(x)
+            bd = qkv_bound(x["q"], x["lengths"], 1024)
+            print(f"[K4] {lab}: device {dev:.4f} ms, sdpa device "
+                  f"{_ms(lib['library_device_ms'])} / per call "
+                  f"{_ms(lib['library_ms'])}, bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']}: {bd['bytes']} B)")
+    bf16 = torch.bfloat16
+    for site, k, n in HYMBA_LINEARS:
+        for bits in ((8, 4) if site == "ssm_in" else (8,)):
+            for m in ((8,) if site == "lm_head" else (8, 4096)):
+                r = k3_case(gen, m, k, n, bits, bf16)
+                print(f"[hymba] (b) K3 {site} M={m} W{bits}: route "
+                      f"{r['route']}, device {r['device_ms']:.4f} ms, "
+                      f"torch.matmul {r['library_device_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms")
+                del r
+    r = k3_case(gen, 8, 1600, 6482, 8, torch.float32)
+    del r
+    images = [(f"{site} {k}x{n}", (k, n), k ** -0.5)
+              for site, k, n in HYMBA_LINEARS if site != "lm_head"]
+    images += [("lm_head 1600x32001", (1600, 32001), 0.02),
+               ("embed 32001x1600", (32001, 1600), 0.02)]
+    for label, shape, std in images:
+        w = torch.randn(shape, generator=gen, device="cuda") * std
+        for bits in (8, 4):
+            k5_case(f"hymba {label}", w, bits, True, timed=label.startswith(
+                ("ssm_in", "mlp_in", "lm_head")))
+    QM.qmatmul.launches = AQ.aquant.launches = 0   # comparisons do not count
+    PA.paged_attention.launches = QK.qkv_attention.launches = 0
+
+
+def phase_hybrid_serve(seed: int, mode: str) -> dict:
+    """Phase 15 (c): the launcher's ``--arch hymba-1.5b --full`` workload
+    (12 requests, prompts of 64–512 tokens from ``seed``, 32 new tokens, 8
+    rows, bf16) in one of three modes: ``"paged"`` — ``--continuous``, the
+    paged pool of blocks of 16 on the kernel backend (K1 = 32 x decode
+    steps); ``"kv8"`` — ``--kv-bits 8`` static groups on the contiguous
+    int8 ring (K4 = 32 x 2 groups x 31 steps, K1 and the kv8 einsum never);
+    ``"native"`` — ``to_native(params, 8)`` through ``AdaptiveServer`` +
+    ``ContinuousScheduler`` on the paged pool (K3 = (6 x 32 + 1) x (decode
+    steps + prefill waves), K1 = 32 x decode steps, the
+    dequantize-then-matmul branch never). The counts are zeroed just before
+    the server is built (its weight images are K5's work) and read after
+    the serve. Every request completes with 32 in-vocabulary tokens; the
+    pool holds ``hymba_state_bytes(8)`` of SSM state beside the KV."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.kernels import qmatmul as QM
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as LY
+    from repro_torch.models import transformer as T
+    from repro_torch.models.native import to_native
+    from repro_torch.serving.engine import (AdaptiveServer, RequestStatus,
+                                            ServingConfig)
+
+    argv = ["--arch", HYMBA, "--full", "--requests", "12", "--max-new",
+            "32", "--quantum", "8", "--seed", str(seed)]
+    argv += ["--kv-bits", "8"] if mode == "kv8" else ["--continuous"]
+    args = S.parse_args(argv)
+    nat = None
+    if mode == "native":
+        cfg = get_config(HYMBA)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        params = T.init_params(cfg, gen, device="cuda")
+        nat = to_native(params, 8)
+        del params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    QM.qmatmul.launches = AQ.aquant.launches = LY.dequant_matmul.calls = 0
+    PA.paged_attention.launches = QK.qkv_attention.launches = 0
+    A.decode_attention.kv8_einsum_calls = A.paged_view.calls = 0
+    if nat is None:
+        cfg, srv = S.build_server(args)
+    else:
+        names = T.quant_layer_names(cfg)
+        profs = paper_profiles(names, inner_layers=[])
+        engine = AdaptiveEngine(tuple(profs), QuantIndex(names))
+        stats = S.profile_stats(cfg, profs, T.param_count(nat))
+        mgr = ProfileManager(stats, accuracy_target=0.985,
+                             accuracy_floor=0.95,
+                             budget_j=stats[0].energy_j
+                             * args.budget_inferences, low_energy=0.5)
+        srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
+            slots=1024, max_batch=8), manager=mgr, device="cuda")
+    reqs = S.make_requests(cfg, args)
+    out = S.serve(srv, reqs, args.quantum, continuous=mode != "kv8")
+    k1, k3, k4, k5 = (PA.paged_attention.launches, QM.qmatmul.launches,
+                      QK.qkv_attention.launches, AQ.aquant.launches)
+    deq, einsum, gathers = (LY.dequant_matmul.calls,
+                            A.decode_attention.kv8_einsum_calls,
+                            A.paged_view.calls)
+    results, sched, wall = out["results"], out["sched"], out["wall_s"]
+    for i, r in enumerate(results):
+        if len(r["tokens"]) != 32 or (sched is not None and r["status"]
+                                      is not RequestStatus.COMPLETED):
+            raise AssertionError(f"hymba {mode} request {i}: "
+                                 f"{len(r['tokens'])} tokens")
+        if not all(0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"hymba {mode} request {i}: token out of "
+                                 f"vocab")
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r["tokens"]) for r in results)
+    L = cfg.n_layers
+    line = (f"[hymba] (c) {mode}: {len(results)} requests, prompts "
+            f"{min(len(r.tokens) for r in reqs)}-"
+            f"{max(len(r.tokens) for r in reqs)}, {n_tok} tokens in "
+            f"{wall:.3f}s = {n_tok / wall:.2f} tok/s; peak memory "
+            f"{peak / 2**30:.3f} GiB")
+    if sched is None:                    # static groups of 8 rows
+        steps = -(-len(reqs) // srv.scfg.max_batch) * (args.max_new - 1)
+        print(f"{line}; K4 launches {k4} = {L} layers x {steps} decode "
+              f"steps: {k4 == L * steps}; K1 {k1}, kv8 einsum {einsum}, "
+              f"K3 {k3}, K5 {k5}")
+        if k4 != L * steps or k1 or einsum or gathers or k5 == 0:
+            raise AssertionError("the hymba kv8 static serve did not read "
+                                 "the int8 ring through K4 alone")
+        return {"k4": k4, "k5": k5, "tok_s": n_tok / wall, "peak": peak}
+    kv = T.cache_bytes({"kv": sched._caches["kv"]})
+    state = T.cache_bytes({"ssm": sched._caches["ssm"]})
+    pool = sched._caches["kv"]
+    kv_data = 2 * pool.k.numel() * pool.k.element_size()
+    steps = sched.decode_steps
+    waves = len(sched.events) - steps          # one billing event per wave
+    want_k3 = (6 * L + 1) * (steps + waves) if mode == "native" else 0
+    print(f"{line}; {steps} decode steps, {waves} prefill waves, "
+          f"{sched.segments_run} segments; paged {sched.paged}, blocks of "
+          f"{sched.block_size}, {sched.n_lblk} per row; KV pool {kv} B "
+          f"(K/V {kv_data} B = {L} x {pool.k.shape[1]} blocks x 16 x 5 x "
+          f"64 x 2 x 2 B), SSM state {state} B = 8 x 32 x (50*64*16 + "
+          f"3*3232) x 4 B: {state == hymba_state_bytes(8)}")
+    print(f"[hymba] (c) {mode}: K1 launches {k1} = {L} x {steps}: "
+          f"{k1 == L * steps}; K3 launches {k3} = (6 x {L} + 1) x ({steps} "
+          f"+ {waves}) = {want_k3}: {k3 == want_k3}; K5 launches {k5}; K4 "
+          f"{k4}; dequant-matmul calls {deq}; gather calls {gathers}")
+    if (not sched.paged or state != hymba_state_bytes(8)
+            or sched.n_lblk != 64 or k1 != L * steps or k3 != want_k3
+            or deq or gathers or k4 or (mode == "paged" and k5 == 0)):
+        raise AssertionError(f"the hymba {mode} serve did not run as "
+                             f"counted")
+    del srv, sched, out, nat
+    torch.cuda.empty_cache()
+    return {"k1": k1, "k3": k3, "k5": k5, "tok_s": n_tok / wall,
+            "peak": peak}
 
 
 def _leaves(tree):
@@ -4245,7 +4646,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     keys (phase 10's launches under the precision policy, phase 11's
     under injected faults, phase 12's after restarts, phase 13's on the
     CNN path, phase 14's on the mamba2 path: K3's native W8 serve, K5's
-    fake-quant one)."""
+    fake-quant one; phase 15's on the hymba path: K1's paged serve, K4's
+    kv8 static serve, K3's native W8 serve, K5's fake-quant one)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -4270,7 +4672,7 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -4357,6 +4759,15 @@ def main() -> None:
         mamba2["k3"] = phase_ssm_serve(args.seed, 8)["k3"]
         phase_ssm_serve(args.seed, 4)
         phase_ssm_profile(args.seed)
+    hymba = {"k1": 0, "k3": 0, "k4": 0, "k5": 0}
+    if 15 in phases:
+        phase_hybrid_parity(args.seed)
+        phase_hybrid_kernels(args.seed)
+        paged = phase_hybrid_serve(args.seed, "paged")
+        hymba["k1"], hymba["k5"] = paged["k1"], paged["k5"]
+        hymba["k4"] = phase_hybrid_serve(args.seed, "kv8")["k4"]
+        hymba["k3"] = phase_hybrid_serve(args.seed, "native")["k3"]
+        phase_ssm_profile(args.seed, HYMBA, "hymba")
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -4365,7 +4776,8 @@ def main() -> None:
             "paged_attention", "paged_attention.cu",
             "src/repro/kernels/paged_attention.py:116", served["launches"],
             rows["k1"], policy_launches=policy["k1"],
-            fault_launches=faults["k1"], durable_launches=durable["k1"]))
+            fault_launches=faults["k1"], durable_launches=durable["k1"],
+            hymba_launches=hymba["k1"]))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
@@ -4373,16 +4785,17 @@ def main() -> None:
             durable_launches=durable["k2"]))
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
-            native["k3"], rows["k3"], mamba2_launches=mamba2["k3"]))
+            native["k3"], rows["k3"], mamba2_launches=mamba2["k3"],
+            hymba_launches=hymba["k3"]))
         kernels.append(kernel_entry(
             "qkv_attention", "qkv_attention.cu",
             "src/repro/kernels/qkv_attention.py:68", static["launches"],
             rows["k4"], policy_launches=policy["k4"],
-            fault_launches=faults["k4"]))
+            fault_launches=faults["k4"], hymba_launches=hymba["k4"]))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
             native["k5"], rows["k5"], cnn_launches=cnn["k5"],
-            mamba2_launches=mamba2["k5"]))
+            mamba2_launches=mamba2["k5"], hymba_launches=hymba["k5"]))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

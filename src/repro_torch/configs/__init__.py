@@ -1,6 +1,6 @@
-"""Architecture registry of the port: the dense granite-3-2b and the SSM
-mamba2-130m; the other families of ``repro.configs`` follow with their
-models."""
+"""Architecture registry of the port: the dense granite-3-2b, the SSM
+mamba2-130m and the hybrid hymba-1.5b; the other families of
+``repro.configs`` follow with their models."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +10,7 @@ from .common import ModelConfig, smoke_of
 _MODULES = {
     "granite-3-2b": "granite_3_2b",
     "mamba2-130m": "mamba2_130m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -1,5 +1,5 @@
-"""Config helpers (port of ``repro/configs/common.py``, dense and SSM
-families)."""
+"""Config helpers (port of ``repro/configs/common.py``, dense, SSM and
+hybrid families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,8 +12,10 @@ __all__ = ["ModelConfig", "SSMConfig", "smoke_of"]
 
 def smoke_of(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the reference's
-    widths: 2 layers, d_model 64, 4/2 heads of 16, d_ff 128, vocab 512; an
-    SSM stack gets 8 SSD heads of 16, d_state 16 and chunk 16)."""
+    widths: 2 layers, d_model 64, 4/2 heads of 16, d_ff 128, vocab 512, a
+    sliding window of 16 where there is one; a stack with SSD blocks gets
+    8 SSD heads of 16, d_state 16 and chunk 16, and a hybrid one 8 query
+    heads over 2 KV heads)."""
     if cfg.moe is not None:
         raise NotImplementedError("the MoE family is not ported yet")
     kw = dict(

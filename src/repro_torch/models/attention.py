@@ -1,5 +1,5 @@
-"""Attention: GQA prefill, cached decode, and the paged KV pool (port of
-``repro/models/attention.py``, full-attention dense slice).
+"""Attention: GQA prefill, block-skipping sliding-window prefill, cached
+decode, and the paged KV pool (port of ``repro/models/attention.py``).
 
 Caches are updated **in place** (the reference threads them through donated
 jit carries; here the owner keeps one set of tensors). Stacked ``[L, ...]``
@@ -23,13 +23,13 @@ import torch
 
 from repro_torch.core.qtypes import pack_int4, unpack_int4
 
-__all__ = ["gqa_attention", "prefix_attention", "decode_attention",
-           "decode_attention_window", "KVCache", "init_kv_cache",
-           "kv_scale", "update_kv_cache", "update_kv_cache_window",
-           "PagedKVCache", "init_paged_kv_cache", "update_paged_kv_cache",
-           "update_paged_kv_cache_window", "paged_view",
-           "paged_decode_attention", "paged_decode_attention_window",
-           "stack_layers", "kv_refine"]
+__all__ = ["gqa_attention", "swa_attention", "prefix_attention",
+           "decode_attention", "decode_attention_window", "KVCache",
+           "init_kv_cache", "kv_scale", "update_kv_cache",
+           "update_kv_cache_window", "PagedKVCache", "init_paged_kv_cache",
+           "update_paged_kv_cache", "update_paged_kv_cache_window",
+           "paged_view", "paged_decode_attention",
+           "paged_decode_attention_window", "stack_layers", "kv_refine"]
 
 NEG_INF = -1e30
 
@@ -87,6 +87,59 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = (acc / l.clamp_min(1e-30)).to(q.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int, block_q: int = 512,
+                  kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sliding-window self-attention with block skipping: each query block
+    of ``block_q`` rows attends to the ``window + block_q`` keys it can
+    see, so work and peak memory grow with ``S·(window + block_q)``, not
+    ``S²``.
+
+    q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]``; returns ``[B, S, H, D]``.
+    ``kv_valid [B, S]`` masks per-row left-pad keys. The reference's own
+    arithmetic: q is scaled in f32 (not rounded back to ``q.dtype`` as in
+    :func:`gqa_attention`), keys and values are read in f32, and each
+    block takes a plain softmax over its slice.
+    """
+    b, s, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    assert s == skv, "swa_attention is self-attention prefill"
+    hg = h // hkv
+    bq = min(block_q, s)
+    pad_q = (-s) % bq
+    nq = (s + pad_q) // bq
+    w = int(window)
+    width = w + bq                     # the keys one query block can see
+    dev = q.device
+    qh = q.float() * d ** -0.5
+    qh = torch.nn.functional.pad(qh, (0, 0, 0, 0, 0, pad_q))
+    qh = qh.reshape(b, nq, bq, hkv, hg, d).permute(1, 0, 3, 4, 2, 5)
+    # keys left-padded by the window, so block i's slice starts at i·bq
+    kp = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, w, pad_q))
+    vp = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, w, pad_q))
+    kvp = (None if kv_valid is None else
+           torch.nn.functional.pad(kv_valid, (w, pad_q)))   # pads invalid
+    out = torch.empty((nq, b, hkv, hg, bq, d), device=dev)
+    for i in range(nq):
+        j0 = i * bq
+        ks = kp[:, j0:j0 + width].permute(0, 2, 1, 3)       # [B, Hkv, W, D]
+        vs = vp[:, j0:j0 + width].permute(0, 2, 1, 3)
+        scores = torch.einsum("bkgsd,bkud->bkgsu", qh[i], ks)
+        qpos = j0 + torch.arange(bq, device=dev)
+        jpos = j0 - w + torch.arange(width, device=dev)
+        keep = ((jpos[None, :] >= 0) & (jpos[None, :] <= qpos[:, None])
+                & (qpos[:, None] - jpos[None, :] < w)
+                & (qpos[:, None] < s) & (jpos[None, :] < s))  # [bq, W]
+        keep = keep[None, None, None]
+        if kvp is not None:
+            keep = keep & kvp[:, None, None, None, j0:j0 + width]
+        scores = torch.where(keep, scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        out[i] = torch.einsum("bkgsu,bkud->bkgsd", p, vs)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, s + pad_q, h, d)
+    return out[:, :s].to(q.dtype)
 
 
 def prefix_attention(q: torch.Tensor, k_pre: torch.Tensor,

@@ -1,11 +1,14 @@
 """Fake-mode → native-mode parameter conversion (port of
-``repro/models/native.py``, dense and SSM families).
+``repro/models/native.py``, dense, SSM and hybrid families).
 
 Walks a parameter tree and replaces every quantizable linear's float master
 ``w`` with its integer carrier ``wq`` (:class:`~repro_torch.core.quantizers.
 QTensor`: per-output-channel float scales, int8 or packed int4). Norms,
 biases, the SSD block's conv weights and its per-head scalars stay float. Layer-stacked ``[L, ...]`` leaves get per-layer scales
 ``[L, 1, N]``, as the reference's ``vmap(quantize_native)`` gives them.
+Packed int4 needs an even output width ``N``: a leaf with an odd one (the
+untied ``lm_head`` of hymba-1.5b, vocab 32001) is refused by name, as the
+reference's ``pack_int4`` refuses it.
 """
 from __future__ import annotations
 
@@ -24,7 +27,11 @@ _LINEAR_KEYS = {"qkv", "attn_out", "w_in", "w_out", "in_proj", "out_proj",
 NATIVE_SITES = tuple(sorted(_LINEAR_KEYS))
 
 
-def _quant(w: torch.Tensor, w_bits: int, stacked: bool) -> QTensor:
+def _quant(w: torch.Tensor, w_bits: int, stacked: bool,
+           path: str) -> QTensor:
+    if w_bits == 4 and w.shape[-1] % 2:
+        raise ValueError(f"{path}: packed int4 stores two output channels "
+                         f"per byte; its N {w.shape[-1]} is odd")
     spec = QuantSpec(bits=w_bits, per_channel=True, channel_axis=-1,
                      po2_scale=False)
     if not stacked:
@@ -45,14 +52,15 @@ def to_native(params: Any, w_bits: int = 8) -> Any:
     """Convert recursively; the returned tree shares every leaf it does not
     quantize with ``params``."""
 
-    def walk(node, name: str, stacked: bool):
+    def walk(node, path: str, name: str, stacked: bool):
         if not isinstance(node, dict):
             return node
         if "w" in node and name in _LINEAR_KEYS:
             out = {k: v for k, v in node.items() if k != "w"}
-            out["wq"] = _quant(node["w"], w_bits, stacked)
+            out["wq"] = _quant(node["w"], w_bits, stacked, path)
             return out
-        return {k: walk(v, k, stacked or k == "layers")
+        return {k: walk(v, f"{path}.{k}" if path else k, k,
+                        stacked or k == "layers")
                 for k, v in node.items()}
 
-    return walk(params, "", False)
+    return walk(params, "", "", False)

@@ -1,5 +1,5 @@
 """LM assembly for the port (port of ``repro/models/transformer.py``, the
-dense and the SSM families).
+dense, the SSM and the hybrid families).
 
 Parameters and caches keep the reference's stacked ``[L, ...]`` layout, so
 conversion is one to one and the per-layer loop indexes layer ``l``. The
@@ -30,6 +30,14 @@ row's final state off as ``caches["ssm"]`` (an ``SSMState`` stacked ``[L,
 ...]``, no ``"kv"``), and ``decode_step`` advances that state in place.
 Continuation prefill and speculation stay attention-only, as in the
 reference (``supports_prefix_sharing``/``supports_speculation``).
+
+The hybrid family (hymba) runs attention and an SSD block side by side on
+one normed input per layer and merges them as ``0.5 · (rms_norm(attn) +
+rms_norm(ssm))`` before the MLP; its caches hold both ``"kv"`` and
+``"ssm"``. A sliding window sizes every attention row at ``eff =
+min(slots, sliding_window)`` (the ring never holds a token outside the
+window), and prefill past the window takes the block-skipping
+:func:`~repro_torch.models.attention.swa_attention`.
 """
 from __future__ import annotations
 
@@ -46,7 +54,8 @@ from .attention import (KVCache, PagedKVCache, _dequantize_kv, _mapped,
                         kv_scale,
                         paged_decode_attention,
                         paged_decode_attention_window, paged_view,
-                        prefix_attention, stack_layers, update_kv_cache,
+                        prefix_attention, stack_layers, swa_attention,
+                        update_kv_cache,
                         update_kv_cache_window, update_paged_kv_cache,
                         update_paged_kv_cache_window)
 from .ssm import (SSMState, init_ssm, init_ssm_state, ssd_forward,
@@ -61,7 +70,8 @@ from repro_torch.runtime import compute_dtype
 __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "init_params", "param_count", "forward", "prefill",
            "forward_extend", "prefill_extend", "decode_step",
-           "prequant_decode_weights", "overlay_params", "paged_block_size",
+           "prequant_decode_weights", "overlay_params", "eff_slots",
+           "paged_block_size",
            "init_caches", "init_paged_caches", "cache_bytes",
            "supports_prefix_sharing", "supports_speculation",
            "paged_row_masters", "amax_for_scale", "decode_segment",
@@ -76,7 +86,7 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's config, field for field (the port implements the
-    dense and SSM families; ``moe`` stays ``None``, ``ssm`` is a
+    dense, SSM and hybrid families; ``moe`` stays ``None``, ``ssm`` is a
     :class:`~repro_torch.models.ssm.SSMConfig`)."""
 
     name: str
@@ -131,19 +141,21 @@ class ModelConfig:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Admit the families the port implements: dense full attention and
-    the pure SSM stack (hybrid, MoE, VLM, audio and sliding windows are
+    """Admit the families the port implements: dense and hybrid causal
+    attention stacks (with or without a sliding window) and the pure SSM
+    stack (MoE, mrope, layer norm, non-causal stacks and frontends are
     refused)."""
-    if (cfg.family not in ("dense", "ssm") or cfg.sliding_window
-            or cfg.mrope or cfg.norm != "rms" or not cfg.causal
-            or cfg.frontend):
+    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.mrope
+            or cfg.norm != "rms" or not cfg.causal or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense full-attention and the SSM "
-            f"families are ported")
+            f"{cfg.name}: only the dense, the SSM and the hybrid families "
+            f"are ported")
 
 
 _SITES = {"dense": ("qkv", "attn_out", "mlp_in", "mlp_out"),
-          "ssm": ("ssm_in", "ssm_out")}
+          "ssm": ("ssm_in", "ssm_out"),
+          "hybrid": ("qkv", "attn_out", "ssm_in", "ssm_out", "mlp_in",
+                     "mlp_out")}
 _GLOBAL_SITES = ("embed", "lm_head")
 
 
@@ -180,13 +192,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     Layers are drawn stacked ``[L, ...]`` from ``gen``, which must live on
     ``device``."""
     _require_ported(cfg)
-    L, d = cfg.n_layers, cfg.d_model
-    if cfg.family == "ssm":
-        layers = {"ssm": init_ssm(gen, d, cfg.ssm, layers=L, device=device),
-                  "norm_ssm": init_norm(d, layers=L, device=device)}
-    else:
-        layers = _init_dense_layers(cfg, gen, device)
-    p = {"layers": layers, "norm_f": init_norm(d, device=device),
+    d = cfg.d_model
+    p = {"layers": _init_layers(cfg, gen, device),
+         "norm_f": init_norm(d, device=device),
          "embed": init_embed(gen, cfg.vocab, d, device=device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = init_linear(gen, d, cfg.vocab, scale=0.02,
@@ -194,19 +202,30 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     return p
 
 
-def _init_dense_layers(cfg: ModelConfig, gen: torch.Generator,
-                       device) -> dict:
+def _init_layers(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    """The stacked layer tree, block by block in the reference's order:
+    attention, the SSD block (its norm on the pure SSM stack), the hybrid
+    layer's two output norms, the MLP."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
-    return {
-        "qkv": init_linear(gen, d, (cfg.n_heads + 2 * cfg.n_kv) * hd,
-                           bias=cfg.qkv_bias, layers=L, device=device),
-        "attn_out": init_linear(gen, cfg.n_heads * hd, d, layers=L,
-                                device=device),
-        "norm_attn": init_norm(d, layers=L, device=device),
-        "mlp": init_mlp(gen, d, cfg.d_ff, gated=cfg.act == "silu", layers=L,
-                        device=device),
-        "norm_mlp": init_norm(d, layers=L, device=device),
-    }
+    p = {}
+    if cfg.has_attn:
+        p["qkv"] = init_linear(gen, d, (cfg.n_heads + 2 * cfg.n_kv) * hd,
+                               bias=cfg.qkv_bias, layers=L, device=device)
+        p["attn_out"] = init_linear(gen, cfg.n_heads * hd, d, layers=L,
+                                    device=device)
+        p["norm_attn"] = init_norm(d, layers=L, device=device)
+    if cfg.has_ssm:
+        p["ssm"] = init_ssm(gen, d, cfg.ssm, layers=L, device=device)
+        if cfg.family == "ssm":
+            p["norm_ssm"] = init_norm(d, layers=L, device=device)
+    if cfg.family == "hybrid":
+        p["norm_attn_out"] = init_norm(d, layers=L, device=device)
+        p["norm_ssm_out"] = init_norm(d, layers=L, device=device)
+    if cfg.has_mlp:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.act == "silu",
+                            layers=L, device=device)
+        p["norm_mlp"] = init_norm(d, layers=L, device=device)
+    return p
 
 
 def _leaves(tree):
@@ -269,6 +288,25 @@ def _refine(k: torch.Tensor, v: torch.Tensor, ks: Optional[list], l: int):
     return kv_refine(k, ks[l]), kv_refine(v, ks[l])
 
 
+def _attend(cfg: ModelConfig, q, k, v, s: int, kv_valid=None):
+    """Prefill attention: the block-skipping sliding-window form where the
+    window is shorter than the self-attention sequence, else the masked
+    blockwise form (window ``cfg.window(s)``)."""
+    if (cfg.sliding_window and cfg.causal and cfg.swa_block_skip
+            and s > cfg.sliding_window and q.shape[1] == k.shape[1]):
+        return swa_attention(q, k, v, window=cfg.sliding_window,
+                             block_q=cfg.attn_block_k, kv_valid=kv_valid)
+    return gqa_attention(q, k, v, causal=cfg.causal, window=cfg.window(s),
+                         block_k=cfg.attn_block_k, kv_valid=kv_valid)
+
+
+def _merge(lp: dict, attn: torch.Tensor, ssm_out: torch.Tensor):
+    """The hybrid layer's fusion of its two branches: each normed on its
+    own, then averaged."""
+    return 0.5 * (rms_norm(lp["norm_attn_out"], attn)
+                  + rms_norm(lp["norm_ssm_out"], ssm_out))
+
+
 def _mlp_block(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor):
     return mlp(lp["mlp"], rms_norm(lp["norm_mlp"], x),
                lb[_site_idx(cfg, "mlp_in")], lb[_site_idx(cfg, "mlp_out")],
@@ -301,33 +339,47 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     ``collected`` is ``(k, v)``, each ``[L, B, S, Hkv, hd]``, with
     ``collect`` (the prefill → cache handoff) — on the SSM stack each
     layer's final state ``(h [L, B, H, P, N], conv_tail [L, B, K−1,
-    convdim])``. ``kv_sched`` (``[L]`` bit-widths, optional) refines each
-    layer's fresh K/V before attention and collection; the SSM stack has
-    none."""
+    convdim])``, on the hybrid stack ``((k, v), (h, conv_tail))``.
+    ``kv_sched`` (``[L]`` bit-widths, optional) refines each layer's fresh
+    K/V before attention and collection; the SSM stack has none."""
     _require_ported(cfg)
     x, positions, valid = _embed_inputs(cfg, params, bits_row, batch)
     _, _, layer_bits = split_bits(cfg, bits_row)
     if cfg.family == "ssm":
         return _forward_ssm(params, cfg, layer_bits, x, valid, collect)
     sched = _kv_row(cfg, kv_sched)
+    hybrid = cfg.family == "hybrid"
     s = x.shape[1]
-    ks, vs = [], []
+    ks, vs, hs, tails = [], [], [], []
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
         xin = rms_norm(lp["norm_attn"], x)
         q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
         k, v = _refine(k, v, sched, l)
-        attn = gqa_attention(q, k, v, causal=cfg.causal, window=cfg.window(s),
-                             block_k=cfg.attn_block_k, kv_valid=valid)
-        x = x + qlinear(lp["attn_out"], attn.reshape(*attn.shape[:2], -1),
-                        lb[_site_idx(cfg, "attn_out")])
+        attn = _attend(cfg, q, k, v, s, kv_valid=valid)
+        attn = qlinear(lp["attn_out"], attn.reshape(*attn.shape[:2], -1),
+                       lb[_site_idx(cfg, "attn_out")])
+        if hybrid:
+            out = ssd_forward(lp["ssm"], xin, *_ssm_bits(cfg, lb), cfg.ssm,
+                              return_final_state=collect, valid=valid)
+            if collect:
+                out, (h, tail) = out
+                hs.append(h)
+                tails.append(tail)
+            x = x + _merge(lp, attn, out)
+        else:
+            x = x + attn
         x = x + _mlp_block(cfg, lp, lb, x)
         if collect:
             ks.append(k)
             vs.append(v)
     x = rms_norm(params["norm_f"], x)
     aux = torch.zeros((), device=x.device)
-    collected = (torch.stack(ks), torch.stack(vs)) if collect else ()
+    collected = ()
+    if collect:
+        collected = (torch.stack(ks), torch.stack(vs))
+        if hybrid:
+            collected = (collected, (torch.stack(hs), torch.stack(tails)))
     return x, aux, collected
 
 
@@ -379,14 +431,22 @@ def _kv_dtype(kv_bits: int) -> torch.dtype:
     return torch.float32 if kv_bits == 32 else torch.bfloat16
 
 
+def eff_slots(cfg: ModelConfig, slots: int) -> int:
+    """Slots of one attention row: a sliding-window stack holds only its
+    window."""
+    return min(slots, cfg.sliding_window) if cfg.sliding_window else slots
+
+
 def init_caches(cfg: ModelConfig, batch: int, slots: int, *,
                 kv_bits: int = 16, device=None) -> dict:
-    """Contiguous decode caches, stacked ``[L, ...]``: ``"kv"`` on an
-    attention stack, ``"ssm"`` (O(1) per row) on an SSM stack."""
+    """Contiguous decode caches, stacked ``[L, ...]``: ``"kv"`` (``[B,
+    min(slots, sliding_window)]`` rows) on an attention stack, ``"ssm"``
+    (O(1) per row) on a stack with SSD blocks."""
     caches = {}
     if cfg.has_attn:
-        one = init_kv_cache(batch, slots, cfg.n_kv, cfg.hd, bits=kv_bits,
-                            dtype=_kv_dtype(kv_bits), device=device)
+        one = init_kv_cache(batch, eff_slots(cfg, slots), cfg.n_kv, cfg.hd,
+                            bits=kv_bits, dtype=_kv_dtype(kv_bits),
+                            device=device)
         caches["kv"] = stack_layers(one, cfg.n_layers)
     return _with_ssm_state(cfg, batch, caches, device)
 
@@ -405,7 +465,7 @@ def paged_block_size(cfg: ModelConfig, slots: int, block_size: int) -> int:
     divisor of the sliding window where there is one)."""
     bs = max(1, int(block_size))
     if cfg.sliding_window:
-        eff = min(slots, cfg.sliding_window)
+        eff = eff_slots(cfg, slots)
         while eff % bs and bs > 1:
             bs -= 1
     return bs
@@ -417,13 +477,13 @@ def init_paged_caches(cfg: ModelConfig, batch: int, slots: int, *,
                       device=None) -> dict:
     """Paged decode caches: ``pool_blocks`` physical blocks of
     ``block_size`` tokens shared by ``batch`` rows, each with a
-    ``[ceil(slots / block_size)]`` block table; ``None`` provisions the
-    contiguous footprint. SSM state stays dense, as in
-    :func:`init_caches`."""
+    ``[ceil(eff / block_size)]`` block table (``eff = min(slots,
+    sliding_window)``); ``None`` provisions the contiguous footprint. SSM
+    state stays dense, as in :func:`init_caches`."""
     caches = {}
     if cfg.has_attn:
         bs = paged_block_size(cfg, slots, block_size)
-        n_lblk = -(-slots // bs)
+        n_lblk = -(-eff_slots(cfg, slots) // bs)
         nb = batch * n_lblk if pool_blocks is None else int(pool_blocks)
         one = init_paged_kv_cache(batch, nb, bs, n_lblk, cfg.n_kv, cfg.hd,
                                   bits=kv_bits, dtype=_kv_dtype(kv_bits),
@@ -576,7 +636,9 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
 
     On the SSM stack the caches are ``{"ssm": SSMState}``, each row's
     final scan state (``slots`` plays no part), and the raw K/V are
-    ``None``.
+    ``None``. The hybrid stack hands off both. A sliding-window ring holds
+    ``eff = min(slots, sliding_window)`` slots and keeps the last ``eff``
+    prompt tokens at ``pos % eff``.
     """
     hidden, _, collected = forward(params, cfg, bits_row, batch,
                                    collect=True, kv_sched=kv_sched)
@@ -585,12 +647,16 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
         caches = {"ssm": SSMState(h=h_all, conv=tails.float())}
         logits = _logits(cfg, params, bits_row, hidden[:, -1:])[:, 0]
         return (logits, caches, None) if return_raw_kv else (logits, caches)
+    if cfg.family == "hybrid":
+        collected, (h_all, tails) = collected
     k_all, v_all = collected
     b, s, _ = hidden.shape
     dev = hidden.device
     caches = init_caches(cfg, b, slots, kv_bits=kv_bits, device=dev)
+    if cfg.family == "hybrid":
+        caches["ssm"] = SSMState(h=h_all, conv=tails.float())
     kv = caches["kv"]
-    eff = slots
+    eff = kv.token_idx.shape[-1]
     take = min(eff, s)
     idx = torch.arange(s - take, s, dtype=torch.int64, device=dev)
     plen = batch.get("prompt_len")
@@ -776,7 +842,8 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
     ``kv_sched`` (``[L]`` bit-widths, optional) refines the step's fresh
     K/V before the cache write and the attention read. On the SSM stack
     each layer advances its row of ``caches["ssm"]`` by one token
-    (``pos`` and ``kv_sched`` play no part).
+    (``pos`` and ``kv_sched`` play no part); the hybrid stack does both,
+    the SSD step on the attention's normed input.
     """
     _require_ported(cfg)
     eb, _, layer_bits = split_bits(cfg, bits_row)
@@ -816,8 +883,14 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
             attn = decode_attention(q, c, pos,
                                     window=cfg.window(c.token_idx.shape[1]),
                                     kernel=paged_backend == "kernel")
-        x = x + qlinear(lp["attn_out"], attn.reshape(b, 1, -1),
-                        lb[_site_idx(cfg, "attn_out")])
+        attn = qlinear(lp["attn_out"], attn.reshape(b, 1, -1),
+                       lb[_site_idx(cfg, "attn_out")])
+        if cfg.family == "hybrid":
+            out = ssm_decode_step(lp["ssm"], xin, caches["ssm"].layer(l),
+                                  *_ssm_bits(cfg, lb), cfg.ssm)
+            x = x + _merge(lp, attn, out)
+        else:
+            x = x + attn
         x = x + _mlp_block(cfg, lp, lb, x)
     x = rms_norm(params["norm_f"], x)
     return _logits(cfg, params, bits_row, x)[:, 0], caches

@@ -183,6 +183,15 @@ class Request:
     deadline_ms: Optional[float] = None
 
 
+def _write_rows(pool, rows, s: torch.Tensor, j: torch.Tensor) -> None:
+    """Write wave rows ``j`` of the stacked cache ``rows`` whole over pool
+    rows ``s`` (every tensor field, ``[L, B, ...]``)."""
+    for f in dataclasses.fields(pool):
+        x = getattr(pool, f.name)
+        if isinstance(x, torch.Tensor):
+            x[:, s] = getattr(rows, f.name)[:, j]
+
+
 class AdaptiveServer:
     """Serving entry points over one model: static grouped serving
     (:meth:`generate`, :meth:`serve`, :meth:`generate_stepwise`) and the
@@ -300,7 +309,9 @@ class AdaptiveServer:
                                              serving.block_size)
         if pb == "kernel":
             self._check_kernels()
-        self.n_lblk = -(-serving.slots // self.block_size)
+        # a sliding-window row holds only its window (the block size
+        # divides it, so the paged ring places tokens as the contiguous one)
+        self.n_lblk = -(-T.eff_slots(cfg, serving.slots) // self.block_size)
         self.slots_p = self.n_lblk * self.block_size     # virtual row length
         # continuations (shared admissions, chunks) run prefill_extend at
         # absolute positions, exact only where prefix sharing is; a chunk
@@ -517,11 +528,7 @@ class AdaptiveServer:
         j = torch.as_tensor(live, device=self.device)
         s = torch.as_tensor(sidx[live], device=self.device)
         for key in caches:                       # "kv" and/or "ssm"
-            pool, row = caches[key], rows[key]
-            for f in dataclasses.fields(pool):
-                x = getattr(pool, f.name)
-                if isinstance(x, torch.Tensor):
-                    x[:, s] = getattr(row, f.name)[:, j]
+            _write_rows(caches[key], rows[key], s, j)
         tok[s] = tok0[j]
         pos[s] = torch.as_tensor(np.asarray(prompt_len)[live],
                                  dtype=torch.int32, device=self.device)
@@ -607,8 +614,10 @@ class AdaptiveServer:
     def _land(self, logits, rows, row_len, slots_idx, dest, bt_rows, tok,
               pos, caches) -> torch.Tensor:
         """Finish a paged wave: first tokens by on-device argmax, the block
-        scatter of the live wave rows, and their carry (``pos`` = each
-        row's token count ``row_len``). Returns the wave's first tokens."""
+        scatter of the live wave rows, their SSM state written whole on a
+        hybrid stack (a new row must not decode from its slot's previous
+        occupant's state), and their carry (``pos`` = each row's token
+        count ``row_len``). Returns the wave's first tokens."""
         tok0 = logits.argmax(dim=-1).to(torch.int32)
         sidx = np.asarray(slots_idx)
         live = np.nonzero(sidx < tok.shape[0])[0]
@@ -617,6 +626,8 @@ class AdaptiveServer:
                              None if bt_rows is None else np.asarray(bt_rows))
         j = torch.as_tensor(live, device=self.device)
         s = torch.as_tensor(sidx[live], device=self.device)
+        if "ssm" in caches:
+            _write_rows(caches["ssm"], rows["ssm"], s, j)
         tok[s] = tok0[j]
         pos[s] = torch.as_tensor(np.asarray(row_len)[live],
                                  dtype=torch.int32, device=self.device)

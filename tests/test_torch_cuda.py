@@ -17,7 +17,10 @@ and a mixed-row paged serve through K1 (the gather backend's tokens); fault
 tolerance on the kernel backend (a reaped and a quarantined row's table
 unmapped before the next segment, so the blocks' next owner keeps its
 bytes; a NaN in a copy-on-write sharer leaving the shared blocks and the
-neighbour's bytes, scales and tokens those of the serve without it).
+neighbour's bytes, scales and tokens those of the serve without it); at
+hymba-1.5b's shapes, K1 at Hg 5 on wrapped sliding-window rings, K4 at Hg
+5, K3 at ``ssm_in`` (N 6482), the untied head (N 32001) and ``mlp_in``, and
+the hymba smoke model's paged serve equal to its contiguous one.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -1292,3 +1295,156 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------- hymba
+
+def _ring_inputs(bits: int, gen: torch.Generator, b=6, hkv=5, hg=5, d=64,
+                 bs=16, n_lblk=64):
+    """K1's operands on hymba-1.5b's sliding-window ring (5 KV heads, 5
+    query heads each, 1024 slots in blocks of 16): shuffled tables, slot
+    ``j`` holding the newest token ``t <= pos`` with ``t % 1024 == j``;
+    rows at 300 (not wrapped), 1023, 1024, 1029 and 3071; one dead row."""
+    cap = n_lblk * bs
+    n_blocks = b * n_lblk + 3
+    pos = torch.tensor([300, cap - 1, cap, cap + 5, 3 * cap - 1, 0][:b],
+                       dtype=torch.int32)
+    bt = torch.randperm(n_blocks, generator=gen)[:b * n_lblk].reshape(
+        b, n_lblk).int()
+    bt[-1] = -1
+    tidx = torch.full((n_blocks, bs), -1, dtype=torch.int32)
+    slot = torch.arange(cap)
+    for r in range(b - 1):
+        p = int(pos[r])
+        t = p - (p - slot) % cap
+        tidx[bt[r].long()] = torch.where(t >= 0, t, -1).int().reshape(
+            n_lblk, bs)
+    dk = d // 2 if bits == 4 else d
+    shape = (n_blocks, bs, hkv, dk)
+    if bits == 16:
+        k, v = (torch.randn(shape, generator=gen).bfloat16() for _ in "kv")
+    else:
+        k, v = (torch.randint(-127, 128, shape, generator=gen).to(torch.int8)
+                for _ in "kv")
+    ks, vs = (0.01 + 0.04 * torch.rand((b, hkv), generator=gen)
+              for _ in "kv")
+    q = torch.randn((b, hkv, hg, d), generator=gen).bfloat16()
+    x = dict(q=q, k_pool=k, v_pool=v, k_scale=ks, v_scale=vs,
+             token_idx=tidx, block_table=bt, pos=pos)
+    return {name: t.cuda() for name, t in x.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1024, 1000])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_paged_attention_kernel_on_hymba_ring(bits, window):
+    """K1 at Hg 5 on wrapped rings: hymba's window of 1024 (every live
+    slot inside it) and 1000 (the oldest slots masked), against the plain
+    version; the dead row exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x = _ring_inputs(bits, torch.Generator().manual_seed(bits + window))
+    n0 = PA.paged_attention.launches
+    got = PA.paged_attention(**x, bits=bits, window=window)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == n0 + 1
+    want = PA.paged_attention_ref(**x, bits=bits, window=window)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_qkv_attention_kernel_at_hg5(qdtype):
+    """K4 at hymba's 5 KV heads of 5 query heads, S 1024 (the ring), with
+    lengths 0, 1, 65, 544, 1024 and 1024 (a wrapped ring is full)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    q, k, v, ks, vs, lens = _qkv_case(6, 1024, 5, 5, 64,
+                                      [0, 1, 65, 544, 1024, 1024], qdtype, 5)
+    n0 = QK.qkv_attention.launches
+    got = QK.qkv_attention(q, k, v, ks, vs, lens)
+    torch.cuda.synchronize()
+    assert QK.qkv_attention.launches == n0 + 1
+    want = QK.qkv_attention_cache_ref(q, k, v, ks, vs, lens)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bits,route", [
+    (8, 1600, 6482, 8, "splitk"),        # ssm_in: 6482-byte rows
+    (8, 1600, 6482, 4, "splitk"),        # 3241-byte packed rows, odd
+    (300, 1600, 6482, 8, "mma_sync"),
+    (300, 1600, 6482, 4, "mma_sync"),
+    (8, 1600, 32001, 8, "splitk"),       # the untied head, N odd
+    (300, 1600, 32001, 8, "mma_sync"),
+    (300, 1600, 11008, 8, "wgmma")])     # mlp_in
+def test_qmatmul_kernel_at_hymba_sites(m, k, n, bits, route):
+    """K3 at hymba-1.5b's ``ssm_in`` (N 6482), untied head (N 32001) and
+    ``mlp_in`` on the route the rule gives, bf16 x: within the
+    summation-order bound, two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, w_q, scale = _qmatmul_case(m, k, n, bits, torch.bfloat16, m + n + bits)
+    got = QM.qmatmul(x, w_q, scale, bits=bits)
+    assert QM.qmatmul.last_route == route
+    again = QM.qmatmul(x, w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = QM.qmatmul_ref(x, w_q, scale, bits)
+    wb = QM.dequant_ref(w_q, scale, bits).bfloat16().float()
+    tol = 4 * k * 2.0 ** -24 * (x.float().abs() @ wb.abs())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_hymba_paged_serve_equals_contiguous(kv_bits):
+    """The hymba smoke model (window 16) served by the continuous scheduler
+    on the card in f32, TF32 off: the paged pool through K1 (layers x
+    decode steps launches) gives the contiguous ring's tokens (through K4
+    at kv8), with rows reused and rings that wrap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            ServingConfig)
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg = get_smoke("hymba-1.5b")
+    names = T.quant_layer_names(cfg)
+    engine = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    rng = np.random.default_rng(29)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new=m) for n, m in ((17, 9), (4, 20), (19, 12),
+                                            (9, 12), (6, 7))]
+    flag = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with use_compute_dtype(torch.float32):
+            for paged in (True, False):
+                sched = ContinuousScheduler(AdaptiveServer(
+                    cfg, params, engine, ServingConfig(
+                        slots=64, max_batch=2, kv_bits=kv_bits,
+                        paged_kv=paged, paged_backend="kernel"),
+                    device="cuda"), quantum=4)
+                assert sched.paged == paged
+                n1, n4 = PA.paged_attention.launches, QK.qkv_attention.launches
+                for r in reqs:
+                    sched.submit(r)
+                res = sched.run()
+                out[paged] = [res[i]["tokens"] for i in range(len(reqs))]
+                k1 = PA.paged_attention.launches - n1
+                k4 = QK.qkv_attention.launches - n4
+                steps = cfg.n_layers * sched.decode_steps
+                assert k1 == (steps if paged else 0)
+                assert k4 == (steps if not paged and kv_bits == 8 else 0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert out[True] == out[False]
