@@ -178,12 +178,34 @@ Phases:
     (decode steps + prefill waves)): tok/s, peak memory, KV and SSM bytes;
     (d) under ``torch.profiler``: one admission wave and one decode
     segment.
+16. the MoE family at qwen2-moe-a2.7b's full width (24 layers, d_model
+    2048, 16 heads of 128 with qkv bias, 60 routed experts top-4 of width
+    1408 and 4 shared, vocab 151936, untied; 57.26 GB of f32 masters): (a)
+    in f32, TF32 off, at capacity factor 16 (nothing drops): prefill(31) +
+    decode_step against forward(32) at ``B = 16``, ``rel < 5e-5``; at the
+    published 1.25, 12 greedy steps of 8 rows on a bf16 paged pool through
+    K1 against the gather backend, tokens identical (a divergence only
+    after a router top-k margin under 1e-6 or a top-2 logit margin under
+    1e-3); (b) K5 bit for bit on the routed stacks (``w_in`` 346 M f32
+    elements, ``w_out``) and a prefill wave's bf16 dispatch buffer at bits
+    8 and 4, K1 and K4 at Hkv 16, Hg 1, D 128, K3 at the router (N 60,
+    W8/W4), ``qkv``, ``shared_in``, ``shared_out`` and the head at M 8 and
+    4096, each timed beside its library call and bound; (c) the launcher's
+    ``--arch qwen2-moe-a2.7b --full --continuous`` workload on the paged
+    kv16 pool (K1 = 24 x steps, K5 = image build + 96 x (steps + waves)),
+    with ``--no-paged-kv --kv-bits 8`` (K4 = 24 x steps) and from
+    ``to_native(params, 8)`` (K3 = 121 x (steps + waves), routed
+    dequantizations and K5 = 48 x (steps + waves)): tok/s, peak memory,
+    decode steps, prefill waves; (d) under ``torch.profiler``: one
+    admission wave and one decode segment, with K5's share.
+Each phase prints its seconds, and the run its total.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
@@ -4195,12 +4217,13 @@ def phase_ssm_serve(seed: int, w_bits=None) -> dict:
 
 def phase_ssm_profile(seed: int, arch: str = MAMBA2,
                       tag: str = "mamba2") -> None:
-    """Phase 14 (d), and 15 (d) with ``arch`` hymba-1.5b: where the time
-    goes on the (c) phase's fake-quant server, bf16, under
-    ``torch.profiler``: one admission wave of 8 prompts (the chunked SSD
-    prefill; a first wave on another scheduler warms the server) and one
-    decode segment of 8 steps after a warm one: wall time, device-busy
-    time and share, and the device operations that take the most."""
+    """Phase 14 (d), and 15 (d) and 16 (d) with ``arch`` hymba-1.5b and
+    qwen2-moe-a2.7b: where the time goes on the (c) phase's fake-quant
+    server, bf16, under ``torch.profiler``: one admission wave of 8 prompts
+    (a first wave on another scheduler warms the server) and one decode
+    segment of 8 steps after a warm one: wall time, device-busy time and
+    share, K5's share of it, and the device operations that take the
+    most."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve as S
     from repro_torch.serving.scheduler import ContinuousScheduler
@@ -4230,9 +4253,15 @@ def phase_ssm_profile(seed: int, arch: str = MAMBA2,
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
         busy = sum(e.self_device_time_total for e in ev) / 1e3
+        k5 = [e for e in ev if "amax_kernel" in e.key
+              or "quant_kernel" in e.key]
+        k5_ms = sum(e.self_device_time_total for e in k5) / 1e3
         print(f"[{tag}] (d) {label}: wall {wall:.3f} ms, device busy "
               f"{busy:.3f} ms ({100 * busy / wall:.1f}%), "
-              f"{sum(e.count for e in ev)} device kernels")
+              f"{sum(e.count for e in ev)} device kernels; K5 (its amax and "
+              f"quant kernels) {k5_ms:.3f} ms in {sum(e.count for e in k5)} "
+              f"kernels, {100 * k5_ms / max(busy, 1e-9):.1f}% of the device "
+              f"time")
         for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"[{tag}] (d)   {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:6d}x  {e.key[:90]}")
@@ -4627,6 +4656,389 @@ def phase_hybrid_serve(seed: int, mode: str) -> dict:
             "peak": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the MoE family (qwen2-moe-a2.7b) at full width
+# ---------------------------------------------------------------------------
+
+QWEN_MOE = "qwen2-moe-a2.7b"
+# (site, K, N) of qwen2-moe-a2.7b's native linears (K3), one layer each, and
+# the untied head; the routed stacks are dequantized, then multiplied
+MOE_LINEARS = (("router", 2048, 60), ("qkv", 2048, 6144),
+               ("shared_in", 2048, 11264), ("shared_out", 5632, 2048),
+               ("lm_head", 2048, 151936))
+
+
+def free_card(tag: str) -> None:
+    """Drop what earlier phases left on the card and print what stays."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] memory allocated at the start: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+
+def phase_moe_parity(seed: int) -> dict:
+    """Phase 16 (a): qwen2-moe-a2.7b's full config (24 layers, d_model 2048,
+    16 heads of 128 with qkv bias, 60 routed experts top-4 of width 1408, 4
+    shared, vocab 151936, untied), random weights from ``seed``, f32, TF32
+    off, the float profile. At ``capacity_factor`` 16 (``cap >= tg``:
+    nothing drops, as the reference's own test sets 8.0 on its smoke
+    config) and ``B = 16`` (16 dispatch groups of a row each): prefill of
+    31 tokens into an f32 cache, then one ``decode_step`` against
+    ``forward`` over 32, ``rel < 5e-5``. Then at the published 1.25: 8
+    rows of 32 tokens prefilled into a bf16 cache of 64 slots, copied into
+    a paged pool of blocks of 16, and 12 greedy decode steps through K1
+    (24 x 12 launches) and through the gather backend: the tokens must be
+    identical, except after a step whose router top-k margin (the smallest
+    gap between a token's 4th and 5th expert probability) is below 1e-6 or
+    whose top-2 logit margin is below 1e-3, which is printed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import Profile, profile_table
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import moe as MO
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+
+    free_card("moe")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pub = get_config(QWEN_MOE)
+    wide = dataclasses.replace(pub, moe=dataclasses.replace(
+        pub.moe, capacity_factor=16.0))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = T.init_params(pub, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_par = T.param_count(params)
+    print(f"[moe] (a) {pub.name}: {n_par} parameters "
+          f"({T.active_param_count(pub, params)} active), "
+          f"{4 * n_par / 1e9:.2f} GB of f32 masters, drawn in "
+          f"{time.perf_counter() - t0:.2f}s; allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    names = T.quant_layer_names(pub)
+    dev = "cuda"
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1e-9, float(b.abs().max()))
+
+    with use_compute_dtype(torch.float32):
+        br = profile_table([Profile.float32(names)], names)[0]
+        toks = torch.randint(0, pub.vocab, (16, 32), generator=gen, device=dev)
+        hidden, aux, _ = T.forward(params, wide, br, {"tokens": toks})
+        full = T._logits(wide, params, br, hidden[:, -1:])[:, 0]
+        _, caches = T.prefill(params, wide, br, {"tokens": toks[:, :31]}, 36,
+                              kv_bits=32)
+        dec, _ = T.decode_step(params, wide, br, toks[:, 31:],
+                               torch.full((16,), 31, dtype=torch.int32,
+                                          device=dev), caches)
+        r = rel(dec, full)
+        print(f"[moe] (a) full width ({pub.n_layers} layers, d_model "
+              f"{pub.d_model}, {pub.moe.n_routed} experts top-"
+              f"{pub.moe.top_k}), f32, capacity factor 16: "
+              f"prefill(31) + decode_step vs forward(32) at B=16 logits rel "
+              f"{r:.3e} (< 5e-5: {r < 5e-5}); aux (load balance + router "
+              f"z, {pub.n_layers} layers) {float(aux):.6f}")
+        if not r < 5e-5 or not bool(torch.isfinite(aux)):
+            raise AssertionError(f"prefill + decode != forward: rel {r}")
+        del hidden, caches, full, dec
+        margins: list = []
+        plain_topk = MO.top_k_stable
+
+        def watched(probs, k):           # records the step's top-k margins
+            vals, idx = torch.sort(probs, dim=-1, descending=True,
+                                   stable=True)
+            margins.append(float((vals[..., k - 1] - vals[..., k]).min()))
+            return vals[..., :k], idx[..., :k]
+
+        toks = torch.randint(0, pub.vocab, (8, 32), generator=gen, device=dev)
+        runs = {}
+        MO.top_k_stable = watched
+        try:
+            for backend in ("kernel", "gather"):
+                logits, caches = T.prefill(params, pub, br, {"tokens": toks},
+                                           64, kv_bits=16)
+                caches["kv"] = paged_from_dense(caches["kv"], 16)
+                PA.paged_attention.launches = 0
+                tok = logits.argmax(-1).to(torch.int32)
+                out, info = [tok], []
+                for i in range(12):
+                    margins.clear()
+                    pos = torch.full((8,), 32 + i, dtype=torch.int32,
+                                     device=dev)
+                    logits, caches = T.decode_step(
+                        params, pub, br, tok[:, None], pos, caches,
+                        paged_backend=backend)
+                    top2 = logits.float().topk(2, dim=-1).values
+                    info.append((min(margins),
+                                 float((top2[:, 0] - top2[:, 1]).min())))
+                    tok = logits.argmax(-1).to(torch.int32)
+                    out.append(tok)
+                runs[backend] = (torch.stack(out, 1).cpu(), info,
+                                 PA.paged_attention.launches)
+                del caches, logits
+        finally:
+            MO.top_k_stable = plain_topk
+    kt, kinfo, k1 = runs["kernel"]
+    gt, ginfo, g1 = runs["gather"]
+    diverged = None
+    for j in range(kt.shape[1]):
+        if not torch.equal(kt[:, j], gt[:, j]):
+            diverged = j
+            break
+    line = (f"[moe] (a) capacity factor {pub.moe.capacity_factor}, bf16 "
+            f"paged pool (blocks of 16, "
+            f"8 rows): K1 launches {k1} = {pub.n_layers} x 12: "
+            f"{k1 == pub.n_layers * 12}; gather backend launches {g1}; "
+            f"smallest router top-k margin {min(m for m, _ in kinfo):.3e}, "
+            f"top-2 logit margin {min(t for _, t in kinfo):.3e}")
+    if diverged is None:
+        print(f"{line}; 13 greedy tokens per row identical")
+    else:
+        step = diverged - 1              # the decode step that produced it
+        rm = min(kinfo[step][0], ginfo[step][0])
+        lm = min(kinfo[step][1], ginfo[step][1])
+        print(f"{line}; first divergence at token {diverged} (decode step "
+              f"{step}): router top-k margin {rm:.3e}, top-2 logit margin "
+              f"{lm:.3e}; tokens equal before it")
+        if not (rm < 1e-6 or lm < 1e-3):
+            raise AssertionError("K1 and gather diverge on a step with "
+                                 "clear margins")
+    if k1 != pub.n_layers * 12 or g1:
+        raise AssertionError("the paged MoE decode did not run through K1")
+    PA.paged_attention.launches = 0
+    del params, runs
+    torch.cuda.empty_cache()
+    return {"rel_decode": r}
+
+
+def phase_moe_kernels(seed: int) -> dict:
+    """Phase 16 (b): the kernels at qwen2-moe-a2.7b's shapes against their
+    plain versions. K5 bit for bit on one layer's routed stacks (``w_in``
+    ``[60, 2048, 2816]`` f32, 346 M elements; ``w_out`` ``[60, 1408,
+    2048]``) and on a prefill wave's bf16 dispatch buffer (8 x 512 tokens:
+    16 groups x 60 experts x cap 22 x 2048) at bits 8 and 4, timed at 8
+    beside its bytes bound; K1 at Hkv 16, Hg 1, D 128 (phase 2's tables)
+    at kv16/8/4 beside SDPA (kv16) and its bound; K4 at 8 rows x 16 KV
+    heads, Hg 1, D 128 at the static serve's lengths (bf16 and f32 q);
+    K3 (:func:`k3_case`) at every native linear of the MoE layer and the
+    head at M 8 (decode) and 4096 (a prefill wave; the head only at M 8),
+    W8, the router also W4 (30-byte packed rows), each with its route,
+    device time beside torch.matmul's and its bound. Returns the timed K5
+    row of ``w_in`` at bits 8 and the K1/K3/K4 rows keyed by label."""
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.kernels import qmatmul as QM
+    free_card("moe")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows: dict = {}
+    for label, shape, std, dtype in (
+            ("w_in 60x2048x2816 f32", (60, 2048, 2816), 2048 ** -0.5, f32),
+            ("w_out 60x1408x2048 f32", (60, 1408, 2048), 1408 ** -0.5, f32),
+            ("dispatch 16x60x22x2048 bf16", (16, 60, 22, 2048), 1.0, bf16)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+        for bits in (8, 4):
+            row = k5_case(f"qwen2-moe {label}", x, bits, True,
+                          timed=bits == 8)
+            if row is not None:
+                rows[f"k5 {label}"] = row
+                print(f"[moe] (b) K5 {label} bits 8: {row['device_ms']:.4f} "
+                      f"ms on the device, {row['bound_ms'] / row['device_ms']:.3f}"
+                      f" of its bytes bound ({row['bound_ms']:.4f} ms)")
+        del x
+    fn, ref = PA.paged_attention, PA.paged_attention_ref
+    for bits in (16, 8, 4):
+        x = paged_inputs(gen, bits=bits, B=8, Hkv=16, Hg=1, D=128)
+        kw = dict(bits=bits)
+        lab = f"qwen2-moe Hkv 16 Hg 1 D 128 kv{bits}"
+        err = check_case("K1", fn, ref, x, kw, lab)
+        splits, per, rt, nrow = plan_of(PA, x)
+        ms = cuda_time_ms(lambda: fn(**x, **kw))
+        dev = graph_ms(lambda: fn(**x, **kw))
+        plain = cuda_time_ms(lambda: ref(**x, **kw), iters=50)
+        lib = lib_dev = None
+        if bits == 16:
+            lib, lib_dev = library_times(lambda: sdpa_fn(x))
+        bd = paged_bound(x, bits)
+        rows[f"k1 kv{bits}"] = {"max_abs_err": err, "ms": ms,
+                                "device_ms": dev, "plain_ms": plain,
+                                "library_ms": lib, **bd}
+        print(f"[K1] {lab}: {splits} splits x {per} tiles, {rt} row tile(s) "
+              f"of {nrow}; device {dev:.4f} ms, per call {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa {_ms(lib)} (device {_ms(lib_dev)}), "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+              f"{bd['bytes']} B, {bd['flops']} flop, {bd['keys']} keys)")
+    for label, lens in serve_lengths(seed):
+        for qdtype in (bf16, f32):
+            x = qkv_inputs(gen, lens, hkv=16, hg=1, d=128, qdtype=qdtype)
+            lab = (f"qwen2-moe {label} Hkv 16 Hg 1 D 128 "
+                   f"{'bf16' if qdtype == bf16 else 'f32'} q")
+            err = check_k4(QK, x, lab)
+            if qdtype != bf16:
+                continue
+            copies = k4_copies(x)
+            dev = k4_device_ms(QK, x, copies)
+            del copies
+            lib = qkv_sdpa_times(x)
+            bd = qkv_bound(x["q"], x["lengths"], 1024)
+            rows[f"k4 {label}"] = {"max_abs_err": err, "device_ms": dev,
+                                   **lib, **bd}
+            print(f"[K4] {lab}: device {dev:.4f} ms, sdpa device "
+                  f"{_ms(lib['library_device_ms'])} / per call "
+                  f"{_ms(lib['library_ms'])}, bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']}: {bd['bytes']} B)")
+    for site, k, n in MOE_LINEARS:
+        for bits in ((8, 4) if site == "router" else (8,)):
+            for m in ((8,) if site == "lm_head" else (8, 4096)):
+                r = k3_case(gen, m, k, n, bits, bf16)
+                note = " (qkv's bias is added after the kernel, as qlinear " \
+                       "does)" if site == "qkv" else ""
+                print(f"[moe] (b) K3 {site} M={m} W{bits}: route "
+                      f"{r['route']}, device {r['device_ms']:.4f} ms, "
+                      f"torch.matmul {r['library_device_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms{note}")
+                rows[f"k3 {site} M={m} W{bits}"] = {
+                    key: r[key] for key in ("max_abs_err", "ms", "device_ms",
+                                            "plain_ms", "library_ms",
+                                            "library_device_ms", "bound_ms",
+                                            "bound_by", "route")}
+                del r
+    QM.qmatmul.launches = AQ.aquant.launches = 0   # comparisons do not count
+    PA.paged_attention.launches = QK.qkv_attention.launches = 0
+    return rows
+
+
+def phase_moe_serve(seed: int, mode: str) -> dict:
+    """Phase 16 (c): the launcher's ``--arch qwen2-moe-a2.7b --full
+    --continuous`` workload (12 requests, prompts of 64–512 tokens from
+    ``seed``, 32 new tokens, 8 rows, quantum 8, bf16) in one of three
+    modes: ``"paged"`` — the paged kv16 pool of blocks of 16 on the kernel
+    backend with fake-quant weights: K1 = 24 x decode steps, K5 = the
+    image build + 96 x (steps + waves) (each forward fake-quantizes the
+    dispatch buffer, ``w_in``, the hidden buffer and ``w_out`` of every
+    layer); ``"kv8"`` — ``--no-paged-kv --kv-bits 8``, the contiguous int8
+    pool: K4 = 24 x steps, K1 0, K5 as paged; ``"native"`` —
+    ``to_native(params, 8)`` (the f32 masters freed once it is built)
+    through ``AdaptiveServer`` + ``ContinuousScheduler`` on the paged
+    pool: K3 = 121 x (steps + waves) (5 sites x 24 layers + the head),
+    routed dequantizations = 48 x (steps + waves), K5 = 48 x (steps +
+    waves), the dequantize-then-matmul branch never. The counts are zeroed
+    just before the server is built, the image build's K5 read after it,
+    and the rest after the serve. Every request completes with 32
+    in-vocabulary tokens."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.kernels import qmatmul as QM
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as LY
+    from repro_torch.models import moe as MO
+    from repro_torch.models import transformer as T
+    from repro_torch.models.native import to_native
+    from repro_torch.serving.engine import (AdaptiveServer, RequestStatus,
+                                            ServingConfig)
+
+    free_card("moe")
+    argv = ["--arch", QWEN_MOE, "--full", "--continuous", "--requests", "12",
+            "--max-new", "32", "--quantum", "8", "--seed", str(seed)]
+    if mode == "kv8":
+        argv += ["--no-paged-kv", "--kv-bits", "8"]
+    args = S.parse_args(argv)
+    nat = None
+    if mode == "native":
+        cfg = get_config(QWEN_MOE)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        params = T.init_params(cfg, gen, device="cuda")
+        nat = to_native(params, 8)
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    QM.qmatmul.launches = AQ.aquant.launches = LY.dequant_matmul.calls = 0
+    PA.paged_attention.launches = QK.qkv_attention.launches = 0
+    A.decode_attention.kv8_einsum_calls = A.paged_view.calls = 0
+    MO.routed_dequant.calls = 0
+    t0 = time.perf_counter()
+    if nat is None:
+        cfg, srv = S.build_server(args)
+    else:
+        names = T.quant_layer_names(cfg)
+        profs = paper_profiles(names, inner_layers=[])
+        engine = AdaptiveEngine(tuple(profs), QuantIndex(names))
+        stats = S.profile_stats(cfg, profs, T.param_count(nat))
+        mgr = ProfileManager(stats, accuracy_target=0.985,
+                             accuracy_floor=0.95,
+                             budget_j=stats[0].energy_j
+                             * args.budget_inferences, low_energy=0.5)
+        srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
+            slots=1024, max_batch=8), manager=mgr, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    k5_build = AQ.aquant.launches
+    reqs = S.make_requests(cfg, args)
+    out = S.serve(srv, reqs, args.quantum, continuous=True)
+    k1, k3, k4 = (PA.paged_attention.launches, QM.qmatmul.launches,
+                  QK.qkv_attention.launches)
+    k5 = AQ.aquant.launches - k5_build
+    deq, routed = LY.dequant_matmul.calls, MO.routed_dequant.calls
+    einsum, gathers = (A.decode_attention.kv8_einsum_calls,
+                       A.paged_view.calls)
+    results, sched, wall = out["results"], out["sched"], out["wall_s"]
+    for i, r in enumerate(results):
+        if (len(r["tokens"]) != 32
+                or r["status"] is not RequestStatus.COMPLETED):
+            raise AssertionError(f"qwen2-moe {mode} request {i}: "
+                                 f"{len(r['tokens'])} tokens, {r['status']}")
+        if not all(0 <= t < cfg.vocab for t in r["tokens"]):
+            raise AssertionError(f"qwen2-moe {mode} request {i}: token out "
+                                 f"of vocab")
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(r["tokens"]) for r in results)
+    L = cfg.n_layers
+    steps = sched.decode_steps
+    waves = len(sched.events) - steps          # one billing event per wave
+    fw = steps + waves
+    kv = T.cache_bytes(sched._caches)
+    print(f"[moe] (c) {mode}: {len(results)} requests, prompts "
+          f"{min(len(r.tokens) for r in reqs)}-"
+          f"{max(len(r.tokens) for r in reqs)}, {n_tok} tokens in "
+          f"{wall:.3f}s = {n_tok / wall:.2f} tok/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; server built in {t_build:.2f}s; "
+          f"{steps} decode steps, {waves} prefill waves, "
+          f"{sched.segments_run} segments; paged {sched.paged}; KV "
+          f"{kv} B")
+    want = {"k1": L * steps if mode != "kv8" else 0,
+            "k4": L * steps if mode == "kv8" else 0,
+            "k3": (5 * L + 1) * fw if mode == "native" else 0,
+            "k5": (2 if mode == "native" else 4) * L * fw,
+            "routed": 2 * L * fw if mode == "native" else 0}
+    got = {"k1": k1, "k4": k4, "k3": k3, "k5": k5, "routed": routed}
+    print(f"[moe] (c) {mode}: K1 {k1}, K4 {k4}, K3 {k3}, K5 {k5} after the "
+          f"image build's {k5_build}, routed dequantizations {routed}; want "
+          f"{want}: {got == want}; dequant-matmul calls {deq}, kv8 einsum "
+          f"{einsum}, gather calls {gathers}")
+    if (got != want or deq or einsum or gathers
+            or sched.paged != (mode != "kv8")
+            or (mode == "native") != (k5_build == 0)):
+        raise AssertionError(f"the qwen2-moe {mode} serve did not run as "
+                             f"counted")
+    del srv, sched, out, nat
+    torch.cuda.empty_cache()
+    return {**got, "k5_build": k5_build, "tok_s": n_tok / wall, "peak": peak,
+            "steps": steps, "waves": waves}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4647,7 +5059,10 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     under injected faults, phase 12's after restarts, phase 13's on the
     CNN path, phase 14's on the mamba2 path: K3's native W8 serve, K5's
     fake-quant one; phase 15's on the hymba path: K1's paged serve, K4's
-    kv8 static serve, K3's native W8 serve, K5's fake-quant one)."""
+    kv8 static serve, K3's native W8 serve, K5's fake-quant one; phase
+    16's on the qwen2-moe path: K1's paged serve, K4's contiguous kv8
+    serve, K3's native W8 serve, K5's fake-quant serve after its image
+    build)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -4672,7 +5087,7 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -4681,12 +5096,23 @@ def main() -> None:
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    t_start = time.perf_counter()
+    secs: dict = {}
+
+    @contextlib.contextmanager
+    def timed(n):
+        t0 = time.perf_counter()
+        yield
+        secs[n] = time.perf_counter() - t0
+        print(f"[time] phase {n}: {secs[n]:.1f}s")
+
     card = card_line()
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     print(f"[env] {card}")
     from repro_torch.kernels import build as B
-    libs = B.build()
+    with timed(1):
+        libs = B.build()
     for name, info in libs.items():
         print(f"[env] built {name} ({B.SOURCES[name].name}, sm_90a) in "
               f"{info['seconds']:.1f}s -> {info['path']}")
@@ -4695,79 +5121,105 @@ def main() -> None:
                 print(f"[env] ptxas {name}: {line.strip()}")
     rows = {}
     if 2 in phases:
-        _, rows["k1"] = phase_kernels(args.seed)
-        rows["k2"] = phase_window_kernel(args.seed)
-        phase_shared_tables(args.seed)
-        split_sweep(args.seed)
-        rows["k3"] = phase_qmatmul(args.seed)
-        qmatmul_sweep(args.seed)
-        qmatmul_prefill_sweep(args.seed)
-        rows["k4"] = phase_qkv_attention(args.seed)
-        qkv_sweep(args.seed)
-        rows["k5"] = phase_aquant(args.seed)
+        with timed(2):
+            _, rows["k1"] = phase_kernels(args.seed)
+            rows["k2"] = phase_window_kernel(args.seed)
+            phase_shared_tables(args.seed)
+            split_sweep(args.seed)
+            rows["k3"] = phase_qmatmul(args.seed)
+            qmatmul_sweep(args.seed)
+            qmatmul_prefill_sweep(args.seed)
+            rows["k4"] = phase_qkv_attention(args.seed)
+            qkv_sweep(args.seed)
+            rows["k5"] = phase_aquant(args.seed)
     if 3 in phases:
-        phase_parity(args.seed)
-        phase_prefix_parity(args.seed)
-        phase_preempt_parity(args.seed)
-        phase_native_parity(args.seed)
-    served = phase_serve(args.seed) if 4 in phases else {"launches": 0}
+        with timed(3):
+            phase_parity(args.seed)
+            phase_prefix_parity(args.seed)
+            phase_preempt_parity(args.seed)
+            phase_native_parity(args.seed)
+    served = {"launches": 0}
     if 4 in phases:
-        phase_serve_block128(args.seed)
-    spec = (phase_spec_serve(args.seed, served) if 5 in phases
-            else {"launches": 0})
+        with timed(4):
+            served = phase_serve(args.seed)
+            phase_serve_block128(args.seed)
+    spec = {"launches": 0}
     if 5 in phases:
-        phase_spec_wide(args.seed)
+        with timed(5):
+            spec = phase_spec_serve(args.seed, served)
+            phase_spec_wide(args.seed)
     native = {"k3": 0, "k5": 0}
     if 6 in phases:
-        native = phase_native_serve(args.seed, 12, 32, 8)
-        phase_native_serve(args.seed, 4, 16, 4)
+        with timed(6):
+            native = phase_native_serve(args.seed, 12, 32, 8)
+            phase_native_serve(args.seed, 4, 16, 4)
     static = {"launches": 0}
     if 7 in phases:
-        static = phase_contiguous_serve(args.seed, continuous=False)
-        phase_contiguous_serve(args.seed, continuous=True)
-        phase_contiguous_spec_serve(args.seed)
+        with timed(7):
+            static = phase_contiguous_serve(args.seed, continuous=False)
+            phase_contiguous_serve(args.seed, continuous=True)
+            phase_contiguous_spec_serve(args.seed)
     if 8 in phases:
-        phase_prefix_serve(args.seed, served)
+        with timed(8):
+            phase_prefix_serve(args.seed, served)
     if 9 in phases:
-        phase_preempt_serve(args.seed)
+        with timed(9):
+            phase_preempt_serve(args.seed)
     policy = {"k1": 0, "k4": 0}
     if 10 in phases:
-        phase_policy_parity(args.seed)
-        path = policy_json(40)
-        policy["k1"] = phase_policy_serve(args.seed, path)["launches"]
-        policy["k4"] = phase_contiguous_serve(
-            args.seed, continuous=False, policy=path)["launches"]
+        with timed(10):
+            phase_policy_parity(args.seed)
+            path = policy_json(40)
+            policy["k1"] = phase_policy_serve(args.seed, path)["launches"]
+            policy["k4"] = phase_contiguous_serve(
+                args.seed, continuous=False, policy=path)["launches"]
     faults = {"k1": 0, "k2": 0, "k4": 0}
     if 11 in phases:
-        faults.update(phase_fault_parity(args.seed))
-        faults["k1"] = phase_fault_serve(args.seed)["launches"]
+        with timed(11):
+            faults.update(phase_fault_parity(args.seed))
+            faults["k1"] = phase_fault_serve(args.seed)["launches"]
     durable = {"k1": 0, "k2": 0}
     if 12 in phases:
-        durable.update(phase_durable_parity(args.seed))
-        phase_durable_serve(args.seed)
+        with timed(12):
+            durable.update(phase_durable_parity(args.seed))
+            phase_durable_serve(args.seed)
     cnn = {"k5": 0}
     if 13 in phases:
-        phase_cnn_sites(args.seed)
-        phase_cnn_grad(args.seed)
-        cnn = phase_cnn_paper(args.seed)
-        phase_cnn_profile(args.seed)
+        with timed(13):
+            phase_cnn_sites(args.seed)
+            phase_cnn_grad(args.seed)
+            cnn = phase_cnn_paper(args.seed)
+            phase_cnn_profile(args.seed)
     mamba2 = {"k3": 0, "k5": 0}
     if 14 in phases:
-        phase_ssm_parity(args.seed)
-        phase_ssm_kernels(args.seed)
-        mamba2["k5"] = phase_ssm_serve(args.seed)["k5"]
-        mamba2["k3"] = phase_ssm_serve(args.seed, 8)["k3"]
-        phase_ssm_serve(args.seed, 4)
-        phase_ssm_profile(args.seed)
+        with timed(14):
+            phase_ssm_parity(args.seed)
+            phase_ssm_kernels(args.seed)
+            mamba2["k5"] = phase_ssm_serve(args.seed)["k5"]
+            mamba2["k3"] = phase_ssm_serve(args.seed, 8)["k3"]
+            phase_ssm_serve(args.seed, 4)
+            phase_ssm_profile(args.seed)
     hymba = {"k1": 0, "k3": 0, "k4": 0, "k5": 0}
     if 15 in phases:
-        phase_hybrid_parity(args.seed)
-        phase_hybrid_kernels(args.seed)
-        paged = phase_hybrid_serve(args.seed, "paged")
-        hymba["k1"], hymba["k5"] = paged["k1"], paged["k5"]
-        hymba["k4"] = phase_hybrid_serve(args.seed, "kv8")["k4"]
-        hymba["k3"] = phase_hybrid_serve(args.seed, "native")["k3"]
-        phase_ssm_profile(args.seed, HYMBA, "hymba")
+        with timed(15):
+            phase_hybrid_parity(args.seed)
+            phase_hybrid_kernels(args.seed)
+            paged = phase_hybrid_serve(args.seed, "paged")
+            hymba["k1"], hymba["k5"] = paged["k1"], paged["k5"]
+            hymba["k4"] = phase_hybrid_serve(args.seed, "kv8")["k4"]
+            hymba["k3"] = phase_hybrid_serve(args.seed, "native")["k3"]
+            phase_ssm_profile(args.seed, HYMBA, "hymba")
+    moe = {"k1": 0, "k3": 0, "k4": 0, "k5": 0}
+    if 16 in phases:
+        with timed(16):
+            phase_moe_parity(args.seed)
+            phase_moe_kernels(args.seed)
+            paged = phase_moe_serve(args.seed, "paged")
+            moe["k1"], moe["k5"] = paged["k1"], paged["k5"]
+            moe["k4"] = phase_moe_serve(args.seed, "kv8")["k4"]
+            moe["k3"] = phase_moe_serve(args.seed, "native")["k3"]
+            free_card("moe")
+            phase_ssm_profile(args.seed, QWEN_MOE, "moe")
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -4777,7 +5229,7 @@ def main() -> None:
             "src/repro/kernels/paged_attention.py:116", served["launches"],
             rows["k1"], policy_launches=policy["k1"],
             fault_launches=faults["k1"], durable_launches=durable["k1"],
-            hymba_launches=hymba["k1"]))
+            hymba_launches=hymba["k1"], moe_launches=moe["k1"]))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
@@ -4786,16 +5238,20 @@ def main() -> None:
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
             native["k3"], rows["k3"], mamba2_launches=mamba2["k3"],
-            hymba_launches=hymba["k3"]))
+            hymba_launches=hymba["k3"], moe_launches=moe["k3"]))
         kernels.append(kernel_entry(
             "qkv_attention", "qkv_attention.cu",
             "src/repro/kernels/qkv_attention.py:68", static["launches"],
             rows["k4"], policy_launches=policy["k4"],
-            fault_launches=faults["k4"], hymba_launches=hymba["k4"]))
+            fault_launches=faults["k4"], hymba_launches=hymba["k4"],
+            moe_launches=moe["k4"]))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
             native["k5"], rows["k5"], cnn_launches=cnn["k5"],
-            mamba2_launches=mamba2["k5"], hymba_launches=hymba["k5"]))
+            mamba2_launches=mamba2["k5"], hymba_launches=hymba["k5"],
+            moe_launches=moe["k5"]))
+    print(f"[time] total {time.perf_counter() - t_start:.1f}s "
+          f"({', '.join(f'phase {n} {t:.1f}s' for n, t in secs.items())})")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,23 @@
-"""Config helpers (port of ``repro/configs/common.py``, dense, SSM and
-hybrid families)."""
+"""Config helpers (port of ``repro/configs/common.py``, dense, MoE, SSM
+and hybrid families)."""
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import SSMConfig
 from repro_torch.models.transformer import ModelConfig
 
-__all__ = ["ModelConfig", "SSMConfig", "smoke_of"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "smoke_of"]
 
 
 def smoke_of(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the reference's
     widths: 2 layers, d_model 64, 4/2 heads of 16, d_ff 128, vocab 512, a
-    sliding window of 16 where there is one; a stack with SSD blocks gets
-    8 SSD heads of 16, d_state 16 and chunk 16, and a hybrid one 8 query
-    heads over 2 KV heads)."""
-    if cfg.moe is not None:
-        raise NotImplementedError("the MoE family is not ported yet")
+    sliding window of 16 where there is one; an MoE stack gets 8 routed
+    experts top-2 of width 32, at most one shared, capacity factor 1.5 and
+    2 groups; a stack with SSD blocks gets 8 SSD heads of 16, d_state 16
+    and chunk 16, and a hybrid one 8 query heads over 2 KV heads)."""
     kw = dict(
         name=cfg.name + "-smoke",
         n_layers=2,
@@ -34,6 +34,10 @@ def smoke_of(cfg: ModelConfig, **overrides) -> ModelConfig:
         sliding_window=16 if cfg.sliding_window else 0,
         remat=False,
     )
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(n_routed=8, top_k=2,
+                              n_shared=min(cfg.moe.n_shared, 1),
+                              d_expert=32, capacity_factor=1.5, groups=2)
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(d_state=16, head_dim=16, expand=2,
                               d_conv=4, n_groups=1, chunk=16)

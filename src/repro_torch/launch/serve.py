@@ -49,13 +49,15 @@ cut (with ``--journal-dir``) and the queued requests stay journaled for
 the next process.
 
 Runs on the GPU unless ``--device cpu`` is given. ``--arch`` picks
-granite-3-2b (the default) or mamba2-130m; an SSM stack keeps the
-contiguous pool under ``--continuous`` (``--no-paged-kv`` is implied) and
-refuses ``--speculate`` and ``--preemption``, as the reference does.
-``--full`` serves the published configuration (granite-3-2b: 40 layers,
-d_model 2048; mamba2-130m: 24 layers, d_model 768) with prompts of 64–512
-tokens, ``slots=1024`` and 8 rows; without it, the smoke configuration
-with prompts of 4–23 tokens, ``slots=256`` and 4 rows.
+granite-3-2b (the default) or another ported arch (``ARCHS``: the MoE
+qwen2-moe-a2.7b and deepseek-moe-16b, mamba2-130m, hymba-1.5b); an SSM
+stack keeps the contiguous pool under ``--continuous`` (``--no-paged-kv``
+is implied), and SSM, hybrid and MoE stacks refuse ``--speculate`` and
+``--preemption``, as the reference does. ``--full`` serves the published
+configuration (granite-3-2b: 40 layers, d_model 2048; qwen2-moe-a2.7b: 24
+layers, d_model 2048, 60 experts) with prompts of 64–512 tokens,
+``slots=1024`` and 8 rows; without it, the smoke configuration with
+prompts of 4–23 tokens, ``slots=256`` and 4 rows.
 """
 from __future__ import annotations
 

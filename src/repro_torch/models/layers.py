@@ -36,11 +36,13 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
                 bias: bool = False, scale: float | None = None,
                 layers: Optional[int] = None, device=None) -> dict:
     """``w ~ N(0, 1) · scale`` (default ``1/sqrt(d_in)``), the reference's
-    distribution; ``layers`` stacks ``L`` independent draws on axis 0."""
+    distribution; ``layers`` stacks ``L`` independent draws on axis 0. The
+    draw is scaled in place, so a stacked leaf of several GB (qwen2-moe's
+    ``shared_in``) never exists twice."""
     s = (1.0 / np.sqrt(d_in)) if scale is None else scale
     lead = () if layers is None else (layers,)
     w = torch.randn(*lead, d_in, d_out, generator=gen, device=device,
-                    dtype=torch.float32) * s
+                    dtype=torch.float32).mul_(s)
     p = {"w": w}
     if bias:
         p["b"] = torch.zeros(*lead, d_out, device=device)

@@ -1,11 +1,16 @@
 """Fake-mode → native-mode parameter conversion (port of
-``repro/models/native.py``, dense, SSM and hybrid families).
+``repro/models/native.py``, dense, MoE, SSM and hybrid families).
 
 Walks a parameter tree and replaces every quantizable linear's float master
 ``w`` with its integer carrier ``wq`` (:class:`~repro_torch.core.quantizers.
-QTensor`: per-output-channel float scales, int8 or packed int4). Norms,
-biases, the SSD block's conv weights and its per-head scalars stay float. Layer-stacked ``[L, ...]`` leaves get per-layer scales
-``[L, 1, N]``, as the reference's ``vmap(quantize_native)`` gives them.
+QTensor`: per-output-channel float scales, int8 or packed int4). The MoE
+block's raw routed-expert stacks (``moe.w_in`` ``[L, E, d, 2f]``,
+``moe.w_out`` ``[L, E, f, d]``) become ``QTensor`` leaves themselves, with
+per-output-channel scales reduced over the expert and input axes. Norms,
+biases, the SSD block's conv weights and its per-head scalars stay float.
+Layer-stacked ``[L, ...]`` leaves get per-layer scales (``[L, 1, N]``,
+``[L, 1, 1, N]`` on a routed stack), as the reference's
+``vmap(quantize_native)`` gives them.
 Packed int4 needs an even output width ``N``: a leaf with an odd one (the
 untied ``lm_head`` of hymba-1.5b, vocab 32001) is refused by name, as the
 reference's ``pack_int4`` refuses it.
@@ -21,9 +26,11 @@ from repro_torch.core.quantizers import QTensor, quantize_native
 
 __all__ = ["to_native", "NATIVE_SITES"]
 
-# dict-valued linear sites of the dense and SSM families ({"w": ..} each)
-_LINEAR_KEYS = {"qkv", "attn_out", "w_in", "w_out", "in_proj", "out_proj",
-                "lm_head", "embed"}
+# dict-valued linear sites ({"w": ..} each) and the raw MoE stacks
+_LINEAR_KEYS = {"qkv", "attn_out", "w_in", "w_out", "shared_in",
+                "shared_out", "router", "in_proj", "out_proj", "lm_head",
+                "embed"}
+_RAW_KEYS = {"w_in", "w_out"}   # inside "moe": stacked [L, E, ...] tensors
 NATIVE_SITES = tuple(sorted(_LINEAR_KEYS))
 
 
@@ -59,8 +66,14 @@ def to_native(params: Any, w_bits: int = 8) -> Any:
             out = {k: v for k, v in node.items() if k != "w"}
             out["wq"] = _quant(node["w"], w_bits, stacked, path)
             return out
-        return {k: walk(v, f"{path}.{k}" if path else k, k,
-                        stacked or k == "layers")
-                for k, v in node.items()}
+        out = {}
+        for k, v in node.items():
+            sub = f"{path}.{k}" if path else k
+            if (name == "moe" and k in _RAW_KEYS
+                    and isinstance(v, torch.Tensor)):
+                out[k] = _quant(v, w_bits, stacked, sub)
+            else:
+                out[k] = walk(v, sub, k, stacked or k == "layers")
+        return out
 
     return walk(params, "", "", False)

@@ -1,5 +1,5 @@
 """LM assembly for the port (port of ``repro/models/transformer.py``, the
-dense, the SSM and the hybrid families).
+dense, the MoE, the SSM and the hybrid families).
 
 Parameters and caches keep the reference's stacked ``[L, ...]`` layout, so
 conversion is one to one and the per-layer loop indexes layer ``l``. The
@@ -38,10 +38,19 @@ rms_norm(ssm))`` before the MLP; its caches hold both ``"kv"`` and
 min(slots, sliding_window)`` (the ring never holds a token outside the
 window), and prefill past the window takes the block-skipping
 :func:`~repro_torch.models.attention.swa_attention`.
+
+The MoE family (qwen2-moe, deepseek-moe) swaps each layer's MLP for
+:func:`~repro_torch.models.moe.moe_ffn` behind the same norm. Its grouped
+capacity dispatch couples the tokens of a batch, so every call says which
+tokens are live: ``forward``/``prefill`` pass the ragged left-pad mask, and
+``decode_step`` takes ``row_valid [B]`` (``decode_segment`` passes each
+step's live rows) and dispatches in ``gcd(groups, B)`` groups. ``forward``
+returns the summed aux losses (load balance + router z) of the layers.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import numpy as np
@@ -63,13 +72,14 @@ from .ssm import (SSMState, init_ssm, init_ssm_state, ssd_forward,
 from .layers import (SIGNED_SYM, embed_lookup, init_embed, init_linear,
                      init_norm, qlinear, rms_norm)
 from .mlp import init_mlp, mlp
+from .moe import MOE_SITES, init_moe, moe_ffn
 from .rotary import apply_rope
 from repro_torch.core.quantizers import QTensor, dequantize, fake_quant_dynamic
 from repro_torch.runtime import compute_dtype
 
 __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
-           "init_params", "param_count", "forward", "prefill",
-           "forward_extend", "prefill_extend", "decode_step",
+           "init_params", "param_count", "active_param_count", "forward",
+           "prefill", "forward_extend", "prefill_extend", "decode_step",
            "prequant_decode_weights", "overlay_params", "eff_slots",
            "paged_block_size",
            "init_caches", "init_paged_caches", "cache_bytes",
@@ -86,7 +96,8 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's config, field for field (the port implements the
-    dense, SSM and hybrid families; ``moe`` stays ``None``, ``ssm`` is a
+    dense, MoE, SSM and hybrid families; ``moe`` is a
+    :class:`~repro_torch.models.moe.MoEConfig`, ``ssm`` a
     :class:`~repro_torch.models.ssm.SSMConfig`)."""
 
     name: str
@@ -141,18 +152,19 @@ class ModelConfig:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Admit the families the port implements: dense and hybrid causal
+    """Admit the families the port implements: dense, MoE and hybrid causal
     attention stacks (with or without a sliding window) and the pure SSM
-    stack (MoE, mrope, layer norm, non-causal stacks and frontends are
+    stack (mrope, layer norm, non-causal stacks and frontends are
     refused)."""
-    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.mrope
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.mrope
             or cfg.norm != "rms" or not cfg.causal or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, the SSM and the hybrid families "
-            f"are ported")
+            f"{cfg.name}: only the dense, the MoE, the SSM and the hybrid "
+            f"families are ported")
 
 
 _SITES = {"dense": ("qkv", "attn_out", "mlp_in", "mlp_out"),
+          "moe": ("qkv", "attn_out") + MOE_SITES,
           "ssm": ("ssm_in", "ssm_out"),
           "hybrid": ("qkv", "attn_out", "ssm_in", "ssm_out", "mlp_in",
                      "mlp_out")}
@@ -205,7 +217,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 def _init_layers(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """The stacked layer tree, block by block in the reference's order:
     attention, the SSD block (its norm on the pure SSM stack), the hybrid
-    layer's two output norms, the MLP."""
+    layer's two output norms, the MLP, the MoE block and its norm."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     p = {}
     if cfg.has_attn:
@@ -225,6 +237,9 @@ def _init_layers(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.act == "silu",
                             layers=L, device=device)
         p["norm_mlp"] = init_norm(d, layers=L, device=device)
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, d, cfg.moe, layers=L, device=device)
+        p["norm_mlp"] = init_norm(d, layers=L, device=device)
     return p
 
 
@@ -241,6 +256,16 @@ def _leaves(tree):
 
 def param_count(params) -> int:
     return sum(int(t.numel()) for t in _leaves(params))
+
+
+def active_param_count(cfg: ModelConfig, params) -> int:
+    """MoE-aware: routed experts count at ``top_k / E``."""
+    total = param_count(params)
+    if cfg.family != "moe":
+        return total
+    e, k = cfg.moe.n_routed, cfg.moe.top_k
+    routed = cfg.n_layers * e * 3 * cfg.moe.d_expert * cfg.d_model
+    return total - routed + int(routed * k / e)
 
 
 def _layer(tree, l: int):
@@ -313,6 +338,14 @@ def _mlp_block(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor):
                gated=cfg.act == "silu", act=cfg.act)
 
 
+def _moe_block(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor,
+               token_valid, moe_cfg=None):
+    """The MoE layer's FFN on ``rms_norm(x)`` → ``(y, aux dict)``."""
+    bits = {name: lb[_site_idx(cfg, name)] for name in MOE_SITES}
+    return moe_ffn(lp["moe"], rms_norm(lp["norm_mlp"], x), bits,
+                   moe_cfg or cfg.moe, token_valid=token_valid)
+
+
 def _embed_inputs(cfg: ModelConfig, params: dict, bits_row, batch: dict):
     """Tokens → hidden states, positions and validity. ``prompt_len`` marks
     left-padded ragged rows: per-row positions count real tokens from 0 and
@@ -341,7 +374,8 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     layer's final state ``(h [L, B, H, P, N], conv_tail [L, B, K−1,
     convdim])``, on the hybrid stack ``((k, v), (h, conv_tail))``.
     ``kv_sched`` (``[L]`` bit-widths, optional) refines each layer's fresh
-    K/V before attention and collection; the SSM stack has none."""
+    K/V before attention and collection; the SSM stack has none. ``aux``
+    is the MoE stack's summed aux losses (zero on the other families)."""
     _require_ported(cfg)
     x, positions, valid = _embed_inputs(cfg, params, bits_row, batch)
     _, _, layer_bits = split_bits(cfg, bits_row)
@@ -350,6 +384,7 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     sched = _kv_row(cfg, kv_sched)
     hybrid = cfg.family == "hybrid"
     s = x.shape[1]
+    aux = torch.zeros((), device=x.device)
     ks, vs, hs, tails = [], [], [], []
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
@@ -369,12 +404,16 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
             x = x + _merge(lp, attn, out)
         else:
             x = x + attn
-        x = x + _mlp_block(cfg, lp, lb, x)
+        if cfg.family == "moe":
+            y, maux = _moe_block(cfg, lp, lb, x, valid)
+            aux = aux + maux["load_balance"] + maux["router_z"]
+            x = x + y
+        else:
+            x = x + _mlp_block(cfg, lp, lb, x)
         if collect:
             ks.append(k)
             vs.append(v)
     x = rms_norm(params["norm_f"], x)
-    aux = torch.zeros((), device=x.device)
     collected = ()
     if collect:
         collected = (torch.stack(ks), torch.stack(vs))
@@ -827,6 +866,7 @@ def prefill_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
 
 def decode_step(params: dict, cfg: ModelConfig, bits_row,
                 tokens: torch.Tensor, pos: torch.Tensor, caches: dict,
+                row_valid: Optional[torch.Tensor] = None,
                 paged_backend: str = "gather", kv_sched=None):
     """One decode step. tokens ``[B,1]``, pos ``[B]`` int32 → (logits [B,V],
     caches), caches updated in place.
@@ -843,7 +883,10 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
     K/V before the cache write and the attention read. On the SSM stack
     each layer advances its row of ``caches["ssm"]`` by one token
     (``pos`` and ``kv_sched`` play no part); the hybrid stack does both,
-    the SSD step on the attention's normed input.
+    the SSD step on the attention's normed input. ``row_valid [B]`` (bool,
+    optional) marks the rows still generating: the MoE stack drops the
+    others from its capacity dispatch, which runs in ``gcd(groups, B)``
+    groups; the other families ignore it.
     """
     _require_ported(cfg)
     eb, _, layer_bits = split_bits(cfg, bits_row)
@@ -860,6 +903,11 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
     b = tokens.shape[0]
     kv, view = caches["kv"], caches.get("kv_view")
     sched = _kv_row(cfg, kv_sched)
+    moe_cfg = tv = None
+    if cfg.family == "moe":
+        moe_cfg = dataclasses.replace(cfg.moe,
+                                      groups=math.gcd(cfg.moe.groups, b))
+        tv = None if row_valid is None else row_valid[:, None]
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
         xin = rms_norm(lp["norm_attn"], x)
@@ -891,7 +939,10 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
             x = x + _merge(lp, attn, out)
         else:
             x = x + attn
-        x = x + _mlp_block(cfg, lp, lb, x)
+        if cfg.family == "moe":
+            x = x + _moe_block(cfg, lp, lb, x, tv, moe_cfg)[0]
+        else:
+            x = x + _mlp_block(cfg, lp, lb, x)
     x = rms_norm(params["norm_f"], x)
     return _logits(cfg, params, bits_row, x)[:, 0], caches
 
@@ -909,6 +960,11 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
     two images, not six. The tied lm_head's image is the embedding image at
     the head's bits, transposed (a view): per-tensor fake-quant commutes
     with the transpose, so this is the reference's in-loop ``fq(w.T)``.
+
+    The MoE stack gets images of its ``router``, ``shared_in`` and
+    ``shared_out`` linears; its routed-expert stacks get none, as in the
+    reference: :func:`~repro_torch.models.moe.moe_ffn` fake-quantizes them
+    on every forward.
 
     Native (``wq``) sites pass through untouched. A native tied head gets
     its image here, once per distinct head bits: ``fq(dequantize(embed.wq,
@@ -966,6 +1022,11 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
             sp = lp["ssm"]
             lov["ssm"] = {"in_proj": site("ssm_in", sp["in_proj"]["w"]),
                           "out_proj": site("ssm_out", sp["out_proj"]["w"])}
+        if cfg.family == "moe" and "w" in lp["moe"]["router"]:
+            mp = lp["moe"]
+            lov["moe"] = {name: site(name, mp[name]["w"])
+                          for name in ("router", "shared_in", "shared_out")
+                          if name in mp}
         ov["layers"] = lov
         overlays.append(ov)
     return overlays
@@ -1029,8 +1090,10 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
     ``tok0 [B]`` is each row's last token (0 for idle rows), ``pos0 [B]``
     its next position, ``remaining [B]`` the tokens it still has to emit
     (0 = retired/free). Rows whose budget runs out freeze: their outputs
-    are −1, they feed 0 and keep their position. ``schedule`` holds the
-    per-step profile ids (host ints).
+    are −1, they feed 0 and keep their position, and (for MoE) each step
+    drops them from the expert-capacity dispatch (``row_valid``), so a
+    retired or free row never takes a live row's capacity. ``schedule``
+    holds the per-step profile ids (host ints).
 
     Paged pools run one of two backends: ``"gather"`` builds the dense view
     once at entry, steps read and write the view, and the view folds back
@@ -1076,7 +1139,8 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
         live = rem > i
         logits, caches = decode_step(
             overlay_params(params, prequant[pid]), cfg, table[pid],
-            tok[:, None], pos, caches, paged_backend=paged_backend,
+            tok[:, None], pos, caches, row_valid=live,
+            paged_backend=paged_backend,
             kv_sched=None if kv_table is None else kv_table[pid])
         if fs is not None:
             logits = torch.where((fs == i)[:, None],

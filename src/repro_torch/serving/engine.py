@@ -340,7 +340,12 @@ class AdaptiveServer:
         launch cannot take the model's shapes: K1 on a paged pool, K2 when
         speculating on it, K4 at kv8 (static serving and the contiguous
         pool read an int8 cache through it). A stack without attention
-        launches none of them."""
+        launches none of them. K3 needs no check: it masks ragged M, K and N
+        itself, so it takes every native linear (the MoE stack's ``router``
+        at N 60 and ``shared_*`` included), and ``to_native`` already
+        refuses the one layout it cannot hold, packed int4 at an odd N. The
+        routed stacks never reach it (they are dequantized, then
+        multiplied)."""
         from repro_torch.kernels import paged_attention as PA
         from repro_torch.kernels import qkv_attention as QK
         cfg, scfg = self.cfg, self.scfg
@@ -479,15 +484,20 @@ class AdaptiveServer:
         emits what it would solo; groups are padded to ``max_batch`` rows
         (pad rows: budget 0, ``prompt_len`` 0, fully masked). Each result's
         ``profile_trace`` is cut to its own ``max_new``; the ledger bills
-        per step only the rows still live. (The reference buckets MoE
-        groups to powers of two; that comes with the MoE family.)"""
+        per step only the rows still live. MoE groups are padded to the
+        next power of two of at least 2 rows instead, as in the reference:
+        pad rows are dropped from the capacity dispatch, and the group's
+        ``rows · maxlen`` tokens must divide the MoE ``groups`` (a
+        ``ValueError`` from :func:`~repro_torch.models.moe.moe_ffn`
+        otherwise, where the reference asserts)."""
         results: list = [None] * len(requests)
         order = sorted(range(len(requests)),
                        key=lambda i: len(requests[i].tokens))
-        rows = self.scfg.max_batch
-        for i0 in range(0, len(order), rows):
-            group = order[i0:i0 + rows]
+        for i0 in range(0, len(order), self.scfg.max_batch):
+            group = order[i0:i0 + self.scfg.max_batch]
             maxlen = max(len(requests[i].tokens) for i in group)
+            rows = (_next_pow2(max(2, len(group))) if self.cfg.family == "moe"
+                    else self.scfg.max_batch)
             prompts = np.zeros((rows, maxlen), np.int32)
             budget = np.zeros((rows,), np.int32)
             plen = np.zeros((rows,), np.int32)       # pad rows: fully masked

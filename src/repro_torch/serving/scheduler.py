@@ -6,7 +6,9 @@ The scheduler owns a fixed ``[max_batch]`` slot pool whose decode state —
 last token, position, the paged KV pool — lives on the device and is updated
 in place by the server's primitives (the reference donates the same state
 through its jit boundaries). A request holds one row from admission to
-retirement; free rows idle with ``remaining == 0``.
+retirement; free rows idle with ``remaining == 0`` (each step's live mask
+freezes them, and an MoE stack's capacity dispatch drops them through
+``row_valid``, as it drops a wave's pad rows through their empty prompts).
 
 Decode runs in segments of ``quantum`` steps. Between segments, free rows
 are refilled by an **admission wave**: one ragged prefill of the admitted

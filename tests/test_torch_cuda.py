@@ -1448,3 +1448,77 @@ def test_hymba_paged_serve_equals_contiguous(kv_bits):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flag
     assert out[True] == out[False]
+
+
+# ---------------------------------------------------------------- MoE
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((60, 2048, 2816), torch.float32),   # qwen2-moe's routed w_in, 346 M
+    ((60, 1408, 2048), torch.float32),   # its routed w_out
+    ((16, 60, 22, 2048), torch.bfloat16)])   # a prefill dispatch buffer
+@pytest.mark.parametrize("bits", [8, 4])
+def test_aquant_on_stacked_expert_shapes(shape, dtype, bits):
+    """K5 on qwen2-moe-a2.7b's stacked routed-expert masters (one layer)
+    and a wave's ``[G, E, cap, d]`` dispatch buffer, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(bits + len(shape))
+    x = (torch.randn(shape, generator=gen, device="cuda")
+         * shape[-2] ** -0.5).to(dtype)
+    n0 = AQ.aquant.launches
+    got = AQ.aquant(x, bits, True)
+    torch.cuda.synchronize()
+    assert AQ.aquant.launches == n0 + 1
+    want = AQ.aquant_ref(x, bits, True)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(view), want.view(view))
+
+
+@pytest.mark.cuda
+def test_moe_forward_on_card_equals_cpu():
+    """The 2-layer qwen2-moe smoke model's ragged forward (pad tokens
+    masked out of the dispatch) on the card in f32, TF32 off, at the float
+    profile: hidden states and aux within 1e-4 of the port on the CPU. At
+    bf16 and A8-W8 the card's forward runs the four routed fake-quants of
+    every layer through K5 and gives finite hidden states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.profiles import (Profile, paper_profiles,
+                                           profile_table)
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    cfg = get_smoke("qwen2-moe-a2.7b")
+    names = T.quant_layer_names(cfg)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(31)
+    toks = rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
+    batch = {"prompt_len": np.array([16, 5, 11, 2], np.int32)}
+    f32 = profile_table([Profile.float32(names)], names)[0]
+    flag = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with use_compute_dtype(torch.float32):
+            for dev in ("cpu", "cuda"):
+                b = dict(batch, tokens=torch.from_numpy(toks).to(dev))
+                h, aux, _ = T.forward(_to(params, dev), cfg, f32, b)
+                out[dev] = (h.cpu(), aux.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=0,
+                               rtol=1e-4)
+    a8w8 = profile_table(paper_profiles(names, inner_layers=[]), names)[2]
+    p = _to(params, "cuda")
+    n0 = AQ.aquant.launches
+    h, _, _ = T.forward(p, cfg, a8w8, dict(
+        batch, tokens=torch.from_numpy(toks).cuda()))
+    torch.cuda.synchronize()
+    # 4 routed fake-quants + 5 weight fake-quants of the linears per layer
+    # (no images: the masters are quantized per call), the embedding's one
+    assert AQ.aquant.launches - n0 == cfg.n_layers * (4 + 5) + 1
+    assert h.dtype == torch.bfloat16 and bool(torch.isfinite(h).all())

@@ -548,7 +548,7 @@ def test_refusals(parts, tmp_path):
     with pytest.raises(ValueError, match="paged KV pool"):
         sched.step()
     with pytest.raises(NotImplementedError):
-        T.init_params(dataclasses.replace(tcfg, family="moe"),
+        T.init_params(dataclasses.replace(tcfg, family="vlm"),
                       torch.Generator().manual_seed(0), device="cpu")
 
 

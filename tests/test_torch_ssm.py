@@ -29,7 +29,7 @@ serves are held to token equality at every profile.
   slots reused), managed and not, and a native W8 scheduler;
 * quarantine and escalated retry on the contiguous pool;
 * the refusals (speculation, preemption, prefix sharing and chunking off,
-  no paging, the MoE family) and the SSM state's bytes;
+  no paging, an unported family) and the SSM state's bytes;
 * the launcher's ``--arch mamba2-130m`` on the CPU, static and continuous.
 """
 import dataclasses
@@ -470,9 +470,9 @@ def test_refusals_and_state_bytes(parts):
                            torch.zeros((1, 2), dtype=torch.int32),
                            torch.zeros((1,), dtype=torch.int32),
                            sched._caches)
-    moe = dataclasses.replace(tcfg, family="moe")
+    vlm = dataclasses.replace(tcfg, family="vlm")
     with pytest.raises(NotImplementedError):
-        T.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
+        T.init_params(vlm, torch.Generator().manual_seed(0), device="cpu")
 
 
 @pytest.mark.parametrize("continuous", [False, True])
