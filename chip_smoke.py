@@ -198,6 +198,34 @@ Phases:
     dequantizations and K5 = 48 x (steps + waves)): tok/s, peak memory,
     decode steps, prefill waves; (d) under ``torch.profiler``: one
     admission wave and one decode segment, with K5's share.
+17. the vision-language family at qwen2-vl-2b's full width (28 layers,
+    d_model 1536, 12 heads of 128 over 2 KV heads with qkv bias, M-RoPE
+    sections (16, 24, 24), a vision prefix of 256 patches, tied head of
+    151936; 6.2 GB of f32 masters): (a) in f32, TF32 off: ``apply_mrope``
+    on three distinct streams against float64 and text M-RoPE = RoPE bit
+    for bit; prefill(256 patches + 44 tokens) + decode_step against
+    forward(301) at ``rel < 5e-5``; 12 greedy steps on a bf16 paged pool
+    through K1 against the gather backend, and on the int8 contiguous
+    cache through K4 against the einsum (tokens identical, a divergence
+    only after a top-2 margin under 1e-3); (b) K1 and K4 at Hkv 2, Hg 6, D
+    128, K3 at its four linears at M 8 and 4096, W8 and W4, K5 bit for bit
+    on its images and the tied table, each timed beside its library call
+    and bound; (c) a model-level generate in bf16 (the server takes token
+    prompts only): 8 requests of 256 patches + 64–256 text tokens, each
+    prefilled alone, then 31 greedy steps of 8 rows, as kv16 paged (K1 = 28
+    x steps), int8 contiguous (K4 = 28 x steps) and native W8 (K3 = 4 x 28
+    x (steps + waves)): tok/s, peak memory, KV bytes;
+18. the audio family at hubert-xlarge's full width (48 layers, d_model
+    1280, 16 heads of 80, layer norms, GELU, bidirectional, 512-dim frame
+    features, 504 units; 3.8 GB of f32 masters): (a) in f32, TF32 off: the
+    card's forward and frame logits against the CPU's, and a left-padded
+    ragged batch (500, 317, 93 frames) against each clip's solo forward,
+    ``rel < 5e-5``; (b) K3 at its six linears (the head at N 504 on
+    mma.sync) at M 4000, W8 and W4, K5 bit for bit on every site's image;
+    (c) the forward over 8 clips x 500 frames in bf16 at A8-W8,
+    fake-quant (K5 = 194 per forward) and native W8 and W4 (K3 = 194 per
+    forward): frames/s, peak memory, and one forward's device-busy share
+    under ``torch.profiler``.
 Each phase prints its seconds, and the run its total.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -5039,6 +5067,618 @@ def phase_moe_serve(seed: int, mode: str) -> dict:
             "steps": steps, "waves": waves}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the vision-language family (qwen2-vl-2b) at full width
+# ---------------------------------------------------------------------------
+
+QWEN_VL = "qwen2-vl-2b"
+# (site, K, N) of qwen2-vl-2b's linears, one layer each (the head is tied)
+VLM_LINEARS = (("qkv", 1536, 2048), ("attn_out", 1536, 1536),
+               ("mlp_in", 1536, 17920), ("mlp_out", 8960, 1536))
+VLM_SLOTS = 544                  # 256 patches + 256 text + 31 decode writes
+
+
+def vlm_texts(seed: int) -> list:
+    """The text lengths (64–256 tokens) of phase 17 (c)'s 8 requests."""
+    rng = np.random.default_rng(seed + 17)
+    return [int(n) for n in rng.integers(64, 257, 8)]
+
+
+def vlm_batch(cfg, gen, text: int, rows: int = 1) -> dict:
+    """``rows`` prompts of an image (``n_patches`` patch embeddings of the
+    model's width, drawn like its token table, N(0, 0.02²)) followed by
+    ``text`` tokens, from ``gen`` on the card."""
+    s = cfg.n_patches + text
+    return {"tokens": torch.randint(0, cfg.vocab, (rows, s), generator=gen,
+                                    device="cuda"),
+            "patch_embeds": 0.02 * torch.randn(
+                (rows, cfg.n_patches, cfg.d_model), generator=gen,
+                device="cuda")}
+
+
+def greedy_steps(step, tok, n: int):
+    """``n`` greedy decode steps from ``tok [B]`` (``step(tok, i)`` gives
+    the logits of step ``i``): the tokens ``[B, n + 1]`` (``tok`` first)
+    and each step's smallest top-2 logit margin."""
+    out, margins = [tok], []
+    for i in range(n):
+        logits = step(tok, i)
+        top2 = logits.float().topk(2, dim=-1).values
+        margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, 1).cpu(), margins
+
+
+def same_greedy(tag: str, what: str, a, b) -> str:
+    """Two :func:`greedy_steps` runs give the same tokens, or first part
+    after a step whose top-2 margin (on either side) is under 1e-3 (a
+    near tie that f32 rounding may break either way); raises otherwise.
+    Returns the line's verdict."""
+    (ta, ma), (tb, mb) = a, b
+    for j in range(ta.shape[1]):
+        if not torch.equal(ta[:, j], tb[:, j]):
+            m = min(ma[j - 1], mb[j - 1])
+            if not m < 1e-3:
+                raise AssertionError(f"[{tag}] {what}: tokens part at "
+                                     f"{j} with a top-2 margin of {m:.3e}")
+            return (f"first divergence at token {j} after a top-2 margin of "
+                    f"{m:.3e} (< 1e-3); tokens equal before it")
+    return (f"{ta.shape[1]} greedy tokens per row identical (smallest top-2 "
+            f"margin {min(ma + mb):.3e})")
+
+
+def phase_vlm_parity(seed: int) -> dict:
+    """Phase 17 (a): qwen2-vl-2b's full config (28 layers, d_model 1536, 12
+    heads of 128 over 2 KV heads with qkv bias, M-RoPE sections (16, 24,
+    24), a vision prefix of 256 patches, tied head of 151936), random
+    weights from ``seed``, f32, TF32 off, the float profile. M-RoPE on
+    three distinct streams against a float64 evaluation of the same
+    formula (``rel < 1e-4``), and text M-RoPE = RoPE bit for bit on the
+    card. Prefill of an image + 44 text tokens (300 columns) into an f32
+    cache, then one ``decode_step`` against ``forward`` over 301, ``rel <
+    5e-5``. The same prefill into a bf16 cache of 544 slots copied into a
+    paged pool of blocks of 16, then 12 greedy decode steps through K1
+    (28 x 12 launches) against the gather backend; and into an int8
+    contiguous cache, 12 steps through K4 (28 x 12 launches) against the
+    reference's einsum: tokens identical, a divergence only after a top-2
+    logit margin under 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import Profile, profile_table
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.models import attention as A
+    from repro_torch.models import rotary as R
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+
+    free_card("vlm")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(QWEN_VL)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_par = T.param_count(params)
+    print(f"[vlm] (a) {cfg.name}: {n_par} parameters, {4 * n_par / 1e9:.2f}"
+          f" GB of f32 masters, drawn in {time.perf_counter() - t0:.2f}s")
+    names = T.quant_layer_names(cfg)
+    dev = "cuda"
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1e-9, float(b.abs().max()))
+
+    hd, secs = cfg.hd, cfg.mrope_sections
+    x = torch.randn((2, 300, cfg.n_heads, hd), generator=gen, device=dev)
+    ar = torch.arange(300, device=dev)
+    streams = torch.stack([ar, 7 + ar // 16, 3 + ar % 16])   # t, h, w
+    pos = torch.stack([streams, streams + 5]).int()          # [2, 3, 300]
+    got = R.apply_mrope(x, pos, secs, cfg.rope_theta)
+    inv = 1.0 / cfg.rope_theta ** (torch.arange(
+        0, hd, 2, dtype=torch.float64, device=dev) / hd)
+    stream_of = torch.repeat_interleave(
+        torch.arange(3, device=dev), torch.tensor(secs, device=dev))
+    ang = pos.double()[:, stream_of].transpose(1, 2) * inv   # [2, 300, 64]
+    cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
+    x1, x2 = x.double().chunk(2, dim=-1)
+    want = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    r_mrope = rel(got.double(), want)
+    p = pos[:, 0]
+    text_equal = torch.equal(
+        R.apply_mrope(x, R.text_mrope_positions(p), secs, cfg.rope_theta),
+        R.apply_rope(x, p, cfg.rope_theta))
+    print(f"[vlm] (a) apply_mrope sections {secs} on three distinct streams "
+          f"(positions up to 305) vs float64: rel {r_mrope:.3e} (< 1e-4: "
+          f"{r_mrope < 1e-4}); text M-RoPE = RoPE bitwise on the card: "
+          f"{text_equal}")
+    if not r_mrope < 1e-4 or not text_equal:
+        raise AssertionError("apply_mrope disagrees with its formula")
+    del x, got, want
+    s0 = cfg.n_patches + 44                     # 300 columns at full width
+    with use_compute_dtype(torch.float32):
+        br = profile_table([Profile.float32(names)], names)[0]
+        b = vlm_batch(cfg, gen, 45, rows=2)
+        hidden, _, _ = T.forward(params, cfg, br, b)
+        full = T._logits(cfg, params, br, hidden[:, -1:])[:, 0]
+        pre = {"tokens": b["tokens"][:, :s0],
+               "patch_embeds": b["patch_embeds"]}
+        _, caches = T.prefill(params, cfg, br, pre, s0 + 4, kv_bits=32)
+        dec, _ = T.decode_step(params, cfg, br, b["tokens"][:, s0:],
+                               torch.full((2,), s0, dtype=torch.int32,
+                                          device=dev), caches)
+        r = rel(dec, full)
+        print(f"[vlm] (a) full width ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}), f32: prefill({cfg.n_patches} patches + 44 "
+              f"tokens) + decode_step vs forward({s0 + 1}) logits rel "
+              f"{r:.3e} (< 5e-5: {r < 5e-5})")
+        if not r < 5e-5:
+            raise AssertionError(f"prefill + decode != forward: rel {r}")
+        del hidden, caches, full, dec
+        n_dec = 12
+        pos0 = torch.full((2,), s0, dtype=torch.int32, device=dev)
+        runs, counts = {}, {}
+        for kv_bits, backend in ((16, "kernel"), (16, "gather"),
+                                 (8, "kernel"), (8, "gather")):
+            logits, caches = T.prefill(params, cfg, br, pre, VLM_SLOTS,
+                                       kv_bits=kv_bits)
+            if kv_bits == 16:
+                caches["kv"] = paged_from_dense(caches["kv"], 16)
+            PA.paged_attention.launches = QK.qkv_attention.launches = 0
+            A.decode_attention.kv8_einsum_calls = A.paged_view.calls = 0
+
+            def step(tok, i):
+                out, _ = T.decode_step(params, cfg, br, tok[:, None],
+                                       pos0 + i, caches,
+                                       paged_backend=backend)
+                return out
+
+            runs[(kv_bits, backend)] = greedy_steps(
+                step, logits.argmax(-1).to(torch.int32), n_dec)
+            counts[(kv_bits, backend)] = (
+                PA.paged_attention.launches, QK.qkv_attention.launches,
+                A.decode_attention.kv8_einsum_calls, A.paged_view.calls)
+            del caches, logits
+    L = cfg.n_layers
+    k1 = counts[(16, "kernel")]
+    k4 = counts[(8, "kernel")]
+    line = same_greedy("vlm", "K1 vs gather", runs[(16, "kernel")],
+                       runs[(16, "gather")])
+    print(f"[vlm] (a) bf16 paged pool (blocks of 16, {VLM_SLOTS} slots), "
+          f"{n_dec} greedy steps of 2 rows: K1 launches {k1[0]} = {L} x "
+          f"{n_dec}: {k1[0] == L * n_dec}; gather backend K1 "
+          f"{counts[(16, 'gather')][0]}; {line}")
+    line = same_greedy("vlm", "K4 vs einsum", runs[(8, "kernel")],
+                       runs[(8, "gather")])
+    print(f"[vlm] (a) int8 contiguous cache: K4 launches {k4[1]} = {L} x "
+          f"{n_dec}: {k4[1] == L * n_dec}, kv8 einsum {k4[2]}; einsum "
+          f"backend: einsum {counts[(8, 'gather')][2]}, K4 "
+          f"{counts[(8, 'gather')][1]}; {line}")
+    if (k1[0] != L * n_dec or k1[1:] != (0, 0, 0)
+            or counts[(16, "gather")][:2] != (0, 0)
+            or k4[1] != L * n_dec or k4[0] or k4[2]
+            or counts[(8, "gather")][:3] != (0, 0, L * n_dec)):
+        raise AssertionError("the qwen2-vl decode did not run through K1 / "
+                             "K4 as counted")
+    PA.paged_attention.launches = QK.qkv_attention.launches = 0
+    del params, runs
+    torch.cuda.empty_cache()
+    return {"rel_decode": r, "rel_mrope": r_mrope}
+
+
+def phase_vlm_kernels(seed: int) -> None:
+    """Phase 17 (b): the kernels at qwen2-vl-2b's shapes against their plain
+    versions. K1 at Hkv 2, Hg 6, D 128 (phase 2's tables) at kv16/8/4
+    beside SDPA (kv16) and its bound; K4 at 8 rows x 2 KV heads, Hg 6, D
+    128 over a cache of 544 slots at the lengths of (c)'s first and last
+    decode steps, bf16 and f32 q, beside SDPA and its bound; K3
+    (:func:`k3_case`) at the four linears at M 8 (decode) and 4096 (a
+    prefill wave), W8 and W4, with routes, device times beside
+    torch.matmul's and bounds; K5 bit for bit on each linear's image and
+    the tied table (151936 x 1536 f32, timed) at bits 8 and 4."""
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.kernels import qmatmul as QM
+    free_card("vlm")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    f32, bf16 = torch.float32, torch.bfloat16
+    fn, ref = PA.paged_attention, PA.paged_attention_ref
+    for bits in (16, 8, 4):
+        x = paged_inputs(gen, bits=bits, B=8, Hkv=2, Hg=6, D=128)
+        kw = dict(bits=bits)
+        lab = f"qwen2-vl Hkv 2 Hg 6 D 128 kv{bits}"
+        check_case("K1", fn, ref, x, kw, lab)
+        splits, per, rt, nrow = plan_of(PA, x)
+        ms = cuda_time_ms(lambda: fn(**x, **kw))
+        dev = graph_ms(lambda: fn(**x, **kw))
+        plain = cuda_time_ms(lambda: ref(**x, **kw), iters=50)
+        lib = lib_dev = None
+        if bits == 16:
+            lib, lib_dev = library_times(lambda: sdpa_fn(x))
+        bd = paged_bound(x, bits)
+        print(f"[K1] {lab}: {splits} splits x {per} tiles, {rt} row tile(s) "
+              f"of {nrow}; device {dev:.4f} ms, per call {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa {_ms(lib)} (device {_ms(lib_dev)}), "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+              f"{bd['bytes']} B, {bd['flops']} flop, {bd['keys']} keys)")
+    from repro_torch.configs import get_config
+    plen = [get_config(QWEN_VL).n_patches + n for n in vlm_texts(seed)]
+    for label, step in (("first", 0), ("last", 30)):
+        lens = [p + step + 1 for p in plen]
+        for qdtype in (bf16, f32):
+            x = qkv_inputs(gen, lens, hkv=2, hg=6, d=128, s=VLM_SLOTS,
+                           qdtype=qdtype)
+            lab = (f"qwen2-vl {label} decode step Hkv 2 Hg 6 D 128 "
+                   f"{'bf16' if qdtype == bf16 else 'f32'} q")
+            check_k4(QK, x, lab)
+            if qdtype != bf16:
+                continue
+            copies = k4_copies(x)
+            dev = k4_device_ms(QK, x, copies)
+            del copies
+            lib = qkv_sdpa_times(x)
+            bd = qkv_bound(x["q"], x["lengths"], VLM_SLOTS)
+            print(f"[K4] {lab}: device {dev:.4f} ms, sdpa device "
+                  f"{_ms(lib['library_device_ms'])} / per call "
+                  f"{_ms(lib['library_ms'])}, bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']}: {bd['bytes']} B)")
+    for site, k, n in VLM_LINEARS:
+        for bits in (8, 4):
+            for m in (8, 4096):
+                r = k3_case(gen, m, k, n, bits, bf16)
+                note = " (qkv's bias is added after the kernel, as qlinear " \
+                       "does)" if site == "qkv" else ""
+                print(f"[vlm] (b) K3 {site} M={m} W{bits}: route "
+                      f"{r['route']}, device {r['device_ms']:.4f} ms, "
+                      f"torch.matmul {r['library_device_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms{note}")
+                del r
+    images = [(f"{site} {k}x{n}", (k, n), k ** -0.5)
+              for site, k, n in VLM_LINEARS]
+    images.append(("tied table 151936x1536", (151936, 1536), 0.02))
+    for label, shape, std in images:
+        w = torch.randn(shape, generator=gen, device="cuda") * std
+        for bits in (8, 4):
+            k5_case(f"qwen2-vl {label}", w, bits, True,
+                    timed=bits == 8 and label.startswith(("mlp_in", "tied")))
+        del w
+    QM.qmatmul.launches = AQ.aquant.launches = 0   # comparisons do not count
+    PA.paged_attention.launches = QK.qkv_attention.launches = 0
+
+
+
+def phase_vlm_generate(seed: int, mode: str) -> dict:
+    """Phase 17 (c): a model-level generate of qwen2-vl-2b at full width in
+    bf16 (the server takes token prompts only, in both packages): 8
+    requests, each an image of 256 patches and 64–256 text tokens from
+    ``seed``, 32 new tokens each, at the A8-W8 profile. Each request is
+    prefilled alone (a wave of one: a batch puts the image in its first
+    256 columns, so left-padding would cut a shorter row's image) into its
+    row of one 8-row cache of 544 slots; then ``decode_segment`` runs 31
+    greedy steps of all 8 rows. Modes: ``"paged"`` — a bf16 cache copied
+    into a paged pool of blocks of 16, decoded on the kernel backend (K1 =
+    28 x 31, K5 = the weight images, 4 x 28 + 1); ``"kv8"`` — the int8
+    contiguous cache through K4 (28 x 31, no K1, no einsum); ``"native"``
+    — ``to_native(params, 8)`` on the paged pool (K3 = 4 x 28 x (31
+    steps + 8 waves), K1 = 28 x 31, K5 = the tied head's image, the
+    dequantize-then-matmul branch never). The counts are zeroed after the
+    weights are drawn; the image build's K5 is read before the prefills.
+    tok/s (prefills and decode, host clock ending in a sync), peak memory
+    and the KV cache's bytes."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.kernels import qmatmul as QM
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as LY
+    from repro_torch.models import transformer as T
+    from repro_torch.models.native import to_native
+
+    free_card("vlm")
+    cfg = get_config(QWEN_VL)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    if mode == "native":
+        nat = to_native(params, 8)
+        del params
+        params = nat
+    names = T.quant_layer_names(cfg)
+    profs = paper_profiles(names, inner_layers=[])
+    pid = [p.name for p in profs].index("A8-W8")
+    table = profile_table(profs, names)[pid:pid + 1]   # its images only
+    texts = vlm_texts(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 170)
+    batches = [vlm_batch(cfg, gen, n) for n in texts]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    QM.qmatmul.launches = AQ.aquant.launches = LY.dequant_matmul.calls = 0
+    PA.paged_attention.launches = QK.qkv_attention.launches = 0
+    A.decode_attention.kv8_einsum_calls = A.paged_view.calls = 0
+    t0 = time.perf_counter()
+    prequant = T.prequant_decode_weights(params, cfg, table)
+    torch.cuda.synchronize()
+    t_img = time.perf_counter() - t0
+    k5_build = AQ.aquant.launches
+    over = T.overlay_params(params, prequant[0])
+    kv_bits = 8 if mode == "kv8" else 16
+    rows, n_dec = len(batches), 31
+    t0 = time.perf_counter()
+    caches = T.init_caches(cfg, rows, VLM_SLOTS, kv_bits=kv_bits,
+                           device="cuda")
+    kv = caches["kv"]
+    tok0, pos0 = [], []
+    for r, b in enumerate(batches):
+        logits, one = T.prefill(over, cfg, table[0], b, VLM_SLOTS,
+                                kv_bits=kv_bits)
+        for f in ("k", "v", "k_scale", "v_scale", "token_idx"):
+            getattr(kv, f)[:, r] = getattr(one["kv"], f)[:, 0]
+        tok0.append(logits.argmax(-1).to(torch.int32))
+        pos0.append(b["tokens"].shape[1])
+        del one
+    if mode != "kv8":
+        caches["kv"] = paged_from_dense(kv, 16)
+        del kv
+    tok0 = torch.cat(tok0)
+    ys, ok, _, _, caches = T.decode_segment(
+        params, cfg, table, np.zeros(n_dec, np.int32), tok0,
+        torch.tensor(pos0, dtype=torch.int32, device="cuda"), caches,
+        np.full(rows, n_dec, np.int32), prequant=prequant,
+        paged_backend="kernel")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = torch.cat([tok0[:, None], ys], dim=1).cpu()
+    k1, k3, k4 = (PA.paged_attention.launches, QM.qmatmul.launches,
+                  QK.qkv_attention.launches)
+    k5 = AQ.aquant.launches - k5_build
+    deq, einsum, gathers = (LY.dequant_matmul.calls,
+                            A.decode_attention.kv8_einsum_calls,
+                            A.paged_view.calls)
+    if (toks.shape != (rows, n_dec + 1) or not bool(ok.all())
+            or not bool(((toks >= 0) & (toks < cfg.vocab)).all())):
+        raise AssertionError(f"qwen2-vl {mode}: tokens {toks.shape}, finite "
+                             f"{ok.tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    kv_b = T.cache_bytes({"kv": caches["kv"]})
+    L, n_tok = cfg.n_layers, toks.numel()
+    want = {"k1": L * n_dec if mode != "kv8" else 0,
+            "k4": L * n_dec if mode == "kv8" else 0,
+            "k3": 4 * L * (n_dec + rows) if mode == "native" else 0,
+            "k5": 0,
+            "k5_build": 1 if mode == "native" else 4 * L + 1}
+    got = {"k1": k1, "k4": k4, "k3": k3, "k5": k5, "k5_build": k5_build}
+    print(f"[vlm] (c) {mode}: {rows} requests of {cfg.n_patches} patches + "
+          f"{min(texts)}-{max(texts)} text tokens, {n_tok} tokens "
+          f"({rows} prefill waves, {n_dec} decode steps) in {wall:.3f}s = "
+          f"{n_tok / wall:.2f} tok/s; weight images built in {t_img:.2f}s; "
+          f"peak memory {peak / 2**30:.3f} GiB; KV {kv_b} B "
+          f"({'paged, blocks of 16' if mode != 'kv8' else 'int8 contiguous'}"
+          f", {VLM_SLOTS} slots)")
+    print(f"[vlm] (c) {mode}: K1 {k1}, K4 {k4}, K3 {k3}, K5 {k5} after the "
+          f"image build's {k5_build}; want {want}: {got == want}; "
+          f"dequant-matmul calls {deq}, kv8 einsum {einsum}, gather calls "
+          f"{gathers}")
+    if got != want or deq or einsum or gathers:
+        raise AssertionError(f"the qwen2-vl {mode} generate did not run as "
+                             f"counted")
+    del params, over, prequant, caches
+    torch.cuda.empty_cache()
+    return {**got, "tok_s": n_tok / wall, "peak": peak, "kv_bytes": kv_b}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the audio family (hubert-xlarge) at full width
+# ---------------------------------------------------------------------------
+
+HUBERT = "hubert-xlarge"
+# (site, K, N) of hubert-xlarge's linears, one layer each, the embed over
+# 512-dim frame features and the untied head over 504 units
+HUBERT_LINEARS = (("embed", 512, 1280), ("qkv", 1280, 3840),
+                  ("attn_out", 1280, 1280), ("mlp_in", 1280, 5120),
+                  ("mlp_out", 5120, 1280), ("lm_head", 1280, 504))
+
+
+def phase_audio_parity(seed: int) -> None:
+    """Phase 18 (a): hubert-xlarge's full config (48 layers, d_model 1280,
+    16 heads of 80, layer norms, GELU, bidirectional, 512-dim features, 504
+    units), random weights from ``seed``, f32, TF32 off, the float profile.
+    The card's forward and frame logits over 2 clips of 24 frames against
+    the port on the CPU (``rel < 5e-5``); then clips of 500, 317 and 93
+    frames left-padded to 500 (``prompt_len``): each clip's real frames
+    against its solo forward, ``rel < 5e-5``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import Profile, profile_table
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+
+    free_card("audio")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(HUBERT)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    n_par = T.param_count(params)
+    print(f"[audio] (a) {cfg.name}: {n_par} parameters, "
+          f"{4 * n_par / 1e9:.2f} GB of f32 masters")
+    br = profile_table([Profile.float32(T.quant_layer_names(cfg))],
+                       T.quant_layer_names(cfg))[0]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1e-9, float(b.abs().max()))
+
+    with use_compute_dtype(torch.float32):
+        feats = torch.randn((2, 24, cfg.feature_dim), generator=gen,
+                            device="cuda")
+        h, _, _ = T.forward(params, cfg, br, {"features": feats})
+        lg = T._logits(cfg, params, br, h)
+        cpu = _to_cpu(params)
+        t0 = time.perf_counter()
+        hc, _, _ = T.forward(cpu, cfg, br, {"features": feats.cpu()})
+        lc = T._logits(cfg, cpu, br, hc)
+        t_cpu = time.perf_counter() - t0
+        del cpu
+        rh, rl = rel(h.cpu(), hc), rel(lg.cpu(), lc)
+        print(f"[audio] (a) full width ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}), f32: the "
+              f"card's forward over 2 x 24 frames vs the CPU's "
+              f"({t_cpu:.1f}s): hidden rel {rh:.3e}, frame logits "
+              f"{tuple(lg.shape)} rel {rl:.3e} (< 5e-5: "
+              f"{max(rh, rl) < 5e-5})")
+        if not max(rh, rl) < 5e-5:
+            raise AssertionError("hubert on the card != on the CPU")
+        lens = [500, 317, 93]
+        feats = torch.randn((3, 500, cfg.feature_dim), generator=gen,
+                            device="cuda")
+        h, _, _ = T.forward(params, cfg, br, {"features": feats,
+                                              "prompt_len": lens})
+        rels = []
+        for j, n in enumerate(lens):
+            solo, _, _ = T.forward(params, cfg, br, {
+                "features": feats[j:j + 1, 500 - n:]})
+            rels.append(rel(h[j, 500 - n:], solo[0]))
+        print(f"[audio] (a) clips of {lens} frames left-padded to 500: real "
+              f"frames vs each clip's solo forward, hidden rel "
+              f"{', '.join(f'{r:.3e}' for r in rels)} (< 5e-5: "
+              f"{max(rels) < 5e-5})")
+        if not max(rels) < 5e-5:
+            raise AssertionError("a ragged hubert batch != its solo clips")
+    del params, h, lg, hc, lc
+    torch.cuda.empty_cache()
+
+
+def phase_audio_kernels(seed: int) -> None:
+    """Phase 18 (b): K3 (:func:`k3_case`) at hubert-xlarge's six linears at
+    M 4000 (8 clips x 500 frames: hubert always runs whole clips), W8 and
+    W4 — the embed (K 512), ``qkv`` (N 3840), ``attn_out``, ``mlp_in`` (N
+    5120), ``mlp_out`` and the head (N 504: 504-byte int8 and 252-byte
+    packed rows, not 16-byte multiples, so mma.sync) — each with its route,
+    device time beside torch.matmul's and its bound; K5 bit for bit on each
+    site's weight image at bits 8 and 4 (``mlp_in`` and the head timed)."""
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import qmatmul as QM
+    free_card("audio")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    for site, k, n in HUBERT_LINEARS:
+        for bits in (8, 4):
+            r = k3_case(gen, 4000, k, n, bits, torch.bfloat16)
+            print(f"[audio] (b) K3 {site} M=4000 W{bits}: route "
+                  f"{r['route']}, device {r['device_ms']:.4f} ms, "
+                  f"torch.matmul {r['library_device_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms")
+            del r
+    for site, k, n in HUBERT_LINEARS:
+        std = 0.02 if site == "lm_head" else k ** -0.5
+        w = torch.randn((k, n), generator=gen, device="cuda") * std
+        for bits in (8, 4):
+            k5_case(f"hubert {site} {k}x{n}", w, bits, True,
+                    timed=bits == 8 and site in ("mlp_in", "lm_head"))
+    QM.qmatmul.launches = AQ.aquant.launches = 0   # comparisons do not count
+
+
+def phase_audio_forward(seed: int, mode: str) -> dict:
+    """Phase 18 (c): hubert-xlarge's forward and frame logits at full width
+    in bf16 over 8 clips x 500 frames (10 s at 50 frames/s) of seeded
+    features, at the A8-W8 profile, in one of three modes: ``"fake"`` —
+    the f32 masters, each linear fake-quantized per call (K5 = 48 x 4 + 2
+    = 194 per forward: the layers, the embed and the head); ``"w8"`` /
+    ``"w4"`` — ``to_native(params, bits)`` (K3 = 194 per forward, K5 0,
+    the dequantize-then-matmul branch never). The counts are zeroed just
+    before one forward and read after it; then frames/s over 3 forwards
+    (host clock ending in a sync, after a warm one), the peak memory, and
+    one forward under ``torch.profiler``: wall, device-busy share and the
+    device operations that take the most."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import qmatmul as QM
+    from repro_torch.models import layers as LY
+    from repro_torch.models import transformer as T
+    from repro_torch.models.native import to_native
+
+    free_card("audio")
+    cfg = get_config(HUBERT)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, device="cuda")
+    if mode != "fake":
+        nat = to_native(params, int(mode[1:]))
+        del params
+        params = nat
+    names = T.quant_layer_names(cfg)
+    profs = paper_profiles(names, inner_layers=[])
+    row = profile_table(profs, names)[[p.name for p in profs].index("A8-W8")]
+    feats = torch.randn((8, 500, cfg.feature_dim), generator=gen,
+                        device="cuda")
+    batch = {"features": feats}
+
+    def run():
+        h, _, _ = T.forward(params, cfg, row, batch)
+        return T._logits(cfg, params, row, h)
+
+    run()                                              # warm
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    QM.qmatmul.launches = AQ.aquant.launches = LY.dequant_matmul.calls = 0
+    logits = run()
+    torch.cuda.synchronize()
+    k3, k5, deq = (QM.qmatmul.launches, AQ.aquant.launches,
+                   LY.dequant_matmul.calls)
+    if (logits.shape != (8, 500, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"hubert {mode}: logits {tuple(logits.shape)}")
+    L = cfg.n_layers
+    want = {"k3": (4 * L + 2) if mode != "fake" else 0,
+            "k5": (4 * L + 2) if mode == "fake" else 0}
+    got = {"k3": k3, "k5": k5}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fps = 3 * 8 * 500 / wall
+    print(f"[audio] (c) {mode}: 8 clips x 500 frames, forward + frame logits "
+          f"{tuple(logits.shape)}: {1e3 * wall / 3:.2f} ms per forward = "
+          f"{fps:.1f} frames/s; peak memory {peak / 2**30:.3f} GiB; K3 {k3},"
+          f" K5 {k5} per forward, want {want}: {got == want}; "
+          f"dequant-matmul calls {deq}")
+    if got != want or deq:
+        raise AssertionError(f"the hubert {mode} forward did not run as "
+                             f"counted")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) is not None
+          and str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    print(f"[audio] (c) {mode}: one forward under torch.profiler: wall "
+          f"{pwall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / pwall:.1f}%), {sum(e.count for e in ev)} device "
+          f"kernels")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[audio] (c)   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    del params, logits, batch, feats
+    torch.cuda.empty_cache()
+    return {**got, "frames_s": fps, "peak": peak,
+            "busy": busy / pwall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5062,7 +5702,9 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     kv8 static serve, K3's native W8 serve, K5's fake-quant one; phase
     16's on the qwen2-moe path: K1's paged serve, K4's contiguous kv8
     serve, K3's native W8 serve, K5's fake-quant serve after its image
-    build)."""
+    build; phase 17's on the qwen2-vl path: K1's paged generate, K4's kv8
+    generate, K3's native W8 generate, K5's image build; phase 18's on the
+    hubert path: K3's native W8 forward, K5's fake-quant forward)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -5087,7 +5729,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
+                            "18")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -5220,6 +5863,23 @@ def main() -> None:
             moe["k3"] = phase_moe_serve(args.seed, "native")["k3"]
             free_card("moe")
             phase_ssm_profile(args.seed, QWEN_MOE, "moe")
+    vlm = {"k1": 0, "k3": 0, "k4": 0, "k5": 0}
+    if 17 in phases:
+        with timed(17):
+            phase_vlm_parity(args.seed)
+            phase_vlm_kernels(args.seed)
+            paged = phase_vlm_generate(args.seed, "paged")
+            vlm["k1"], vlm["k5"] = paged["k1"], paged["k5_build"]
+            vlm["k4"] = phase_vlm_generate(args.seed, "kv8")["k4"]
+            vlm["k3"] = phase_vlm_generate(args.seed, "native")["k3"]
+    audio = {"k3": 0, "k5": 0}
+    if 18 in phases:
+        with timed(18):
+            phase_audio_parity(args.seed)
+            phase_audio_kernels(args.seed)
+            audio["k5"] = phase_audio_forward(args.seed, "fake")["k5"]
+            audio["k3"] = phase_audio_forward(args.seed, "w8")["k3"]
+            phase_audio_forward(args.seed, "w4")
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -5229,7 +5889,8 @@ def main() -> None:
             "src/repro/kernels/paged_attention.py:116", served["launches"],
             rows["k1"], policy_launches=policy["k1"],
             fault_launches=faults["k1"], durable_launches=durable["k1"],
-            hymba_launches=hymba["k1"], moe_launches=moe["k1"]))
+            hymba_launches=hymba["k1"], moe_launches=moe["k1"],
+            vlm_launches=vlm["k1"]))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
@@ -5238,18 +5899,20 @@ def main() -> None:
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
             native["k3"], rows["k3"], mamba2_launches=mamba2["k3"],
-            hymba_launches=hymba["k3"], moe_launches=moe["k3"]))
+            hymba_launches=hymba["k3"], moe_launches=moe["k3"],
+            vlm_launches=vlm["k3"], audio_launches=audio["k3"]))
         kernels.append(kernel_entry(
             "qkv_attention", "qkv_attention.cu",
             "src/repro/kernels/qkv_attention.py:68", static["launches"],
             rows["k4"], policy_launches=policy["k4"],
             fault_launches=faults["k4"], hymba_launches=hymba["k4"],
-            moe_launches=moe["k4"]))
+            moe_launches=moe["k4"], vlm_launches=vlm["k4"]))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
             native["k5"], rows["k5"], cnn_launches=cnn["k5"],
             mamba2_launches=mamba2["k5"], hymba_launches=hymba["k5"],
-            moe_launches=moe["k5"]))
+            moe_launches=moe["k5"], vlm_launches=vlm["k5"],
+            audio_launches=audio["k5"]))
     print(f"[time] total {time.perf_counter() - t_start:.1f}s "
           f"({', '.join(f'phase {n} {t:.1f}s' for n, t in secs.items())})")
     print(card_line())

@@ -1,5 +1,4 @@
-"""Config helpers (port of ``repro/configs/common.py``, dense, MoE, SSM
-and hybrid families)."""
+"""Config helpers (port of ``repro/configs/common.py``: ``smoke_of``)."""
 from __future__ import annotations
 
 import dataclasses

@@ -78,7 +78,8 @@ from repro_torch.core.profiles import paper_profiles
 from repro_torch.models import transformer as T
 from repro_torch.runtime import resolve_device
 from repro_torch.serving.durability import recover
-from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
+from repro_torch.serving.engine import (AdaptiveServer, Request, ServingConfig,
+                                        check_servable)
 from repro_torch.serving.faults import FaultSchedule
 from repro_torch.serving.policy import ShedPolicy
 from repro_torch.serving.scheduler import ContinuousScheduler
@@ -265,6 +266,10 @@ def build_server(args: argparse.Namespace):
     """Model, engine, manager and server for ``args`` → (cfg, server)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
+    try:
+        check_servable(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     names = T.quant_layer_names(cfg)
     profs = paper_profiles(names, inner_layers=[])
     policy = (None if args.precision_policy is None else

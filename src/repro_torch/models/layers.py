@@ -26,7 +26,8 @@ from repro_torch.kernels import ops
 from repro_torch.runtime import compute_dtype as _default_compute_dtype
 
 __all__ = ["qlinear", "init_linear", "quantize_linear_native",
-           "dequant_matmul", "rms_norm", "init_norm", "embed_lookup",
+           "dequant_matmul", "rms_norm", "layer_norm", "init_norm",
+           "embed_lookup",
            "init_embed", "SIGNED_SYM"]
 
 SIGNED_SYM = np.array([1, 0], np.int32)  # fixed (signed, non-symmetric) grid
@@ -104,15 +105,35 @@ def quantize_linear_native(params: dict, w_bits: int = 8) -> dict:
     return out
 
 
-def init_norm(d: int, *, layers: Optional[int] = None, device=None) -> dict:
+def init_norm(d: int, *, bias: bool = False, layers: Optional[int] = None,
+              device=None) -> dict:
+    """Gain ``g`` at one; with ``bias`` (a layer norm) a shift ``b`` at
+    zero."""
     lead = () if layers is None else (layers,)
-    return {"g": torch.ones(*lead, d, device=device)}
+    p = {"g": torch.ones(*lead, d, device=device)}
+    if bias:
+        p["b"] = torch.zeros(*lead, d, device=device)
+    return p
 
 
 def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * params["g"]
+    return y.to(x.dtype)
+
+
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's two-pass f32 layer norm: ``mu = mean(x)``, ``var =
+    mean((x − mu)²)``, ``(x − mu)·rsqrt(var + eps)·g + b`` (``b`` absent:
+    zero). Not ``F.layer_norm``, whose one-pass reduction differs in the
+    last bits."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["g"]
+    if "b" in params:
+        y = y + params["b"]
     return y.to(x.dtype)
 
 

@@ -1,13 +1,16 @@
 """Fake-mode → native-mode parameter conversion (port of
-``repro/models/native.py``, dense, MoE, SSM and hybrid families).
+``repro/models/native.py``, every family).
 
 Walks a parameter tree and replaces every quantizable linear's float master
 ``w`` with its integer carrier ``wq`` (:class:`~repro_torch.core.quantizers.
 QTensor`: per-output-channel float scales, int8 or packed int4). The MoE
 block's raw routed-expert stacks (``moe.w_in`` ``[L, E, d, 2f]``,
 ``moe.w_out`` ``[L, E, f, d]``) become ``QTensor`` leaves themselves, with
-per-output-channel scales reduced over the expert and input axes. Norms,
-biases, the SSD block's conv weights and its per-head scalars stay float.
+per-output-channel scales reduced over the expert and input axes. The
+audio stack's ``embed`` is a linear over frame features and converts as
+one (``[feature_dim, d_model]``). Norms (a layer norm's shift too),
+biases (qwen2-vl's on ``qkv``), the SSD block's conv weights and its
+per-head scalars stay float.
 Layer-stacked ``[L, ...]`` leaves get per-layer scales (``[L, 1, N]``,
 ``[L, 1, 1, N]`` on a routed stack), as the reference's
 ``vmap(quantize_native)`` gives them.

@@ -1,5 +1,6 @@
-"""LM assembly for the port (port of ``repro/models/transformer.py``, the
-dense, the MoE, the SSM and the hybrid families).
+"""LM assembly for the port (port of ``repro/models/transformer.py``: the
+dense, the vision-language, the audio, the MoE, the SSM and the hybrid
+families).
 
 Parameters and caches keep the reference's stacked ``[L, ...]`` layout, so
 conversion is one to one and the per-layer loop indexes layer ``l``. The
@@ -46,6 +47,19 @@ tokens are live: ``forward``/``prefill`` pass the ragged left-pad mask, and
 ``decode_step`` takes ``row_valid [B]`` (``decode_segment`` passes each
 step's live rows) and dispatches in ``gcd(groups, B)`` groups. ``forward``
 returns the summed aux losses (load balance + router z) of the layers.
+
+The vision-language family (qwen2-vl) is the dense layer with M-RoPE
+(:func:`~repro_torch.models.rotary.apply_mrope` on text positions, as the
+reference rotates) and a vision prefix: ``forward``/``prefill`` take
+``patch_embeds [B, n_patches, d]`` in place of the first ``n_patches``
+token embeddings (the vision tower is a stub, as in the reference);
+decode steps are text. The audio family (hubert) is an encoder: layer
+norms with a bias (``cfg.norm == "ln"``, through :func:`_norm` at every
+site the reference normalizes), bidirectional attention, a non-gated
+GELU MLP, and an ``embed`` linear over ``features [B, S, feature_dim]``;
+``forward`` gives per-frame hidden states (``_logits`` the per-frame
+unit logits), and the decode side (``prefill``, ``init_caches``,
+``init_paged_caches``, ``decode_step``) refuses it.
 """
 from __future__ import annotations
 
@@ -70,10 +84,10 @@ from .attention import (KVCache, PagedKVCache, _dequantize_kv, _mapped,
 from .ssm import (SSMState, init_ssm, init_ssm_state, ssd_forward,
                   ssm_decode_step)
 from .layers import (SIGNED_SYM, embed_lookup, init_embed, init_linear,
-                     init_norm, qlinear, rms_norm)
+                     init_norm, layer_norm, qlinear, rms_norm)
 from .mlp import init_mlp, mlp
 from .moe import MOE_SITES, init_moe, moe_ffn
-from .rotary import apply_rope
+from .rotary import apply_mrope, apply_rope, text_mrope_positions
 from repro_torch.core.quantizers import QTensor, dequantize, fake_quant_dynamic
 from repro_torch.runtime import compute_dtype
 
@@ -95,8 +109,8 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's config, field for field (the port implements the
-    dense, MoE, SSM and hybrid families; ``moe`` is a
+    """The reference's config, field for field (the port implements all
+    six of its families; ``moe`` is a
     :class:`~repro_torch.models.moe.MoEConfig`, ``ssm`` a
     :class:`~repro_torch.models.ssm.SSMConfig`)."""
 
@@ -151,24 +165,33 @@ class ModelConfig:
         return self.sliding_window if self.sliding_window else skv + 1
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    """Admit the families the port implements: dense, MoE and hybrid causal
-    attention stacks (with or without a sliding window) and the pure SSM
-    stack (mrope, layer norm, non-causal stacks and frontends are
-    refused)."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.mrope
-            or cfg.norm != "rms" or not cfg.causal or cfg.frontend):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, the MoE, the SSM and the hybrid "
-            f"families are ported")
-
-
 _SITES = {"dense": ("qkv", "attn_out", "mlp_in", "mlp_out"),
+          "vlm": ("qkv", "attn_out", "mlp_in", "mlp_out"),
+          "audio": ("qkv", "attn_out", "mlp_in", "mlp_out"),
           "moe": ("qkv", "attn_out") + MOE_SITES,
           "ssm": ("ssm_in", "ssm_out"),
           "hybrid": ("qkv", "attn_out", "ssm_in", "ssm_out", "mlp_in",
                      "mlp_out")}
 _GLOBAL_SITES = ("embed", "lm_head")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    """Admit the reference's six families: dense, vlm, audio, MoE, SSM and
+    hybrid (RMS or layer norm, causal or bidirectional, with or without a
+    sliding window, M-RoPE or RoPE, token, vision-prefix or audio-frame
+    inputs)."""
+    if cfg.family not in _SITES:
+        raise NotImplementedError(f"{cfg.name}: unknown family "
+                                  f"{cfg.family!r}")
+
+
+def _require_causal(cfg: ModelConfig, what: str) -> None:
+    """Refuse the decode side of an encoder-only stack (hubert): it has
+    no next token to feed, and its ``embed`` is a linear over frame
+    features, not a table a token indexes."""
+    if not cfg.causal:
+        raise ValueError(f"{cfg.name} is encoder-only (causal=False): "
+                         f"{what} has no decode step to serve")
 
 
 def sites(cfg: ModelConfig) -> tuple[str, ...]:
@@ -206,8 +229,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     _require_ported(cfg)
     d = cfg.d_model
     p = {"layers": _init_layers(cfg, gen, device),
-         "norm_f": init_norm(d, device=device),
-         "embed": init_embed(gen, cfg.vocab, d, device=device)}
+         "norm_f": init_norm(d, bias=cfg.norm == "ln", device=device)}
+    if cfg.frontend == "audio":
+        p["embed"] = init_linear(gen, cfg.feature_dim, d, device=device)
+    else:
+        p["embed"] = init_embed(gen, cfg.vocab, d, device=device)
     if not cfg.tie_embeddings:
         p["lm_head"] = init_linear(gen, d, cfg.vocab, scale=0.02,
                                    device=device)
@@ -219,13 +245,14 @@ def _init_layers(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     attention, the SSD block (its norm on the pure SSM stack), the hybrid
     layer's two output norms, the MLP, the MoE block and its norm."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
+    ln = cfg.norm == "ln"
     p = {}
     if cfg.has_attn:
         p["qkv"] = init_linear(gen, d, (cfg.n_heads + 2 * cfg.n_kv) * hd,
                                bias=cfg.qkv_bias, layers=L, device=device)
         p["attn_out"] = init_linear(gen, cfg.n_heads * hd, d, layers=L,
                                     device=device)
-        p["norm_attn"] = init_norm(d, layers=L, device=device)
+        p["norm_attn"] = init_norm(d, bias=ln, layers=L, device=device)
     if cfg.has_ssm:
         p["ssm"] = init_ssm(gen, d, cfg.ssm, layers=L, device=device)
         if cfg.family == "ssm":
@@ -236,7 +263,7 @@ def _init_layers(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     if cfg.has_mlp:
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.act == "silu",
                             layers=L, device=device)
-        p["norm_mlp"] = init_norm(d, layers=L, device=device)
+        p["norm_mlp"] = init_norm(d, bias=ln, layers=L, device=device)
     if cfg.family == "moe":
         p["moe"] = init_moe(gen, d, cfg.moe, layers=L, device=device)
         p["norm_mlp"] = init_norm(d, layers=L, device=device)
@@ -281,16 +308,28 @@ def _layer(tree, l: int):
 # layer body
 # ---------------------------------------------------------------------------
 
+def _norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(p, x) if cfg.norm == "ln" else rms_norm(p, x)
+
+
 def _attn_qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb,
               positions: torch.Tensor):
-    """Project + rope. Returns q [B,S,H,hd], k/v [B,S,Hkv,hd]."""
+    """Project + rope (M-RoPE on text positions where ``cfg.mrope``, as
+    the reference). Returns q [B,S,H,hd], k/v [B,S,Hkv,hd]."""
     b, s, _ = x.shape
     hd = cfg.hd
     qkv = qlinear(lp["qkv"], x, lb[_site_idx(cfg, "qkv")])
     q, k, v = torch.split(
         qkv, [cfg.n_heads * hd, cfg.n_kv * hd, cfg.n_kv * hd], dim=-1)
-    q = apply_rope(q.reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, cfg.n_kv, hd), positions, cfg.rope_theta)
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv, hd)
+    if cfg.mrope:
+        pos3 = text_mrope_positions(positions)
+        q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(b, s, cfg.n_kv, hd)
 
 
@@ -333,32 +372,55 @@ def _merge(lp: dict, attn: torch.Tensor, ssm_out: torch.Tensor):
 
 
 def _mlp_block(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor):
-    return mlp(lp["mlp"], rms_norm(lp["norm_mlp"], x),
+    return mlp(lp["mlp"], _norm(cfg, lp["norm_mlp"], x),
                lb[_site_idx(cfg, "mlp_in")], lb[_site_idx(cfg, "mlp_out")],
                gated=cfg.act == "silu", act=cfg.act)
 
 
 def _moe_block(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor,
                token_valid, moe_cfg=None):
-    """The MoE layer's FFN on ``rms_norm(x)`` → ``(y, aux dict)``."""
+    """The MoE layer's FFN on the normed ``x`` → ``(y, aux dict)``."""
     bits = {name: lb[_site_idx(cfg, name)] for name in MOE_SITES}
-    return moe_ffn(lp["moe"], rms_norm(lp["norm_mlp"], x), bits,
+    return moe_ffn(lp["moe"], _norm(cfg, lp["norm_mlp"], x), bits,
                    moe_cfg or cfg.moe, token_valid=token_valid)
 
 
 def _embed_inputs(cfg: ModelConfig, params: dict, bits_row, batch: dict):
-    """Tokens → hidden states, positions and validity. ``prompt_len`` marks
-    left-padded ragged rows: per-row positions count real tokens from 0 and
-    pad embeddings are zeroed."""
+    """Tokens, audio frames or an image + text → hidden states, positions
+    and validity.
+
+    The audio stack runs ``batch["features"] [B, S, feature_dim]`` through
+    its ``embed`` linear. The vision stack embeds ``batch["tokens"]`` and
+    puts ``batch["patch_embeds"] [B, n_patches, d]`` (cast to the
+    embedding's dtype, not quantized) in place of the first ``n_patches``
+    columns; a batch shorter than ``n_patches`` is refused.
+    ``prompt_len`` marks left-padded ragged rows: per-row positions count
+    real tokens from 0 and pad embeddings are zeroed — on the vision
+    stack after the patches land, so a padded row's image columns are pad
+    columns and are zeroed too, as in the reference."""
     eb, _, _ = split_bits(cfg, bits_row)
-    tokens = batch["tokens"]
-    x = embed_lookup(params["embed"], tokens, eb)
-    b, s = tokens.shape
-    ar = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    if cfg.frontend == "audio":
+        feats = batch["features"]
+        x = qlinear(params["embed"], feats, eb)
+        dev = feats.device
+    else:
+        tokens = batch["tokens"]
+        x = embed_lookup(params["embed"], tokens, eb)
+        dev = tokens.device
+        if cfg.frontend == "vision" and cfg.n_patches:
+            if tokens.shape[1] < cfg.n_patches:
+                raise ValueError(
+                    f"{cfg.name}: a batch of {tokens.shape[1]} columns is "
+                    f"shorter than the vision prefix's {cfg.n_patches} "
+                    f"patches")
+            patches = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([patches, x[:, cfg.n_patches:]], dim=1)
+    b, s = x.shape[:2]
+    ar = torch.arange(s, dtype=torch.int32, device=dev)
     plen = batch.get("prompt_len")
     if plen is None:
         return x, ar[None].expand(b, s), None
-    pad = s - torch.as_tensor(plen, dtype=torch.int32, device=tokens.device)
+    pad = s - torch.as_tensor(plen, dtype=torch.int32, device=dev)
     positions = ar[None] - pad[:, None]
     valid = positions >= 0
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
@@ -388,7 +450,7 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     ks, vs, hs, tails = [], [], [], []
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
-        xin = rms_norm(lp["norm_attn"], x)
+        xin = _norm(cfg, lp["norm_attn"], x)
         q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
         k, v = _refine(k, v, sched, l)
         attn = _attend(cfg, q, k, v, s, kv_valid=valid)
@@ -413,7 +475,7 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
         if collect:
             ks.append(k)
             vs.append(v)
-    x = rms_norm(params["norm_f"], x)
+    x = _norm(cfg, params["norm_f"], x)
     collected = ()
     if collect:
         collected = (torch.stack(ks), torch.stack(vs))
@@ -428,11 +490,11 @@ def _ssm_bits(cfg: ModelConfig, lb):
 
 def _forward_ssm(params: dict, cfg: ModelConfig, layer_bits, x, valid,
                  collect: bool):
-    """:func:`forward`'s SSM stack: ``x + ssd(rms_norm(x))`` per layer."""
+    """:func:`forward`'s SSM stack: ``x + ssd(norm(x))`` per layer."""
     hs, tails = [], []
     for l in range(cfg.n_layers):
         lp = _layer(params["layers"], l)
-        out = ssd_forward(lp["ssm"], rms_norm(lp["norm_ssm"], x),
+        out = ssd_forward(lp["ssm"], _norm(cfg, lp["norm_ssm"], x),
                           *_ssm_bits(cfg, layer_bits[l]), cfg.ssm,
                           return_final_state=collect, valid=valid)
         if collect:
@@ -440,7 +502,7 @@ def _forward_ssm(params: dict, cfg: ModelConfig, layer_bits, x, valid,
             hs.append(h)
             tails.append(tail)
         x = x + out
-    x = rms_norm(params["norm_f"], x)
+    x = _norm(cfg, params["norm_f"], x)
     aux = torch.zeros((), device=x.device)
     return x, aux, (torch.stack(hs), torch.stack(tails)) if collect else ()
 
@@ -481,6 +543,7 @@ def init_caches(cfg: ModelConfig, batch: int, slots: int, *,
     """Contiguous decode caches, stacked ``[L, ...]``: ``"kv"`` (``[B,
     min(slots, sliding_window)]`` rows) on an attention stack, ``"ssm"``
     (O(1) per row) on a stack with SSD blocks."""
+    _require_causal(cfg, "init_caches")
     caches = {}
     if cfg.has_attn:
         one = init_kv_cache(batch, eff_slots(cfg, slots), cfg.n_kv, cfg.hd,
@@ -519,6 +582,7 @@ def init_paged_caches(cfg: ModelConfig, batch: int, slots: int, *,
     ``[ceil(eff / block_size)]`` block table (``eff = min(slots,
     sliding_window)``); ``None`` provisions the contiguous footprint. SSM
     state stays dense, as in :func:`init_caches`."""
+    _require_causal(cfg, "init_paged_caches")
     caches = {}
     if cfg.has_attn:
         bs = paged_block_size(cfg, slots, block_size)
@@ -677,8 +741,9 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     final scan state (``slots`` plays no part), and the raw K/V are
     ``None``. The hybrid stack hands off both. A sliding-window ring holds
     ``eff = min(slots, sliding_window)`` slots and keeps the last ``eff``
-    prompt tokens at ``pos % eff``.
+    prompt tokens at ``pos % eff``. An encoder-only stack is refused.
     """
+    _require_causal(cfg, "prefill")
     hidden, _, collected = forward(params, cfg, bits_row, batch,
                                    collect=True, kv_sched=kv_sched)
     if cfg.family == "ssm":
@@ -770,7 +835,7 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     ks, vs = [], []
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
-        xin = rms_norm(lp["norm_attn"], x)
+        xin = _norm(cfg, lp["norm_attn"], x)
         q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
         k, v = _refine(k, v, sched, l)
         attn = prefix_attention(q, prefix_k[l], prefix_v[l], k, v,
@@ -781,7 +846,7 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
         x = x + _mlp_block(cfg, lp, lb, x)
         ks.append(k)
         vs.append(v)
-    x = rms_norm(params["norm_f"], x)
+    x = _norm(cfg, params["norm_f"], x)
     return x, (torch.stack(ks), torch.stack(vs))
 
 
@@ -886,18 +951,20 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
     the SSD step on the attention's normed input. ``row_valid [B]`` (bool,
     optional) marks the rows still generating: the MoE stack drops the
     others from its capacity dispatch, which runs in ``gcd(groups, B)``
-    groups; the other families ignore it.
+    groups; the other families ignore it. An encoder-only stack is
+    refused.
     """
     _require_ported(cfg)
+    _require_causal(cfg, "decode_step")
     eb, _, layer_bits = split_bits(cfg, bits_row)
     x = embed_lookup(params["embed"], tokens, eb)
     if cfg.family == "ssm":
         for l in range(cfg.n_layers):
             lp = _layer(params["layers"], l)
-            x = x + ssm_decode_step(lp["ssm"], rms_norm(lp["norm_ssm"], x),
+            x = x + ssm_decode_step(lp["ssm"], _norm(cfg, lp["norm_ssm"], x),
                                     caches["ssm"].layer(l),
                                     *_ssm_bits(cfg, layer_bits[l]), cfg.ssm)
-        x = rms_norm(params["norm_f"], x)
+        x = _norm(cfg, params["norm_f"], x)
         return _logits(cfg, params, bits_row, x)[:, 0], caches
     positions = pos[:, None].to(torch.int32)
     b = tokens.shape[0]
@@ -910,7 +977,7 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
         tv = None if row_valid is None else row_valid[:, None]
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
-        xin = rms_norm(lp["norm_attn"], x)
+        xin = _norm(cfg, lp["norm_attn"], x)
         q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
         k, v = _refine(k, v, sched, l)
         if view is not None:
@@ -943,7 +1010,7 @@ def decode_step(params: dict, cfg: ModelConfig, bits_row,
             x = x + _moe_block(cfg, lp, lb, x, tv, moe_cfg)[0]
         else:
             x = x + _mlp_block(cfg, lp, lb, x)
-    x = rms_norm(params["norm_f"], x)
+    x = _norm(cfg, params["norm_f"], x)
     return _logits(cfg, params, bits_row, x)[:, 0], caches
 
 
@@ -965,6 +1032,10 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
     ``shared_out`` linears; its routed-expert stacks get none, as in the
     reference: :func:`~repro_torch.models.moe.moe_ffn` fake-quantizes them
     on every forward.
+
+    The audio stack's ``embed`` is a linear over frame features, not a
+    table, and gets no image (nor in the reference): its forward
+    fake-quantizes it per call.
 
     Native (``wq``) sites pass through untouched. A native tied head gets
     its image here, once per distinct head bits: ``fq(dequantize(embed.wq,
@@ -1004,7 +1075,7 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
             return {"wfq": image(name, w, tuple(int(x) for x in col))}
 
         ov: dict = {}
-        if "w" in emb:
+        if "w" in emb and cfg.frontend != "audio":
             ov["embed"] = {"wfq": image("embed", emb["w"], int(eb[1]))}
         if head_src is not None:
             ov["lm_head"] = {"wfq": image(*head_src, int(hb[1])).t()}
@@ -1263,7 +1334,7 @@ def decode_step_spec(params: dict, cfg: ModelConfig, bits_row,
     klads, vlads = [], []
     for l in range(cfg.n_layers):
         lp, lb = _layer(params["layers"], l), layer_bits[l]
-        xin = rms_norm(lp["norm_attn"], x)
+        xin = _norm(cfg, lp["norm_attn"], x)
         q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
         if view is not None:
             c, klad, vlad = update_kv_cache_window(view.layer(l), k, v, pos)
@@ -1289,7 +1360,7 @@ def decode_step_spec(params: dict, cfg: ModelConfig, bits_row,
         x = x + qlinear(lp["attn_out"], attn.reshape(b, w, -1),
                         lb[_site_idx(cfg, "attn_out")])
         x = x + _mlp_block(cfg, lp, lb, x)
-    x = rms_norm(params["norm_f"], x)
+    x = _norm(cfg, params["norm_f"], x)
     logits = _logits(cfg, params, bits_row, x)               # [B, W, V]
     return logits, caches, (torch.stack(klads), torch.stack(vlads))
 

@@ -28,7 +28,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.attention import _mapped
 from repro_torch.runtime import resolve_device
 
-__all__ = ["ServingConfig", "AdaptiveServer", "Request", "RequestStatus"]
+__all__ = ["ServingConfig", "AdaptiveServer", "Request", "RequestStatus",
+           "check_servable"]
 
 
 class RequestStatus(str, enum.Enum):
@@ -183,6 +184,24 @@ class Request:
     deadline_ms: Optional[float] = None
 
 
+def check_servable(cfg: T.ModelConfig) -> None:
+    """Refuse a stack the server cannot feed: requests carry token
+    prompts only, so an encoder-only stack (no decode step) and a stack
+    with a vision or audio frontend (whose forward needs ``patch_embeds``
+    or ``features``) raise ``ValueError``. The reference's server takes
+    the same requests and fails on such a stack's first prefill with a
+    ``KeyError``."""
+    if not cfg.causal:
+        raise ValueError("encoder-only arch has no decode step")
+    if cfg.frontend:
+        need = "patch_embeds" if cfg.frontend == "vision" else "features"
+        raise ValueError(
+            f"{cfg.name}: the server takes token prompts only, and its "
+            f"{cfg.frontend} frontend needs {need!r} in every batch (the "
+            f"reference's server fails on its first prefill with "
+            f"KeyError: {need!r})")
+
+
 def _write_rows(pool, rows, s: torch.Tensor, j: torch.Tensor) -> None:
     """Write wave rows ``j`` of the stacked cache ``rows`` whole over pool
     rows ``s`` (every tensor field, ``[L, B, ...]``)."""
@@ -216,6 +235,7 @@ class AdaptiveServer:
                  engine: AdaptiveEngine, serving: ServingConfig,
                  manager: Optional[ProfileManager] = None, device=None,
                  draft_fn=None):
+        check_servable(cfg)
         self.cfg = cfg
         self.params = params
         self.engine = engine

@@ -20,7 +20,12 @@ bytes; a NaN in a copy-on-write sharer leaving the shared blocks and the
 neighbour's bytes, scales and tokens those of the serve without it); at
 hymba-1.5b's shapes, K1 at Hg 5 on wrapped sliding-window rings, K4 at Hg
 5, K3 at ``ssm_in`` (N 6482), the untied head (N 32001) and ``mlp_in``, and
-the hymba smoke model's paged serve equal to its contiguous one.
+the hymba smoke model's paged serve equal to its contiguous one; K5 on
+qwen2-moe's routed stacks and the MoE smoke forward; at qwen2-vl-2b's and
+hubert-xlarge's shapes, K1 and K4 at Hg 6, D 128, K3 at N 17920, 3840 and
+504 (hubert's head, on mma.sync), the qwen2-vl smoke model's paged decode
+through K1 equal to the gather backend's, and the hubert smoke encoder on
+the card equal to the CPU.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -1522,3 +1527,193 @@ def test_moe_forward_on_card_equals_cpu():
     # (no images: the masters are quantized per call), the embedding's one
     assert AQ.aquant.launches - n0 == cfg.n_layers * (4 + 5) + 1
     assert h.dtype == torch.bfloat16 and bool(torch.isfinite(h).all())
+
+
+# ---------------------------------------------------------------- qwen2-vl, hubert
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_paged_attention_kernel_at_hg6_d128(bits):
+    """K1 at qwen2-vl-2b's 2 KV heads of 6 query heads, D 128, against the
+    plain version; the dead row exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x = _inputs(bits, torch.Generator().manual_seed(60 + bits), hkv=2, hg=6,
+                d=128)
+    n0 = PA.paged_attention.launches
+    got = PA.paged_attention(**x, bits=bits)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches == n0 + 1
+    want = PA.paged_attention_ref(**x, bits=bits)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_qkv_attention_kernel_at_hg6_d128(qdtype):
+    """K4 at qwen2-vl-2b's 2 KV heads of 6 query heads, D 128, over a
+    cache of 544 slots, with lengths 0, 1, 257, 320, 543 and 544."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    q, k, v, ks, vs, lens = _qkv_case(6, 544, 2, 6, 128,
+                                      [0, 1, 257, 320, 543, 544], qdtype, 6)
+    n0 = QK.qkv_attention.launches
+    got = QK.qkv_attention(q, k, v, ks, vs, lens)
+    torch.cuda.synchronize()
+    assert QK.qkv_attention.launches == n0 + 1
+    want = QK.qkv_attention_cache_ref(q, k, v, ks, vs, lens)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bits,route", [
+    (8, 1536, 17920, 8, "splitk"),       # qwen2-vl mlp_in, decode
+    (8, 1536, 17920, 4, "splitk"),
+    (300, 1536, 17920, 8, "wgmma"),      # a prefill wave
+    (500, 512, 1280, 8, "wgmma"),        # hubert's embed over features
+    (500, 1280, 3840, 8, "wgmma"),       # hubert qkv
+    (500, 1280, 3840, 4, "wgmma"),
+    (500, 1280, 504, 8, "mma_sync"),     # hubert's head: 504-byte rows
+    (500, 1280, 504, 4, "mma_sync")])    # 252-byte packed rows
+def test_qmatmul_kernel_at_vlm_and_audio_sites(m, k, n, bits, route):
+    """K3 at qwen2-vl-2b's ``mlp_in`` (N 17920) and hubert-xlarge's embed,
+    ``qkv`` (N 3840) and head (N 504) on the route the rule gives, bf16 x:
+    within the summation-order bound, two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    x, w_q, scale = _qmatmul_case(m, k, n, bits, torch.bfloat16, m + n + bits)
+    got = QM.qmatmul(x, w_q, scale, bits=bits)
+    assert QM.qmatmul.last_route == route
+    again = QM.qmatmul(x, w_q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = QM.qmatmul_ref(x, w_q, scale, bits)
+    wb = QM.dequant_ref(w_q, scale, bits).bfloat16().float()
+    tol = 4 * k * 2.0 ** -24 * (x.float().abs() @ wb.abs())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def _paged_copy(kv, bs: int):
+    """A paged pool holding the rows of the contiguous stacked cache
+    ``kv``: row ``b``'s table maps blocks ``b·n_lblk ..`` in order, plus
+    the write sink."""
+    from repro_torch.models.attention import PagedKVCache
+    L, B, slots = kv.token_idx.shape
+    n_lblk = slots // bs
+    nb = B * n_lblk
+
+    def blocks(x, fill):
+        out = torch.full((L, nb + 1, bs, *x.shape[3:]), fill, dtype=x.dtype,
+                         device=x.device)
+        out[:, :nb] = x.reshape(L, nb, bs, *x.shape[3:])
+        return out
+
+    table = torch.arange(nb, dtype=torch.int32, device=kv.k.device)
+    return PagedKVCache(
+        k=blocks(kv.k, 0), v=blocks(kv.v, 0), k_scale=kv.k_scale.clone(),
+        v_scale=kv.v_scale.clone(), token_idx=blocks(kv.token_idx, -1),
+        block_table=table.reshape(1, B, n_lblk).expand(L, -1, -1).clone(),
+        n_blocks=nb, bits=kv.bits)
+
+
+@pytest.mark.cuda
+def test_vlm_paged_decode_kernel_equals_gather():
+    """The qwen2-vl smoke model (M-RoPE, a vision prefix of 8 patches) on
+    the card in f32, TF32 off: an image + text prefill copied into a bf16
+    paged pool, then 6 greedy decode steps through K1 (layers x steps
+    launches) and through the gather backend — logits within 1e-5, the
+    same tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.profiles import Profile, profile_table
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    cfg = get_smoke("qwen2-vl-2b")
+    names = T.quant_layer_names(cfg)
+    br = profile_table([Profile.float32(names)], names)[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, gen, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 14), generator=gen,
+                                     device="cuda"),
+             "patch_embeds": 0.02 * torch.randn(
+                 (2, cfg.n_patches, cfg.d_model), generator=gen,
+                 device="cuda")}
+    flag = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with use_compute_dtype(torch.float32):
+            for backend in ("kernel", "gather"):
+                logits, caches = T.prefill(params, cfg, br, batch, 32)
+                caches["kv"] = _paged_copy(caches["kv"], 8)
+                n0 = PA.paged_attention.launches
+                toks, steps = [], []
+                for i in range(6):
+                    tok = logits.argmax(-1).to(torch.int32)
+                    toks.append(tok)
+                    logits, caches = T.decode_step(
+                        params, cfg, br, tok[:, None],
+                        torch.full((2,), 14 + i, dtype=torch.int32,
+                                   device="cuda"), caches,
+                        paged_backend=backend)
+                    steps.append(logits)
+                k1 = PA.paged_attention.launches - n0
+                assert k1 == (cfg.n_layers * 6 if backend == "kernel" else 0)
+                out[backend] = (torch.stack(toks), torch.stack(steps))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    assert torch.equal(out["kernel"][0], out["gather"][0])
+    torch.testing.assert_close(out["kernel"][1], out["gather"][1], atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_hubert_forward_on_card_equals_cpu():
+    """The hubert smoke encoder (layer norms, bidirectional attention,
+    GELU) on a left-padded ragged batch of frame features, on the card in
+    f32, TF32 off, at the float profile: hidden states within 1e-4 of the
+    port on the CPU. At bf16 and A8-W8 the card's forward and frame logits
+    fake-quantize each linear through K5 (4 per layer, the embed and the
+    head) and give finite logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.profiles import (Profile, paper_profiles,
+                                           profile_table)
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    cfg = get_smoke("hubert-xlarge")
+    names = T.quant_layer_names(cfg)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(30)
+    feats = rng.standard_normal((3, 40, cfg.feature_dim)).astype(np.float32)
+    plen = np.array([40, 23, 9], np.int32)
+    f32 = profile_table([Profile.float32(names)], names)[0]
+    flag = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with use_compute_dtype(torch.float32):
+            for dev in ("cpu", "cuda"):
+                h, _, _ = T.forward(_to(params, dev), cfg, f32, {
+                    "features": torch.from_numpy(feats).to(dev),
+                    "prompt_len": plen})
+                out[dev] = h.cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    valid = torch.from_numpy(np.arange(40)[None] >= (40 - plen)[:, None])
+    torch.testing.assert_close(out["cuda"][valid], out["cpu"][valid],
+                               atol=1e-4, rtol=0)
+    a8w8 = profile_table(paper_profiles(names, inner_layers=[]), names)[2]
+    p = _to(params, "cuda")
+    n0 = AQ.aquant.launches
+    h, _, _ = T.forward(p, cfg, a8w8, {
+        "features": torch.from_numpy(feats).cuda(), "prompt_len": plen})
+    logits = T._logits(cfg, p, a8w8, h)
+    torch.cuda.synchronize()
+    assert AQ.aquant.launches - n0 == cfg.n_layers * 4 + 2
+    assert h.dtype == torch.bfloat16 and logits.shape == (3, 40, 512)
+    assert bool(torch.isfinite(logits).all())

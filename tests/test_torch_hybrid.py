@@ -548,7 +548,7 @@ def test_refusals(parts, tmp_path):
     with pytest.raises(ValueError, match="paged KV pool"):
         sched.step()
     with pytest.raises(NotImplementedError):
-        T.init_params(dataclasses.replace(tcfg, family="vlm"),
+        T.init_params(dataclasses.replace(tcfg, family="encoder"),
                       torch.Generator().manual_seed(0), device="cpu")
 
 

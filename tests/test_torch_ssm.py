@@ -470,9 +470,10 @@ def test_refusals_and_state_bytes(parts):
                            torch.zeros((1, 2), dtype=torch.int32),
                            torch.zeros((1,), dtype=torch.int32),
                            sched._caches)
-    vlm = dataclasses.replace(tcfg, family="vlm")
+    unknown = dataclasses.replace(tcfg, family="encoder")
     with pytest.raises(NotImplementedError):
-        T.init_params(vlm, torch.Generator().manual_seed(0), device="cpu")
+        T.init_params(unknown, torch.Generator().manual_seed(0),
+                      device="cpu")
 
 
 @pytest.mark.parametrize("continuous", [False, True])
