@@ -31,7 +31,11 @@ Phases:
     every length 1; ragged S, Hg 1 and 16, D 128 and 256 at f32 and bf16
     q, a last split holding one column; two calls bitwise equal; then
     grids of 2, 4 and 8 blocks per SM) and K5 (per-tensor dynamic
-    fake-quant, bit for bit, device time from a CUDA graph);
+    fake-quant, bit for bit with f32 and bf16 outputs, on and off the
+    grid's on-chip store, at 2- and 4-byte offsets, in a replayed CUDA
+    graph and on two streams at once; device time from a CUDA graph,
+    over cold copies where the tensor fits in L2, beside step 0's, the
+    first port's two launches);
  3. path parity at full width (granite-3-2b widths, 4 layers, f32, TF32
     off): the same requests through the continuous scheduler with the
     kernel and the gather backends give identical greedy tokens at kv16,
@@ -197,7 +201,8 @@ Phases:
     ``to_native(params, 8)`` (K3 = 121 x (steps + waves), routed
     dequantizations and K5 = 48 x (steps + waves)): tok/s, peak memory,
     decode steps, prefill waves; (d) under ``torch.profiler``: one
-    admission wave and one decode segment, with K5's share.
+    admission wave and one decode segment, with K5's share and the
+    copies' and casts'.
 17. the vision-language family at qwen2-vl-2b's full width (28 layers,
     d_model 1536, 12 heads of 128 over 2 KV heads with qkv bias, M-RoPE
     sections (16, 24, 24), a vision prefix of 256 patches, tied head of
@@ -247,6 +252,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
+K5_KERNEL = "aquant_fused_kernel"  # K5's one kernel, as the profiler names it
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12          # bf16 dense tensor cores
 ATOL = 1e-4                       # kernel vs plain, f32 outputs
@@ -1070,40 +1076,197 @@ def qmatmul_prefill_sweep(seed: int) -> None:
     QM.qmatmul.launches = 0
 
 
-def k5_case(label: str, x, bits: int, po2: bool, timed: bool) -> dict:
-    """K5 on ``x`` against its plain version, bit for bit (raises where
-    they differ); with ``timed`` also its device time from a CUDA graph,
-    per call and the plain version's beside the bytes bound (x read once)
-    and the read-twice floor. Returns the kernel-table row (``None``
-    untimed)."""
+def k5_step0(x, bits: int, po2: bool):
+    """Step 0 of K5 on the contiguous ``x``: the first port's two launches
+    (``repro_aquant_step0``), output in ``x``'s type, timed beside the
+    fused kernel (:func:`repro_torch.kernels.aquant.aquant` never reaches
+    it)."""
+    from repro_torch.kernels import build as B
+    out = torch.empty_like(x)
+    n = x.numel()
+    n_partial = max(1, min(1024, -(-n // 4096)))
+    partial = torch.empty((n_partial,), dtype=torch.float32, device=x.device)
+    err = B.lib("aquant").repro_aquant_step0(
+        x.data_ptr(), out.data_ptr(), partial.data_ptr(), None, n,
+        int(x.dtype == torch.bfloat16), bits, int(po2), n_partial,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K5 step 0 launch failed: CUDA error {err}")
+    return out
+
+
+def k5_bound(x, out_dtype) -> dict:
+    """K5's bytes bound on the card (``x`` read once, the output written
+    once in ``out_dtype``) and its plan's floor: the vectors its grid
+    cannot keep on chip across the barrier are read a second time."""
     from repro_torch.kernels import aquant as AQ
-    view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
-    got = AQ.aquant(x, bits, po2)
-    torch.cuda.synchronize()
-    want = AQ.aquant_ref(x, bits, po2)
-    err = float((got.float() - want.float()).abs().max())
-    if not torch.equal(got.view(view), want.view(view)):
-        raise AssertionError(f"K5 differs from its plain version at {label} "
-                             f"bits={bits} po2={po2}: max err {err:g}")
+    p = AQ.launch_plan(x, out_dtype)
+    kept = min(p.n_vec, p.grid * (p.keep_smem + p.keep_reg))
+    once = x.numel() * (x.element_size() + torch.finfo(out_dtype).bits // 8)
+    floor = once + (p.n_vec - kept) * AQ.VEC_BYTES
+    return {"bound_ms": once / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": once, "floor_ms": floor / H100_BYTES_PER_S * 1e3,
+            "floor_bytes": floor, "on_chip": kept == p.n_vec,
+            "grid": p.grid}
+
+
+def k5_case(label: str, x, bits: int, po2: bool, timed: bool,
+            cold: bool = False) -> dict:
+    """K5 on ``x`` against its plain version, bit for bit, for each output
+    type it takes from ``x`` (``x``'s own; bf16 from f32), raising where
+    they differ. With ``timed`` also, per output type: its device time
+    from a CUDA graph (with ``cold``, over :func:`rotating` copies, so each
+    call reads its ``x`` cold from device memory) beside step 0's (the
+    first port's two launches, then the cast for a bf16 output) in the
+    same graph form, per call and the plain version's, the bytes bound (x
+    read once, the output written once) and the plan's floor (the part of
+    x not kept on chip read twice). Returns the kernel-table row of the
+    x-typed output, the bf16 one under ``"bf16"`` (``None`` untimed)."""
+    from repro_torch.kernels import aquant as AQ
+    outs = [x.dtype] + ([torch.bfloat16] if x.dtype == torch.float32
+                        else [])
+    errs = {}
+    for od in outs:
+        view = torch.int16 if od == torch.bfloat16 else torch.int32
+        got = AQ.aquant(x, bits, po2, out_dtype=od)
+        torch.cuda.synchronize()
+        want = AQ.aquant_ref(x, bits, po2, out_dtype=od)
+        errs[od] = float((got.float() - want.float()).abs().max())
+        if got.dtype != od or not torch.equal(got.view(view),
+                                              want.view(view)):
+            raise AssertionError(f"K5 differs from its plain version at "
+                                 f"{label} bits={bits} po2={po2} -> {od}: "
+                                 f"max err {errs[od]:g}")
+        del got, want
+    names = " and ".join(str(od).replace("torch.", "") for od in outs)
     if not timed:
-        print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal")
+        print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal ({names} "
+              f"out)")
         return None
-    nbytes = 2 * x.numel() * x.element_size()
-    bound = nbytes / H100_BYTES_PER_S * 1e3
-    floor = 1.5 * bound                 # x read twice: the amax comes first
-    ms = cuda_time_ms(lambda: AQ.aquant(x, bits, po2), iters=50, warmup=5)
-    dev = graph_ms(lambda: AQ.aquant(x, bits, po2))
-    plain = cuda_time_ms(lambda: AQ.aquant_ref(x, bits, po2), iters=10,
-                         warmup=2)
-    print(f"[K5] {label} bits={bits} po2={po2}: bitwise equal; device "
-          f"{dev:.4f} ms, per call {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bound:.4f} ms (bytes: {nbytes} B, x read once, {bound / dev:.3f}"
-          f" of it), read-twice floor {floor:.4f} ms, "
-          f"{nbytes / dev / 1e6:.1f} GB/s; no single PyTorch call computes "
-          f"it")
-    return {"max_abs_err": err, "ms": ms, "device_ms": dev,
-            "plain_ms": plain, "library_ms": None, "library_device_ms": None,
-            "bound_ms": bound, "bound_by": "bytes", "floor_ms": floor}
+    view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(k5_step0(x, bits, po2).view(view),
+                       AQ.aquant_ref(x, bits, po2).view(view)):
+        raise AssertionError(f"K5's step 0 differs at {label}")
+    if cold:
+        copies = rotating(lambda: x.clone(), x.numel() * x.element_size())
+
+        def device(fn):
+            return cycle_graph_ms(fn, copies)
+    else:
+        def device(fn):
+            return graph_ms(lambda: fn(x))
+    row = None
+    for od in outs:
+        bd = k5_bound(x, od)
+        ms = cuda_time_ms(lambda: AQ.aquant(x, bits, po2, out_dtype=od),
+                          iters=50, warmup=5)
+        dev = device(lambda t: AQ.aquant(t, bits, po2, out_dtype=od))
+        dev0 = device(lambda t: k5_step0(t, bits, po2).to(od))
+        plain = cuda_time_ms(lambda: AQ.aquant_ref(x, bits, po2,
+                                                   out_dtype=od),
+                             iters=10, warmup=2)
+        tag = str(od).replace("torch.", "")
+        fit = ("on chip: x read once" if bd["on_chip"] else
+               f"floor {bd['floor_ms']:.4f} ms ({bd['floor_bytes']} B: the "
+               f"part not kept on chip read twice, "
+               f"{bd['floor_ms'] / dev:.3f} of it)")
+        print(f"[K5] {label} bits={bits} po2={po2} -> {tag}: bitwise equal; "
+              f"device {dev:.4f} ms{' (cold copies)' if cold else ''}, step 0"
+              f"{' + cast' if od != x.dtype else ''} {dev0:.4f} ms "
+              f"({dev0 / dev:.2f}x), per call {ms:.4f} ms, plain "
+              f"{plain:.4f} ms; bound {bd['bound_ms']:.4f} ms (bytes: "
+              f"{bd['bytes']} B, x read once, {bd['bound_ms'] / dev:.3f} of "
+              f"it), {fit}; grid {bd['grid']}, "
+              f"{bd['bytes'] / dev / 1e6:.1f} GB/s; no single PyTorch call "
+              f"computes it")
+        r = {"max_abs_err": errs[od], "ms": ms, "device_ms": dev,
+             "step0_device_ms": dev0, "plain_ms": plain, "library_ms": None,
+             "library_device_ms": None, **bd}
+        if row is None:
+            row = r
+        else:
+            row["bf16"] = r
+    if cold:
+        del copies
+    return row
+
+
+def k5_edges(gen) -> None:
+    """K5 bit for bit where its plan changes shape: just below and just
+    above the grid's on-chip store (f32 to f32 and to bf16, bf16), an odd
+    ``n``, data pointers 2 and 4 bytes past a 16-byte boundary, a tensor of
+    one element; a CUDA graph of one call replayed over new data in the
+    same buffer three times (the workspace resets itself); and two streams
+    calling it at once."""
+    from repro_torch.kernels import aquant as AQ
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(label, x, od):
+        view = torch.int16 if od == bf16 else torch.int32
+        got = AQ.aquant(x, 8, True, out_dtype=od)
+        torch.cuda.synchronize()
+        want = AQ.aquant_ref(x, 8, True, out_dtype=od)
+        if not torch.equal(got.view(view), want.view(view)):
+            raise AssertionError(f"K5 differs at {label} -> {od}")
+
+    cases = []
+    for dtype in (f32, bf16):
+        probe = torch.empty(1 << 24, dtype=dtype, device="cuda")
+        p = AQ.launch_plan(probe)                 # the full grid
+        ve = AQ.VEC_BYTES // probe.element_size()
+        cap = p.grid * (AQ.SMEM_BYTES // AQ.VEC_BYTES + AQ.REG_VECS)
+        del probe
+        for n, what in ((cap * ve - 3, "just below on-chip size"),
+                        (cap * ve + 1001, "just above on-chip size"),
+                        (1000003, "odd n"), (1, "one element")):
+            big = torch.randn(n + 8, generator=gen, device="cuda").to(dtype)
+            cases += [(f"{what} ({n} {dtype})", big[:n]),
+                      (f"{what} ({n} {dtype}), 4 bytes past 16",
+                       big[4 // big.element_size():][:n])]
+            if dtype == bf16:
+                cases.append((f"{what} ({n} bf16), 2 bytes past 16",
+                              big[1:][:n]))
+        print(f"[K5] {dtype}: the grid's on-chip store {cap * AQ.VEC_BYTES}"
+              f" B ({p.grid} blocks)")
+    for label, x in cases:
+        for od in ((f32, bf16) if x.dtype == f32 else (bf16,)):
+            check(label, x, od)
+    print(f"[K5] bitwise equal at {len(cases)} edge tensors (on-chip "
+          f"boundary, odd n, 2- and 4-byte offsets, one element), f32 and "
+          f"bf16 out")
+    x = torch.empty(3 << 20, device="cuda")
+    x.copy_(torch.randn(3 << 20, generator=gen, device="cuda"))
+    AQ.aquant(x, 8, True, out_dtype=bf16)             # warm, off the graph
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = AQ.aquant(x, 8, True, out_dtype=bf16)
+    for rep in range(3):
+        x.copy_(torch.randn(3 << 20, generator=gen, device="cuda")
+                * (0.1 + rep))
+        g.replay()
+        torch.cuda.synchronize()
+        want = AQ.aquant_ref(x, 8, True, out_dtype=bf16)
+        if not torch.equal(y.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"K5 in a CUDA graph differs at replay "
+                                 f"{rep}")
+    del g
+    print("[K5] one call captured in a CUDA graph, replayed 3 times over "
+          "new data in its buffer: bitwise equal each time")
+    xs = [torch.randn(40 << 20, generator=gen, device="cuda") * (1 + i)
+          for i in range(2)]
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    outs = []
+    for st, xi in zip(streams, xs):
+        with torch.cuda.stream(st):
+            outs.append(AQ.aquant(xi, 8, True))
+    torch.cuda.synchronize()
+    for xi, oi in zip(xs, outs):
+        if not torch.equal(oi.view(torch.int32),
+                           AQ.aquant_ref(xi, 8, True).view(torch.int32)):
+            raise AssertionError("K5 on two streams at once differs")
+    print("[K5] two streams at once (40 M f32 each): bitwise equal")
 
 
 def phase_aquant(seed: int) -> dict:
@@ -1111,7 +1274,12 @@ def phase_aquant(seed: int) -> dict:
     the prequant images ([2048, 16384], [8192, 2048]) and the tied head's
     dequantized table (49155 x 2048 values), bits 4/6/8, power-of-two scale
     on and off; a bf16 input; and amax exactly at a power of two and one
-    f32 step above it, where ceil(log2(.)) decides the grid."""
+    f32 step above it, where ceil(log2(.)) decides the grid; the plan's
+    edges (:func:`k5_edges`). Timed beside step 0 at the table's shapes:
+    the tied table (f32 and bf16 out), qwen2-moe's routed ``w_in``, and,
+    over cold copies, hubert's ``mlp_in`` (under the on-chip store) and a
+    prefill wave's bf16 MoE dispatch buffer, and the CNN's conv1
+    activations. Returns the tied table's row at bits 8, po2."""
     from repro_torch.kernels import aquant as AQ
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     cases = []
@@ -1137,6 +1305,21 @@ def phase_aquant(seed: int) -> dict:
         row = k5_case(label, x, bits, po2, timed)
         if label.startswith("2048x49155") and bits == 8 and po2:
             main = row
+    del cases, x, xb
+    for label, shape, std, dtype, cold in (
+            ("qwen2-moe w_in 60x2048x2816", (60, 2048, 2816), 2048 ** -0.5,
+             torch.float32, False),
+            ("hubert mlp_in 1280x5120", (1280, 5120), 1280 ** -0.5,
+             torch.float32, True),
+            ("qwen2-moe dispatch 16x60x22x2048", (16, 60, 22, 2048), 1.0,
+             torch.bfloat16, True),
+            ("cnn conv1 act 256x14x14x64", (256, 14, 14, 64), 1.0,
+             torch.float32, False)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+        k5_case(label, x, 8, True, timed=True, cold=cold)
+        del x
+    torch.cuda.empty_cache()
+    k5_edges(gen)
     AQ.aquant.launches = 0                # comparison launches do not count
     return main
 
@@ -3755,7 +3938,8 @@ def phase_cnn_sites(seed: int) -> None:
     """Phase 13 (a): K5 against its plain version, bitwise, at the CNN's
     six sites at batch 256 and bits 16 / 8 / 4, the scale it returns for
     the straight-through mask equal to the plain scalar; each site's
-    device time (CUDA graph) beside the plain version and its bound."""
+    device time (CUDA graph) beside step 0's, the plain version's and its
+    bound."""
     from repro_torch.kernels import aquant as AQ
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     for label, x in cnn_site_inputs(gen):
@@ -3773,12 +3957,13 @@ def phase_cnn_sites(seed: int) -> None:
                     f"{float(s):g} vs {float(ws):g}")
         nbytes = 2 * x.numel() * 4
         dev = graph_ms(lambda: AQ.aquant(x, 8, True))
+        dev0 = graph_ms(lambda: k5_step0(x, 8, True))
         plain = cuda_time_ms(lambda: AQ.aquant_ref(x, 8, True), iters=50,
                              warmup=5)
         print(f"[cnn] K5 at {label} ({x.numel()} f32): bitwise equal at "
-              f"bits 16/8/4, scale equal; bits 8 device {dev:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {nbytes / H100_BYTES_PER_S * 1e3:.4f} "
-              f"ms (bytes: {nbytes} B)")
+              f"bits 16/8/4, scale equal; bits 8 device {dev:.4f} ms, step 0 "
+              f"{dev0:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{nbytes / H100_BYTES_PER_S * 1e3:.4f} ms (bytes: {nbytes} B)")
     AQ.aquant.launches = 0                # comparison launches do not count
 
 
@@ -3984,7 +4169,7 @@ def phase_cnn_profile(seed: int) -> None:
           and str(e.device_type).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in ev) / 1e3 / 5   # ms
     k5 = sum(e.self_device_time_total for e in ev
-             if "amax_kernel" in e.key or "quant_kernel" in e.key) / 1e3 / 5
+             if K5_KERNEL in e.key) / 1e3 / 5
     n = sum(e.count for e in ev) / 5
     print(f"[cnn] (e) one A8-W8 training step at batch 256 (mean of 5): "
           f"wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
@@ -4281,15 +4466,18 @@ def phase_ssm_profile(seed: int, arch: str = MAMBA2,
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
         busy = sum(e.self_device_time_total for e in ev) / 1e3
-        k5 = [e for e in ev if "amax_kernel" in e.key
-              or "quant_kernel" in e.key]
+        k5 = [e for e in ev if K5_KERNEL in e.key]
         k5_ms = sum(e.self_device_time_total for e in k5) / 1e3
+        cp = [e for e in ev if "copy_kernel" in e.key]
+        cp_ms = sum(e.self_device_time_total for e in cp) / 1e3
         print(f"[{tag}] (d) {label}: wall {wall:.3f} ms, device busy "
               f"{busy:.3f} ms ({100 * busy / wall:.1f}%), "
-              f"{sum(e.count for e in ev)} device kernels; K5 (its amax and "
-              f"quant kernels) {k5_ms:.3f} ms in {sum(e.count for e in k5)} "
+              f"{sum(e.count for e in ev)} device kernels; K5 "
+              f"({K5_KERNEL}) {k5_ms:.3f} ms in {sum(e.count for e in k5)} "
               f"kernels, {100 * k5_ms / max(busy, 1e-9):.1f}% of the device "
-              f"time")
+              f"time; copies and casts (copy_kernel) {cp_ms:.3f} ms in "
+              f"{sum(e.count for e in cp)} kernels, "
+              f"{100 * cp_ms / max(busy, 1e-9):.1f}%")
         for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"[{tag}] (d)   {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:6d}x  {e.key[:90]}")
@@ -4871,7 +5059,7 @@ def phase_moe_kernels(seed: int) -> dict:
         x = (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
         for bits in (8, 4):
             row = k5_case(f"qwen2-moe {label}", x, bits, True,
-                          timed=bits == 8)
+                          timed=bits == 8, cold="dispatch" in label)
             if row is not None:
                 rows[f"k5 {label}"] = row
                 print(f"[moe] (b) K5 {label} bits 8: {row['device_ms']:.4f} "
@@ -5578,7 +5766,8 @@ def phase_audio_kernels(seed: int) -> None:
         w = torch.randn((k, n), generator=gen, device="cuda") * std
         for bits in (8, 4):
             k5_case(f"hubert {site} {k}x{n}", w, bits, True,
-                    timed=bits == 8 and site in ("mlp_in", "lm_head"))
+                    timed=bits == 8 and site in ("mlp_in", "lm_head"),
+                    cold=site == "mlp_in")
     QM.qmatmul.launches = AQ.aquant.launches = 0   # comparisons do not count
 
 
@@ -5694,7 +5883,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     """One row of the kernel table: the main path's launch count and the
     phase-2 row of the kernel at its main-path shape (every kernel also
     carries its device time from a CUDA graph, K1–K4 their split count, K4
-    its step 0's device time, K5 its read-twice floor), plus ``extra``
+    and K5 their step 0's device time, K5 its plan's floor and its bf16
+    output's row), plus ``extra``
     keys (phase 10's launches under the precision policy, phase 11's
     under injected faults, phase 12's after restarts, phase 13's on the
     CNN path, phase 14's on the mamba2 path: K3's native W8 serve, K5's
@@ -5722,6 +5912,10 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
         entry["prefill"] = row["prefill"]
     if "floor_ms" in row:
         entry["floor_ms"] = row["floor_ms"]
+    if "bf16" in row:
+        entry["bf16_out"] = {key: row["bf16"][key] for key in (
+            "device_ms", "step0_device_ms", "ms", "plain_ms", "bound_ms",
+            "floor_ms", "max_abs_err")}
     entry.update(extra)
     return entry
 

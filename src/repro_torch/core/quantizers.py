@@ -40,7 +40,8 @@ def round_half_away(x: torch.Tensor) -> torch.Tensor:
 
 class _StraightThrough(torch.autograd.Function):
     """``y = quantize(x)[0]`` forward; ``g · [qmin·s <= x <= qmax·s]``
-    backward, with ``s = quantize(x)[1]`` saved beside ``x``."""
+    backward (in ``x``'s type), with ``s = quantize(x)[1]`` saved beside
+    ``x``."""
 
     @staticmethod
     def forward(ctx, x, quantize, qmin, qmax):
@@ -55,6 +56,9 @@ class _StraightThrough(torch.autograd.Function):
         qmin, qmax = ctx.qrange
         xf = x.float()
         mask = (xf >= qmin * scale) & (xf <= qmax * scale)
+        # a quantize that stored another type than x's hands the gradient
+        # back in x's, as the cast after an unfused call would
+        g = g.to(x.dtype)
         return g * mask.to(g.dtype), None, None, None
 
 
@@ -87,24 +91,29 @@ def fake_quant(x: torch.Tensor, spec: QuantSpec,
     return _quantize(x, quantize, qmin, qmax)
 
 
-def fake_quant_dynamic(x: torch.Tensor, bits: int,
-                       signed_sym=None) -> torch.Tensor:
+def fake_quant_dynamic(x: torch.Tensor, bits: int, signed_sym=None,
+                       out_dtype=None) -> torch.Tensor:
     """Per-tensor dynamic fake-quant at ``bits`` (signed, non-symmetric
     grid; ``signed_sym`` is accepted for signature parity and ignored, as
     in the reference). ``bits >= 17`` is the identity. This is K5's
     function: CUDA tensors go through the kernel, CPU tensors through its
     plain version (:func:`repro_torch.kernels.aquant.aquant`); under
     autograd the kernel also hands back the scale for the gradient's clip
-    band."""
+    band.
+
+    ``out_dtype`` (``x``'s own, or bf16 from f32) is the type the caller
+    computes in: the kernel stores in it, and the result, and under
+    autograd its gradient (in ``x``'s type), are those of
+    ``fake_quant_dynamic(x, bits).to(out_dtype)``."""
     bits = int(bits)
     if bits >= 17:                       # float passthrough
-        return x
+        return x if out_dtype is None else x.to(out_dtype)
     if torch.is_grad_enabled() and x.requires_grad:
         qmin, qmax = qrange_dynamic(bits)
         return _StraightThrough.apply(
-            x, lambda t: aquant(t, bits, po2=True, return_scale=True),
-            qmin, qmax)
-    return aquant(x, bits, po2=True)
+            x, lambda t: aquant(t, bits, po2=True, return_scale=True,
+                                out_dtype=out_dtype), qmin, qmax)
+    return aquant(x, bits, po2=True, out_dtype=out_dtype)
 
 
 def fake_quant_dynamic_token(x: torch.Tensor, bits: int,

@@ -41,8 +41,13 @@ _ARGTYPES = {
     "paged_attention": [_P] * 11 + [_I] * 15 + [_F, _P],
     "paged_attention_multi": [_P] * 11 + [_I] * 15 + [_F, _P],
     "qmatmul": [_P] * 5 + [_I] * 10 + [_F] * 3 + [_P],
-    "aquant": [_P] * 4 + [_L] + [_I] * 4 + [_P],
+    "aquant": [_P] * 4 + [_L] + [_I] * 8 + [_P],
     "qkv_attention": [_P] * 9 + [_I] * 9 + [_L] * 6 + [_F, _P],
+}
+# further entry points of a source: K5's occupancy query and its step 0
+_EXTRA_ARGTYPES = {
+    "aquant": {"repro_aquant_blocks_per_sm": [_I] * 3,
+               "repro_aquant_step0": [_P] * 4 + [_L] + [_I] * 4 + [_P]},
 }
 
 
@@ -102,6 +107,10 @@ def build(verbose: bool = False) -> dict:
         fn = getattr(cdll, f"repro_{name}")
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
+        for sym, argtypes in _EXTRA_ARGTYPES.get(name, {}).items():
+            extra = getattr(cdll, sym)
+            extra.restype = ctypes.c_int
+            extra.argtypes = argtypes
         log = so.with_suffix(".ptxas.txt")
         _LIBS[name] = {"lib": cdll, "path": str(so),
                        "seconds": seconds if proc is not None else 0.0,

@@ -87,7 +87,8 @@ def qlinear(params: dict, x: torch.Tensor, bits_aw) -> torch.Tensor:
         if "wfq" in params:
             w = params["wfq"]
         else:
-            w = fake_quant_dynamic(params["w"], int(bits_aw[1]), SIGNED_SYM)
+            w = fake_quant_dynamic(params["w"], int(bits_aw[1]), SIGNED_SYM,
+                                   out_dtype=compute_dtype)
         y = torch.matmul(xq.to(compute_dtype), w.to(compute_dtype))
     if "b" in params:
         y = y.float() + params["b"].float()
@@ -154,5 +155,6 @@ def embed_lookup(params: dict, ids: torch.Tensor, bits_aw) -> torch.Tensor:
         return (rows.float() * qt.scale).to(compute_dtype)
     if "wfq" in params:
         return params["wfq"][ids].to(compute_dtype)
-    w = fake_quant_dynamic(params["w"], int(bits_aw[1]), SIGNED_SYM)
-    return w.to(compute_dtype)[ids]
+    w = fake_quant_dynamic(params["w"], int(bits_aw[1]), SIGNED_SYM,
+                           out_dtype=compute_dtype)
+    return w[ids]

@@ -96,7 +96,7 @@ def _qmat(w, bits_aw, dtype: torch.dtype) -> torch.Tensor:
     site's weight bits."""
     if isinstance(w, QTensor):
         return routed_dequant(w, dtype)
-    return fake_quant_dynamic(w, int(bits_aw[1]), SIGNED_SYM).to(dtype)
+    return fake_quant_dynamic(w, int(bits_aw[1]), SIGNED_SYM, out_dtype=dtype)
 
 
 def top_k_stable(probs: torch.Tensor, k: int):
@@ -171,12 +171,14 @@ def moe_ffn(params: dict, x: torch.Tensor, bits: dict, cfg: MoEConfig,
 
     # ---- expert compute (batched products over the stacked experts) ----
     cdt = compute_dtype(dev)
-    h = fake_quant_dynamic(buf, int(bits["expert_in"][0]), SIGNED_SYM).to(cdt)
+    h = fake_quant_dynamic(buf, int(bits["expert_in"][0]), SIGNED_SYM,
+                           out_dtype=cdt)
     w_in = _qmat(params["w_in"], bits["expert_in"], cdt)      # [E, d, 2f]
     h = torch.einsum("gecd,edf->gecf", h, w_in)
     g_, u_ = torch.chunk(h.float(), 2, dim=-1)
     h = (F.silu(g_) * u_).to(cdt)
-    h = fake_quant_dynamic(h, int(bits["expert_out"][0]), SIGNED_SYM).to(cdt)
+    h = fake_quant_dynamic(h, int(bits["expert_out"][0]), SIGNED_SYM,
+                           out_dtype=cdt)
     w_out = _qmat(params["w_out"], bits["expert_out"], cdt)   # [E, f, d]
     out_buf = torch.einsum("gecf,efd->gecd", h, w_out).float()
 

@@ -1055,10 +1055,12 @@ def prequant_decode_weights(params: dict, cfg: ModelConfig, table,
             if isinstance(bits, tuple):         # stacked [L, ...], per layer
                 out = torch.empty(w.shape, dtype=cd, device=dev)
                 for l, wb in enumerate(bits):
-                    out[l] = fake_quant_dynamic(w[l], wb, SIGNED_SYM)
+                    out[l] = fake_quant_dynamic(w[l], wb, SIGNED_SYM,
+                                                out_dtype=cd)
                 images[key] = out
             else:
-                images[key] = fake_quant_dynamic(w, bits, SIGNED_SYM).to(cd)
+                images[key] = fake_quant_dynamic(w, bits, SIGNED_SYM,
+                                                 out_dtype=cd)
         return images[key]
 
     lp, emb = params["layers"], params["embed"]

@@ -8,7 +8,10 @@ unaligned shapes, two calls bitwise equal; the prefill paths, wgmma where
 TMA can describe the operands and mma.sync elsewhere, at M 17–2048 with
 ragged K and N),
 K4 (int8-KV decode attention on the contiguous cache) and K5 (per-tensor
-fake-quant: bit for bit); K1 and K2 on tables whose rows share prefix
+fake-quant: bit for bit in f32 and bf16 outputs, on and off the grid's
+on-chip store, at 2-, 4- and 12-byte offsets with odd ``n``, replayed in a
+CUDA graph, on two streams at once, and under autograd with the fused
+cast); K1 and K2 on tables whose rows share prefix
 blocks, a scheduler run with a registry hit on the card, and preemption on
 the kernel backend (the resumed row bitwise equal to the suspended one, the
 victim's unmapped table leaving the next owner's blocks unchanged); the
@@ -585,6 +588,157 @@ def test_aquant_kernel_matches_plain_bitwise(shape, bits, po2, dtype):
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert got.dtype == dtype and got.shape == x.shape
     assert torch.equal(got.view(view), want.view(view))
+
+
+_K5_PAIRS = {"f32>f32": (torch.float32, torch.float32),
+             "f32>bf16": (torch.float32, torch.bfloat16),
+             "bf16>bf16": (torch.bfloat16, torch.bfloat16)}
+
+
+def _k5_check(x, out_dtype, bits=8, po2=True):
+    """One K5 call in ``out_dtype``: one launch, the shape and type asked
+    for, bitwise the plain version's (integer views)."""
+    n0 = AQ.aquant.launches
+    got = AQ.aquant(x, bits, po2, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert AQ.aquant.launches == n0 + 1
+    want = AQ.aquant_ref(x, bits, po2, out_dtype=out_dtype)
+    view = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == out_dtype and got.shape == x.shape
+    assert torch.equal(got.view(view), want.view(view))
+    return got
+
+
+def _k5_store(dtype) -> int:
+    """Elements of ``dtype`` the full grid keeps on chip across its
+    barrier."""
+    probe = torch.empty(1 << 24, dtype=dtype, device="cuda")
+    p = AQ.launch_plan(probe)
+    return (p.grid * (AQ.SMEM_BYTES // AQ.VEC_BYTES + AQ.REG_VECS)
+            * AQ.VEC_BYTES // probe.element_size())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(_K5_PAIRS))
+@pytest.mark.parametrize("where", ["below", "above"])
+@pytest.mark.parametrize("bits,po2", [(8, True), (4, False)])
+def test_aquant_fused_kernel_on_and_off_chip(pair, where, bits, po2):
+    """The fused kernel just below its grid's on-chip store (every vector
+    kept across the barrier, registers included) and just above it (a
+    vector per block read again), in each output type it takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    xd, od = _K5_PAIRS[pair]
+    cap = _k5_store(xd)
+    n = cap - 5 if where == "below" else cap + 777
+    gen = torch.Generator(device="cuda").manual_seed(n % 1000 + bits)
+    x = (torch.randn(n, generator=gen, device="cuda") * 0.3).to(xd)
+    p = AQ.launch_plan(x, od)
+    assert (p.n_tiles == 0) == (where == "below")
+    assert p.keep_reg > 0
+    _k5_check(x, od, bits, po2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xd,offset_bytes", [(torch.float32, 4),
+                                             (torch.float32, 12),
+                                             (torch.bfloat16, 2),
+                                             (torch.bfloat16, 4)])
+@pytest.mark.parametrize("n", [1, 3, 7, 4099, 1000003])
+def test_aquant_unaligned_pointer_and_odd_n(xd, offset_bytes, n):
+    """A view whose data pointer sits 2, 4 or 12 bytes past a 16-byte
+    boundary, with ``n`` not a multiple of the vector width: the scalar
+    head and tail in block 0, the output placed at the same offset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(n + offset_bytes)
+    big = (torch.randn(n + 16, generator=gen, device="cuda") * 2).to(xd)
+    x = big[offset_bytes // big.element_size():][:n]
+    assert x.data_ptr() % 16 == offset_bytes
+    for od in ((torch.float32, torch.bfloat16) if xd == torch.float32
+               else (torch.bfloat16,)):
+        got = _k5_check(x, od)
+        elt = got.element_size()
+        assert ((got.data_ptr() // elt) % (16 // x.element_size())
+                == offset_bytes // x.element_size())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(_K5_PAIRS))
+def test_aquant_graph_replays_over_new_data(pair):
+    """One K5 call captured in a CUDA graph and replayed three times over
+    new data copied into its input buffer: bitwise each time, so the
+    workspace the kernel leaves behind is as it found it (all zero)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    xd, od = _K5_PAIRS[pair]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(3 << 20, generator=gen, device="cuda").to(xd)
+    AQ.aquant(x, 8, True, out_dtype=od)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = AQ.aquant(x, 8, True, out_dtype=od)
+    view = torch.int16 if od == torch.bfloat16 else torch.int32
+    for rep in range(3):
+        x.copy_(torch.randn(3 << 20, generator=gen, device="cuda")
+                * (0.01 + rep))
+        g.replay()
+        torch.cuda.synchronize()
+        want = AQ.aquant_ref(x, 8, True, out_dtype=od)
+        assert torch.equal(y.view(view), want.view(view)), rep
+    pool, _ = AQ._WS[x.device.index]
+    assert int(pool.abs().sum()) == 0
+    _k5_check(x, od)                      # an eager call after the replays
+
+
+@pytest.mark.cuda
+def test_aquant_on_two_streams_at_once():
+    """Two streams launch K5 together, each on its own workspace: both
+    outputs bitwise, in both output types."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xs = [torch.randn(30 << 20, generator=gen, device="cuda") * (1 + i)
+          for i in range(2)]
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    for od in (torch.float32, torch.bfloat16):
+        outs = []
+        for st, x in zip(streams, xs):
+            with torch.cuda.stream(st):
+                outs.append(AQ.aquant(x, 8, True, out_dtype=od))
+        torch.cuda.synchronize()
+        view = torch.int16 if od == torch.bfloat16 else torch.int32
+        for x, y in zip(xs, outs):
+            want = AQ.aquant_ref(x, 8, True, out_dtype=od)
+            assert torch.equal(y.view(view), want.view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_fake_quant_dynamic_fused_cast_under_autograd_on_card(bits):
+    """``fake_quant_dynamic(w, out_dtype=bf16)`` on the card under
+    autograd: the values and the f32 gradient of the unfused
+    ``fake_quant_dynamic(w).to(bf16)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    from repro_torch.core.quantizers import fake_quant_dynamic
+    gen = torch.Generator(device="cuda").manual_seed(bits)
+    w = torch.randn((300, 70), generator=gen, device="cuda")
+    w[0, 0] = 40.0                        # values outside the clip band
+    g = torch.randn((300, 70), generator=gen, device="cuda").bfloat16()
+    grads, outs = [], []
+    for fused in (True, False):
+        wl = w.clone().requires_grad_(True)
+        y = (fake_quant_dynamic(wl, bits, out_dtype=torch.bfloat16) if fused
+             else fake_quant_dynamic(wl, bits).to(torch.bfloat16))
+        (y.float() * g.float()).sum().backward()
+        outs.append(y.detach())
+        grads.append(wl.grad)
+    assert outs[0].dtype == torch.bfloat16 and grads[0].dtype == torch.float32
+    assert torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))
+    assert torch.equal(grads[0], grads[1])
 
 
 @pytest.mark.cuda
