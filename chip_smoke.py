@@ -231,6 +231,21 @@ Phases:
     fake-quant (K5 = 194 per forward) and native W8 and W4 (K3 = 194 per
     forward): frames/s, peak memory, and one forward's device-busy share
     under ``torch.profiler``.
+19. LM training at granite-3-2b's full width (40 layers, d_model 2048,
+    vocab 49155, tied; 10.13 GB of f32 masters): (a) the smoke LM's
+    ``train_loss`` and every gradient leaf (remat on, A8-W8 and Mixed) on
+    the card against the CPU in f32, TF32 off; (b) K5 bit for bit, with
+    its scale, on each weight site's stacked-leaf view and the tied table,
+    timed over cold copies, and inside a ``torch.utils.checkpoint``
+    recompute; (c) the launcher's setup through the port's ``train()``:
+    bf16 over f32 masters, B 8 x S 512, AdamW in place, remat on, the six
+    profiles in turn, 2 warm-up and 6 timed steps: losses, tokens/s, ms
+    per step, peak memory, K5 = 323 launches per step as worked out from
+    the code, one step under ``torch.profiler``; (d) the same with
+    ``--grad-compression`` for 3 steps (peak memory, ms per step, the
+    error-feedback invariant); (e) at 2 layers, SIGTERM → checkpoint →
+    exit, an injected failure, and the resumed run's parameters and
+    moments bitwise the uninterrupted run's.
 Each phase prints its seconds, and the run its total.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -5868,6 +5883,439 @@ def phase_audio_forward(seed: int, mode: str) -> dict:
             "busy": busy / pwall}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: LM training at granite-3-2b's full width
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-3-2b"
+# granite's weight sites as paths into params["layers"] (stacked [40, K, N])
+GRANITE_SITES = (("qkv", ("qkv", "w")), ("attn_out", ("attn_out", "w")),
+                 ("mlp_in", ("mlp", "w_in", "w")),
+                 ("mlp_out", ("mlp", "w_out", "w")))
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train_ckpt"
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _train_batch(cfg, dev, seed: int, b: int = 2, s: int = 32) -> dict:
+    """Tokens and labels from the launcher's stream, a few labels -100."""
+    from repro_torch.data.tokens import TokenStream
+    x = TokenStream(vocab=cfg.vocab, seq_len=s, batch=b,
+                    seed=seed).batch_at(0)
+    labels = x["labels"].copy()
+    labels[0, :5] = -100
+    return {"tokens": torch.from_numpy(x["tokens"]).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)}
+
+
+def phase_train_parity(seed: int) -> None:
+    """Phase 19 (a): the granite smoke LM's ``train_loss`` and the gradient
+    of every parameter leaf (``train.loop.value_and_grad``, remat on) on
+    the card against the port on the CPU, in f32 with TF32 off, at A8-W8
+    and Mixed (K5 on every weight site, again in the recompute): the loss
+    within 1e-5, each gradient leaf within 1e-4 of its max-abs."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.train.loop import _flatten, value_and_grad
+    cfg = dataclasses.replace(get_smoke(GRANITE), remat=True)
+    names = T.quant_layer_names(cfg)
+    table = profile_table(paper_profiles(
+        names, inner_layers=[n for n in names if n.startswith("L0.")]),
+        names)
+    params = T.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with use_compute_dtype(torch.float32):
+            for pid, name in ((2, "A8-W8"), (5, "Mixed")):
+                out = {}
+                for dev in ("cpu", "cuda"):
+                    p = _to_dev(params, dev)
+                    n0 = AQ.aquant.launches
+                    (loss, m), g = value_and_grad(
+                        lambda p_, b_: T.train_loss(p_, cfg, table[pid], b_),
+                        p, _train_batch(cfg, dev, seed))
+                    torch.cuda.synchronize()
+                    out[dev] = (float(loss), float(m["xent"]),
+                                [t.cpu() for t in _flatten(g)[0]],
+                                AQ.aquant.launches - n0)
+                (l0, x0, g0, _), (l1, x1, g1, k5) = out["cpu"], out["cuda"]
+                want = 1 + 2 * (4 * cfg.n_layers + 1)
+                if k5 != want:
+                    raise AssertionError(f"(a) K5 launched {k5} times in one "
+                                         f"smoke step, not {want}")
+                dl = abs(l0 - l1)
+                worst = max(float((a - b).abs().max())
+                            / max(float(a.abs().max()), 1e-30)
+                            for a, b in zip(g0, g1))
+                if dl > 1e-5 or worst > 1e-4:
+                    raise AssertionError(f"(a) {name}: card vs CPU loss "
+                                         f"{dl:.3g}, worst gradient leaf "
+                                         f"{worst:.3g} of its max-abs")
+                print(f"[train] (a) smoke {name} f32: loss {l1:.6f} (xent "
+                      f"{x1:.6f}), card vs CPU {dl:.3g} (tol 1e-5); "
+                      f"{len(g1)} gradient leaves, worst {worst:.3g} of its "
+                      f"max-abs (tol 1e-4); K5 {k5} launches")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    AQ.aquant.launches = 0
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_train_kernels(params, n_layers: int) -> None:
+    """Phase 19 (b): K5 at the training shapes, on views of the full-width
+    masters: each granite site's first and last layer as a view of its
+    stacked leaf and the 49155 x 2048 tied table, bit for bit in f32 and
+    bf16 output, and with the scale it returns for the straight-through
+    mask (layer 0 and the table timed over cold copies); then K5 replayed
+    by ``torch.utils.checkpoint``'s recompute on ``mlp_in``'s view: the
+    recomputed output bitwise the forward's, the gradient equal to the one
+    without the checkpoint, the stream's workspace left zeroed."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.core.quantizers import fake_quant_dynamic
+    from repro_torch.kernels import aquant as AQ
+    views = []
+    for site, path in GRANITE_SITES:
+        leaf = _at(params["layers"], path)
+        views += [(f"{site} layer 0 view {tuple(leaf[0].shape)}", leaf[0],
+                   True),
+                  (f"{site} layer {n_layers - 1} view", leaf[-1], False)]
+    views.append((f"tied table {tuple(params['embed']['w'].shape)}",
+                  params["embed"]["w"], True))
+    for label, x, timed in views:
+        k5_case(f"(b) {label}", x, 8, True, timed, cold=True)
+        for od in (torch.float32, torch.bfloat16):
+            got, s = AQ.aquant(x, 8, True, return_scale=True, out_dtype=od)
+            want, ws = AQ.aquant_ref(x, 8, True, return_scale=True,
+                                     out_dtype=od)
+            view = torch.int16 if od == torch.bfloat16 else torch.int32
+            if not (torch.equal(got.view(view), want.view(view))
+                    and torch.equal(s, ws)):
+                raise AssertionError(f"(b) K5 with its scale differs at "
+                                     f"{label} -> {od}")
+            del got, want
+        print(f"[train] (b) {label}: with return_scale, output and scale "
+              f"bitwise equal (f32 and bf16 out)")
+    w = _at(params["layers"], ("mlp", "w_in", "w"))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(64, w.shape[1], generator=gen, device="cuda")
+    seen, grads = [], []
+    last = w.shape[0] - 1
+
+    def f(wl, x):
+        q = fake_quant_dynamic(wl.unbind(0)[last], 8,
+                               out_dtype=torch.bfloat16)
+        seen.append(q.detach().clone())
+        return (x.to(torch.bfloat16) @ q).float().square().sum()
+
+    for ck in (False, True):
+        wl = w.detach().requires_grad_(True)
+        n0 = AQ.aquant.launches
+        loss = checkpoint(f, wl, x, use_reentrant=False) if ck else f(wl, x)
+        (g,) = torch.autograd.grad(loss, wl)
+        torch.cuda.synchronize()
+        n = AQ.aquant.launches - n0
+        if n != (2 if ck else 1):
+            raise AssertionError(f"(b) K5 launched {n} times, checkpoint "
+                                 f"{ck}")
+        grads.append(g[last].clone())
+        del g, loss
+    pool, _ = AQ._WS[torch.cuda.current_device()]
+    if not (len(seen) == 3 and all(torch.equal(seen[0].view(torch.int16),
+                                               t.view(torch.int16))
+                                   for t in seen[1:])
+            and torch.equal(grads[0], grads[1])
+            and int(pool.abs().sum()) == 0):
+        raise AssertionError("(b) K5 in the checkpoint recompute differs")
+    print(f"[train] (b) K5 inside a checkpoint recompute on mlp_in's layer "
+          f"{last} view: the recomputed bf16 image bitwise the forward's, the "
+          f"gradient equal to the plain backward's, the workspace zero")
+    del seen, grads, x
+    AQ.aquant.launches = 0
+
+
+def k5_per_step(cfg, bits_row, seq: int) -> int:
+    """K5's launches in one training step, from the code: the embed's
+    table, each layer site and the head once per loss chunk (the tied
+    table) where the weight grid is at most 16 bits; remat's recompute
+    runs the layer sites and the head's chunks again."""
+    from repro_torch.models import transformer as T
+    eb, hb, lb = T.split_bits(cfg, bits_row)
+    q = lambda b: int(int(b[1]) < 17)
+    layers = sum(q(lb[l, s]) for l in range(cfg.n_layers)
+                 for s in range(lb.shape[1]))
+    chunks = seq // min(cfg.loss_chunk, seq)
+    once = q(eb) + layers + chunks * q(hb)
+    return once + (layers + chunks * q(hb) if cfg.remat else 0)
+
+
+def _step_counter(run, rec: list):
+    """The launcher's step, recording each step's profile and K5
+    launches."""
+    from repro_torch.kernels import aquant as AQ
+    make = run.step_factory
+
+    def factory(loss_fn, acfg):
+        step = make(loss_fn, acfg)
+
+        def counted(params, opt, batch):
+            n0 = AQ.aquant.launches
+            out = step(params, opt, batch)
+            rec.append((batch["profile_id"], AQ.aquant.launches - n0))
+            return out
+        return counted
+    return factory
+
+
+def _trace_step(tag: str, run, params, opt, step: int) -> None:
+    """One more training step under ``torch.profiler``: wall time,
+    device-busy share, K5's share and the top device operations."""
+    from torch.profiler import ProfilerActivity, profile
+    train_step = run.step_factory(run.loss_fn, run.adam_cfg)
+    batch = run.data_at(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = train_step(params, opt, batch)
+        float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) is not None
+          and str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    k5 = [e for e in ev if K5_KERNEL in e.key]
+    k5_ms = sum(e.self_device_time_total for e in k5) / 1e3
+    print(f"[train] {tag} one step under torch.profiler (profile "
+          f"{batch['profile_id']}): wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}%), "
+          f"{sum(e.count for e in ev)} device kernels; K5 ({K5_KERNEL}) "
+          f"{k5_ms:.3f} ms in {sum(e.count for e in k5)} kernels, "
+          f"{100 * k5_ms / max(busy, 1e-9):.1f}% of the device time")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[train] {tag}   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def phase_train_full(seed: int) -> dict:
+    """Phase 19 (b) and (c): granite-3-2b as published (40 layers, d_model
+    2048, vocab 49155, tied), from seed ``seed``, through the launcher's
+    setup and the port's ``train()``: bf16 compute over f32 masters, B 8 x
+    S 512, AdamW in place, remat on, the six profiles in turn, 2 warm-up
+    steps then 6 timed. Prints every loss (finite), tokens/s and ms per
+    step on the host clock (each step ends in the loss's read-back), the
+    peak of ``torch.cuda.max_memory_allocated``, K5's launches per step
+    against :func:`k5_per_step`, then one more step under the profiler.
+    Returns K5's launches over the 8 steps."""
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    free_card("train")
+    args = LT.parse_args(["--full", "--steps", "8", "--batch", "8", "--seq",
+                          "512", "--seed", str(seed)])
+    run = LT.setup(args)
+    n = T.param_count(run.params)
+    print(f"[train] (c) {run.cfg.name}: {n} parameters, "
+          f"{4 * n / 1e9:.2f} GB of f32 masters, remat {run.cfg.remat} "
+          f"({run.cfg.remat_policy}), loss chunk "
+          f"{min(run.cfg.loss_chunk, args.seq)}")
+    phase_train_kernels(run.params, run.cfg.n_layers)
+    rec: list = []
+    run.step_factory = _step_counter(run, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    AQ.aquant.launches = 0
+    out = run.run(log=lambda s: print(f"[train] (c) {s[8:]}"))
+    torch.cuda.synchronize()
+    launches = AQ.aquant.launches
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    if len(hist) != 8 or not np.isfinite(hist).all():
+        raise AssertionError(f"(c) losses {hist}")
+    for i, (pid, k5) in enumerate(rec):
+        want = k5_per_step(run.cfg, run.engine.bits_row(pid), args.seq)
+        print(f"[train] (c) step {i} profile "
+              f"{run.engine.profile_names[pid]}: loss {hist[i]:.6f}, "
+              f"{out['times'][i] * 1e3:.1f} ms, K5 {k5} launches (from the "
+              f"code: {want})")
+        if k5 != want:
+            raise AssertionError(f"(c) step {i}: K5 {k5} != {want}")
+    if launches != sum(k for _, k in rec):
+        raise AssertionError("(c) K5 launches outside the steps")
+    timed = out["times"][2:]
+    ms = 1e3 * float(np.mean(timed))
+    tok = args.batch * args.seq
+    print(f"[train] (c) full width, B {args.batch} x S {args.seq}: "
+          f"{ms:.1f} ms per step (mean of {len(timed)} after 2 warm-up, "
+          f"min {1e3 * min(timed):.1f}, max {1e3 * max(timed):.1f}), "
+          f"{tok / ms * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak} B); K5 {launches} launches in 8 "
+          f"steps; loss {hist[0]:.4f} -> {hist[-1]:.4f}")
+    _trace_step("(c)", run, out["params"], out["opt"], 8)
+    AQ.aquant.launches = 0
+    del run, out
+    free_card("train")
+    return {"k5": launches}
+
+
+def phase_train_compressed(seed: int) -> None:
+    """Phase 19 (d): (c) with ``--grad-compression`` for 3 steps (1 warm-up,
+    2 timed): ms per step, peak memory, and the error-feedback invariant
+    on ``attn_out``'s leaf at every step: the sent int8 · scale plus the
+    new residual equals the gradient plus the old residual (the residual
+    is ``corrected − q·s`` itself, so within 1e-6 of the leaf's max)."""
+    from repro_torch.launch import train as LT
+    path = ("layers", "attn_out", "w")
+    orig = LT.compress_tree
+    errs = []
+
+    def checked(grads, state, gen, release=False):
+        total = _at(grads, path) + _at(state.residual, path)
+        q, s, st = orig(grads, state, gen, release=release)
+        sent = _at(q, path).float() * _at(s, path)
+        errs.append(float(((sent + _at(st.residual, path)) - total).abs()
+                          .max() / total.abs().max()))
+        del total, sent
+        return q, s, st
+
+    args = LT.parse_args(["--full", "--steps", "3", "--batch", "8", "--seq",
+                          "512", "--seed", str(seed), "--grad-compression"])
+    run = LT.setup(args)
+    LT.compress_tree = checked
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run.run(log=lambda s: None)
+        torch.cuda.synchronize()
+    finally:
+        LT.compress_tree = orig
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    if len(hist) != 3 or not np.isfinite(hist).all() or max(errs) > 1e-6:
+        raise AssertionError(f"(d) losses {hist}, invariant {errs}")
+    ms = 1e3 * float(np.mean(out["times"][1:]))
+    print(f"[train] (d) --grad-compression, full width, B {args.batch} x S "
+          f"{args.seq}: "
+          f"{ms:.1f} ms per step (mean of 2 after 1 warm-up), peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak} B); losses "
+          f"{', '.join(f'{h:.6f}' for h in hist)}; error feedback on "
+          f"attn_out: |sent + residual - (gradient + old residual)| <= "
+          f"{max(errs):.3g} of its max")
+    del run, out
+    free_card("train")
+
+
+def phase_train_restart(seed: int) -> None:
+    """Phase 19 (e): restart bit for bit on the card, at granite's
+    published widths cut to 2 layers (40 layers' masters and moments would
+    write 30 GB per checkpoint), B 8 x S 512, bf16: an uninterrupted run of
+    3 steps; a run on a checkpoint directory that receives SIGTERM during
+    step 1, checkpoints it and exits; a run that resumes from it and fails
+    at step 2 (``fail_at_step``); a run that resumes again and finishes.
+    The final parameters and moments equal the uninterrupted run's bit for
+    bit, and so do the last step's loss. The last resume's peak of
+    allocated memory above what was allocated before its setup is at most
+    the uninterrupted run's (the restore allocates no moments before it
+    reads, and the handed-over initial weights go before it)."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+    from repro_torch.checkpoint.manager import latest_step
+    from repro_torch.launch import train as LT
+    from repro_torch.train.loop import _flatten
+    get_config = LT.get_config
+    LT.get_config = lambda a: dataclasses.replace(get_config(a), n_layers=2)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    base = ["--full", "--steps", "3", "--batch", "8", "--seq", "512",
+            "--seed", str(seed)]
+    t0 = time.perf_counter()
+
+    def peak_of(launch):
+        torch.cuda.synchronize()
+        base_b = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = launch()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base_b
+
+    try:
+        ref, ref_peak = peak_of(
+            lambda: LT.setup(LT.parse_args(base)).run(log=lambda s: None))
+        d = ["--ckpt-dir", str(TRAIN_DIR)]
+        run = LT.setup(LT.parse_args(base + d))
+        data_at = run.data_at
+
+        def sigterm_at_1(step):
+            if step == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return data_at(step)
+        run.data_at = sigterm_at_1
+        logs = []
+        pre = run.run(log=logs.append)
+        if pre["last_step"] != 1 or latest_step(str(TRAIN_DIR)) != 1:
+            raise AssertionError(f"(e) SIGTERM: last step "
+                                 f"{pre['last_step']}, checkpoint "
+                                 f"{latest_step(str(TRAIN_DIR))}")
+        run = LT.setup(LT.parse_args(base + d))
+        run.train_cfg = dataclasses.replace(run.train_cfg, fail_at_step=2)
+        try:
+            run.run(log=logs.append)
+            raise AssertionError("(e) the injected failure did not raise")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        del pre, run
+        res, res_peak = peak_of(
+            lambda: LT.setup(LT.parse_args(base + d)).run(log=logs.append))
+    finally:
+        LT.get_config = get_config
+    same = [torch.equal(a, b) for tree in ("params", "mu", "nu")
+            for a, b in zip(
+                _flatten(ref[tree] if tree == "params"
+                         else getattr(ref["opt"], tree))[0],
+                _flatten(res[tree] if tree == "params"
+                         else getattr(res["opt"], tree))[0])]
+    if not all(same) or res["history"] != ref["history"][2:] or \
+            int(res["opt"].step) != 3:
+        raise AssertionError(f"(e) resumed run differs: {sum(same)} of "
+                             f"{len(same)} leaves equal, losses "
+                             f"{res['history']} vs {ref['history']}")
+    if res_peak > ref_peak + 2**20:
+        raise AssertionError(f"(e) the resume's peak {res_peak} B exceeds "
+                             f"the uninterrupted run's {ref_peak} B")
+    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(TRAIN_DIR) for f in fs)
+    print(f"[train] (e) 2 layers at published widths: SIGTERM during step "
+          f"1 checkpointed step 1 and exited; the resumed run failed at "
+          f"step 2 as injected; resumed again, its {len(same)} parameter "
+          f"and moment leaves equal the uninterrupted run's bit for bit "
+          f"(last loss {res['history'][-1]:.6f}); "
+          f"{' | '.join(l for l in logs if 'resumed' in l or 'preempted' in l)}"
+          f"; {nbytes / 1e9:.2f} GB on disk, {time.perf_counter() - t0:.1f}s")
+    print(f"[train] (e) peak allocated above the setup's start: "
+          f"uninterrupted run {ref_peak / 2**30:.3f} GiB ({ref_peak} B), "
+          f"last resume (setup, restore, 1 step) {res_peak / 2**30:.3f} GiB "
+          f"({res_peak} B)")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    del ref, res
+    free_card("train")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5894,7 +6342,9 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     serve, K3's native W8 serve, K5's fake-quant serve after its image
     build; phase 17's on the qwen2-vl path: K1's paged generate, K4's kv8
     generate, K3's native W8 generate, K5's image build; phase 18's on the
-    hubert path: K3's native W8 forward, K5's fake-quant forward)."""
+    hubert path: K3's native W8 forward, K5's fake-quant forward; phase
+    19's on the training path: K5's launches over the 8 full-width
+    granite steps)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -5924,7 +6374,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18")
+                            "18,19")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -6074,6 +6524,13 @@ def main() -> None:
             audio["k5"] = phase_audio_forward(args.seed, "fake")["k5"]
             audio["k3"] = phase_audio_forward(args.seed, "w8")["k3"]
             phase_audio_forward(args.seed, "w4")
+    train = {"k5": 0}
+    if 19 in phases:
+        with timed(19):
+            phase_train_parity(args.seed)
+            train = phase_train_full(args.seed)
+            phase_train_compressed(args.seed)
+            phase_train_restart(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -6106,7 +6563,7 @@ def main() -> None:
             native["k5"], rows["k5"], cnn_launches=cnn["k5"],
             mamba2_launches=mamba2["k5"], hymba_launches=hymba["k5"],
             moe_launches=moe["k5"], vlm_launches=vlm["k5"],
-            audio_launches=audio["k5"]))
+            audio_launches=audio["k5"], train_launches=train["k5"]))
     print(f"[time] total {time.perf_counter() - t_start:.1f}s "
           f"({', '.join(f'phase {n} {t:.1f}s' for n, t in secs.items())})")
     print(card_line())

@@ -19,7 +19,8 @@ a corrupted row from its prompt) salvages the rest.
 
 Trees are nested dicts, lists and tuples (``None`` is an empty subtree, as
 in a JAX pytree); dict keys are walked in sorted order, as JAX flattens
-them. Leaves are ``torch.Tensor`` (copied to the host) or ``np.ndarray``.
+them, and a NamedTuple's leaves (``AdamState``) are keyed by field name,
+as JAX keys them. Leaves are ``torch.Tensor`` (copied to the host) or ``np.ndarray``.
 numpy has no bf16: a bf16 tensor is stored as the int16 view of its 16
 bits with ``"bfloat16"`` in its manifest entry, and restores bitwise.
 """
@@ -58,6 +59,9 @@ def _items(tree, prefix: str = ""):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], f"{prefix}{k}/")
+    elif _is_namedtuple(tree):
+        for name, v in zip(tree._fields, tree):
+            yield from _items(v, f"{prefix}{name}/")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _items(v, f"{prefix}{i}/")
@@ -72,10 +76,17 @@ def _rebuild(tree, leaves: dict, prefix: str = ""):
     if isinstance(tree, dict):
         return {k: _rebuild(v, leaves, f"{prefix}{k}/")
                 for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_rebuild(v, leaves, f"{prefix}{name}/")
+                            for name, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, leaves, f"{prefix}{i}/")
                           for i, v in enumerate(tree))
     return leaves[prefix[:-1]]
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
 def _host(leaf) -> tuple[np.ndarray, str]:
@@ -213,10 +224,11 @@ def _unflatten_keys(flat: dict) -> dict:
 
 def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """A stored leaf as a host tensor (bf16 leaves bitwise)."""
+    # ascontiguousarray makes a 0-d array 1-d: keep the stored shape
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if _is_bf16(arr, dtype):
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
-                                ).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def restore(directory: str, tree_like: Any = None, step: Optional[int] = None,

@@ -14,6 +14,12 @@ graph (grad mode on, ``x.requires_grad``) goes through the
 ``autograd.Function``, which saves ``x`` and the scale and builds the mask
 in ``backward``; inference calls run the forward alone, as before.
 
+Stochastic rounding (``QuantSpec(stochastic=True)``) is ``floor(x + U)``
+with ``U ~ uniform[0, 1)``, as the reference's ``_round``. The draw is
+kept apart from the arithmetic: :func:`round_stochastic` takes the
+uniforms, and :func:`fake_quant` draws them from a ``torch.Generator``
+where the reference takes a PRNG key (or takes them as given).
+
 ``quantize_native`` / ``dequantize`` produce and consume the integer
 carriers (:class:`QTensor`: int8, or int4 packed two per byte) of the
 native serving path.
@@ -30,12 +36,18 @@ from .qtypes import (QuantSpec, carrier_dtype, compute_scale, exp2_int,
                      pack_int4, qrange, qrange_dynamic, unpack_int4)
 
 __all__ = ["fake_quant", "fake_quant_dynamic", "fake_quant_dynamic_token",
-           "round_half_away", "QTensor", "quantize_native", "dequantize"]
+           "round_half_away", "round_stochastic", "QTensor", "quantize_native", "dequantize"]
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
     """Round half away from zero (symmetric in sign, unlike ``torch.round``)."""
     return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def round_stochastic(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``floor(x + u)``: stochastic rounding given the uniforms ``u`` (one
+    per element of ``x``, in ``[0, 1)``), unbiased over ``u``."""
+    return torch.floor(x + u)
 
 
 class _StraightThrough(torch.autograd.Function):
@@ -71,21 +83,35 @@ def _quantize(x: torch.Tensor, quantize, qmin, qmax) -> torch.Tensor:
 
 
 def fake_quant(x: torch.Tensor, spec: QuantSpec,
-               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               scale: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Quantize→dequantize ``x`` onto the grid of ``spec`` (float in/out);
     the scale is calibrated from ``max|x|`` unless given. Gradient:
-    straight through inside the clip range, zero outside."""
+    straight through inside the clip range, zero outside.
+
+    With ``spec.stochastic`` the rounding is :func:`round_stochastic` on
+    ``uniforms`` (f32, ``x``'s shape), drawn from ``generator`` (on
+    ``x``'s device) when not given; one of the two is required, as the
+    reference requires a key."""
     if spec.is_float:
         return x
-    if spec.stochastic:
-        raise NotImplementedError("stochastic rounding is not ported")
+    if spec.stochastic and uniforms is None:
+        if generator is None:
+            raise ValueError("stochastic rounding needs a generator or "
+                             "uniforms")
+        uniforms = torch.rand(x.shape, generator=generator,
+                              dtype=torch.float32, device=x.device)
     qmin, qmax = qrange(spec)
 
     def quantize(x):
         xf = x.float()
         s = compute_scale(xf, spec) if scale is None else \
             torch.as_tensor(scale, dtype=torch.float32, device=x.device)
-        q = torch.clamp(round_half_away(xf / s), qmin, qmax)
+        r = xf / s
+        r = (round_stochastic(r, uniforms) if spec.stochastic
+             else round_half_away(r))
+        q = torch.clamp(r, qmin, qmax)
         return (q * s).to(x.dtype), s
 
     return _quantize(x, quantize, qmin, qmax)

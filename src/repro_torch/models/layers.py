@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.qtypes import QuantSpec, unpack_int4
 from repro_torch.core.quantizers import (QTensor, dequantize,
@@ -157,4 +158,7 @@ def embed_lookup(params: dict, ids: torch.Tensor, bits_aw) -> torch.Tensor:
         return params["wfq"][ids].to(compute_dtype)
     w = fake_quant_dynamic(params["w"], int(bits_aw[1]), SIGNED_SYM,
                            out_dtype=compute_dtype)
-    return w[ids]
+    # the rows w[ids]; under autograd its backward is the sorted
+    # embedding backward, deterministic on CUDA (w[ids]'s own backward,
+    # index_put_ with accumulate, is not)
+    return F.embedding(ids, w)

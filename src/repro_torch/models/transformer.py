@@ -9,6 +9,7 @@ each site's ``(a_bits, w_bits)`` reaches the quantizers as Python ints.
 Caches are updated in place.
 
 Public entry points: ``init_params``, ``quant_layer_names``, ``forward``,
+for training ``train_loss`` and ``chunked_xent``,
 ``prefill``, ``decode_step``, ``prequant_decode_weights``,
 ``overlay_params``, ``init_caches``, ``init_paged_caches``,
 ``decode_segment``, ``decode_many``, for continuation prefill
@@ -64,6 +65,7 @@ unit logits), and the decode side (``prefill``, ``init_caches``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -93,6 +95,7 @@ from repro_torch.runtime import compute_dtype
 
 __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "init_params", "param_count", "active_param_count", "forward",
+           "chunked_xent", "train_loss",
            "prefill", "forward_extend", "prefill_extend", "decode_step",
            "prequant_decode_weights", "overlay_params", "eff_slots",
            "paged_block_size",
@@ -304,6 +307,21 @@ def _layer(tree, l: int):
     return tree[l]
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, each leaf taken apart
+    once with ``torch.unbind``: the same views as :func:`_layer`, but under
+    autograd one node per leaf whose backward is a single ``stack`` (a
+    ``tree[l]`` per layer would write a zero-filled gradient of the whole
+    stacked leaf for each layer)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][l] for k in tree} for l in range(n)]
+    if isinstance(tree, QTensor):
+        return [QTensor(d, sc, tree.bits, tree.orig_last)
+                for d, sc in zip(tree.data.unbind(0), tree.scale.unbind(0))]
+    return list(tree.unbind(0))
+
+
 # ---------------------------------------------------------------------------
 # layer body
 # ---------------------------------------------------------------------------
@@ -437,74 +455,141 @@ def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     convdim])``, on the hybrid stack ``((k, v), (h, conv_tail))``.
     ``kv_sched`` (``[L]`` bit-widths, optional) refines each layer's fresh
     K/V before attention and collection; the SSM stack has none. ``aux``
-    is the MoE stack's summed aux losses (zero on the other families)."""
+    is the MoE stack's summed aux losses (zero on the other families).
+
+    Each stacked leaf is taken apart once (:func:`_unstack`). When
+    autograd records (a parameter requires grad) and ``cfg.remat`` is
+    set, each layer's body runs under :func:`_remat`: its activations are
+    recomputed in the backward instead of kept."""
     _require_ported(cfg)
     x, positions, valid = _embed_inputs(cfg, params, bits_row, batch)
     _, _, layer_bits = split_bits(cfg, bits_row)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    remat = cfg.remat and not collect and _records(params)
     if cfg.family == "ssm":
-        return _forward_ssm(params, cfg, layer_bits, x, valid, collect)
+        return _forward_ssm(params, cfg, layers, layer_bits, x, valid,
+                            collect, remat)
     sched = _kv_row(cfg, kv_sched)
-    hybrid = cfg.family == "hybrid"
-    s = x.shape[1]
     aux = torch.zeros((), device=x.device)
     ks, vs, hs, tails = [], [], [], []
     for l in range(cfg.n_layers):
-        lp, lb = _layer(params["layers"], l), layer_bits[l]
-        xin = _norm(cfg, lp["norm_attn"], x)
-        q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
-        k, v = _refine(k, v, sched, l)
-        attn = _attend(cfg, q, k, v, s, kv_valid=valid)
-        attn = qlinear(lp["attn_out"], attn.reshape(*attn.shape[:2], -1),
-                       lb[_site_idx(cfg, "attn_out")])
-        if hybrid:
-            out = ssd_forward(lp["ssm"], xin, *_ssm_bits(cfg, lb), cfg.ssm,
-                              return_final_state=collect, valid=valid)
-            if collect:
-                out, (h, tail) = out
-                hs.append(h)
-                tails.append(tail)
-            x = x + _merge(lp, attn, out)
-        else:
-            x = x + attn
-        if cfg.family == "moe":
-            y, maux = _moe_block(cfg, lp, lb, x, valid)
+        body = functools.partial(
+            _layer_forward, cfg, layers[l], layer_bits[l], positions=positions,
+            valid=valid, kv_eff=None if sched is None else sched[l],
+            collect=collect)
+        x, maux, col = _remat(cfg, body, x) if remat else body(x)
+        if maux is not None:
             aux = aux + maux["load_balance"] + maux["router_z"]
-            x = x + y
-        else:
-            x = x + _mlp_block(cfg, lp, lb, x)
         if collect:
-            ks.append(k)
-            vs.append(v)
+            ks.append(col[0])
+            vs.append(col[1])
+            if cfg.family == "hybrid":
+                hs.append(col[2])
+                tails.append(col[3])
     x = _norm(cfg, params["norm_f"], x)
     collected = ()
     if collect:
         collected = (torch.stack(ks), torch.stack(vs))
-        if hybrid:
+        if cfg.family == "hybrid":
             collected = (collected, (torch.stack(hs), torch.stack(tails)))
     return x, aux, collected
+
+
+def _layer_forward(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor, *,
+                   positions, valid, kv_eff, collect: bool):
+    """One layer of an attention stack over the full sequence → ``(x,
+    MoE aux dict or None, collected)``, ``collected`` being ``(k, v)`` (and
+    on the hybrid stack the SSD block's ``h, conv_tail``) with
+    ``collect``."""
+    xin = _norm(cfg, lp["norm_attn"], x)
+    q, k, v = _attn_qkv(cfg, lp, xin, lb, positions)
+    if kv_eff is not None:
+        k, v = kv_refine(k, kv_eff), kv_refine(v, kv_eff)
+    attn = _attend(cfg, q, k, v, x.shape[1], kv_valid=valid)
+    attn = qlinear(lp["attn_out"], attn.reshape(*attn.shape[:2], -1),
+                   lb[_site_idx(cfg, "attn_out")])
+    col = (k, v) if collect else None
+    if cfg.family == "hybrid":
+        out = ssd_forward(lp["ssm"], xin, *_ssm_bits(cfg, lb), cfg.ssm,
+                          return_final_state=collect, valid=valid)
+        if collect:
+            out, (h, tail) = out
+            col = (k, v, h, tail)
+        x = x + _merge(lp, attn, out)
+    else:
+        x = x + attn
+    maux = None
+    if cfg.family == "moe":
+        y, maux = _moe_block(cfg, lp, lb, x, valid)
+        x = x + y
+    else:
+        x = x + _mlp_block(cfg, lp, lb, x)
+    return x, maux, col
+
+
+def _records(tree) -> bool:
+    """Whether autograd records a function of ``tree``: grad mode on and
+    some leaf requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in _leaves(tree))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy: keep the outputs of the plain matmuls
+    (``aten.mm``: products with no batch dims, as the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute every other op."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under activation checkpointing, the counterpart of
+    the reference's ``jax.checkpoint(..., policy=_remat_policy(cfg))``:
+    ``remat_policy="nothing"`` keeps only the inputs and recomputes the
+    rest in the backward; ``"dots"`` also keeps the plain matmuls'
+    outputs (:func:`_save_dots`). The recompute runs the same ops on the
+    same inputs, so the values and gradients are those of ``fn`` run
+    plainly."""
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _ssm_bits(cfg: ModelConfig, lb):
     return lb[_site_idx(cfg, "ssm_in")], lb[_site_idx(cfg, "ssm_out")]
 
 
-def _forward_ssm(params: dict, cfg: ModelConfig, layer_bits, x, valid,
-                 collect: bool):
+def _forward_ssm(params: dict, cfg: ModelConfig, layers: list, layer_bits,
+                 x, valid, collect: bool, remat: bool):
     """:func:`forward`'s SSM stack: ``x + ssd(norm(x))`` per layer."""
     hs, tails = [], []
     for l in range(cfg.n_layers):
-        lp = _layer(params["layers"], l)
-        out = ssd_forward(lp["ssm"], _norm(cfg, lp["norm_ssm"], x),
-                          *_ssm_bits(cfg, layer_bits[l]), cfg.ssm,
-                          return_final_state=collect, valid=valid)
+        body = functools.partial(_ssm_layer_forward, cfg, layers[l],
+                                 layer_bits[l], valid=valid, collect=collect)
+        x, col = _remat(cfg, body, x) if remat else body(x)
         if collect:
-            out, (h, tail) = out
-            hs.append(h)
-            tails.append(tail)
-        x = x + out
+            hs.append(col[0])
+            tails.append(col[1])
     x = _norm(cfg, params["norm_f"], x)
     aux = torch.zeros((), device=x.device)
     return x, aux, (torch.stack(hs), torch.stack(tails)) if collect else ()
+
+
+def _ssm_layer_forward(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor, *,
+                       valid, collect: bool):
+    """One layer of the SSM stack → ``(x, (h, conv_tail) or None)``."""
+    out = ssd_forward(lp["ssm"], _norm(cfg, lp["norm_ssm"], x),
+                      *_ssm_bits(cfg, lb), cfg.ssm,
+                      return_final_state=collect, valid=valid)
+    col = None
+    if collect:
+        out, col = out
+    return x + out, col
 
 
 def _lm_head_params(cfg: ModelConfig, params: dict) -> dict:
@@ -522,6 +607,75 @@ def _lm_head_params(cfg: ModelConfig, params: dict) -> dict:
 def _logits(cfg: ModelConfig, params: dict, bits_row, h: torch.Tensor):
     _, hb, _ = split_bits(cfg, bits_row)
     return qlinear(_lm_head_params(cfg, params), h, hb).float()
+
+
+class _PickGold(torch.autograd.Function):
+    """``logits[..., idx]`` (the gold logit of each position); its
+    backward places ``g`` at ``idx`` by a comparison, not by a scatter
+    (the ``gather`` backward, ``scatter_add``, accumulates with atomics on
+    CUDA), so it is deterministic on every device."""
+
+    @staticmethod
+    def forward(ctx, logits, idx):
+        ctx.save_for_backward(idx)
+        ctx.vocab = logits.shape[-1]
+        return torch.gather(logits, -1, idx[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        hit = torch.arange(ctx.vocab, device=g.device) == idx[..., None]
+        return torch.where(hit, g[..., None], 0.0).to(g.dtype), None
+
+
+def _chunk_loss(cfg: ModelConfig, params: dict, bits_row, h: torch.Tensor,
+                labels: torch.Tensor):
+    """One chunk's ``(sum of masked nll, count)``: ``logsumexp − gold``
+    over the positions whose label is ``>= 0``."""
+    logits = _logits(cfg, params, bits_row, h)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = _PickGold.apply(logits, labels.clamp_min(0).long())
+    mask = (labels >= 0).float()
+    nll = (logz - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def chunked_xent(cfg: ModelConfig, params: dict, bits_row,
+                 hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy with sequence-chunked logits: the head runs one
+    ``cfg.loss_chunk`` slice of the sequence at a time, so the ``[B, S, V]``
+    logits never exist. A label ``< 0`` (``-100``) is masked out; the
+    result is the total over the count, the count floored at 1. Under
+    autograd with ``cfg.remat`` each chunk is recomputed in the backward
+    (:func:`_remat`), as the reference checkpoints ``chunk_loss``. A
+    sequence that the chunk does not divide is refused (the reference
+    asserts)."""
+    b, s, _ = hidden.shape
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"{cfg.name}: loss_chunk {c} does not divide the "
+                         f"sequence of {s}")
+    remat = cfg.remat and (hidden.requires_grad or _records(params))
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for i in range(s // c):
+        part = functools.partial(_chunk_loss, cfg, params, bits_row)
+        args = (hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c])
+        nll, m = _remat(cfg, part, *args) if remat else part(*args)
+        tot = tot + nll
+        cnt = cnt + m
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(params: dict, cfg: ModelConfig, bits_row, batch: dict):
+    """Next-token (or, on the encoder, frame-classification) loss plus the
+    MoE aux loss → ``(loss, {"xent", "aux"})``. ``batch["labels"]`` are
+    already shifted by the data pipeline (frame targets on the audio
+    stack)."""
+    hidden, aux, _ = forward(params, cfg, bits_row, batch)
+    labels = torch.as_tensor(batch["labels"], device=hidden.device)
+    loss = chunked_xent(cfg, params, bits_row, hidden, labels)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,13 @@ decay and ``eps`` placement give other numbers): clip the gradients to
 learning rate, corrections, norm) stays a device tensor in f32, as in the
 reference, so a step never waits on the host. Leaves are visited in the
 reference's order (dict keys sorted), so the global norm sums alike.
+
+:func:`adam_update_` is the same step in place, for a tree of several GB
+(a 2.5 B-parameter model's f32 masters and moments): it clips the
+gradients and writes the parameters and moments into the tensors it is
+given, leaf by leaf and, on a large leaf, a run of rows of its leading
+axis at a time, with the same arithmetic in the same order, so its values are
+bitwise :func:`adam_update`'s.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["AdamConfig", "AdamState", "adam_init", "adam_update",
+           "adam_update_",
            "warmup_cosine", "global_norm", "clip_by_global_norm"]
 
 
@@ -106,4 +114,56 @@ def adam_update(cfg: AdamConfig, grads, state: AdamState, params):
     new_p, new_m, new_v = (_tree_map(lambda _, o: o[i], params, out)
                            for i in range(3))
     return new_p, AdamState(step, new_m, new_v), \
+        {"grad_norm": gnorm, "lr": lr}
+
+
+_SLICE = 1 << 24          # elements above which a leaf goes slice by slice
+
+
+def _slices(*ts):
+    """Matching views of same-shaped tensors: runs of the leading axis of
+    at most ``_SLICE`` elements each (at least one row) for a large leaf,
+    else the whole tensors. The in-place AdamW and the gradient
+    compressor (:mod:`repro_torch.optim.compression`) both go by them, so
+    a multi-GB leaf never has more than one run of temporaries beside
+    it."""
+    t = ts[0]
+    if t.dim() >= 1 and t.numel() > _SLICE and t.shape[0] > 1:
+        rows = max(1, _SLICE // (t.numel() // t.shape[0]))
+        return list(zip(*(x.split(rows) for x in ts)))
+    return [ts]
+
+
+@torch.no_grad()
+def adam_update_(cfg: AdamConfig, grads, state: AdamState, params):
+    """:func:`adam_update` in place: the gradients are clipped in place,
+    and the new parameters and moments are written into ``params``,
+    ``state.mu`` and ``state.nu`` (which must be f32, as ``adam_init``
+    makes them). Returns ``(params, new_state, metrics)``; ``new_state``
+    holds the same moment tensors and a new step."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step = state.step + 1
+    lr = warmup_cosine(cfg, step)
+    sf = step.to(torch.float32)
+    b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=sf.device), sf)
+    b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=sf.device), sf)
+    for p_, g_, m_, v_ in zip(_leaves(params), _leaves(grads),
+                              _leaves(state.mu), _leaves(state.nu)):
+        g_.mul_(scale)
+        for p, g, m, v in _slices(p_, g_, m_, v_):
+            g = g.float()
+            m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+            t = g * (1 - cfg.b2)
+            v.mul_(cfg.b2).add_(t.mul_(g))
+            delta = m / b1c
+            t = torch.div(v, b2c, out=t).sqrt_().add_(cfg.eps)
+            delta.div_(t)
+            delta.add_(torch.mul(p.float(), cfg.weight_decay, out=t))
+            del t
+            if p.dtype == torch.float32:
+                p.sub_(delta.mul_(lr))
+            else:
+                p.copy_((p.float() - delta.mul_(lr)).to(p.dtype))
+    return params, AdamState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}

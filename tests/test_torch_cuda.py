@@ -1871,3 +1871,190 @@ def test_hubert_forward_on_card_equals_cpu():
     assert AQ.aquant.launches - n0 == cfg.n_layers * 4 + 2
     assert h.dtype == torch.bfloat16 and logits.shape == (3, 40, 512)
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------- training
+
+def _train_smoke(dev, steps=2, pids=(2, 5), remat=True):
+    """The launcher's granite smoke setup on ``dev`` (weights from seed 0
+    on the CPU, moved over), remat on, its data at B 2 × S 32 and the
+    profiles ``pids`` in turn."""
+    import dataclasses
+    from repro_torch.launch import train as LT
+    run = LT.setup(LT.parse_args(["--device", "cpu", "--batch", "2",
+                                  "--seq", "32", "--steps", str(steps)]))
+    run.cfg = dataclasses.replace(run.cfg, remat=remat)
+    cfg = run.cfg
+    from repro_torch.models import transformer as T
+    run.engine = type(run.engine)(run.engine.profiles, run.engine.index,
+                                  lambda p, br, b: T.train_loss(p, cfg, br,
+                                                                b))
+    run.params = _to(run.params, dev)
+    base = run.data_at
+
+    def data_at(step):
+        b = base(step)
+        return {"tokens": b["tokens"].to(dev), "labels": b["labels"].to(dev),
+                "profile_id": pids[step % len(pids)]}
+
+    def loss_fn(p, b):
+        return run.engine(p, b["profile_id"], {"tokens": b["tokens"],
+                                               "labels": b["labels"]})
+    run.data_at, run.loss_fn = data_at, loss_fn
+    return run
+
+
+@pytest.mark.cuda
+def test_training_step_on_card_equals_cpu():
+    """One training step of the granite smoke LM (remat on, A8-W8) on the
+    card in f32, TF32 off, through K5 (the embed, 8 layer sites, the head;
+    again in the recompute), against the port on the CPU: the loss within
+    1e-5, every gradient leaf within 1e-4 of its max-abs, and the in-place
+    AdamW step on the CPU's gradients within 1e-6 of the CPU's (the update
+    is elementwise; fed the card's own gradients, an element near zero
+    may take the other sign, and Adam's first step is ``lr · sign``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    from repro_torch.runtime import use_compute_dtype
+    from repro_torch.train.loop import _flatten, value_and_grad
+    from repro_torch.optim.adam import adam_init, adam_update_
+    flag = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with use_compute_dtype(torch.float32):
+            for dev in ("cpu", "cuda"):
+                run = _train_smoke(dev)
+                n0 = AQ.aquant.launches
+                (loss, m), g = value_and_grad(run.loss_fn, run.params,
+                                              run.data_at(0))
+                torch.cuda.synchronize()
+                if dev == "cuda":
+                    assert AQ.aquant.launches - n0 == 1 + 2 * (8 + 1)
+                grads = [t.to("cpu", copy=True) for t in _flatten(g)[0]]
+                if dev == "cpu":
+                    g_cpu = g
+                adam_update_(run.adam_cfg, _to(g_cpu, dev),
+                             adam_init(run.params), run.params)
+                out[dev] = (loss.cpu(), grads,
+                            [t.cpu() for t in _flatten(run.params)[0]])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    (l0, g0, p0), (l1, g1, p1) = out["cpu"], out["cuda"]
+    assert abs(float(l0) - float(l1)) <= 1e-5
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())
+    for a, b in zip(p0, p1):
+        assert float((a - b).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_aquant_inside_a_checkpoint_recompute_is_bitwise(out_dtype):
+    """K5 replayed by ``torch.utils.checkpoint``'s recompute (on the
+    autograd engine's thread, on the forward's stream, with its workspace)
+    writes the forward's output and scale bit for bit, leaves the
+    workspace zeroed, and the gradient equals the one without the
+    checkpoint."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.core.quantizers import fake_quant_dynamic
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    w = torch.randn(3, 256, 1000, generator=gen, device="cuda")
+    x = torch.randn(7, 256, generator=gen, device="cuda")
+    seen = []
+
+    def f(w, x):
+        q = fake_quant_dynamic(w[1], 8, out_dtype=out_dtype)
+        seen.append(q.detach().clone())
+        return (x.to(out_dtype) @ q).float().square().sum()
+
+    grads = []
+    for ck in (False, True):
+        wl = w.detach().requires_grad_(True)
+        n0 = AQ.aquant.launches
+        loss = checkpoint(f, wl, x, use_reentrant=False) if ck else f(wl, x)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert AQ.aquant.launches - n0 == (2 if ck else 1)
+        grads.append(wl.grad)
+    assert len(seen) == 3
+    view = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(seen[1].view(view), seen[2].view(view))
+    assert torch.equal(seen[0].view(view), seen[1].view(view))
+    assert torch.equal(grads[0], grads[1])
+    pool, _ = AQ._WS[torch.device("cuda").index or 0]
+    assert int(pool.abs().sum()) == 0
+
+
+_DETERMINISM = r'''
+import os, sys
+sys.path.insert(0, "src")
+import torch
+torch.use_deterministic_algorithms(True)
+sys.path.insert(0, "tests")
+from test_torch_cuda import _train_smoke
+from repro_torch.train.loop import _flatten, train, TrainConfig
+outs = []
+for _ in range(2):
+    run = _train_smoke("cuda", steps=2)
+    o = train(run.params, run.loss_fn, run.data_at, TrainConfig(steps=2,
+              log_every=100), run.adam_cfg, step_factory=run.step_factory,
+              log=lambda s: None)
+    torch.cuda.synchronize()
+    outs.append([t.cpu() for tree in (o["params"], o["opt"].mu, o["opt"].nu)
+                 for t in _flatten(tree)[0]])
+assert all(torch.equal(a, b) for a, b in zip(*outs))
+print("deterministic", len(outs[0]))
+'''
+
+
+@pytest.mark.cuda
+def test_training_steps_are_deterministic_on_card():
+    """Two training steps of the granite smoke LM on the card in bf16 under
+    ``torch.use_deterministic_algorithms(True)`` (in a subprocess, with
+    ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts): no op refuses,
+    and a second run gives the same parameters and moments bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, "-c", _DETERMINISM], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "deterministic" in res.stdout
+
+
+@pytest.mark.cuda
+def test_resumed_run_on_card_is_bitwise(tmp_path):
+    """The granite smoke LM on the card in bf16: a run that fails at step 3
+    and resumes from its step-2 checkpoint ends with the parameters and
+    moments of the uninterrupted run, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    from repro_torch.train.loop import TrainConfig, _flatten, train
+    outs = []
+    for name, fail in (("ref", None), ("fail", 3)):
+        run = _train_smoke("cuda", steps=5)
+        cfg = TrainConfig(steps=5, ckpt_dir=str(tmp_path / name),
+                          ckpt_every=2, log_every=100, fail_at_step=fail)
+        kw = dict(step_factory=run.step_factory, log=lambda s: None)
+        if fail is not None:
+            with pytest.raises(RuntimeError, match="injected failure"):
+                train(run.params, run.loss_fn, run.data_at, cfg,
+                      run.adam_cfg, **kw)
+            cfg.fail_at_step = None
+        o = train(run.params, run.loss_fn, run.data_at, cfg, run.adam_cfg,
+                  **kw)
+        outs.append((o["history"], [
+            t.cpu() for tree in (o["params"], o["opt"].mu, o["opt"].nu)
+            for t in _flatten(tree)[0]]))
+    (h0, a), (h1, b) = outs
+    assert h1 == h0[3:]
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
