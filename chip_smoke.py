@@ -74,19 +74,19 @@ Phases:
     K1 and the kv8 einsum never; then the contiguous pool with
     ``--speculate --draft-k 4`` (windows, billed = delivered, tok/s);
  8. shared prefixes and chunked prefill through the launcher's
-    ``--continuous`` path on the full config in bf16: 12 requests on one
-    384-token system prompt at kv16 and kv8, with and without
-    ``--no-prefix-cache`` (registry hits, prefill tokens, peak blocks,
-    tok/s; K1 launches = 40 × decode steps, no gather; the shared blocks'
-    bytes unchanged), then phase 4's requests with ``--prefill-chunk
-    128``;
- 9. priority classes and preemption on the full config in bf16
-    (``--priority-classes 2 --preemption``): 8 saver requests fill the
-    pool, 4 critical ones arrive after 2 rounds; at kv16 and kv8 under slot
-    pressure and at kv16 under block pressure: preemptions = resumes >= 1,
-    the first restore bitwise equal to its snapshot, billed = delivered,
-    K1 = 40 × decode steps; tok/s, peak blocks and the critical requests'
-    rounds to their first token;
+    ``--continuous`` path in bf16 at granite-3-2b's widths cut to
+    ``FEATURE_LAYERS`` (10) layers: 12 requests on one 384-token system
+    prompt at kv16 and kv8, with and without ``--no-prefix-cache``
+    (registry hits, prefill tokens, peak blocks, tok/s; K1 launches = 10 ×
+    decode steps, no gather; the shared blocks' bytes unchanged), then
+    phase 4's requests with ``--prefill-chunk 128``;
+ 9. priority classes and preemption in bf16 at granite's widths cut to
+    10 layers (``--priority-classes 2 --preemption``): 8 saver requests
+    fill the pool, 4 critical ones arrive after 2 rounds; at kv16 and kv8
+    under slot pressure and at kv16 under block pressure: preemptions =
+    resumes >= 1, the first restore bitwise equal to its snapshot, billed =
+    delivered, K1 = 10 × decode steps; tok/s, peak blocks and the critical
+    requests' rounds to their first token;
 10. the per-layer KV precision policy (profile 0 all-16, profiles 1–5 a
     striped 4/8/16 row, a small energy budget moving the serve into them):
     at granite-3-2b widths, 4 layers, f32, the kernel backend's tokens
@@ -94,11 +94,12 @@ Phases:
     gives the tokens of no policy, the striped one changes a stream,
     static kv8 gives the same tokens through K4 as through the einsum, and
     the frontier search runs on the card; then the launcher's
-    ``--continuous --precision-policy`` on the full config in bf16 (phase
-    4's requests, a 40-layer striped row in the frontier's JSON format:
-    K1 = 40 × decode steps, billed = delivered, tok/s and peak memory
-    beside the serve without the policy, the refine's own cost per call)
-    and its static path at ``--kv-bits 8`` (K4 = 40 × decode steps);
+    ``--continuous --precision-policy`` in bf16 at granite's widths cut to
+    10 layers (phase 4's requests, a 10-layer striped row in the
+    frontier's JSON format: K1 = 10 × decode steps, billed = delivered,
+    tok/s and peak memory beside the serve without the policy, the
+    refine's own cost per call) and its static path at ``--kv-bits 8`` (K4
+    = 10 × decode steps);
 11. fault-tolerant serving: (a) at granite-3-2b widths, 4 layers, f32,
     one scenario (a recoverable NaN, a NaN on every attempt that exhausts
     ``retry_budget=2``, a dry allocator round, a flush stall the watchdog
@@ -109,10 +110,11 @@ Phases:
     events and the robustness counters equal across backends, the
     recovered tokens equal a clean accuracy-critical run's, 0 used blocks
     at drain; (b) the launcher's ``--continuous --inject-faults
-    --paranoid`` on the full config in bf16 beside the serve without
-    faults (K1 = 40 × decode steps, faults detected = NaNs injected, tok/s,
-    the audit's host ms per step), then a direct serve with a shed policy,
-    a cancel and an expiry (billed = delivered, 0 used blocks);
+    --paranoid`` in bf16 at granite's widths cut to 10 layers beside the
+    serve without faults (K1 = 10 × decode steps, faults detected = NaNs
+    injected, tok/s, the audit's host ms per step), then a direct serve
+    with a shed policy, a cancel and an expiry (billed = delivered, 0 used
+    blocks);
 12. crash-consistent serving: (a) at granite-3-2b widths, 4 layers, f32,
     the reference durability test's servers (kv16 with speculation, kv8
     with chunked prefill, two classes, copy-on-write prefixes) on the
@@ -177,9 +179,10 @@ Phases:
     the head N 32001 take the bytewise split-K and mma.sync routes), K5 bit
     for bit on hymba's images at bits 8 and 4, each timed beside its
     library call and bound; (c) the launcher's ``--arch hymba-1.5b --full``
-    workload on the paged pool (K1 = 32 x decode steps), ``--kv-bits 8``
-    static (K4 = 32 x 62) and from ``to_native(params, 8)`` (K3 = 193 x
-    (decode steps + prefill waves)): tok/s, peak memory, KV and SSM bytes;
+    workload at hymba's widths cut to ``HYMBA_FEATURE_LAYERS`` (8) layers
+    on the paged pool (K1 = 8 x decode steps), ``--kv-bits 8`` static (K4
+    = 8 x 62) and from ``to_native(params, 8)`` (K3 = 49 x (decode steps
+    + prefill waves)): tok/s, peak memory, KV and SSM bytes;
     (d) under ``torch.profiler``: one admission wave and one decode
     segment.
 16. the MoE family at qwen2-moe-a2.7b's full width (24 layers, d_model
@@ -246,6 +249,22 @@ Phases:
     error-feedback invariant); (e) at 2 layers, SIGTERM → checkpoint →
     exit, an injected failure, and the resumed run's parameters and
     moments bitwise the uninterrupted run's.
+20. the hot-path analysis (``repro_torch.analysis``): (a) the static gate
+    on the card: the lint of ``src/repro_torch`` clean, the five budget
+    points on the granite smoke config passing on the kernel backend (each
+    point's largest output beside its ceiling; K1 = layers x steps, K2 =
+    layers x windows) and tripping the no-gather-view check on the gather
+    backend, and the scenario audit (<= 2 prefill waves per admission
+    round, no stepwise oracle call); (b) granite-3-2b as phase 4 builds it
+    (40 layers, bf16, 1024 slots, 8 rows, bs 16), its rows admitted from
+    phase 4's requests, one 8-step kv16 segment traced on the kernel path
+    and on the gather path: the largest output, the view, the pool updated
+    in place, device->host and host->device transfers per segment, aten
+    ops per decode step, K1 launches (= 40 x 8 on the kernel path).
+Depth: phases 8, 9, 10 (its launcher serves), 11 (b) and 15 (c) check
+features at the published widths with the depth cut (``cut_depth``:
+granite at 10 of 40 layers, hymba at 8 of 32), so that all phases fit the
+time limit; phase 4 serves all 40 layers.
 Each phase prints its seconds, and the run its total.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -271,6 +290,31 @@ K5_KERNEL = "aquant_fused_kernel"  # K5's one kernel, as the profiler names it
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12          # bf16 dense tensor cores
 ATOL = 1e-4                       # kernel vs plain, f32 outputs
+# The card's serving workload, from phase 4 on. The launcher's defaults are
+# the reference launcher's (256 slots, 4 rows, prompts of 4-23 tokens).
+CARD_SERVER = dict(slots=1024, max_batch=8)
+CARD_PROMPTS = dict(prompt_lens=(64, 513))
+# Depth of the serving phases that check a feature on the main path's
+# widths rather than the main path itself (8, 9, 10 (b)-(c), 11 (b): granite
+# at 10 of its 40 layers; 15 (c): hymba at 8 of its 32), so that all phases
+# fit the run's time limit. Phase 4 serves all 40 layers.
+FEATURE_LAYERS = 10
+HYMBA_FEATURE_LAYERS = 8
+
+
+@contextlib.contextmanager
+def cut_depth(n_layers: int):
+    """The launcher's published configs with their depth cut to
+    ``n_layers`` (every width unchanged) while the block runs."""
+    import dataclasses
+    from repro_torch.launch import serve as S
+    full = S.get_config
+    S.get_config = lambda arch: dataclasses.replace(full(arch),
+                                                    n_layers=n_layers)
+    try:
+        yield
+    finally:
+        S.get_config = full
 
 
 def card_line() -> str:
@@ -1484,7 +1528,7 @@ def serve_lengths(seed: int) -> list:
     from repro_torch.launch import serve as S
     args = S.parse_args(["--full", "--requests", "12", "--max-new", "32",
                          "--seed", str(seed)])
-    reqs = S.make_requests(get_config(args.arch), args)
+    reqs = S.make_requests(get_config(args.arch), args, **CARD_PROMPTS)
     plen = sorted(len(r.tokens) for r in reqs)
     out = []
     for gi in range(0, len(plen), 8):
@@ -1988,7 +2032,7 @@ def phase_serve(seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     AQ.aquant.launches = 0
-    cfg, srv = S.build_server(args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
     torch.cuda.synchronize()
     k5 = AQ.aquant.launches
     n_images = len({t.data_ptr() for t in _leaves(srv.prequant)})
@@ -1998,7 +2042,7 @@ def phase_serve(seed: int) -> dict:
           f"{time.perf_counter() - t0:.1f}s; K5 launches building them: {k5}")
     if k5 == 0:
         raise AssertionError("the prequant images did not go through K5")
-    reqs = S.make_requests(cfg, args)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     PA.paged_attention.launches = 0
     A.paged_view.calls = 0
     out = S.serve(srv, reqs, args.quantum, continuous=True)
@@ -2051,8 +2095,8 @@ def phase_spec_serve(seed: int, greedy: dict) -> dict:
                          "--speculate", "--draft-k", "4",
                          "--seed", str(seed)])
     torch.cuda.reset_peak_memory_stats()
-    cfg, srv = S.build_server(args)
-    reqs = S.make_requests(cfg, args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     PA.paged_attention.launches = 0
     PA.paged_attention_multi.launches = 0
     A.paged_view.calls = 0
@@ -2105,8 +2149,8 @@ def phase_serve_block128(seed: int) -> None:
     args = S.parse_args(["--continuous", "--full", "--requests", "4",
                          "--max-new", "16", "--kv-bits", "16", "--quantum",
                          "8", "--block-size", "128", "--seed", str(seed)])
-    cfg, srv = S.build_server(args)
-    reqs = S.make_requests(cfg, args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     PA.paged_attention.launches = 0
     A.paged_view.calls = 0
     out = S.serve(srv, reqs, args.quantum, continuous=True)
@@ -2158,7 +2202,7 @@ def phase_spec_wide(seed: int) -> None:
                          "8", "--speculate", "--draft-k", "16", "--seed",
                          str(seed)])
     cfg = get_config(args.arch)
-    reqs = S.make_requests(cfg, args)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     toks = {}
     with use_compute_dtype(torch.float32):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2265,7 +2309,7 @@ def phase_native_serve(seed: int, requests: int, max_new: int,
     srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
         slots=1024, kv_bits=16, max_batch=8, block_size=args.block_size),
         manager=mgr, device="cuda")
-    reqs = S.make_requests(cfg, args)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     out = S.serve(srv, reqs, args.quantum, continuous=True)
     k3, k5, k1 = (QM.qmatmul.launches, AQ.aquant.launches,
                   PA.paged_attention.launches)
@@ -2305,13 +2349,15 @@ def phase_native_serve(seed: int, requests: int, max_new: int,
 
 def phase_contiguous_serve(seed: int, continuous: bool,
                            policy: str | None = None) -> dict:
-    """The contiguous int8 cache on the full config in bf16: phase 4's 12
+    """The contiguous int8 cache on the launcher's config in bf16 (40
+    layers in phase 7, ``FEATURE_LAYERS`` in phase 10): phase 4's 12
     requests × 32 tokens through the launcher at ``--kv-bits 8``, on the
     static path (no ``--continuous``: ``AdaptiveServer.serve``, groups of
     8 rows) or on the continuous scheduler's contiguous pool
     (``--continuous --no-paged-kv``), with ``--precision-policy policy``
     where given. Every layer of every decode step must read the cache
-    through K4: 40 × decode steps launches, K1 and the kv8 einsum never."""
+    through K4: n_layers × decode steps launches, K1 and the kv8 einsum
+    never."""
     import gc
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import qkv_attention as QK
@@ -2328,10 +2374,10 @@ def phase_contiguous_serve(seed: int, continuous: bool,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg, srv = S.build_server(args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
     if (srv.kv_table is not None) != bool(policy):
         raise AssertionError("--precision-policy did not reach the server")
-    reqs = S.make_requests(cfg, args)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     QK.qkv_attention.launches = PA.paged_attention.launches = 0
     A.decode_attention.kv8_einsum_calls = A.paged_view.calls = 0
     out = S.serve(srv, reqs, args.quantum, continuous=continuous)
@@ -2373,17 +2419,18 @@ def phase_contiguous_serve(seed: int, continuous: bool,
 # phase 8: shared prefixes and chunked prefill through the launcher's path
 # ---------------------------------------------------------------------------
 
-def phase_prefix_serve(seed: int, greedy: dict) -> None:
-    """The launcher's ``--continuous`` path on the full 40-layer config in
-    bf16 with the prefix cache (servers built by ``build_server`` and, for
-    the other settings, on its params). 12 requests, each one 384-token
-    system prompt (24 blocks of 16) plus a unique tail of 16–128 tokens, 32
-    new tokens each, from ``--seed``, at kv16 and kv8, with and without
+def phase_prefix_serve(seed: int) -> None:
+    """The launcher's ``--continuous`` path in bf16 with the prefix cache,
+    at granite's widths and the launcher's depth (``FEATURE_LAYERS`` in
+    ``main``; servers built by ``build_server`` and, for the other
+    settings, on its params). 12 requests, each one 384-token system
+    prompt (24 blocks of 16) plus a unique tail of 16–128 tokens, 32 new
+    tokens each, from ``--seed``, at kv16 and kv8, with and without
     ``--no-prefix-cache`` (served with, without, without, with, so each
     setting runs first once): 11 registry hits (the first round dedups 7
-    of its 8 rows), K1 launches = 40 × decode steps, no gather, and at
-    kv16 the shared blocks' bytes unchanged by the serve. Then phase 4's 12
-    requests with ``--prefill-chunk 128``: every request completes."""
+    of its 8 rows), K1 launches = n_layers × decode steps, no gather, and
+    at kv16 the shared blocks' bytes unchanged by the serve. Then phase 4's
+    12 requests with ``--prefill-chunk 128``: every request completes."""
     import copy
     import dataclasses
     import gc
@@ -2399,7 +2446,7 @@ def phase_prefix_serve(seed: int, greedy: dict) -> None:
     args = S.parse_args(["--continuous", "--full", "--requests", "12",
                          "--max-new", "32", "--kv-bits", "16", "--quantum",
                          "8", "--block-size", "16", "--seed", str(seed)])
-    cfg, srv = S.build_server(args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
     params, engine, scfg = srv.params, srv.engine, srv.scfg
     mgr0 = copy.deepcopy(srv.manager)
     rng = np.random.default_rng(seed + 8)
@@ -2510,21 +2557,14 @@ def phase_prefix_serve(seed: int, greedy: dict) -> None:
               f"billed apart); tok/s with the cache {tps[True]} (first and "
               f"last serve), without {tps[False]}")
     srv = build(prefill_chunk=128)
-    sched, results, _ = serve(srv, S.make_requests(cfg, args),
-                              "phase 4's requests, --prefill-chunk 128",
-                              shared=False)
-    toks = [r["tokens"] for r in results]
+    sched, _, _ = serve(srv, S.make_requests(cfg, args, **CARD_PROMPTS),
+                        "phase 4's requests, --prefill-chunk 128",
+                        shared=False)
     print(f"[prefix] --prefill-chunk {sched.chunk}: {sched.chunk_waves} "
           f"continuation waves, {sched.segments_chunking} of "
           f"{sched.segments_run} segments ran while chunks were in flight")
     if sched.chunk_waves == 0 or sched.segments_chunking == 0:
         raise AssertionError("the chunked serve did not interleave chunks")
-    if "tokens" in greedy:
-        n_same = sum(a == b for x, y in zip(toks, greedy["tokens"])
-                     for a, b in zip(x, y))
-        print(f"[prefix] chunked: {n_same} of {sum(map(len, toks))} tokens "
-              f"equal phase 4's unchunked serve (bf16 cuBLAS shapes differ: "
-              f"information only)")
     del srv, sched, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2734,8 +2774,8 @@ def phase_contiguous_spec_serve(seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg, srv = S.build_server(args)
-    reqs = S.make_requests(cfg, args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     QK.qkv_attention.launches = PA.paged_attention.launches = 0
     PA.paged_attention_multi.launches = 0
     out = S.serve(srv, reqs, args.quantum, continuous=True)
@@ -2761,21 +2801,22 @@ def phase_contiguous_spec_serve(seed: int) -> dict:
 
 
 def phase_preempt_serve(seed: int) -> None:
-    """Priority classes and preemption at full width: granite-3-2b as
-    published, bf16, ``slots=1024``, ``max_batch=8``, ``block_size=16``,
-    quantum 8, ``--priority-classes 2 --preemption`` (servers on the
-    launcher's params and manager). 8 saver requests (prompts 64–512 tokens
-    from seed 9, 32 new tokens) fill the pool; after 2 rounds 4 critical
-    requests arrive (prompts 64–256, 16 new tokens). Run at kv16 and kv8
-    under slot pressure, and at kv16 under block pressure (12 rows, so a
-    slot stays free, and ``pool_blocks`` just covering the 8 savers). Each
+    """Priority classes and preemption at full width: granite-3-2b's
+    widths at the launcher's depth (``FEATURE_LAYERS`` in ``main``), bf16,
+    ``slots=1024``, ``max_batch=8``, ``block_size=16``, quantum 8,
+    ``--priority-classes 2 --preemption`` (servers on the launcher's params
+    and manager). 8 saver requests (prompts 64–512 tokens from seed 9, 32
+    new tokens) fill the pool; after 2 rounds 4 critical requests arrive
+    (prompts 64–256, 16 new tokens). Run at kv16 and kv8 under slot
+    pressure, and at kv16 under block pressure (12 rows, so a slot stays
+    free, and ``pool_blocks`` just covering the 8 savers). Each
     serve: ``preemptions == resumes >= 1``, every request completes with
     ``max_new`` tokens, billed inferences = delivered tokens, the first
     resume's bytes and scales bitwise equal to its eviction snapshot, K1 =
-    40 × decode steps. Printed: tok/s, peak blocks, the rounds from each
-    critical submission to its admission and to its first token on the
+    n_layers × decode steps. Printed: tok/s, peak blocks, the rounds from
+    each critical submission to its admission and to its first token on the
     host, and the savers' tokens that agree with a serve without the
-    critical arrivals (a count: bf16 at 40 layers is not held to token
+    critical arrivals (a count: bf16 at full width is not held to token
     identity)."""
     import copy
     import dataclasses
@@ -2793,7 +2834,7 @@ def phase_preempt_serve(seed: int) -> None:
                          "--quantum", "8", "--block-size", "16",
                          "--priority-classes", "2", "--preemption",
                          "--seed", str(seed)])
-    cfg, srv = S.build_server(args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
     params, engine, scfg = srv.params, srv.engine, srv.scfg
     mgr0 = copy.deepcopy(srv.manager)
     del srv
@@ -3064,12 +3105,13 @@ def phase_policy_parity(seed: int) -> None:
 
 def phase_policy_serve(seed: int, path: str) -> dict:
     """Phase 10 (b): the launcher's ``--continuous --precision-policy``
-    path on the full 40-layer config in bf16, phase 4's 12 requests × 32
-    tokens, the policy a striped 40-layer row for profiles 1–5 read from
+    path in bf16 at granite's widths and the launcher's depth
+    (``FEATURE_LAYERS`` in ``main``), phase 4's 12 requests × 32 tokens,
+    the policy a striped row of that depth for profiles 1–5 read from
     the frontier-format JSON ``path``. Served twice with the policy (the
     launcher's server) and twice without it (a server on the same weights
     and manager settings), in the order policy, none, none, policy: K1 =
-    40 × decode steps and billed = delivered in each; tok/s and peak
+    n_layers × decode steps and billed = delivered in each; tok/s and peak
     memory side by side. Then the refine's own cost: one ``kv_refine``
     call at a decode step's K shape, per call (CUDA events around eager
     calls) and on the device (a CUDA graph)."""
@@ -3087,13 +3129,14 @@ def phase_policy_serve(seed: int, path: str) -> dict:
                          "--max-new", "32", "--kv-bits", "16",
                          "--quantum", "8", "--block-size", "16",
                          "--seed", str(seed), "--precision-policy", path])
-    cfg, srv = S.build_server(args)
-    if srv.kv_table is None or srv.kv_table[0].tolist() != [16] * 40 or \
+    cfg, srv = S.build_server(args, **CARD_SERVER)
+    if srv.kv_table is None or \
+            srv.kv_table[0].tolist() != [16] * cfg.n_layers or \
             srv.kv_table[1].tolist() != list(striped_row(cfg.n_layers)):
         raise AssertionError("the launcher did not bind the policy rows")
     params, engine, scfg = srv.params, srv.engine, srv.scfg
     mgr0 = copy.deepcopy(srv.manager)
-    reqs = S.make_requests(cfg, args)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     out = {"policy": [], "none": []}
     for i, label in enumerate(("policy", "none", "none", "policy")):
         if i:                       # the launcher's server serves first
@@ -3135,7 +3178,7 @@ def phase_policy_serve(seed: int, path: str) -> dict:
                                       out["none"][0]["tokens"])
                for a, b in zip(x, y))
     print(f"[policy] tokens equal with and without the policy: {same} of "
-          f"{12 * 32} (information only: bf16 at 40 layers)")
+          f"{12 * 32} (information only: bf16 at {cfg.n_layers} layers)")
     k = torch.randn(8, 1, 8, 64, device="cuda").bfloat16()
     per_call = cuda_time_ms(lambda: A.kv_refine(k, 8))
     device = graph_ms(lambda: A.kv_refine(k, 8))
@@ -3356,21 +3399,22 @@ def phase_fault_parity(seed: int) -> dict:
 
 
 def phase_fault_serve(seed: int) -> dict:
-    """Phase 11 (b), on the full 40-layer config in bf16 at kv16: phase 4's
+    """Phase 11 (b), at granite's widths and the launcher's depth
+    (``FEATURE_LAYERS`` in ``main``), bf16, kv16: phase 4's
     12 requests × 32 tokens through the launcher's ``--continuous
     --inject-faults --paranoid`` path, beside the same serve without the
     flags, in the order plain, faults, faults, plain (the manager reset to
     the launcher's before each). Each faulted serve: ``faults_detected ==
     injected_nan``, every request completed with 32 tokens or failed with
-    none, delivered = 32 × (12 − failed), K1 = 40 × decode steps, 0 used
-    blocks; printed with the counters, tok/s and the paranoid audit's host
+    none, delivered = 32 × (12 − failed), K1 = n_layers × decode steps, 0
+    used blocks; printed with the counters, tok/s and the paranoid audit's host
     ms per step. Each plain serve: billed = delivered = 384. Then a
     direct ``ContinuousScheduler`` on the same server with a virtual
     clock and ``ShedPolicy(max_queue=8)`` over the 12 submissions (the
     last 4 shed), one live cancel after round 2 and request 5's 5 s
     deadline passed after round 3: billed = delivered (nothing is
-    discarded without a quarantine), K1 = 40 × decode steps, the pool
-    back to 0 used blocks. Returns a faulted serve's K1 launches."""
+    discarded without a quarantine), K1 = n_layers × decode steps, the
+    pool back to 0 used blocks. Returns a faulted serve's K1 launches."""
     import copy
     import dataclasses
     import gc
@@ -3389,9 +3433,9 @@ def phase_fault_serve(seed: int) -> dict:
     flags = {"plain": S.parse_args(base),
              "faults": S.parse_args(base + ["--inject-faults",
                                             "--paranoid"])}
-    cfg, srv = S.build_server(flags["faults"])
+    cfg, srv = S.build_server(flags["faults"], **CARD_SERVER)
     mgr0 = copy.deepcopy(srv.manager)
-    reqs = S.make_requests(cfg, flags["plain"])
+    reqs = S.make_requests(cfg, flags["plain"], **CARD_PROMPTS)
     audit: list = []
     check = ContinuousScheduler.check
 
@@ -3761,14 +3805,16 @@ def phase_durable_parity(seed: int) -> dict:
 
 
 def _durable_child(args: list, log: Path) -> subprocess.Popen:
-    """``python -m repro_torch.launch.serve args`` from the checkout, its
-    output in ``log``."""
+    """The launcher's ``main(args)`` at the card's workload in a child
+    process from the checkout, its output in ``log``."""
     import os
     env = dict(os.environ)
     root = Path(__file__).resolve().parent
     env["PYTHONPATH"] = str(root / "src")
-    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve",
-                             *args], cwd=root, env=env,
+    main = ("import sys; from repro_torch.launch.serve import main; "
+            f"main(sys.argv[1:], **{CARD_SERVER!r}, **{CARD_PROMPTS!r})")
+    return subprocess.Popen([sys.executable, "-c", main, *args], cwd=root,
+                            env=env,
                             stdout=log.open("w"), stderr=subprocess.STDOUT)
 
 
@@ -3898,9 +3944,9 @@ def phase_profile(seed: int) -> None:
 
     args = S.parse_args(["--full", "--requests", "8", "--max-new", "32",
                          "--seed", str(seed)])
-    cfg, srv = S.build_server(args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
     sched = ContinuousScheduler(srv, quantum=8)
-    for r in S.make_requests(cfg, args):
+    for r in S.make_requests(cfg, args, **CARD_PROMPTS):
         sched.submit(r)
     sched.admit()
     sched.run_segment()                     # warm
@@ -4390,7 +4436,7 @@ def phase_ssm_serve(seed: int, w_bits=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     QM.qmatmul.launches = AQ.aquant.launches = LY.dequant_matmul.calls = 0
     if nat is None:
-        cfg, srv = S.build_server(args)
+        cfg, srv = S.build_server(args, **CARD_SERVER)
     else:
         names = T.quant_layer_names(cfg)
         profs = paper_profiles(names, inner_layers=[])
@@ -4402,7 +4448,7 @@ def phase_ssm_serve(seed: int, w_bits=None) -> dict:
                              * args.budget_inferences, low_energy=0.5)
         srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
             slots=1024, max_batch=8), manager=mgr, device="cuda")
-    reqs = S.make_requests(cfg, args)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     out = S.serve(srv, reqs, args.quantum, continuous=True)
     k3, k5, deq = (QM.qmatmul.launches, AQ.aquant.launches,
                    LY.dequant_matmul.calls)
@@ -4458,8 +4504,8 @@ def phase_ssm_profile(seed: int, arch: str = MAMBA2,
 
     args = S.parse_args(["--arch", arch, "--full", "--requests", "8",
                          "--max-new", "32", "--seed", str(seed)])
-    cfg, srv = S.build_server(args)
-    reqs = S.make_requests(cfg, args)
+    cfg, srv = S.build_server(args, **CARD_SERVER)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     warm = ContinuousScheduler(srv, quantum=8)
     for r in reqs:
         warm.submit(r)
@@ -4518,11 +4564,11 @@ HYMBA_LINEARS = (("qkv", 1600, 2240), ("attn_out", 1600, 1600),
                  ("lm_head", 1600, 32001))
 
 
-def hymba_state_bytes(rows: int) -> int:
-    """f32 SSM state of ``rows`` rows of hymba-1.5b: 32 layers of ``h``
-    (50 heads x 64 x d_state 16) and the conv window (3 x conv_dim
+def hymba_state_bytes(rows: int, n_layers: int = 32) -> int:
+    """f32 SSM state of ``rows`` rows of hymba-1.5b: ``n_layers`` layers of
+    ``h`` (50 heads x 64 x d_state 16) and the conv window (3 x conv_dim
     3232)."""
-    return rows * 32 * (50 * 64 * 16 + 3 * 3232) * 4
+    return rows * n_layers * (50 * 64 * 16 + 3 * 3232) * 4
 
 
 def paged_from_dense(kv, bs: int):
@@ -4767,19 +4813,21 @@ def phase_hybrid_kernels(seed: int) -> None:
 def phase_hybrid_serve(seed: int, mode: str) -> dict:
     """Phase 15 (c): the launcher's ``--arch hymba-1.5b --full`` workload
     (12 requests, prompts of 64–512 tokens from ``seed``, 32 new tokens, 8
-    rows, bf16) in one of three modes: ``"paged"`` — ``--continuous``, the
-    paged pool of blocks of 16 on the kernel backend (K1 = 32 x decode
-    steps); ``"kv8"`` — ``--kv-bits 8`` static groups on the contiguous
-    int8 ring (K4 = 32 x 2 groups x 31 steps, K1 and the kv8 einsum never);
+    rows, bf16) at hymba's widths and the launcher's depth
+    (``HYMBA_FEATURE_LAYERS`` in ``main``) in one of three modes:
+    ``"paged"`` — ``--continuous``, the paged pool of blocks of 16 on the
+    kernel backend (K1 = n_layers x decode steps); ``"kv8"`` —
+    ``--kv-bits 8`` static groups on the contiguous int8 ring (K4 =
+    n_layers x 2 groups x 31 steps, K1 and the kv8 einsum never);
     ``"native"`` — ``to_native(params, 8)`` through ``AdaptiveServer`` +
-    ``ContinuousScheduler`` on the paged pool (K3 = (6 x 32 + 1) x (decode
-    steps + prefill waves), K1 = 32 x decode steps, the
+    ``ContinuousScheduler`` on the paged pool (K3 = (6 x n_layers + 1) x
+    (decode steps + prefill waves), K1 = n_layers x decode steps, the
     dequantize-then-matmul branch never). The counts are zeroed just before
     the server is built (its weight images are K5's work) and read after
     the serve. Every request completes with 32 in-vocabulary tokens; the
-    pool holds ``hymba_state_bytes(8)`` of SSM state beside the KV."""
+    pool holds ``hymba_state_bytes(8, n_layers)`` of SSM state beside the
+    KV."""
     import gc
-    from repro_torch.configs import get_config
     from repro_torch.core.engine import AdaptiveEngine, QuantIndex
     from repro_torch.core.manager import ProfileManager
     from repro_torch.core.profiles import paper_profiles
@@ -4801,7 +4849,7 @@ def phase_hybrid_serve(seed: int, mode: str) -> dict:
     args = S.parse_args(argv)
     nat = None
     if mode == "native":
-        cfg = get_config(HYMBA)
+        cfg = S.get_config(HYMBA)
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         params = T.init_params(cfg, gen, device="cuda")
         nat = to_native(params, 8)
@@ -4814,7 +4862,7 @@ def phase_hybrid_serve(seed: int, mode: str) -> dict:
     PA.paged_attention.launches = QK.qkv_attention.launches = 0
     A.decode_attention.kv8_einsum_calls = A.paged_view.calls = 0
     if nat is None:
-        cfg, srv = S.build_server(args)
+        cfg, srv = S.build_server(args, **CARD_SERVER)
     else:
         names = T.quant_layer_names(cfg)
         profs = paper_profiles(names, inner_layers=[])
@@ -4826,7 +4874,7 @@ def phase_hybrid_serve(seed: int, mode: str) -> dict:
                              * args.budget_inferences, low_energy=0.5)
         srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
             slots=1024, max_batch=8), manager=mgr, device="cuda")
-    reqs = S.make_requests(cfg, args)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     out = S.serve(srv, reqs, args.quantum, continuous=mode != "kv8")
     k1, k3, k4, k5 = (PA.paged_attention.launches, QM.qmatmul.launches,
                       QK.qkv_attention.launches, AQ.aquant.launches)
@@ -4870,13 +4918,13 @@ def phase_hybrid_serve(seed: int, mode: str) -> dict:
           f"{sched.segments_run} segments; paged {sched.paged}, blocks of "
           f"{sched.block_size}, {sched.n_lblk} per row; KV pool {kv} B "
           f"(K/V {kv_data} B = {L} x {pool.k.shape[1]} blocks x 16 x 5 x "
-          f"64 x 2 x 2 B), SSM state {state} B = 8 x 32 x (50*64*16 + "
-          f"3*3232) x 4 B: {state == hymba_state_bytes(8)}")
+          f"64 x 2 x 2 B), SSM state {state} B = 8 x {L} x (50*64*16 + "
+          f"3*3232) x 4 B: {state == hymba_state_bytes(8, L)}")
     print(f"[hymba] (c) {mode}: K1 launches {k1} = {L} x {steps}: "
           f"{k1 == L * steps}; K3 launches {k3} = (6 x {L} + 1) x ({steps} "
           f"+ {waves}) = {want_k3}: {k3 == want_k3}; K5 launches {k5}; K4 "
           f"{k4}; dequant-matmul calls {deq}; gather calls {gathers}")
-    if (not sched.paged or state != hymba_state_bytes(8)
+    if (not sched.paged or state != hymba_state_bytes(8, L)
             or sched.n_lblk != 64 or k1 != L * steps or k3 != want_k3
             or deq or gathers or k4 or (mode == "paged" and k5 == 0)):
         raise AssertionError(f"the hymba {mode} serve did not run as "
@@ -5202,7 +5250,7 @@ def phase_moe_serve(seed: int, mode: str) -> dict:
     MO.routed_dequant.calls = 0
     t0 = time.perf_counter()
     if nat is None:
-        cfg, srv = S.build_server(args)
+        cfg, srv = S.build_server(args, **CARD_SERVER)
     else:
         names = T.quant_layer_names(cfg)
         profs = paper_profiles(names, inner_layers=[])
@@ -5217,7 +5265,7 @@ def phase_moe_serve(seed: int, mode: str) -> dict:
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     k5_build = AQ.aquant.launches
-    reqs = S.make_requests(cfg, args)
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
     out = S.serve(srv, reqs, args.quantum, continuous=True)
     k1, k3, k4 = (PA.paged_attention.launches, QM.qmatmul.launches,
                   QK.qkv_attention.launches)
@@ -6327,6 +6375,127 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the hot-path analysis on the card
+# ---------------------------------------------------------------------------
+
+def phase_static_gate(seed: int) -> dict:
+    """Phase 20 (a): the port's static gate on the card
+    (``repro_torch.analysis.check_static``'s stages): the lint clean, every
+    budget point passing on the kernel backend (its largest output and
+    ceiling printed) and tripping the view check on the gather backend,
+    and the scenario audit. K1 launches = layers x steps over the greedy
+    points, K2 = layers x windows at the speculative one. Returns the
+    failures (reported after (b) runs) and the launch counts."""
+    from repro_torch.analysis import budgets as BG
+    from repro_torch.analysis import check_static as CS
+    from repro_torch.kernels import paged_attention as PA
+
+    failed = []
+    if CS.run_lint(None):
+        failed.append("lint")
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        parts = BG.smoke_parts(device=dev, seed=seed)
+    cfg = parts[0]
+    PA.paged_attention.launches = PA.paged_attention_multi.launches = 0
+    if CS.run_budgets(parts, dev):
+        failed.append("budgets")
+    k1, k2 = PA.paged_attention.launches, PA.paged_attention_multi.launches
+    want1 = sum(cfg.n_layers * b.steps for b in BG.REFERENCE_BUDGETS
+                if not b.draft_k)
+    want2 = sum(cfg.n_layers * b.steps for b in BG.REFERENCE_BUDGETS
+                if b.draft_k)
+    print(f"[gate] budget traces: K1 launches {k1} (= {want1}), K2 "
+          f"{k2} (= {want2})")
+    if (k1, k2) != (want1, want2):
+        failed.append("budget launches")
+    for b in BG.REFERENCE_BUDGETS:
+        g = BG.check_budget(parts, b, backend="gather", device=dev)
+        print(f"[gate] {b.name} gather: max out {g.max_bytes:,} B, view "
+              f"{b.view_bytes(cfg):,} B, ceiling {b.max_out_bytes:,} B, "
+              f"view present: {g.gather_view}")
+        if not g.gather_view:
+            failed.append(f"{b.name} gather view")
+    if CS.run_scenarios(parts, dev):
+        failed.append("scenarios")
+    return {"failed": failed, "k1": k1, "k2": k2}
+
+
+def phase_segment_trace(seed: int) -> dict:
+    """Phase 20 (b): granite-3-2b as phase 4 builds it (40 layers, bf16,
+    ``slots=1024``, 8 rows, bs 16), its 8 rows admitted from phase 4's
+    requests, then one 8-step kv16 ``decode_segment`` through
+    ``AdaptiveServer.segment`` under ``trace_ops``, on the kernel path and
+    then the gather path: the largest output, the view, ``verify_in_place``
+    on the pool's per-layer K/V, transfers per segment, aten ops per step,
+    K1 launches (= 40 x 8 on the kernel path, 0 on the gather path)."""
+    from repro_torch.analysis import budgets as BG
+    from repro_torch.analysis import op_check as O
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as S
+    from repro_torch.models import attention as A
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    free_card("trace")
+    args = S.parse_args(["--continuous", "--full", "--requests", "12",
+                         "--max-new", "32", "--kv-bits", "16",
+                         "--quantum", "8", "--block-size", "16",
+                         "--seed", str(seed)])
+    cfg, srv = S.build_server(args, **CARD_SERVER)
+    sched = ContinuousScheduler(srv, quantum=args.quantum)
+    for r in S.make_requests(cfg, args, **CARD_PROMPTS):
+        sched.submit(r)
+    n_adm = sched.admit()
+    torch.cuda.synchronize()
+    steps = args.quantum
+    kv = sched._caches["kv"]
+    b, slots_p = kv.block_table.shape[1], kv.block_table.shape[2] * kv.k.shape[2]
+    dims = (b, slots_p, cfg.n_kv)
+    out, failed = {}, []
+    for backend in ("kernel", "gather"):
+        srv.paged_backend = backend
+        plan = sched._plan(steps)
+        PA.paged_attention.launches = A.paged_view.calls = 0
+        with torch.no_grad():
+            rep = O.verify_in_place(
+                srv.segment, BG.pool_carries(sched._caches["kv"]), plan,
+                sched._tok, sched._pos, sched._caches, sched.remaining,
+                after=lambda res: BG.pool_carries(res[-1]["kv"]))
+        torch.cuda.synchronize()
+        _, _, sched._tok, sched._pos, sched._caches = rep.trace.result
+        sched.remaining = sched.remaining - np.minimum(sched.remaining, steps)
+        tr = O.count_transfers(rep.trace)
+        view = O.has_adjacent_dims(rep.trace, dims)
+        ops = len(rep.trace) / steps
+        k1 = PA.paged_attention.launches
+        top = sorted(O.count_ops(rep.trace).items(), key=lambda kv_: -kv_[1])
+        print(f"[trace] {backend}: {cfg.n_layers} layers, {b} rows "
+              f"({n_adm} admitted), {steps} steps: max out "
+              f"{O.max_out_bytes(rep.trace):,} B, gather view "
+              f"{'present' if view else 'absent'}, in place "
+              f"{'ok' if rep.ok else 'no'} ({len(rep.moved)} carries moved, "
+              f"{len(rep.allocations)} allocations of a layer's K or V), "
+              f"transfers per segment d2h {tr.d2h} h2d {tr.h2d}, "
+              f"{ops:.1f} aten ops per step, K1 launches {k1}, "
+              f"paged_view calls {A.paged_view.calls}")
+        print(f"[trace] {backend}: top ops {top[:8]}")
+        out[backend] = {"max_bytes": O.max_out_bytes(rep.trace), "view": view,
+                        "in_place": rep.ok, "d2h": tr.d2h, "h2d": tr.h2d,
+                        "ops_per_step": ops, "k1": k1}
+    srv.paged_backend = "kernel"
+    kern, gath = out["kernel"], out["gather"]
+    if kern["view"] or not kern["in_place"]:
+        failed.append("kernel path view or in-place")
+    if kern["k1"] != cfg.n_layers * steps or gath["k1"] != 0:
+        failed.append(f"K1 launches {kern['k1']} / {gath['k1']}")
+    if not gath["view"] or gath["in_place"]:
+        failed.append("the gather path went unseen")
+    del sched, srv
+    free_card("trace")
+    return {"failed": failed, "k1": kern["k1"], "trace": out}
+
+
 def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     """One row of the kernel table: the main path's launch count and the
     phase-2 row of the kernel at its main-path shape (every kernel also
@@ -6344,7 +6513,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     generate, K3's native W8 generate, K5's image build; phase 18's on the
     hubert path: K3's native W8 forward, K5's fake-quant forward; phase
     19's on the training path: K5's launches over the 8 full-width
-    granite steps)."""
+    granite steps; phase 20's under the static gate's budget traces and,
+    for K1, the full-width segment trace)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -6374,7 +6544,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18,19")
+                            "18,19,20")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -6447,24 +6617,27 @@ def main() -> None:
             phase_contiguous_serve(args.seed, continuous=True)
             phase_contiguous_spec_serve(args.seed)
     if 8 in phases:
-        with timed(8):
-            phase_prefix_serve(args.seed, served)
+        with timed(8), cut_depth(FEATURE_LAYERS):
+            phase_prefix_serve(args.seed)
     if 9 in phases:
-        with timed(9):
+        with timed(9), cut_depth(FEATURE_LAYERS):
             phase_preempt_serve(args.seed)
     policy = {"k1": 0, "k4": 0}
     if 10 in phases:
         with timed(10):
             phase_policy_parity(args.seed)
-            path = policy_json(40)
-            policy["k1"] = phase_policy_serve(args.seed, path)["launches"]
-            policy["k4"] = phase_contiguous_serve(
-                args.seed, continuous=False, policy=path)["launches"]
+            path = policy_json(FEATURE_LAYERS)
+            with cut_depth(FEATURE_LAYERS):
+                policy["k1"] = phase_policy_serve(args.seed,
+                                                  path)["launches"]
+                policy["k4"] = phase_contiguous_serve(
+                    args.seed, continuous=False, policy=path)["launches"]
     faults = {"k1": 0, "k2": 0, "k4": 0}
     if 11 in phases:
         with timed(11):
             faults.update(phase_fault_parity(args.seed))
-            faults["k1"] = phase_fault_serve(args.seed)["launches"]
+            with cut_depth(FEATURE_LAYERS):
+                faults["k1"] = phase_fault_serve(args.seed)["launches"]
     durable = {"k1": 0, "k2": 0}
     if 12 in phases:
         with timed(12):
@@ -6491,10 +6664,12 @@ def main() -> None:
         with timed(15):
             phase_hybrid_parity(args.seed)
             phase_hybrid_kernels(args.seed)
-            paged = phase_hybrid_serve(args.seed, "paged")
-            hymba["k1"], hymba["k5"] = paged["k1"], paged["k5"]
-            hymba["k4"] = phase_hybrid_serve(args.seed, "kv8")["k4"]
-            hymba["k3"] = phase_hybrid_serve(args.seed, "native")["k3"]
+            with cut_depth(HYMBA_FEATURE_LAYERS):
+                paged = phase_hybrid_serve(args.seed, "paged")
+                hymba["k1"], hymba["k5"] = paged["k1"], paged["k5"]
+                hymba["k4"] = phase_hybrid_serve(args.seed, "kv8")["k4"]
+                hymba["k3"] = phase_hybrid_serve(args.seed,
+                                                 "native")["k3"]
             phase_ssm_profile(args.seed, HYMBA, "hymba")
     moe = {"k1": 0, "k3": 0, "k4": 0, "k5": 0}
     if 16 in phases:
@@ -6531,6 +6706,15 @@ def main() -> None:
             train = phase_train_full(args.seed)
             phase_train_compressed(args.seed)
             phase_train_restart(args.seed)
+    gate = {"k1": 0, "k2": 0}
+    if 20 in phases:
+        with timed(20):
+            gate = phase_static_gate(args.seed)
+            seg = phase_segment_trace(args.seed)
+            failed = gate["failed"] + seg["failed"]
+            if failed:
+                raise AssertionError(f"phase 20: {failed}")
+            gate["k1"] += seg["k1"]
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -6541,12 +6725,12 @@ def main() -> None:
             rows["k1"], policy_launches=policy["k1"],
             fault_launches=faults["k1"], durable_launches=durable["k1"],
             hymba_launches=hymba["k1"], moe_launches=moe["k1"],
-            vlm_launches=vlm["k1"]))
+            vlm_launches=vlm["k1"], analysis_launches=gate["k1"]))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
             rows["k2"], fault_launches=faults["k2"],
-            durable_launches=durable["k2"]))
+            durable_launches=durable["k2"], analysis_launches=gate["k2"]))
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
             native["k3"], rows["k3"], mamba2_launches=mamba2["k3"],

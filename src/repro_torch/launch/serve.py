@@ -55,9 +55,13 @@ stack keeps the contiguous pool under ``--continuous`` (``--no-paged-kv``
 is implied), and SSM, hybrid and MoE stacks refuse ``--speculate`` and
 ``--preemption``, as the reference does. ``--full`` serves the published
 configuration (granite-3-2b: 40 layers, d_model 2048; qwen2-moe-a2.7b: 24
-layers, d_model 2048, 60 experts) with prompts of 64–512 tokens,
-``slots=1024`` and 8 rows; without it, the smoke configuration with
-prompts of 4–23 tokens, ``slots=256`` and 4 rows.
+layers, d_model 2048, 60 experts), without it the smoke configuration;
+either way with the reference launcher's workload: prompts of 4–23
+tokens, ``slots=256`` and 4 rows. A caller that wants another workload
+passes it to :func:`build_server` (``slots``, ``max_batch``),
+:func:`make_requests` (``prompt_lens``) or :func:`main`, as
+``chip_smoke.py`` does for the card (``slots=1024``, 8 rows, prompts of
+64–512 tokens).
 """
 from __future__ import annotations
 
@@ -85,7 +89,8 @@ from repro_torch.serving.policy import ShedPolicy
 from repro_torch.serving.scheduler import ContinuousScheduler
 
 __all__ = ["profile_stats", "precision_policy", "build_server",
-           "scheduler_kwargs", "serve", "durability_line", "main"]
+           "make_requests", "scheduler_kwargs", "serve", "durability_line",
+           "main"]
 
 
 def profile_stats(cfg, profs, n_params: int,
@@ -119,6 +124,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "packed int4")
     ap.add_argument("--quantum", type=int, default=8,
                     help="decode steps per continuous-batching segment")
+    ap.add_argument("--paged-kv", dest="paged_kv", action="store_true",
+                    default=True,
+                    help="paged KV pool for the continuous scheduler: "
+                         "a global block pool and per-row block tables "
+                         "(default)")
     ap.add_argument("--no-paged-kv", dest="paged_kv", action="store_false",
                     help="continuous scheduler on contiguous [max_batch, "
                          "slots] KV rows instead of the paged block pool")
@@ -262,8 +272,11 @@ def precision_policy(path: str, n_layers: int, n_profiles: int) -> tuple:
                  for i in range(n_profiles))
 
 
-def build_server(args: argparse.Namespace):
-    """Model, engine, manager and server for ``args`` → (cfg, server)."""
+def build_server(args: argparse.Namespace, *, slots: int = 256,
+                 max_batch: int = 4):
+    """Model, engine, manager and server for ``args`` → (cfg, server), with
+    ``slots`` per row and ``max_batch`` rows (the reference launcher's 256
+    and 4 by default)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
     try:
@@ -282,9 +295,8 @@ def build_server(args: argparse.Namespace):
     mgr = ProfileManager(stats, accuracy_target=0.985, accuracy_floor=0.95,
                          budget_j=stats[0].energy_j * args.budget_inferences,
                          low_energy=0.5)
-    scfg = ServingConfig(slots=1024 if args.full else 256,
-                         kv_bits=args.kv_bits,
-                         max_batch=8 if args.full else 4,
+    scfg = ServingConfig(slots=slots, kv_bits=args.kv_bits,
+                         max_batch=max_batch,
                          paged_kv=args.paged_kv,
                          block_size=args.block_size,
                          pool_blocks=args.pool_blocks,
@@ -301,12 +313,15 @@ def build_server(args: argparse.Namespace):
                                device=device)
 
 
-def make_requests(cfg, args: argparse.Namespace) -> list[Request]:
-    """``args.requests`` prompts from ``args.seed``; every third request is
-    accuracy-critical and of class 0, the rest of the lowest class, each
-    with ``args.deadline_ms``, as in the reference launcher."""
+def make_requests(cfg, args: argparse.Namespace, *,
+                  prompt_lens: tuple = (4, 24)) -> list[Request]:
+    """``args.requests`` prompts from ``args.seed``, their lengths drawn
+    from ``[lo, hi)`` of ``prompt_lens`` (the reference launcher's 4–23
+    by default); every third request is accuracy-critical and of class 0,
+    the rest of the lowest class, each with ``args.deadline_ms``, as in
+    the reference launcher."""
     rng = np.random.default_rng(args.seed)
-    lo, hi = (64, 513) if args.full else (4, 24)
+    lo, hi = prompt_lens
     n_cls = max(1, args.priority_classes)
     return [Request(tokens=rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
                     max_new=args.max_new, accuracy_critical=(i % 3 == 0),
@@ -385,14 +400,18 @@ def durability_line(sched: ContinuousScheduler) -> str:
             f"{1e3 * sched.recover_info['recovery_s']:.3f} ms")
 
 
-def main(argv=None) -> None:
+def main(argv=None, *, slots: int = 256, max_batch: int = 4,
+         prompt_lens: tuple = (4, 24)) -> None:
+    """The launcher; the keyword arguments set the workload (the reference
+    launcher's by default, see :func:`build_server` and
+    :func:`make_requests`)."""
     args = parse_args(argv)
     stop = {"drain": False}
     if args.drain_on_sigterm:
         # installed before the (slow) build: a TERM during warm-up drains
         # at the first step boundary instead of killing the process
         signal.signal(signal.SIGTERM, lambda *_: stop.update(drain=True))
-    cfg, srv = build_server(args)
+    cfg, srv = build_server(args, slots=slots, max_batch=max_batch)
     sched_kw = scheduler_kwargs(args) if args.continuous else None
     sched = None
     if args.journal_dir:
@@ -407,7 +426,8 @@ def main(argv=None) -> None:
                   f"{ri['replayed']} journal records replayed, "
                   f"{len(ri['refilled'])} re-prefilled after corruption "
                   f"({ri['recovery_s'] * 1e3:.0f} ms)")
-    out = serve(srv, make_requests(cfg, args), args.quantum,
+    out = serve(srv, make_requests(cfg, args, prompt_lens=prompt_lens),
+                args.quantum,
                 continuous=args.continuous, sched_kw=sched_kw, sched=sched,
                 stop=stop)
     results, sched, wall = out["results"], out["sched"], out["wall_s"]

@@ -463,10 +463,11 @@ class AdaptiveServer:
             caches, row_budget=rb, prequant=self.prequant,
             paged_backend=self.paged_backend, kv_table=self.kv_table)
         names = self.engine.profile_names
-        return {"tokens": toks.cpu().tolist(),        # the one sync, at the end
+        # repro: allow(host-sync) the call's single decode sync, at the end
+        return {"tokens": toks.cpu().tolist(),
                 "profile_trace": [names[int(p)] for p in pids]}
 
-    def generate_stepwise(self, prompts: np.ndarray, max_new: int,
+    def generate_stepwise(self, prompts: np.ndarray, max_new: int,  # repro: allow(host-sync) seed oracle syncs per token by design
                           accuracy_critical: bool = False) -> dict:
         """The reference's per-token host loop (one decode step and one
         host argmax per token), kept as :meth:`generate`'s oracle: the

@@ -926,8 +926,10 @@ class ContinuousScheduler:
             ksc = pool.k_scale[:, slot].clone()
             vsc = pool.v_scale[:, slot].clone()
             ka = torch.as_tensor(T.amax_for_scale(
+                # repro: allow(host-sync) suspend edge materializes masters
                 ksc.cpu().numpy(), qmax, strict=False), device=dev)
             va = torch.as_tensor(T.amax_for_scale(
+                # repro: allow(host-sync) suspend edge materializes masters
                 vsc.cpu().numpy(), qmax, strict=False), device=dev)
         return RowSnapshot(
             rid=rid, n_done=p_written, last_tok=int(res["tokens"][-1]),
@@ -1482,7 +1484,9 @@ class ContinuousScheduler:
         on the paged pool, hand their blocks back (the segment already
         unmapped their tables). A row whose verify windows went non-finite
         goes to quarantine, as on the greedy path."""
+        # repro: allow(host-sync) the flush boundary IS the sync point
         ms = e["ms"].cpu().numpy()                        # [B, n_iter]
+        # repro: allow(host-sync) flush-boundary sync, same as ms
         ok = e["ok"].cpu().numpy()
         mgr = self.srv.manager
         sched = e["sched"]
@@ -1534,6 +1538,7 @@ class ContinuousScheduler:
         drained = len(self._inflight) > keep
         while len(self._inflight) > keep:
             e = self._inflight.pop(0)
+            # repro: allow(host-sync) the flush boundary IS the sync point
             arr = e["toks"].cpu().numpy()                # waits for the device
             if e["kind"] == "admit":
                 for j, rid in e["rows"]:
@@ -1547,6 +1552,7 @@ class ContinuousScheduler:
             elif e["kind"] == "spec":
                 self._flush_spec(e, arr, names)
             else:
+                # repro: allow(host-sync) flush-boundary sync, same as toks
                 ok = e["ok"].cpu().numpy()
                 for slot, rid, n in e["rows"]:
                     res = self.results[rid]

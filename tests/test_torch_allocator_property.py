@@ -19,6 +19,7 @@ import pytest
 from repro.serving.paged import BlockAllocator as JAllocator
 from repro_torch.serving.paged import BlockAllocator
 from test_allocator_property import N_BLOCKS, OPS, _apply_op, _drain
+from torch_threads import _one_thread  # noqa: F401
 
 try:
     from hypothesis import given, settings

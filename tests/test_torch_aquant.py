@@ -40,6 +40,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.runtime import use_compute_dtype
+from torch_threads import _one_thread  # noqa: F401
 
 SIGNED_SYM = np.array([1, 0], np.int32)
 

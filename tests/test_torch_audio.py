@@ -53,6 +53,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.native import to_native
 from repro_torch.serving.engine import AdaptiveServer, ServingConfig
 from test_torch_vlm import _close, _np, _row, _same_native_tree, _tree
+from torch_threads import _one_thread  # noqa: F401
 
 TOL = 1e-5
 LOGIT_TOL = 1e-4

@@ -17,6 +17,7 @@ from repro.checkpoint import manager as JM
 from repro_torch.checkpoint.manager import (CheckpointIntegrityError,
                                             CheckpointManager, latest_step,
                                             restore, save)
+from torch_threads import _one_thread  # noqa: F401
 
 KINDS = ["torch", "numpy"]
 

@@ -24,6 +24,7 @@ from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from test_torch_prefix import (_raw, _sys_requests, parts,  # noqa: F401
                                run_pair)
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _reqs(cfg, seed, shape, Req):

@@ -42,20 +42,9 @@ from repro_torch.launch import repro_cnn as L
 from repro_torch.models import cnn as C
 from repro_torch.models.convert import params_from_jax
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
+from torch_threads import _one_thread  # noqa: F401
 
 PROFS = paper_profiles(C.CNN_LAYERS, inner_layers=["conv1"])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the test run shares the machine's cores among
-    several workers, and torch's thread pools oversubscribed that way
-    spend their time spinning on these small convolutions."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 TABLE = profile_table(PROFS, C.CNN_LAYERS)
 NAMES = [p.name for p in PROFS]
 SEEDS = (0, 1, 2, 3)

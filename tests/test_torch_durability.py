@@ -52,6 +52,7 @@ from repro_torch.serving.engine import (AdaptiveServer, Request,
                                         RequestStatus, ServingConfig)
 from repro_torch.serving.scheduler import ContinuousScheduler
 from test_torch_prefix import parts  # noqa: F401
+from torch_threads import _one_thread  # noqa: F401
 
 BASE = dict(slots=64, max_batch=4, block_size=8, pool_blocks=64,
             priority_classes=2)

@@ -5,6 +5,7 @@ points refuse to fall back to the CPU when no GPU is present and the CPU
 was not asked for."""
 import ast
 import pathlib
+from pathlib import Path
 import subprocess
 import sys
 
@@ -119,3 +120,22 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take():
     assert torch.equal(out, torch.zeros_like(out))  # nothing attendable
     with pytest.raises(ValueError, match="kv16/kv8/kv4"):
         PA.paged_attention(*(a.to("meta") for a in args), bits=32)
+
+
+@pytest.mark.parametrize("entry", [
+    ["repro_torch.analysis.check_static", "--skip-lint", "--skip-budgets"],
+    ["repro_torch.examples.quickstart"],
+    ["repro_torch.examples.serve_adaptive_lm"],
+    ["repro_torch.examples.train_restartable_lm", "--steps", "1"],
+    ["repro_torch.examples.adaptive_cnn", "--steps", "1"]])
+def test_analysis_and_examples_stand_alone(entry, monkeypatch):
+    """The static gate and the four examples are port modules like the
+    others (their imports are checked above) and refuse to fall back to
+    the CPU."""
+    import importlib
+    mod = importlib.import_module(entry[0])
+    assert PORT / Path(*entry[0].split(".")[1:]).with_suffix(".py") in \
+        _port_files()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(entry[1:])

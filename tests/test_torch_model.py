@@ -27,6 +27,7 @@ from repro_torch.core import profiles as TP
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+from torch_threads import _one_thread  # noqa: F401
 
 PLENS = (4, 9, 17)
 

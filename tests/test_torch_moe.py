@@ -66,6 +66,7 @@ from repro_torch.models.native import NATIVE_SITES, to_native
 from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from test_torch_prefix import run_pair
+from torch_threads import _one_thread  # noqa: F401
 
 TOL = 1e-5
 LOGIT_TOL = 1e-4

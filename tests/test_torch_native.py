@@ -50,6 +50,7 @@ from repro_torch.models.native import NATIVE_SITES, to_native
 from repro_torch.runtime import use_compute_dtype
 from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
+from torch_threads import _one_thread  # noqa: F401
 
 PLENS = (4, 9, 17)
 

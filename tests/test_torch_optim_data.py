@@ -17,6 +17,7 @@ from repro.data import digits as JD
 from repro.optim import adam as JA
 from repro_torch.data import digits as D
 from repro_torch.optim import adam as A
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _tree(rng):

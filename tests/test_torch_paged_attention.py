@@ -18,6 +18,7 @@ from repro.kernels.paged_attention import paged_attention_pallas
 from repro.kernels.ref import paged_attention_ref as jax_ref
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import attention as A
+from torch_threads import _one_thread  # noqa: F401
 
 LENGTHS = (7, 8, 9, 16, 17)
 BS, HKV, HG, D, N_LBLK = 8, 2, 2, 16, 4

@@ -41,6 +41,7 @@ from repro_torch.serving.policy import (FifoPolicy, PriorityPolicy, RowState,
 from repro_torch.serving.scheduler import ContinuousScheduler
 from test_torch_cuda import _row_bytes
 from test_torch_prefix import parts, run_pair  # noqa: F401
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _req(n=4, pr=0):

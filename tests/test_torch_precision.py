@@ -61,6 +61,7 @@ from repro_torch.serving.scheduler import ContinuousScheduler
 from test_torch_policy import _preempt_cfg, _preempt_requests, \
     _preempt_scenario
 from test_torch_prefix import _raw, _sys_requests, run_pair
+from torch_threads import _one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 STRIPE = (4, 8, 16)

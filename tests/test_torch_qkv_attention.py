@@ -31,6 +31,7 @@ from repro_torch.core import profiles as TP
 from repro_torch.kernels import qkv_attention as QK
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
+from torch_threads import _one_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -27,6 +27,7 @@ import torch
 from repro.kernels import ref
 from repro.kernels.qkv_attention import qkv_attention_pallas
 from repro_torch.kernels import qkv_attention as QK
+from torch_threads import _one_thread  # noqa: F401
 
 NEG = -1e30
 T = QK.TILE_COLS

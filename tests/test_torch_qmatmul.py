@@ -20,6 +20,7 @@ from repro.kernels.ops import qmatmul_qt as jax_qmatmul_qt
 from repro_torch.core.quantizers import QTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels import qmatmul as K
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _t(a) -> torch.Tensor:

@@ -28,6 +28,7 @@ import torch
 from repro.kernels import ref
 from repro_torch.kernels import qmatmul as K
 from repro_torch.kernels.build import SM_COUNT
+from torch_threads import _one_thread  # noqa: F401
 
 GRANITE = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)]
 

@@ -38,6 +38,7 @@ import torch
 from repro.kernels.qmatmul import qmatmul_pallas
 from repro_torch.kernels import qmatmul as K
 from repro_torch.kernels.build import SM_COUNT
+from torch_threads import _one_thread  # noqa: F401
 
 GRANITE = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048)]
 BK = 64                            # K rows per ring stage

@@ -21,6 +21,7 @@ from repro.models import attention as JA
 from repro_torch.core import qtypes as Q
 from repro_torch.core import quantizers as QZ
 from repro_torch.models import attention as A
+from torch_threads import _one_thread  # noqa: F401
 
 SIGNED_SYM = np.array([1, 0], np.int32)
 

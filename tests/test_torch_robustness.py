@@ -43,6 +43,7 @@ from repro_torch.serving.engine import (AdaptiveServer, Request,
                                         RequestStatus, ServingConfig)
 from repro_torch.serving.scheduler import ContinuousScheduler
 from test_torch_prefix import _manager, parts, run_pair  # noqa: F401
+from torch_threads import _one_thread  # noqa: F401
 
 
 class VClock:

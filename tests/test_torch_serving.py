@@ -29,6 +29,7 @@ from repro_torch.launch.serve import profile_stats
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
+from torch_threads import _one_thread  # noqa: F401
 
 # (prompt, max_new): the block-boundary case of tests/test_paged_kv.py, and
 # the mid-stream-refill case of tests/test_serving_ragged.py (max_new=1

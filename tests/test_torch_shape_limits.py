@@ -39,6 +39,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
+from torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core.qtypes import unpack_int4
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.paged_attention import _dense_rows
+from torch_threads import _one_thread  # noqa: F401
 
 NEG = -1e30
 

@@ -67,6 +67,7 @@ from repro_torch.serving.engine import (AdaptiveServer, Request,
                                         RequestStatus, ServingConfig)
 from repro_torch.serving.scheduler import ContinuousScheduler
 from test_torch_prefix import _manager, run_pair
+from torch_threads import _one_thread  # noqa: F401
 
 SSD_TOL = 1e-5
 LOGIT_TOL = 1e-4

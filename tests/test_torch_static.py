@@ -43,6 +43,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
+from torch_threads import _one_thread  # noqa: F401
 
 # (prompt length, max_new): two static groups of max_batch=4, the second
 # padded by two rows; max_new 1 finishes at its prefill token

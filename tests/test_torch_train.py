@@ -62,20 +62,12 @@ from repro_torch.optim import adam as A
 from repro_torch.optim import compression as C
 from repro_torch.train.loop import (StragglerMonitor, TrainConfig, _flatten,
                                     train, value_and_grad)
+from torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-3-2b"
 TOL = 1e-5
 B, S, LR, STEPS = 2, 32, 1e-4, 8
 PIDS = (2, 3, 4, 5)                  # A8-W8, A8-W4, A4-W4, Mixed
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the run shares the cores among workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _leaves_np(tree):

@@ -31,20 +31,12 @@ from repro_torch.core.profiles import paper_profiles as port_profiles
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.train.loop import _flatten, value_and_grad
+from torch_threads import _one_thread  # noqa: F401
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 PROFILE = 2
 B, S = 2, 32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the run shares the cores among workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(cfg, seed=0):

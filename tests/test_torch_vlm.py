@@ -49,6 +49,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.native import to_native
 from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+from torch_threads import _one_thread  # noqa: F401
 
 TOL = 1e-5
 LOGIT_TOL = 1e-4
