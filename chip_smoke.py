@@ -261,6 +261,25 @@ Phases:
     and on the gather path: the largest output, the view, the pool updated
     in place, device->host and host->device transfers per segment, aten
     ops per decode step, K1 launches (= 40 x 8 on the kernel path).
+21. multi-device on the one card: four spawned ranks (``torch.cuda.
+    set_device(0)``, a gloo group, activations and gradients hop through
+    host memory): (a) the reference test's toy pipeline (L 8, D 16, B 12,
+    4 stages, 4 microbatches, ``tanh``) against the sequential stack, <=
+    1e-5; (b) granite-3-2b at full width, 40 layers in 4 stages of 10,
+    8 microbatches of 1 x 512 tokens, A8-W8 fake-quant: f32 (TF32 off)
+    against the single-process stack over the same microbatches (rel <=
+    1e-5, bitwise or not), then bf16 timed beside that stack (pipeline
+    and sequential ms, the bubble 3/11, bytes and ms per hop, each rank's
+    peak memory), K5 = 10 layers x 4 sites x 8 microbatches = 320 per
+    rank; (c) ``compressed_psum`` of each rank's gradients (one
+    ``train_loss`` backward of granite's widths at 2 layers, B 2 x S 128
+    of its own) against the plain mean of the ranks' q.s on the card,
+    <= 1e-6 of each leaf's max-abs, ms per reduction and bytes on the
+    wire; (d) meanwhile in this process, the dry run on meta: qwen2-72b
+    and qwen1.5-110b at train_4k and decode_32k on the 256- and
+    512-device meshes, status, per-device argument bytes beside this
+    card's memory, flops per device. The times describe four processes
+    sharing one card, not a multi-GPU host.
 Depth: phases 8, 9, 10 (its launcher serves), 11 (b) and 15 (c) check
 features at the published widths with the depth cut (``cut_depth``:
 granite at 10 of 40 layers, hymba at 8 of 32), so that all phases fit the
@@ -6496,6 +6515,344 @@ def phase_segment_trace(seed: int) -> dict:
     return {"failed": failed, "k1": kern["k1"], "trace": out}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: multi-device over a gloo group of ranks on the one card
+# ---------------------------------------------------------------------------
+
+DISTRIB_DIR = Path(__file__).resolve().parent / "build" / "distrib"
+DISTRIB_RANKS = 4
+DISTRIB_MB = 8                   # (b): microbatches of one row
+TOY = dict(L=8, D=16, B=12)      # (a): the reference test's toy pipeline
+
+
+def toy_inputs(seed: int):
+    rng = np.random.default_rng(seed)
+    d = TOY["D"]
+    ws = rng.standard_normal((TOY["L"], d, d)) / np.sqrt(d)
+    x = rng.standard_normal((TOY["B"], d))
+    return (torch.from_numpy(ws.astype(np.float32)),
+            torch.from_numpy(x.astype(np.float32)))
+
+
+def toy_stage(sp, h):
+    for w in sp["w"]:
+        h = torch.tanh(h @ w)
+    return h
+
+
+def granite_setup(seed: int, n_layers=None):
+    """granite-3-2b as published (or cut to ``n_layers``, depth only) from
+    ``seed``, its A8-W8 bits row and ``(B 8, S 512)`` tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.models import transformer as T
+    cfg = get_config(GRANITE)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dev = torch.device("cuda")
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                           device=dev)
+    names = T.quant_layer_names(cfg)
+    eng = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+    bits = eng.bits_row(eng.profile_id("A8-W8"))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (8, 512)).astype(np.int64)).to(dev)
+    return cfg, params, bits, tokens
+
+
+def stack_by_microbatch(cfg, layers, layer_bits, x0):
+    """The single-process stack over each microbatch of one row (the
+    activation fake-quant is per tensor, so a microbatch is a batch)."""
+    from repro_torch.models import transformer as T
+    return torch.cat([T.layer_stack(cfg, layers, layer_bits, x0[i:i + 1])
+                      for i in range(x0.shape[0])])
+
+
+def _distrib_rank(rank: int, world: int, pg: str, seed: int) -> None:
+    """Phase 21's rank ``rank`` of ``world`` (a spawned process on card 0,
+    a gloo group): (a) the toy pipeline, (b) granite-3-2b's 40 layers in 4
+    stages of 10, f32 then bf16 (a warm-up, then a timed run), (c)
+    ``compressed_psum`` of its own gradients. Writes
+    ``DISTRIB_DIR/rank<r>.pt``."""
+    import torch.distributed as dist
+    from repro_torch import runtime
+    from repro_torch.distrib import pipeline as P
+    from repro_torch.distrib.pipeline import pipeline_forward, stage_split
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.compression import (compress_tree,
+                                               compressed_psum,
+                                               init_error_feedback)
+    from repro_torch.train.loop import value_and_grad
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{pg}", rank=rank,
+                            world_size=world)
+    dev = torch.device("cuda")
+    res: dict = {}
+    # (a) the toy pipeline on the card
+    ws, x = (t.to(dev) for t in toy_inputs(seed))
+    res["toy"] = pipeline_forward(toy_stage,
+                                  stage_split({"w": ws}, world)[rank], x,
+                                  n_microbatches=4).cpu()
+    # (b) granite-3-2b, 10 layers per stage
+    cfg, params, bits, tokens = granite_setup(seed)
+    _, _, layer_bits = T.split_bits(cfg, bits)
+    n = cfg.n_layers // world
+    stage = _clone(stage_split(params["layers"], world)[rank])
+    embed = {"embed": params["embed"]}
+    del params
+    torch.cuda.empty_cache()
+    bits_s = layer_bits[rank * n:(rank + 1) * n]
+
+    def fn(sp, xm):
+        return T.layer_stack(cfg, sp, bits_s, xm)
+    hops: list = []
+    exchange = P.exchange
+
+    def timed_exchange(send, dst, recv, src, group=None):
+        """The pipeline's hop, timed alone: (bytes sent, seconds)."""
+        if send is None:
+            return exchange(send, dst, recv, src, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exchange(send, dst, recv, src, group)
+        hops.append((send.numel() * send.element_size(),
+                     time.perf_counter() - t0))
+        return out
+    P.exchange = timed_exchange
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with runtime.use_compute_dtype(dt):
+            x0, _, _ = T._embed_inputs(cfg, embed, bits, {"tokens": tokens})
+            if name == "bf16":                     # warm-up
+                pipeline_forward(fn, stage, x0, n_microbatches=DISTRIB_MB)
+            hops.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            AQ.aquant.launches = 0
+            t0 = time.perf_counter()
+            y = pipeline_forward(fn, stage, x0, n_microbatches=DISTRIB_MB)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            res[name] = {"k5": AQ.aquant.launches, "want": 4 * n * DISTRIB_MB,
+                         "ms": ms, "hops": list(hops),
+                         "peak": torch.cuda.max_memory_allocated(),
+                         "y": y.cpu() if rank == 0 else None}
+    P.exchange = exchange
+    del stage, embed, x0, y
+    torch.cuda.empty_cache()
+    # (c) compressed_psum of each rank's gradients (2 layers, full width)
+    cfg, params, bits, _ = granite_setup(seed, n_layers=2)
+    from repro_torch.data.tokens import TokenStream
+    b = TokenStream(vocab=cfg.vocab, seq_len=128, batch=2,
+                    seed=seed).batch_at(rank)
+    batch = {k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
+    (_, _), grads = value_and_grad(
+        lambda p, bt: T.train_loss(p, cfg, bits, bt), params, batch)
+    del params
+    gseed = 1000 * seed + rank
+    q, s, _ = compress_tree(grads, init_error_feedback(grads),
+                            torch.Generator(dev).manual_seed(gseed))
+    res["q"] = {k: v.cpu() for k, v in _flat_items(q)}
+    res["s"] = {k: v.cpu() for k, v in _flat_items(s)}
+    del q, s
+    wire = [4 * g.numel() for _, g in _flat_items(grads)]   # f32 payloads
+    state = init_error_feedback(grads)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    mean, _ = compressed_psum(grads, state,
+                              torch.Generator(dev).manual_seed(gseed))
+    torch.cuda.synchronize()
+    res["psum"] = {"ms": 1e3 * (time.perf_counter() - t0),
+                   "wire": sum(wire), "leaves": len(wire),
+                   "mean": ({k: v.cpu() for k, v in _flat_items(mean)}
+                            if rank == 0 else None)}
+    torch.save(res, DISTRIB_DIR / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _flat_items(tree, pre=""):
+    for k in sorted(tree):
+        v, p = tree[k], f"{pre}/{k}" if pre else k
+        if isinstance(v, dict):
+            yield from _flat_items(v, p)
+        else:
+            yield p, v
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def phase_distrib_reference(seed: int) -> dict:
+    """Phase 21's single-process references on the card: the toy stack, and
+    granite-3-2b's 40-layer stack over each microbatch in f32 (TF32 off)
+    and, timed, in bf16."""
+    from repro_torch import runtime
+    from repro_torch.models import transformer as T
+    free_card("distrib")
+    dev = torch.device("cuda")
+    ws, x = (t.to(dev) for t in toy_inputs(seed))
+    toy = x
+    for w in ws:
+        toy = torch.tanh(toy @ w)
+    out = {"toy": toy.cpu()}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params, bits, tokens = granite_setup(seed)
+    out["n_layers"] = cfg.n_layers
+    _, _, layer_bits = T.split_bits(cfg, bits)
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with runtime.use_compute_dtype(dt):
+            x0, _, _ = T._embed_inputs(cfg, params, bits, {"tokens": tokens})
+            if name == "bf16":                     # warm-up
+                stack_by_microbatch(cfg, params["layers"], layer_bits, x0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = stack_by_microbatch(cfg, params["layers"], layer_bits, x0)
+            torch.cuda.synchronize()
+            out[name] = {"y": y.cpu(), "ms": 1e3 * (time.perf_counter() - t0)}
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    del params, x0, y
+    free_card("distrib")
+    return out
+
+
+def phase_distrib_dryrun() -> None:
+    """Phase 21 (d): the dry run on meta, qwen2-72b and qwen1.5-110b at
+    train_4k and decode_32k on the 256- and 512-device meshes (a cell's
+    meta run is shared by its two meshes): status, per-device argument
+    bytes beside this card's memory, flops per device."""
+    from repro_torch.launch import dryrun as D
+    cap = torch.cuda.get_device_properties(0).total_memory
+    runs: dict = {}
+    for arch in ("qwen2-72b", "qwen1.5-110b"):
+        for shape in ("train_4k", "decode_32k"):
+            for mesh in ("pod1", "pod2"):
+                t0 = time.perf_counter()
+                rec = D.run_cell(arch, shape, mesh, native_bits=None,
+                                 kv_bits=16, analysis=False, verbose=False,
+                                 runs=runs)
+                if rec["status"] != "ok":
+                    raise AssertionError(f"(d) {arch} x {shape} x {mesh}: "
+                                         f"{rec}")
+                prod = rec["production"]
+                arg = prod["memory"]["argument_bytes"]
+                print(f"[distrib] (d) {arch} x {shape} x {mesh} on meta: "
+                      f"{rec['status']}, {rec['devices']} devices, "
+                      f"per-device arguments {arg} B = {arg / cap:.3f} of "
+                      f"this card's {cap} B, outputs "
+                      f"{prod['memory']['output_bytes']} B, flops per "
+                      f"device {prod['flops']:.4e}, layout collectives "
+                      f"{prod['collectives']['total']} B per device, "
+                      f"{time.perf_counter() - t0:.1f}s")
+
+
+def phase_distrib(seed: int) -> dict:
+    """Phase 21: (a)-(c) on ``DISTRIB_RANKS`` spawned ranks sharing card 0
+    through a gloo group, with (d) run in this process meanwhile; the
+    ranks' results held against the single-process references. Returns
+    K5's launches over the ranks' timed bf16 pipeline run."""
+    import shutil
+    import torch.multiprocessing as mp
+    ref = phase_distrib_reference(seed)
+    shutil.rmtree(DISTRIB_DIR, ignore_errors=True)
+    DISTRIB_DIR.mkdir(parents=True)
+    ctx = mp.start_processes(
+        _distrib_rank, args=(DISTRIB_RANKS, str(DISTRIB_DIR / "pg"), seed),
+        nprocs=DISTRIB_RANKS, join=False, start_method="spawn")
+    try:
+        phase_distrib_dryrun()
+        deadline = time.monotonic() + 600
+        while not ctx.join(timeout=10):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 21: the ranks did not finish")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    res = [torch.load(DISTRIB_DIR / f"rank{r}.pt", weights_only=False)
+           for r in range(DISTRIB_RANKS)]
+    failed = []
+    # (a)
+    err_a = max(float((r["toy"] - ref["toy"]).abs().max()) for r in res)
+    print(f"[distrib] (a) toy pipeline (L {TOY['L']}, D {TOY['D']}, B "
+          f"{TOY['B']}, {DISTRIB_RANKS} stages, 4 microbatches) on the card "
+          f"vs the sequential stack: max |diff| {err_a:.3e} on every rank")
+    if err_a > 1e-5:
+        failed.append(f"(a) {err_a}")
+    # (b)
+    for name in ("f32", "bf16"):
+        want = res[0][name]["want"]          # 4 sites x layers x microbatches
+        y, y_ref = res[0][name]["y"], ref[name]["y"]
+        rel = float((y.float() - y_ref.float()).abs().max()
+                    / y_ref.float().abs().max())
+        same = torch.equal(y, y_ref)
+        k5 = [r[name]["k5"] for r in res]
+        ms = max(r[name]["ms"] for r in res)
+        hops = [h for r in res for h in r[name]["hops"]]
+        hop_b = sorted({h[0] for h in hops})
+        hop_ms = [1e3 * h[1] for h in hops]
+        peaks = [r[name]["peak"] for r in res]
+        print(f"[distrib] (b) granite-3-2b, {ref['n_layers']} layers in "
+              f"{DISTRIB_RANKS} "
+              f"stages, {DISTRIB_MB} microbatches of 1 x 512, {name}, A8-W8 "
+              f"fake-quant: pipeline vs the single-process stack rel "
+              f"{rel:.3e} ({'bitwise' if same else 'not bitwise'}); K5 "
+              f"launches per rank {k5} (= {want}), {sum(k5)} in all")
+        print(f"[distrib] (b) {name}: pipeline {ms:.1f} ms (slowest rank) vs "
+              f"sequential {ref[name]['ms']:.1f} ms, bubble "
+              f"{DISTRIB_RANKS - 1}/{DISTRIB_MB + DISTRIB_RANKS - 1}; "
+              f"{len(hops)} hops of {hop_b} B, ms per hop median "
+              f"{np.median(hop_ms):.3f} (min {min(hop_ms):.3f}, max "
+              f"{max(hop_ms):.3f}); peak memory per rank "
+              f"{[f'{p / 2**30:.2f}' for p in peaks]} GiB; four processes "
+              f"share one card through host-staged gloo hops")
+        # both runs go through the same kernels at the same shapes: the
+        # bf16 run, whose launches and times are reported, must be bitwise
+        if rel > 1e-5 or (name == "bf16" and not same):
+            failed.append(f"(b) {name} rel {rel}, bitwise {same}")
+        if k5 != [want] * DISTRIB_RANKS:
+            failed.append(f"(b) {name} K5 {k5}")
+    # (c)
+    dev = torch.device("cuda")
+    worst = 0.0
+    for path, got in res[0]["psum"]["mean"].items():
+        acc = None
+        for r in res:
+            qs = r["q"][path].to(dev).float() * r["s"][path].to(dev)
+            acc = qs if acc is None else acc + qs
+        plain = acc / DISTRIB_RANKS
+        err = float((got.to(dev) - plain).abs().max()
+                    / plain.abs().max().clamp_min(1e-30))
+        worst = max(worst, err)
+    ps = [r["psum"] for r in res]
+    print(f"[distrib] (c) compressed_psum over {DISTRIB_RANKS} ranks, "
+          f"granite-3-2b widths at 2 layers, B 2 x S 128 per rank: "
+          f"{ps[0]['leaves']} leaves, {ps[0]['wire']} B of f32 payload on "
+          f"the wire per rank, {max(p['ms'] for p in ps):.1f} ms per "
+          f"reduction (slowest rank, compress included); vs the plain mean "
+          f"of the ranks' q.s on the card: worst leaf {worst:.3e} of its "
+          f"max-abs")
+    if worst > 1e-6:
+        failed.append(f"(c) {worst}")
+    shutil.rmtree(DISTRIB_DIR, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"phase 21: {failed}")
+    return {"k5": sum(r["bf16"]["k5"] for r in res)}
+
+
 def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     """One row of the kernel table: the main path's launch count and the
     phase-2 row of the kernel at its main-path shape (every kernel also
@@ -6514,7 +6871,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     hubert path: K3's native W8 forward, K5's fake-quant forward; phase
     19's on the training path: K5's launches over the 8 full-width
     granite steps; phase 20's under the static gate's budget traces and,
-    for K1, the full-width segment trace)."""
+    for K1, the full-width segment trace; phase 21's, for K5, over the
+    four ranks' timed bf16 pipeline run)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -6544,7 +6902,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18,19,20")
+                            "18,19,20,21")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -6715,6 +7073,10 @@ def main() -> None:
             if failed:
                 raise AssertionError(f"phase 20: {failed}")
             gate["k1"] += seg["k1"]
+    distrib = {"k5": 0}
+    if 21 in phases:
+        with timed(21):
+            distrib = phase_distrib(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -6747,7 +7109,8 @@ def main() -> None:
             native["k5"], rows["k5"], cnn_launches=cnn["k5"],
             mamba2_launches=mamba2["k5"], hymba_launches=hymba["k5"],
             moe_launches=moe["k5"], vlm_launches=vlm["k5"],
-            audio_launches=audio["k5"], train_launches=train["k5"]))
+            audio_launches=audio["k5"], train_launches=train["k5"],
+            distrib_launches=distrib["k5"]))
     print(f"[time] total {time.perf_counter() - t_start:.1f}s "
           f"({', '.join(f'phase {n} {t:.1f}s' for n, t in secs.items())})")
     print(card_line())

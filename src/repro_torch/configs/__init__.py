@@ -1,12 +1,14 @@
 """Architecture registry of the port: the reference's ten architectures
 (``repro.configs.ARCHS``, in its order), each with its published
 ``CONFIG`` and reduced ``SMOKE``. ``get_config(name)`` /
-``get_smoke(name)`` resolve by arch id (``--arch``)."""
+``get_smoke(name)`` resolve by arch id (``--arch``); ``SHAPES`` /
+``shape_applicable`` come from common."""
 from __future__ import annotations
 
 import importlib
 
-from .common import ModelConfig, MoEConfig, smoke_of
+from .common import (SHAPES, ModelConfig, MoEConfig, Shape, shape_applicable,
+                     smoke_of)
 
 _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
@@ -39,4 +41,4 @@ def get_smoke(name: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "ModelConfig", "MoEConfig", "get_config", "get_smoke",
-           "smoke_of"]
+           "SHAPES", "Shape", "shape_applicable", "smoke_of"]

@@ -1,4 +1,6 @@
-"""Config helpers (port of ``repro/configs/common.py``: ``smoke_of``)."""
+"""Config helpers and the input-shape registry (port of
+``repro/configs/common.py``): ``Shape``, ``SHAPES``, ``shape_applicable``
+and ``smoke_of``."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +9,40 @@ from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import SSMConfig
 from repro_torch.models.transformer import ModelConfig
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "smoke_of"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "Shape", "SHAPES",
+           "shape_applicable", "smoke_of"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    """One input shape of the dry run: ``seq_len`` × ``global_batch``."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: Shape) -> tuple[bool, str]:
+    """``(ok, reason)``: an encoder has no decode step, and ``long_500k``
+    needs sub-quadratic attention (an SSM stack, or a hybrid one with a
+    sliding window)."""
+    if shape.kind == "decode" and not cfg.causal:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k":
+        sub_quadratic = cfg.family == "ssm" or (
+            cfg.family == "hybrid" and cfg.sliding_window > 0)
+        if not sub_quadratic:
+            return False, "long_500k needs sub-quadratic attention (full-attention arch)"
+    return True, ""
 
 
 def smoke_of(cfg: ModelConfig, **overrides) -> ModelConfig:

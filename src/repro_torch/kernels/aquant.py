@@ -195,8 +195,10 @@ def aquant(x: torch.Tensor, bits: int = 8, po2: bool = True,
     shape; ``x``'s type, or ``out_dtype`` bf16 from f32); with
     ``return_scale``, also the grid's 0-d f32 scale, which the kernel
     writes beside its output (no second pass, no host sync). CPU tensors
-    take the plain version; CUDA tensors launch the kernel (one cooperative
-    launch, counted in ``aquant.launches``) or raise."""
+    take the plain version; ``meta`` tensors are validated as CUDA ones,
+    then take the plain version (shape arithmetic only: a meta tensor has
+    no device to launch on); CUDA tensors launch the kernel (one
+    cooperative launch, counted in ``aquant.launches``) or raise."""
     if x.device.type == "cpu":
         return aquant_ref(x, bits, po2, return_scale, out_dtype)
     if not 2 <= bits <= 16:
@@ -204,6 +206,8 @@ def aquant(x: torch.Tensor, bits: int = 8, po2: bool = True,
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be f32 or bf16, got {x.dtype}")
     out_dtype = _out_dtype(x.dtype, out_dtype)
+    if x.device.type == "meta":
+        return aquant_ref(x, bits, po2, return_scale, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     xc = x.contiguous()

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "lib", "check", "SOURCES", "BUILD_DIR", "SM_COUNT"]
+__all__ = ["build", "lib", "check", "target", "SOURCES", "BUILD_DIR", "SM_COUNT"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"paged_attention": _CSRC / "paged_attention.cu",
@@ -126,11 +126,20 @@ def lib(name: str):
     return build()[name]["lib"]
 
 
-def check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
-    ``shape``."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+def target(t: torch.Tensor) -> str:
+    """The device a wrapper holds a call's operands to: ``meta`` for a
+    meta call (validated as a CUDA one, then shape arithmetic), else
+    ``cuda``."""
+    return "meta" if t.device.type == "meta" else "cuda"
+
+
+def check(t: torch.Tensor, name: str, dtype, shape,
+          device: str = "cuda") -> None:
+    """Raise unless ``t`` is a contiguous ``device`` tensor (see
+    :func:`target`) of ``dtype`` and ``shape``."""
+    if t.device.type != device:
+        kind = "CUDA" if device == "cuda" else device
+        raise ValueError(f"{name} must be a {kind} tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):

@@ -70,7 +70,7 @@ import torch
 
 from repro_torch.core.qtypes import unpack_int4
 from repro_torch.kernels.build import BUILD_DIR, SM_COUNT, SOURCES, build
-from repro_torch.kernels.build import check as _check
+from repro_torch.kernels.build import check as _check, target
 
 __all__ = ["paged_attention", "paged_attention_ref", "paged_attention_multi",
            "paged_attention_multi_ref", "supports", "row_plan", "split_plan",
@@ -189,29 +189,41 @@ def _require(why: Optional[str]) -> None:
         raise ValueError(f"unsupported shape: {why}")
 
 
+def _validate(q_shape, q_dtype, k_pool: torch.Tensor, v_pool: torch.Tensor,
+              token_idx: torch.Tensor, block_table: torch.Tensor,
+              pos: torch.Tensor, bits: int, n_blocks: Optional[int],
+              on: str) -> None:
+    """Raise unless K1's or K2's shared operands (q of ``q_shape`` ``[B, W,
+    Hkv, Hg, D]``) are what the kernel takes, on device ``on``."""
+    b, w, hkv, hg, d = q_shape
+    nb_alloc, bs = token_idx.shape
+    n_lblk = block_table.shape[1]
+    nb = nb_alloc if n_blocks is None else int(n_blocks)
+    if not 0 <= nb <= nb_alloc:
+        raise ValueError(f"n_blocks={nb} exceeds the pool's {nb_alloc}")
+    if q_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be f32 or bf16, got {q_dtype}")
+    kv_dtype = torch.bfloat16 if bits == 16 else torch.int8
+    dk = d // 2 if bits == 4 else d
+    _check(k_pool, "k_pool", kv_dtype, (nb_alloc, bs, hkv, dk), on)
+    _check(v_pool, "v_pool", kv_dtype, (nb_alloc, bs, hkv, dk), on)
+    _check(token_idx, "token_idx", torch.int32, (nb_alloc, bs), on)
+    _check(block_table, "block_table", torch.int32, (b, n_lblk), on)
+    _check(pos, "pos", torch.int32, (b,), on)
+
+
 def _launch(name: str, q: torch.Tensor, k_pool: torch.Tensor,
             v_pool: torch.Tensor, k_scale: torch.Tensor,
             v_scale: torch.Tensor, token_idx: torch.Tensor,
             block_table: torch.Tensor, pos: torch.Tensor, bits: int,
             window: int, n_blocks: Optional[int]) -> torch.Tensor:
-    """Validate, plan and launch K1 or K2 (``name``) on q ``[B, W, Hkv,
+    """Plan and launch K1 or K2 (``name``) on validated q ``[B, W, Hkv,
     Hg, D]`` with per-query scales ``[B, W, Hkv]``; returns ``[B, W, Hkv,
     Hg, D]`` f32. The split partials live in scratch allocated here."""
     b, w, hkv, hg, d = q.shape
     nb_alloc, bs = token_idx.shape
     n_lblk = block_table.shape[1]
     nb = nb_alloc if n_blocks is None else int(n_blocks)
-    if not 0 <= nb <= nb_alloc:
-        raise ValueError(f"n_blocks={nb} exceeds the pool's {nb_alloc}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q must be f32 or bf16, got {q.dtype}")
-    kv_dtype = torch.bfloat16 if bits == 16 else torch.int8
-    dk = d // 2 if bits == 4 else d
-    _check(k_pool, "k_pool", kv_dtype, (nb_alloc, bs, hkv, dk))
-    _check(v_pool, "v_pool", kv_dtype, (nb_alloc, bs, hkv, dk))
-    _check(token_idx, "token_idx", torch.int32, (nb_alloc, bs))
-    _check(block_table, "block_table", torch.int32, (b, n_lblk))
-    _check(pos, "pos", torch.int32, (b,))
     row_tiles, row_tile = row_plan(w, hg, d)
     splits, per = split_plan(b, hkv, row_tiles, n_lblk * bs)
     out = torch.empty((b, w, hkv, hg, d), dtype=torch.float32,
@@ -246,8 +258,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     n_blocks: Optional[int] = None) -> torch.Tensor:
     """In-place paged decode attention; ``window <= 0`` is full attention.
     Returns ``[B, Hkv, Hg, D]`` f32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (counted in ``paged_attention.launches``)
-    or raise."""
+    ``meta`` tensors are validated as CUDA ones, then take the plain
+    version (shape arithmetic only); CUDA tensors launch the kernel
+    (counted in ``paged_attention.launches``) or raise."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, k_scale, v_scale,
                                    token_idx, block_table, pos, bits=bits,
@@ -256,9 +269,16 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged kernel supports kv16/kv8/kv4, got kv{bits}")
     b, hkv, hg, d = q.shape
     _require(supports(d, hg, token_idx.shape[1]))
-    _check(q, "q", q.dtype, (b, hkv, hg, d))
-    _check(k_scale, "k_scale", torch.float32, (b, hkv))
-    _check(v_scale, "v_scale", torch.float32, (b, hkv))
+    on = target(q)
+    _check(q, "q", q.dtype, (b, hkv, hg, d), on)
+    _check(k_scale, "k_scale", torch.float32, (b, hkv), on)
+    _check(v_scale, "v_scale", torch.float32, (b, hkv), on)
+    _validate((b, 1, hkv, hg, d), q.dtype, k_pool, v_pool, token_idx,
+              block_table, pos, bits, n_blocks, on)
+    if on == "meta":
+        return paged_attention_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                   token_idx, block_table, pos, bits=bits,
+                                   window=window, n_blocks=n_blocks)
     out = _launch("paged_attention", q.unsqueeze(1), k_pool, v_pool, k_scale,
                   v_scale, token_idx, block_table, pos, bits, window,
                   n_blocks)
@@ -327,8 +347,9 @@ def paged_attention_multi(q: torch.Tensor, k_pool: torch.Tensor,
                           n_blocks: Optional[int] = None) -> torch.Tensor:
     """In-place paged attention for a W-query window; ``window <= 0`` is
     full attention. Returns ``[B, W, Hkv, Hg, D]`` f32. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (counted in
-    ``paged_attention_multi.launches``) or raise."""
+    the plain version; ``meta`` tensors are validated as CUDA ones, then
+    take the plain version (shape arithmetic only); CUDA tensors launch
+    the kernel (counted in ``paged_attention_multi.launches``) or raise."""
     if q.device.type == "cpu":
         return paged_attention_multi_ref(
             q, k_pool, v_pool, k_ladder, v_ladder, token_idx, block_table,
@@ -337,9 +358,16 @@ def paged_attention_multi(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"the window kernel supports kv16/kv8, got kv{bits}")
     b, w, hkv, hg, d = q.shape
     _require(supports(d, hg, token_idx.shape[1], w))
-    _check(q, "q", q.dtype, (b, w, hkv, hg, d))
-    _check(k_ladder, "k_ladder", torch.float32, (b, w, hkv))
-    _check(v_ladder, "v_ladder", torch.float32, (b, w, hkv))
+    on = target(q)
+    _check(q, "q", q.dtype, (b, w, hkv, hg, d), on)
+    _check(k_ladder, "k_ladder", torch.float32, (b, w, hkv), on)
+    _check(v_ladder, "v_ladder", torch.float32, (b, w, hkv), on)
+    _validate(q.shape, q.dtype, k_pool, v_pool, token_idx, block_table,
+              pos, bits, n_blocks, on)
+    if on == "meta":
+        return paged_attention_multi_ref(
+            q, k_pool, v_pool, k_ladder, v_ladder, token_idx, block_table,
+            pos, bits=bits, window=window, n_blocks=n_blocks)
     out = _launch("paged_attention_multi", q, k_pool, v_pool, k_ladder,
                   v_ladder, token_idx, block_table, pos, bits, window,
                   n_blocks)

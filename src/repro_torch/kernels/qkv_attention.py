@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import SM_COUNT, build
-from repro_torch.kernels.build import check as _check
+from repro_torch.kernels.build import check as _check, target
 
 __all__ = ["qkv_attention", "qkv_attention_ref", "qkv_attention_cache_ref",
            "supports", "split_plan", "route_of", "MAX_D", "MAX_HG",
@@ -143,9 +143,10 @@ def qkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   k_scale: torch.Tensor, v_scale: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
     """Decode attention over the contiguous int8 cache (layout in the module
-    docstring). Returns ``[B, Hkv, Hg, D]`` f32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (counted in
-    ``qkv_attention.launches``) or raise."""
+    docstring). Returns ``[B, Hkv, Hg, D]`` f32. CPU tensors take the
+    plain version; ``meta`` tensors are validated as CUDA ones, then take
+    the plain version (shape arithmetic only); CUDA tensors launch the
+    kernel (counted in ``qkv_attention.launches``) or raise."""
     if q.device.type == "cpu":
         return qkv_attention_cache_ref(q, k, v, k_scale, v_scale, lengths)
     b, hkv, hg, d = q.shape
@@ -155,7 +156,8 @@ def qkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported shape: {why}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be f32 or bf16, got {q.dtype}")
-    _check(q, "q", q.dtype, (b, hkv, hg, d))
+    on = target(q)
+    _check(q, "q", q.dtype, (b, hkv, hg, d), on)
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.int8:
             raise ValueError(f"{name} must be an int8 tensor on {q.device}")
@@ -167,9 +169,11 @@ def qkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or any(x % 4 for x in t.stride()[:3])):
             raise ValueError(f"{name} must have a contiguous D axis and "
                              f"4-byte aligned rows")
-    _check(k_scale, "k_scale", torch.float32, (b, hkv))
-    _check(v_scale, "v_scale", torch.float32, (b, hkv))
-    _check(lengths, "lengths", torch.int32, (b, hkv))
+    _check(k_scale, "k_scale", torch.float32, (b, hkv), on)
+    _check(v_scale, "v_scale", torch.float32, (b, hkv), on)
+    _check(lengths, "lengths", torch.int32, (b, hkv), on)
+    if on == "meta":
+        return qkv_attention_cache_ref(q, k, v, k_scale, v_scale, lengths)
     splits, per = split_plan(b, hkv, s)
     out = torch.empty((b, hkv, hg, d), dtype=torch.float32, device=q.device)
     part = ml = None

@@ -43,7 +43,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.qtypes import unpack_int4
-from repro_torch.kernels.build import SM_COUNT, check, lib
+from repro_torch.kernels.build import SM_COUNT, check, lib, target
 
 __all__ = ["qmatmul", "qmatmul_ref", "dequant_ref", "requant_ref",
            "split_plan", "route_of", "prefill_rows", "DECODE_ROWS",
@@ -147,8 +147,10 @@ def qmatmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale, bits: int,
 def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
             bits: int = 8, out_bits: Optional[int] = None,
             out_scale: Optional[float] = None) -> torch.Tensor:
-    """``x[M, K] @ dequant(w_q, scale)[K, N]`` → ``[M, N]`` f32. CPU tensors
-    take the plain version; CUDA tensors launch the kernel that
+    """``x[M, K] @ dequant(w_q, scale)[K, N]`` → ``[M, N]`` f32. CPU
+    tensors take the plain version; ``meta`` tensors are validated as CUDA
+    ones, then take the plain version (shape arithmetic only); CUDA
+    tensors launch the kernel that
     :func:`route_of` names (counted in ``qmatmul.launches``, once per call,
     also when a decode call launches the merge as well; named in
     ``qmatmul.last_route``) or raise."""
@@ -166,9 +168,13 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"x must be f32 or bf16, got {x.dtype}")
     m, k = x.shape
     n = w_q.shape[1] * (2 if bits <= 4 else 1)
-    check(x, "x", x.dtype, (m, k))
-    check(w_q, "w_q", torch.int8, (k, w_q.shape[1]))
-    check(scale, "scale", torch.float32, (n,))
+    on = target(x)
+    check(x, "x", x.dtype, (m, k), on)
+    check(w_q, "w_q", torch.int8, (k, w_q.shape[1]), on)
+    check(scale, "scale", torch.float32, (n,), on)
+    if on == "meta":
+        return qmatmul_ref(x, w_q, scale, bits, out_scale=out_scale,
+                           out_bits=out_bits)
     route = route_of(m, k, n, bits, x.dtype, x.data_ptr(), w_q.data_ptr())
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     _, splits, per = split_plan(m, k, n, bits)

@@ -15,8 +15,9 @@ bf16 over f32 masters, with K5 fake-quantizing every weight site.
       [--grad-compression] [--device cpu]
 
 The step updates the parameters and moments in place (bitwise the
-reference's functional update). The reference's mesh and sharding path is
-not ported: this launcher runs on one device.
+reference's functional update). This launcher runs on one device, as the
+reference's does; its step is the one the dry run runs on ``meta`` over
+the production meshes' shardings (``launch/specs.py``, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 

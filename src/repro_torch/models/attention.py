@@ -23,6 +23,8 @@ import torch
 
 from repro_torch.core.qtypes import pack_int4, unpack_int4
 
+from .pshard import constrain
+
 __all__ = ["gqa_attention", "swa_attention", "prefix_attention",
            "decode_attention", "decode_attention_window", "KVCache",
            "init_kv_cache", "kv_scale", "update_kv_cache",
@@ -53,14 +55,21 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     n_blk = -(-skv // bk)
     qh = (q * (d ** -0.5)).to(q.dtype).reshape(b, s, hkv, hg, d)
     qh = qh.permute(0, 2, 3, 1, 4).float()                 # [B, Hkv, Hg, S, D]
-    kb = k.permute(0, 2, 1, 3)                              # [B, Hkv, Skv, D]
-    vb = v.permute(0, 2, 1, 3)
+    # sequence-sharded attention compute: S over "tp" (GQA head counts
+    # rarely divide the model axis); KV replicated across the s-shards
+    qh = constrain(qh, "dp", None, None, "tp", None)
+    kb = constrain(k.permute(0, 2, 1, 3),                 # [B, Hkv, Skv, D]
+                   "dp", None, None, None)
+    vb = constrain(v.permute(0, 2, 1, 3), "dp", None, None, None)
     win = skv + s if window is None else int(window)
     dev = q.device
     qpos = q_offset + torch.arange(s, dtype=torch.int64, device=dev)
-    m = torch.full((b, hkv, hg, s, 1), NEG_INF, device=dev)
-    l = torch.zeros((b, hkv, hg, s, 1), device=dev)
-    acc = torch.zeros((b, hkv, hg, s, d), device=dev)
+    m = constrain(torch.full((b, hkv, hg, s, 1), NEG_INF, device=dev),
+                  "dp", None, None, "tp", None)
+    l = constrain(torch.zeros((b, hkv, hg, s, 1), device=dev),
+                  "dp", None, None, "tp", None)
+    acc = constrain(torch.zeros((b, hkv, hg, s, d), device=dev),
+                    "dp", None, None, "tp", None)
     for blk in range(n_blk):
         j0 = blk * bk
         kblk = kb[:, :, j0:j0 + bk].to(q.dtype).float()
@@ -116,9 +125,12 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qh = q.float() * d ** -0.5
     qh = torch.nn.functional.pad(qh, (0, 0, 0, 0, 0, pad_q))
     qh = qh.reshape(b, nq, bq, hkv, hg, d).permute(1, 0, 3, 4, 2, 5)
+    qh = constrain(qh, None, "dp", None, None, "tp", None)
     # keys left-padded by the window, so block i's slice starts at i·bq
     kp = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, w, pad_q))
     vp = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, w, pad_q))
+    kp = constrain(kp, "dp", None, None, None)
+    vp = constrain(vp, "dp", None, None, None)
     kvp = (None if kv_valid is None else
            torch.nn.functional.pad(kv_valid, (w, pad_q)))   # pads invalid
     out = torch.empty((nq, b, hkv, hg, bq, d), device=dev)

@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import init_linear, qlinear
+from .pshard import constrain
 
 __all__ = ["init_mlp", "mlp"]
 
@@ -40,4 +41,6 @@ def mlp(params: dict, x: torch.Tensor, bits_in, bits_out, *,
         h = _act(act, g) * u
     else:
         h = _act(act, h)
+    if h.ndim == 3:  # keep d_ff on the TP axis (Megatron col→row)
+        h = constrain(h, "dp", None, "tp")
     return qlinear(params["w_out"], h, bits_out)

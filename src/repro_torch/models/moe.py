@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.core.quantizers import QTensor, dequantize, fake_quant_dynamic
 from repro_torch.runtime import compute_dtype
 from .layers import SIGNED_SYM, init_linear, qlinear
+from .pshard import constrain
 
 __all__ = ["MoEConfig", "MOE_SITES", "init_moe", "moe_ffn", "routed_dequant",
            "top_k_stable"]
@@ -168,6 +169,9 @@ def moe_ffn(params: dict, x: torch.Tensor, bits: dict, cfg: MoEConfig,
     # duplicate indices land only on the overflow row, which is dropped
     buf.scatter_(1, buf_idx[..., None].expand(-1, -1, d), x_rep)
     buf = buf[:, :-1].reshape(G, E, cap, d)
+    # groups on dp, experts on tp (EP); capacity-sharded where E does not
+    # divide the model axis
+    buf = constrain(buf, "dp", "tp", None, None)
 
     # ---- expert compute (batched products over the stacked experts) ----
     cdt = compute_dtype(dev)
@@ -179,8 +183,10 @@ def moe_ffn(params: dict, x: torch.Tensor, bits: dict, cfg: MoEConfig,
     h = (F.silu(g_) * u_).to(cdt)
     h = fake_quant_dynamic(h, int(bits["expert_out"][0]), SIGNED_SYM,
                            out_dtype=cdt)
+    h = constrain(h, "dp", "tp", None, None)
     w_out = _qmat(params["w_out"], bits["expert_out"], cdt)   # [E, f, d]
     out_buf = torch.einsum("gecf,efd->gecd", h, w_out).float()
+    out_buf = constrain(out_buf, "dp", "tp", None, None)
 
     # ---- combine: gather each assignment's row (a zero row if dropped) ----
     flat = torch.cat([out_buf.reshape(G, E * cap, d),

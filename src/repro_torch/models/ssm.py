@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import init_linear, qlinear, rms_norm
+from .pshard import constrain
 
 __all__ = ["SSMConfig", "SSMState", "init_ssm", "init_ssm_state",
            "ssd_forward", "ssm_decode_step", "softplus"]
@@ -162,6 +163,9 @@ def ssd_forward(params: dict, x: torch.Tensor, bits_in, bits_out,
     xs, b_, c_ = torch.split(xbc, [di, g * n, g * n], dim=-1)
 
     xh = xs.reshape(bsz, s, h_heads, p_dim).float()
+    # SSD head counts (24/50) rarely divide the TP axis: shard the head
+    # dim P instead
+    xh = constrain(xh, "dp", None, None, "tp")
     rep = h_heads // g
     bh = _heads(b_, g, n, rep)                           # [B, S, H, N]
     ch = _heads(c_, g, n, rep)
@@ -187,8 +191,10 @@ def ssd_forward(params: dict, x: torch.Tensor, bits_in, bits_out,
 
     # intra-chunk (diagonal blocks): (C·Bᵀ ∘ L) · x
     l_mat = torch.exp(_segsum(dac))                      # [B, H, nc, Q, Q]
+    l_mat = constrain(l_mat, "dp", None, None, "tp", None)
     cb = torch.einsum("bclhn,bcshn->bhcls", cc, bc)
     y_diag = torch.einsum("bhcls,bcshp->bclhp", cb * l_mat, xc)
+    y_diag = constrain(y_diag, "dp", None, "tp", None, None)
 
     # chunk states and the inter-chunk recurrence
     dac_cum = torch.cumsum(dac, dim=-1)                  # [B, H, nc, Q]
@@ -207,6 +213,7 @@ def ssd_forward(params: dict, x: torch.Tensor, bits_in, bits_out,
     # inter-chunk contribution
     state_decay = torch.exp(dac_cum).permute(0, 2, 3, 1)[..., None]
     y_off = torch.einsum("bclhn,bchpn->bclhp", cc, h_prev) * state_decay
+    y_off = constrain(y_off, "dp", None, "tp", None, None)
 
     y = (y_diag + y_off).reshape(bsz, s, h_heads, p_dim)
     y = y + xh * params["D"][None, None, :, None]        # skip

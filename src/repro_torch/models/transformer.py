@@ -89,13 +89,14 @@ from .layers import (SIGNED_SYM, embed_lookup, init_embed, init_linear,
                      init_norm, layer_norm, qlinear, rms_norm)
 from .mlp import init_mlp, mlp
 from .moe import MOE_SITES, init_moe, moe_ffn
+from .pshard import constrain
 from .rotary import apply_mrope, apply_rope, text_mrope_positions
 from repro_torch.core.quantizers import QTensor, dequantize, fake_quant_dynamic
 from repro_torch.runtime import compute_dtype
 
 __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "init_params", "param_count", "active_param_count", "forward",
-           "chunked_xent", "train_loss",
+           "chunked_xent", "train_loss", "layer_stack",
            "prefill", "forward_extend", "prefill_extend", "decode_step",
            "prequant_decode_weights", "overlay_params", "eff_slots",
            "paged_block_size",
@@ -437,13 +438,13 @@ def _embed_inputs(cfg: ModelConfig, params: dict, bits_row, batch: dict):
     ar = torch.arange(s, dtype=torch.int32, device=dev)
     plen = batch.get("prompt_len")
     if plen is None:
-        return x, ar[None].expand(b, s), None
+        return constrain(x, "dp", None, None), ar[None].expand(b, s), None
     pad = s - torch.as_tensor(plen, dtype=torch.int32, device=dev)
     positions = ar[None] - pad[:, None]
     valid = positions >= 0
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))
-    return x, positions, valid
+    return constrain(x, "dp", None, None), positions, valid
 
 
 def forward(params: dict, cfg: ModelConfig, bits_row, batch: dict,
@@ -517,7 +518,7 @@ def _layer_forward(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor, *,
             col = (k, v, h, tail)
         x = x + _merge(lp, attn, out)
     else:
-        x = x + attn
+        x = constrain(x + attn, "dp", None, None)
     maux = None
     if cfg.family == "moe":
         y, maux = _moe_block(cfg, lp, lb, x, valid)
@@ -525,6 +526,30 @@ def _layer_forward(cfg: ModelConfig, lp: dict, lb, x: torch.Tensor, *,
     else:
         x = x + _mlp_block(cfg, lp, lb, x)
     return x, maux, col
+
+
+def layer_stack(cfg: ModelConfig, layers: dict, layer_bits,
+                x: torch.Tensor) -> torch.Tensor:
+    """The layers of a stacked ``[n, ...]`` tree (``layer_bits [n, S,
+    2]``, host ints) over hidden states ``x [B, S, d]`` at positions
+    ``0 .. S−1``, no padding: the body of :func:`forward` between the
+    embedding and the final norm, for a slice of the stack (a pipeline
+    stage, :mod:`repro_torch.distrib.pipeline`). MoE aux losses are
+    dropped (a forward-only stage)."""
+    _require_ported(cfg)
+    n = len(layer_bits)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    for l, lp in enumerate(_unstack(layers, n)):
+        if cfg.family == "ssm":
+            x, _ = _ssm_layer_forward(cfg, lp, layer_bits[l], x, valid=None,
+                                      collect=False)
+        else:
+            x, _, _ = _layer_forward(cfg, lp, layer_bits[l], x,
+                                     positions=positions, valid=None,
+                                     kv_eff=None, collect=False)
+    return x
 
 
 def _records(tree) -> bool:
@@ -632,7 +657,7 @@ def _chunk_loss(cfg: ModelConfig, params: dict, bits_row, h: torch.Tensor,
                 labels: torch.Tensor):
     """One chunk's ``(sum of masked nll, count)``: ``logsumexp − gold``
     over the positions whose label is ``>= 0``."""
-    logits = _logits(cfg, params, bits_row, h)
+    logits = constrain(_logits(cfg, params, bits_row, h), "dp", None, "tp")
     logz = torch.logsumexp(logits, dim=-1)
     gold = _PickGold.apply(logits, labels.clamp_min(0).long())
     mask = (labels >= 0).float()
@@ -985,6 +1010,7 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     valid = local >= 0
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
                                                      device=dev))
+    x = constrain(x, "dp", None, None)
     sched = _kv_row(cfg, kv_sched)
     ks, vs = [], []
     for l in range(cfg.n_layers):
@@ -997,6 +1023,7 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
                                 suffix_valid=valid)
         x = x + qlinear(lp["attn_out"], attn.reshape(b, s, -1),
                         lb[_site_idx(cfg, "attn_out")])
+        x = constrain(x, "dp", None, None)
         x = x + _mlp_block(cfg, lp, lb, x)
         ks.append(k)
         vs.append(v)

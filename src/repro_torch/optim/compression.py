@@ -20,8 +20,9 @@ a large leaf, a run of rows of its leading axis at a time (the arithmetic is
 elementwise, so the slices change no value), so a leaf of several GB
 never has more than one slice of temporaries beside it; with
 ``release=True`` it also drops each raw gradient from ``grads`` as soon as
-that leaf is compressed. The all-reduce over a process group
-(``compressed_psum``) waits for the port's multi-device work.
+that leaf is compressed. :func:`compressed_psum` is the reduction over a
+process group: compress locally, all-reduce ``q · s`` per leaf in f32 (the
+reference's wire: it sums f32 payloads), divide by the group's size.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 from repro_torch.optim.adam import _slices
 
 __all__ = ["CompressionState", "init_error_feedback", "quantize_leaf",
-           "compress_tree", "decompress_tree"]
+           "compress_tree", "decompress_tree", "compressed_psum"]
 
 
 class CompressionState(NamedTuple):
@@ -131,3 +132,25 @@ def decompress_tree(q_tree, scales, release: bool = False):
             _set(q_tree, path, None)
         _set(out, path, q.float().mul_(_get(scales, path)))
     return out
+
+
+def compressed_psum(grads, state: CompressionState, u_or_generator,
+                    group=None):
+    """The mean over ``group``'s ranks of each rank's compressed gradients,
+    as the reference's ``compressed_psum`` computes it inside
+    ``shard_map``: quantize locally (:func:`compress_tree`, with the
+    uniforms tree or ``torch.Generator`` given), all-reduce ``q.float() ·
+    s`` per leaf, divide by the group size. Returns ``(mean tree,
+    state)``; the new residual is the local one, as in the reference."""
+    import torch.distributed as dist
+    from repro_torch.distrib.collectives import all_reduce_
+    if isinstance(u_or_generator, torch.Generator):
+        q, s, state = compress_tree(grads, state, generator=u_or_generator)
+    else:
+        q, s, state = compress_tree(grads, state, uniforms=u_or_generator)
+    n = dist.get_world_size(group)
+    out: dict = {}
+    for path in _paths(q):
+        payload = _get(q, path).float() * _get(s, path)
+        _set(out, path, all_reduce_(payload, group) / n)
+    return out, state

@@ -99,14 +99,38 @@ def test_aquant_idempotent_and_grid():
 
 
 def test_aquant_wrapper_rejects_what_the_kernel_cannot_take():
-    """Off the CPU the wrapper validates before any build or launch."""
+    """Off the CPU the wrapper validates before any build or launch; a
+    ``meta`` tensor that passes takes the plain version (shape arithmetic
+    for the dry run) and counts no launch."""
     x = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError, match="2..16"):
         AQ.aquant(x, 17)
     with pytest.raises(ValueError, match="f32 or bf16"):
         AQ.aquant(x.half(), 8)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        AQ.aquant(x, 8)
+    with pytest.raises(ValueError, match="bf16 from f32"):
+        AQ.aquant(x.bfloat16(), 8, out_dtype=torch.float32)
+    launches = AQ.aquant.launches
+    y = AQ.aquant(x, 8, out_dtype=torch.bfloat16)
+    assert (y.device.type, y.shape, y.dtype) == ("meta", x.shape,
+                                                 torch.bfloat16)
+    assert AQ.aquant.launches == launches
+
+
+def test_operand_check_refuses_a_device_that_is_not_cuda():
+    """The kernels' shared operand check refuses any device but the one a
+    wrapper holds the call to: CUDA unless the call is a meta one."""
+    from repro_torch.kernels.build import check, target
+    x, xc = torch.zeros(4, 8, device="meta"), torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        check(x, "x", torch.float32, (4, 8))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        check(xc, "x", torch.float32, (4, 8))
+    assert target(x) == "meta" and target(xc) == "cuda"
+    check(x, "x", torch.float32, (4, 8), target(x))
+    with pytest.raises(ValueError, match="must be a meta tensor"):
+        check(xc, "x", torch.float32, (4, 8), target(x))
+    with pytest.raises(ValueError, match="must have shape"):
+        check(x, "x", torch.float32, (8, 4), target(x))
 
 
 @pytest.mark.parametrize("bits,po2", [(8, True), (4, True), (16, True),

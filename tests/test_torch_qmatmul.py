@@ -114,7 +114,9 @@ def test_qmatmul_batched_and_grad(bits):
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take():
-    """Off the CPU the wrapper validates before any build or launch."""
+    """Off the CPU the wrapper validates before any build or launch; a
+    ``meta`` tensor that passes takes the plain version (shape arithmetic
+    for the dry run) and counts no launch."""
     x = torch.zeros(4, 32, device="meta")
     w = torch.zeros(32, 16, dtype=torch.int8, device="meta")
     s = torch.ones(16, device="meta")
@@ -122,7 +124,10 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
         K.qmatmul(x, w, s, bits=16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         K.qmatmul(x.half(), w, s)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        K.qmatmul(x, w, s)
+    launches = K.qmatmul.launches
+    y = K.qmatmul(x, w, s)
+    assert (y.device.type, y.shape, y.dtype) == ("meta", (4, 16),
+                                                 torch.float32)
+    assert K.qmatmul.launches == launches
     with pytest.raises(ValueError, match="go together"):
         K.qmatmul(x, w, s, out_bits=8)

@@ -205,16 +205,20 @@ def test_window_plain_matches_pallas_interpret_and_view(bits, window, w):
 def test_window_wrapper_rejects_what_the_kernel_cannot_take():
     """CUDA tensors launch or raise; validation runs before any build. A
     window of any width passes the shape check (the kernel tiles its query
-    rows): W·Hg = 72 gets as far as the device check. The limits that stay
-    — D odd or above 256 — raise on the shape itself."""
+    rows): W·Hg = 72 gets past it, and on ``meta`` tensors on to the plain
+    version (shape arithmetic for the dry run). The limits that stay — D
+    odd or above 256 — raise on the shape itself."""
     x = _convert(_window_inputs(16, 2), 16, torch)
     meta = {n: a.to("meta") for n, a in x.items()}
     with pytest.raises(ValueError, match="kv16/kv8"):
         PA.paged_attention_multi(**meta, bits=4)
-    big = dict(meta, q=torch.zeros(7, 9, HKV, 8, D, device="meta"))
+    b = x["q"].shape[0]
+    big = dict(meta, q=torch.zeros(b, 9, HKV, 8, D, device="meta"),
+               k_ladder=torch.zeros(b, 9, HKV, device="meta"),
+               v_ladder=torch.zeros(b, 9, HKV, device="meta"))
     assert PA.supports(D, 8, BS, 9) is None
-    with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        PA.paged_attention_multi(**big)
+    out = PA.paged_attention_multi(**big)
+    assert (out.device.type, out.shape) == ("meta", (b, 9, HKV, 8, D))
     for d in (D + 1, 258):
         odd = dict(meta, q=torch.zeros(7, 2, HKV, HG, d, device="meta"))
         with pytest.raises(ValueError, match="head dim"):
