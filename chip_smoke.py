@@ -74,18 +74,18 @@ Phases:
     K1 and the kv8 einsum never; then the contiguous pool with
     ``--speculate --draft-k 4`` (windows, billed = delivered, tok/s);
  8. shared prefixes and chunked prefill through the launcher's
-    ``--continuous`` path in bf16 at granite-3-2b's widths cut to
-    ``FEATURE_LAYERS`` (10) layers: 12 requests on one 384-token system
+    ``--continuous`` path in bf16 at granite-3-2b's ``FEATURE_LAYERS``
+    (40) layers: 12 requests on one 384-token system
     prompt at kv16 and kv8, with and without ``--no-prefix-cache``
-    (registry hits, prefill tokens, peak blocks, tok/s; K1 launches = 10 ×
+    (registry hits, prefill tokens, peak blocks, tok/s; K1 launches = 40 ×
     decode steps, no gather; the shared blocks' bytes unchanged), then
     phase 4's requests with ``--prefill-chunk 128``;
- 9. priority classes and preemption in bf16 at granite's widths cut to
-    10 layers (``--priority-classes 2 --preemption``): 8 saver requests
+ 9. priority classes and preemption in bf16 at granite's
+    ``FEATURE_LAYERS`` (``--priority-classes 2 --preemption``): 8 saver requests
     fill the pool, 4 critical ones arrive after 2 rounds; at kv16 and kv8
     under slot pressure and at kv16 under block pressure: preemptions =
     resumes >= 1, the first restore bitwise equal to its snapshot, billed =
-    delivered, K1 = 10 × decode steps; tok/s, peak blocks and the critical
+    delivered, K1 = 40 × decode steps; tok/s, peak blocks and the critical
     requests' rounds to their first token;
 10. the per-layer KV precision policy (profile 0 all-16, profiles 1–5 a
     striped 4/8/16 row, a small energy budget moving the serve into them):
@@ -94,12 +94,12 @@ Phases:
     gives the tokens of no policy, the striped one changes a stream,
     static kv8 gives the same tokens through K4 as through the einsum, and
     the frontier search runs on the card; then the launcher's
-    ``--continuous --precision-policy`` in bf16 at granite's widths cut to
-    10 layers (phase 4's requests, a 10-layer striped row in the
-    frontier's JSON format: K1 = 10 × decode steps, billed = delivered,
+    ``--continuous --precision-policy`` in bf16 at granite's
+    ``FEATURE_LAYERS`` (phase 4's requests, a 40-layer striped row in the
+    frontier's JSON format: K1 = 40 × decode steps, billed = delivered,
     tok/s and peak memory beside the serve without the policy, the
     refine's own cost per call) and its static path at ``--kv-bits 8`` (K4
-    = 10 × decode steps);
+    = 40 × decode steps);
 11. fault-tolerant serving: (a) at granite-3-2b widths, 4 layers, f32,
     one scenario (a recoverable NaN, a NaN on every attempt that exhausts
     ``retry_budget=2``, a dry allocator round, a flush stall the watchdog
@@ -110,8 +110,8 @@ Phases:
     events and the robustness counters equal across backends, the
     recovered tokens equal a clean accuracy-critical run's, 0 used blocks
     at drain; (b) the launcher's ``--continuous --inject-faults
-    --paranoid`` in bf16 at granite's widths cut to 10 layers beside the
-    serve without faults (K1 = 10 × decode steps, faults detected = NaNs
+    --paranoid`` in bf16 at granite's ``FEATURE_LAYERS`` beside the
+    serve without faults (K1 = 40 × decode steps, faults detected = NaNs
     injected, tok/s, the audit's host ms per step), then a direct serve
     with a shed policy, a cancel and an expiry (billed = delivered, 0 used
     blocks);
@@ -179,9 +179,9 @@ Phases:
     the head N 32001 take the bytewise split-K and mma.sync routes), K5 bit
     for bit on hymba's images at bits 8 and 4, each timed beside its
     library call and bound; (c) the launcher's ``--arch hymba-1.5b --full``
-    workload at hymba's widths cut to ``HYMBA_FEATURE_LAYERS`` (8) layers
-    on the paged pool (K1 = 8 x decode steps), ``--kv-bits 8`` static (K4
-    = 8 x 62) and from ``to_native(params, 8)`` (K3 = 49 x (decode steps
+    workload at hymba's ``HYMBA_FEATURE_LAYERS`` (32) layers
+    on the paged pool (K1 = 32 x decode steps), ``--kv-bits 8`` static (K4
+    = 32 x 62) and from ``to_native(params, 8)`` (K3 = 193 x (decode steps
     + prefill waves)): tok/s, peak memory, KV and SSM bytes;
     (d) under ``torch.profiler``: one admission wave and one decode
     segment.
@@ -260,7 +260,9 @@ Phases:
     phase 4's requests, one 8-step kv16 segment traced on the kernel path
     and on the gather path: the largest output, the view, the pool updated
     in place, device->host and host->device transfers per segment, aten
-    ops per decode step, K1 launches (= 40 x 8 on the kernel path).
+    ops per decode step, K1 launches (= 40 x 8 on the kernel path); then
+    a warm graphed segment and one traced graphed segment on the same
+    plan (no capture in it; aten ops per step, one host->device copy).
 21. multi-device on the one card: four spawned ranks (``torch.cuda.
     set_device(0)``, a gloo group, activations and gradients hop through
     host memory): (a) the reference test's toy pipeline (L 8, D 16, B 12,
@@ -280,10 +282,28 @@ Phases:
     512-device meshes, status, per-device argument bytes beside this
     card's memory, flops per device. The times describe four processes
     sharing one card, not a multi-GPU host.
-Depth: phases 8, 9, 10 (its launcher serves), 11 (b) and 15 (c) check
-features at the published widths with the depth cut (``cut_depth``:
-granite at 10 of 40 layers, hymba at 8 of 32), so that all phases fit the
-time limit; phase 4 serves all 40 layers.
+22. the decode segment replayed from CUDA graphs (``serving/graphs.py``):
+    granite-3-2b at full width on phase 4's workload, kv16, kv8 and kv4
+    paged, kv8 contiguous and native W8, each served through the
+    launcher's path eagerly (``graphs=False``) and then graphed, from one
+    manager state: tokens, traces, statuses, events, admission order and
+    the ledger equal; captures = the distinct profile ids the segments
+    used, in one pool lifetime; every graphed segment under
+    ``set_sync_debug_mode("error")``; K1, K4 or K3 launches equal on both
+    (counted as launches per capture x replays on the graphed one); peak
+    memory within 10 % of the eager serve's; tok/s of both; one steady
+    kv16 segment of each under ``torch.profiler`` (wall, device busy).
+Segment graphs: on the card every non-speculative scheduler on the kernel
+backend or a contiguous pool replays its decode steps from CUDA graphs
+(one capture per profile id per pool lifetime), so phases 3–12 and 14–16
+serve graphed; the (c) serves of phases 14–16 are also served eagerly
+once and held equal, and phase 20 (b) traces a graphed segment beside the
+eager ones.
+Depth: phases 8, 9, 10 (its launcher serves), 11 (b) and 15 (c) serve
+at ``FEATURE_LAYERS`` / ``HYMBA_FEATURE_LAYERS`` (``cut_depth``), the
+published depths (40 and 32) since the graphed segment made room for
+them; a run that outgrows its limit cuts these first, depth and never
+width.
 Each phase prints its seconds, and the run its total.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -292,6 +312,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import itertools
 import json
 import subprocess
@@ -314,11 +335,11 @@ ATOL = 1e-4                       # kernel vs plain, f32 outputs
 CARD_SERVER = dict(slots=1024, max_batch=8)
 CARD_PROMPTS = dict(prompt_lens=(64, 513))
 # Depth of the serving phases that check a feature on the main path's
-# widths rather than the main path itself (8, 9, 10 (b)-(c), 11 (b): granite
-# at 10 of its 40 layers; 15 (c): hymba at 8 of its 32), so that all phases
-# fit the run's time limit. Phase 4 serves all 40 layers.
-FEATURE_LAYERS = 10
-HYMBA_FEATURE_LAYERS = 8
+# widths rather than the main path itself (8, 9, 10 (b)-(c), 11 (b): granite;
+# 15 (c): hymba): the published 40 and 32, the first thing to cut should
+# the phases outgrow the run's time limit.
+FEATURE_LAYERS = 40
+HYMBA_FEATURE_LAYERS = 32
 
 
 @contextlib.contextmanager
@@ -4468,6 +4489,7 @@ def phase_ssm_serve(seed: int, w_bits=None) -> dict:
         srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
             slots=1024, max_batch=8), manager=mgr, device="cuda")
     reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
+    mgr0 = copy.deepcopy(srv.manager)
     out = S.serve(srv, reqs, args.quantum, continuous=True)
     k3, k5, deq = (QM.qmatmul.launches, AQ.aquant.launches,
                    LY.dequant_matmul.calls)
@@ -4503,6 +4525,9 @@ def phase_ssm_serve(seed: int, w_bits=None) -> dict:
     if k5 == 0 or k3 != want_k3 or deq:
         raise AssertionError(f"mamba2 {tag} did not run through K5 and K3 "
                              f"as counted")
+    if w_bits is None:
+        check_graphed(f"[mamba2] (c) {tag}", srv, reqs, args.quantum, out,
+                      mgr0)
     del srv, sched, out, nat
     torch.cuda.empty_cache()
     return {"k3": k3, "k5": k5, "tok_s": n_tok / wall, "peak": peak}
@@ -4894,6 +4919,7 @@ def phase_hybrid_serve(seed: int, mode: str) -> dict:
         srv = AdaptiveServer(cfg, nat, engine, ServingConfig(
             slots=1024, max_batch=8), manager=mgr, device="cuda")
     reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
+    mgr0 = copy.deepcopy(srv.manager)
     out = S.serve(srv, reqs, args.quantum, continuous=mode != "kv8")
     k1, k3, k4, k5 = (PA.paged_attention.launches, QM.qmatmul.launches,
                       QK.qkv_attention.launches, AQ.aquant.launches)
@@ -4948,6 +4974,9 @@ def phase_hybrid_serve(seed: int, mode: str) -> dict:
             or deq or gathers or k4 or (mode == "paged" and k5 == 0)):
         raise AssertionError(f"the hymba {mode} serve did not run as "
                              f"counted")
+    if mode == "paged":
+        check_graphed("[hymba] (c) paged", srv, reqs, args.quantum, out,
+                      mgr0)
     del srv, sched, out, nat
     torch.cuda.empty_cache()
     return {"k1": k1, "k3": k3, "k5": k5, "tok_s": n_tok / wall,
@@ -5285,6 +5314,7 @@ def phase_moe_serve(seed: int, mode: str) -> dict:
     t_build = time.perf_counter() - t0
     k5_build = AQ.aquant.launches
     reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
+    mgr0 = copy.deepcopy(srv.manager)
     out = S.serve(srv, reqs, args.quantum, continuous=True)
     k1, k3, k4 = (PA.paged_attention.launches, QM.qmatmul.launches,
                   QK.qkv_attention.launches)
@@ -5331,6 +5361,8 @@ def phase_moe_serve(seed: int, mode: str) -> dict:
             or (mode == "native") != (k5_build == 0)):
         raise AssertionError(f"the qwen2-moe {mode} serve did not run as "
                              f"counted")
+    if mode == "paged":
+        check_graphed("[moe] (c) paged", srv, reqs, args.quantum, out, mgr0)
     del srv, sched, out, nat
     torch.cuda.empty_cache()
     return {**got, "k5_build": k5_build, "tok_s": n_tok / wall, "peak": peak,
@@ -6503,6 +6535,41 @@ def phase_segment_trace(seed: int) -> dict:
                         "in_place": rep.ok, "d2h": tr.d2h, "h2d": tr.h2d,
                         "ops_per_step": ops, "k1": k1}
     srv.paged_backend = "kernel"
+    # the graphed path: a warm segment captures its profile ids, then the
+    # same plan replays under the trace (graph replays dispatch no aten op)
+    g = sched.graphs
+    plan = sched._plan(steps)
+    with torch.no_grad():
+        _, _, sched._tok, sched._pos, sched._caches = srv.segment(
+            plan, sched._tok, sched._pos, sched._caches, sched.remaining,
+            graphs=g)
+    sched.remaining = sched.remaining - np.minimum(sched.remaining, steps)
+    caps = g.capture_count()
+    PA.paged_attention.launches = A.paged_view.calls = 0
+    with torch.no_grad():
+        rep = O.verify_in_place(
+            lambda *a: srv.segment(*a, graphs=g),
+            BG.pool_carries(sched._caches["kv"]), plan, sched._tok,
+            sched._pos, sched._caches, sched.remaining,
+            after=lambda res: BG.pool_carries(res[-1]["kv"]))
+    torch.cuda.synchronize()
+    tr = O.count_transfers(rep.trace)
+    out["graphed"] = {"max_bytes": O.max_out_bytes(rep.trace),
+                      "view": O.has_adjacent_dims(rep.trace, dims),
+                      "in_place": rep.ok, "d2h": tr.d2h, "h2d": tr.h2d,
+                      "ops_per_step": len(rep.trace) / steps,
+                      "k1": PA.paged_attention.launches, "captures": caps,
+                      "captured_in_trace": g.capture_count() - caps}
+    gr = out["graphed"]
+    print(f"[trace] graphed: {caps} captures ({g.captured}) in the warm "
+          f"segment, {gr['captured_in_trace']} in the traced one; max out "
+          f"{gr['max_bytes']:,} B, gather view "
+          f"{'present' if gr['view'] else 'absent'}, in place "
+          f"{'ok' if gr['in_place'] else 'no'}, transfers per segment d2h "
+          f"{gr['d2h']} h2d {gr['h2d']}, {gr['ops_per_step']:.1f} aten ops "
+          f"per step (eager kernel path {out['kernel']['ops_per_step']:.1f})"
+          f", K1 launches {gr['k1']} (launches per capture x replays)")
+    print(f"[trace] graphed: ops {sorted(O.count_ops(rep.trace).items())}")
     kern, gath = out["kernel"], out["gather"]
     if kern["view"] or not kern["in_place"]:
         failed.append("kernel path view or in-place")
@@ -6510,9 +6577,13 @@ def phase_segment_trace(seed: int) -> dict:
         failed.append(f"K1 launches {kern['k1']} / {gath['k1']}")
     if not gath["view"] or gath["in_place"]:
         failed.append("the gather path went unseen")
+    if (gr["view"] or not gr["in_place"] or gr["k1"] != cfg.n_layers * steps
+            or gr["captured_in_trace"] or not caps
+            or (gr["d2h"], gr["h2d"]) != (0, 1)):
+        failed.append(f"graphed path {gr}")
     del sched, srv
     free_card("trace")
-    return {"failed": failed, "k1": kern["k1"], "trace": out}
+    return {"failed": failed, "k1": kern["k1"] + gr["k1"], "trace": out}
 
 
 # ---------------------------------------------------------------------------
@@ -6853,6 +6924,261 @@ def phase_distrib(seed: int) -> dict:
     return {"k5": sum(r["bf16"]["k5"] for r in res)}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the decode segment replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+# (label, the launcher's arguments, native weight bits or None)
+GRAPH_MODES = (("kv16 paged", ["--kv-bits", "16"], None),
+               ("kv8 paged", ["--kv-bits", "8"], None),
+               ("kv4 paged", ["--kv-bits", "4"], None),
+               ("kv8 contiguous", ["--kv-bits", "8", "--no-paged-kv"], None),
+               ("native W8", ["--kv-bits", "16"], 8))
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """``torch.cuda.set_sync_debug_mode("error")`` while the block runs:
+    a synchronizing CUDA call raises (a capture's own synchronize is let
+    through by ``serving/graphs.py::cuda_capture``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def watch_segments(srv, schedules: list, guard: bool) -> None:
+    """Record every decode segment's schedule on ``srv`` and, with
+    ``guard``, run each under :func:`sync_errors` (an instance attribute
+    shadowing ``AdaptiveServer.segment``; ``del srv.segment`` restores)."""
+    orig = srv.segment
+
+    def segment(schedule, *a, **k):
+        schedules.append([int(p) for p in schedule])
+        if not guard:
+            return orig(schedule, *a, **k)
+        with sync_errors():
+            return orig(schedule, *a, **k)
+    srv.segment = segment
+
+
+def served(out) -> dict:
+    """What an eager and a graphed serve must agree on: each request's
+    tokens, profile trace and status, the billing events, the admission
+    order and the ledger's spent energy."""
+    sched = out["sched"]
+    return {"tokens": [r["tokens"] for r in out["results"]],
+            "traces": [r["profile_trace"] for r in out["results"]],
+            "status": [r["status"].value for r in out["results"]],
+            "events": list(sched.events),
+            "admission": list(sched.admission_log),
+            "spent_j": (None if sched.srv.manager is None
+                        else sched.srv.manager.spent_j)}
+
+
+def graph_counts(sched, schedules: list) -> dict:
+    """A graphed serve's captures against the profile ids its segments
+    used: one capture per distinct id, none of an id already captured."""
+    g = sched.graphs
+    if g is None:
+        raise AssertionError("the serve did not run on segment graphs")
+    used = sorted({p for s in schedules for p in s})
+    if sorted(g.captured) != used or len(set(g.captured)) != len(g.captured):
+        raise AssertionError(f"captures {g.captured} for profile ids {used}")
+    if g.lifetimes != 1:
+        raise AssertionError(f"{g.lifetimes} pool lifetimes in one serve")
+    return {"captures": len(g.captured), "pids": used,
+            "replays": g.replays}
+
+
+def check_graphed(tag: str, srv, reqs, quantum: int, graphed, mgr0) -> None:
+    """The families' (c) check: ``graphed``, the launcher's serve of
+    ``reqs`` on ``srv`` (segment graphs, the default on the card), equals
+    the same serve through the eager segment (``graphs=False``) from the
+    same manager state ``mgr0`` (:func:`served`); one capture per profile
+    id the segments used (:func:`graph_counts`)."""
+    from repro_torch.launch import serve as S
+
+    sched = graphed["sched"]
+    want = served(graphed)
+    g = graph_counts(sched, [[p] for p in sched.graphs.used])
+    srv.manager = copy.deepcopy(mgr0)
+    out = S.serve(srv, reqs, quantum, continuous=True,
+                  sched_kw={"graphs": False})
+    if out["sched"].graphs is not None:
+        raise AssertionError(f"{tag}: the eager serve ran on graphs")
+    got = served(out)
+    for key in got:
+        if got[key] != want[key]:
+            raise AssertionError(f"{tag}: eager and graphed serves differ "
+                                 f"in {key}")
+    n_tok = sum(len(t) for t in got["tokens"])
+    print(f"{tag}: eager = graphed (tokens, traces, statuses, "
+          f"{len(want['events'])} events, admission order, ledger); "
+          f"captures {g['captures']} = profile ids {g['pids']}, replays "
+          f"{g['replays']}; eager {out['wall_s']:.3f}s = "
+          f"{n_tok / out['wall_s']:.2f} tok/s, graphed "
+          f"{graphed['wall_s']:.3f}s = {n_tok / graphed['wall_s']:.2f} "
+          f"tok/s")
+
+
+def profile_segment(srv, reqs, quantum: int, graphs: bool) -> dict:
+    """One steady decode segment (8 rows admitted, a warm segment first:
+    its captures) under ``torch.profiler``: wall and device-busy ms, and
+    the captures the profiled segment made (0: the caller serves one
+    profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    sched = ContinuousScheduler(srv, quantum=quantum, graphs=graphs)
+    for r in reqs:
+        sched.submit(r)
+    sched.admit()
+    sched.run_segment()
+    sched._flush()
+    before = 0 if sched.graphs is None else sched.graphs.capture_count()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.run_segment()
+        sched._flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) is not None
+          and str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    after = 0 if sched.graphs is None else sched.graphs.capture_count()
+    del sched
+    return {"wall_ms": wall, "busy_ms": busy, "captures": after - before,
+            "kernels": sum(e.count for e in ev)}
+
+
+def phase_graphs(seed: int) -> dict:
+    """Phase 22: granite-3-2b at full width on phase 4's workload (the
+    launcher's ``--full --continuous``, 12 requests of 64–512 tokens, 32
+    new tokens, 8 rows, quantum 8, bf16) at kv16, kv8 and kv4 paged, kv8
+    contiguous and native W8, each served eagerly (``graphs=False``) and
+    then from the segment's CUDA graphs, one manager state for both:
+    tokens, traces, statuses, events, admission order and the ledger equal;
+    captures = the distinct profile ids the segments used, none of an id
+    already captured, in one pool lifetime; every graphed segment under
+    ``set_sync_debug_mode("error")``; K1 (paged), K4 (contiguous) or K3
+    (native) launches as counted on the eager path, equal on the graphed
+    one; peak memory within 10 % of the eager serve's; tok/s of both; and
+    for kv16 paged, one steady segment of each without the manager (one
+    profile) under ``torch.profiler`` (wall, device busy, busy share, 0
+    captures)."""
+    import gc
+    from repro_torch.launch import serve as S
+    from repro_torch.models.native import to_native
+    from repro_torch.serving import graphs as G
+    from repro_torch.serving.engine import AdaptiveServer
+
+    out = {}
+    for label, extra, w_bits in GRAPH_MODES:
+        free_card("graphs")
+        args = S.parse_args(["--continuous", "--full", "--requests", "12",
+                             "--max-new", "32", "--quantum", "8",
+                             "--block-size", "16", "--seed", str(seed),
+                             *extra])
+        cfg, srv = S.build_server(args, **CARD_SERVER)
+        if w_bits is not None:
+            nat = to_native(srv.params, w_bits)
+            srv = AdaptiveServer(cfg, nat, srv.engine, srv.scfg,
+                                 manager=srv.manager, device="cuda")
+            del nat
+        gc.collect()
+        reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
+        mgr0 = copy.deepcopy(srv.manager)
+        runs = {}
+        for path in ("eager", "graphed"):
+            graphed = path == "graphed"
+            srv.manager = copy.deepcopy(mgr0)
+            schedules: list = []
+            watch_segments(srv, schedules, guard=graphed)
+            c0 = [getattr(f, a) for f, a in G.counters()]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            res = S.serve(srv, reqs, args.quantum, continuous=True,
+                          sched_kw={"graphs": graphed})
+            del srv.segment
+            counts = {f"{f.__name__}.{a}": getattr(f, a) - c
+                      for (f, a), c in zip(G.counters(), c0)}
+            sched = res["sched"]
+            runs[path] = {"served": served(res), "wall": res["wall_s"],
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "counts": counts, "steps": sched.decode_steps,
+                          "segments": sched.segments_run,
+                          "graphs": (graph_counts(sched, schedules)
+                                     if graphed else None)}
+            if not graphed and sched.graphs is not None:
+                raise AssertionError(f"{label}: the eager serve ran on graphs")
+            del res, sched
+        e, g = runs["eager"], runs["graphed"]
+        for key in e["served"]:
+            if e["served"][key] != g["served"][key]:
+                raise AssertionError(f"[graphs] {label}: eager and graphed "
+                                     f"differ in {key}")
+        if e["counts"] != g["counts"] or e["steps"] != g["steps"]:
+            raise AssertionError(f"[graphs] {label}: launches eager "
+                                 f"{e['counts']} graphed {g['counts']}")
+        kname = ("qmatmul.launches" if w_bits else
+                 "qkv_attention.launches" if "--no-paged-kv" in extra else
+                 "paged_attention.launches")
+        per = (4 if w_bits else 1) * cfg.n_layers
+        if w_bits:
+            waves = len(g["served"]["events"]) - g["steps"]
+            want = per * (g["steps"] + waves)
+        else:
+            want = per * g["steps"]
+        if g["counts"][kname] != want:
+            raise AssertionError(f"[graphs] {label}: {kname} "
+                                 f"{g['counts'][kname]} != {want}")
+        n_tok = sum(len(t) for t in g["served"]["tokens"])
+        ratio = g["peak"] / e["peak"]
+        print(f"[graphs] {label}: eager = graphed (tokens, traces, statuses, "
+              f"{len(g['served']['events'])} events, admission order, ledger "
+              f"{g['served']['spent_j']:.6e} J); {kname} {g['counts'][kname]}"
+              f" = {want} on both; captures {g['graphs']['captures']} = "
+              f"profile ids {g['graphs']['pids']}, replays "
+              f"{g['graphs']['replays']}, {g['segments']} segments, "
+              f"{g['steps']} decode steps; {n_tok} tokens: eager "
+              f"{e['wall']:.3f}s = {n_tok / e['wall']:.2f} tok/s, graphed "
+              f"{g['wall']:.3f}s = {n_tok / g['wall']:.2f} tok/s "
+              f"({e['wall'] / g['wall']:.2f}x); peak memory eager "
+              f"{e['peak'] / 2**30:.3f} GiB, graphed {g['peak'] / 2**30:.3f}"
+              f" GiB ({ratio:.4f})")
+        if ratio > 1.10:
+            raise AssertionError(f"[graphs] {label}: graphed peak memory "
+                                 f"{ratio:.3f} x the eager serve's")
+        row = {"eager_tok_s": n_tok / e["wall"], "graphed_tok_s":
+               n_tok / g["wall"], "peak_ratio": ratio,
+               "captures": g["graphs"]["captures"], kname: want}
+        if label == "kv16 paged":
+            srv.manager = None               # one profile: a steady segment
+            for path, graphed in (("eager", False), ("graphed", True)):
+                p = profile_segment(srv, reqs[:8], args.quantum, graphed)
+                row[path] = p
+                print(f"[graphs] {label}: one steady segment {path} (8 "
+                      f"steps x {cfg.n_layers} layers, 8 rows): wall "
+                      f"{p['wall_ms']:.2f} ms, device busy "
+                      f"{p['busy_ms']:.2f} ms "
+                      f"({100 * p['busy_ms'] / p['wall_ms']:.1f}%), "
+                      f"{p['kernels']} device kernels, captures in it "
+                      f"{p['captures']}")
+                if p["captures"]:
+                    raise AssertionError(f"[graphs] a steady {path} segment "
+                                         f"captured {p['captures']}")
+        out[label] = row
+        del srv
+    free_card("graphs")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     """One row of the kernel table: the main path's launch count and the
     phase-2 row of the kernel at its main-path shape (every kernel also
@@ -6871,8 +7197,10 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     hubert path: K3's native W8 forward, K5's fake-quant forward; phase
     19's on the training path: K5's launches over the 8 full-width
     granite steps; phase 20's under the static gate's budget traces and,
-    for K1, the full-width segment trace; phase 21's, for K5, over the
-    four ranks' timed bf16 pipeline run)."""
+    for K1, the full-width segment traces, eager and graphed; phase 21's,
+    for K5, over the four ranks' timed bf16 pipeline run; phase 22's on
+    the graphed segment: K1's kv16 paged serve, K4's kv8 contiguous one,
+    K3's native W8 one)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -6902,7 +7230,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                            "18,19,20,21")
+                            "18,19,20,21,22")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also break one full-width decode segment down "
@@ -7077,6 +7405,10 @@ def main() -> None:
     if 21 in phases:
         with timed(21):
             distrib = phase_distrib(args.seed)
+    graphs = {}
+    if 22 in phases:
+        with timed(22):
+            graphs = phase_graphs(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -7087,7 +7419,9 @@ def main() -> None:
             rows["k1"], policy_launches=policy["k1"],
             fault_launches=faults["k1"], durable_launches=durable["k1"],
             hymba_launches=hymba["k1"], moe_launches=moe["k1"],
-            vlm_launches=vlm["k1"], analysis_launches=gate["k1"]))
+            vlm_launches=vlm["k1"], analysis_launches=gate["k1"],
+            graph_launches=graphs.get("kv16 paged", {}).get(
+                "paged_attention.launches", 0)))
         kernels.append(kernel_entry(
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
@@ -7097,13 +7431,17 @@ def main() -> None:
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
             native["k3"], rows["k3"], mamba2_launches=mamba2["k3"],
             hymba_launches=hymba["k3"], moe_launches=moe["k3"],
-            vlm_launches=vlm["k3"], audio_launches=audio["k3"]))
+            vlm_launches=vlm["k3"], audio_launches=audio["k3"],
+            graph_launches=graphs.get("native W8", {}).get(
+                "qmatmul.launches", 0)))
         kernels.append(kernel_entry(
             "qkv_attention", "qkv_attention.cu",
             "src/repro/kernels/qkv_attention.py:68", static["launches"],
             rows["k4"], policy_launches=policy["k4"],
             fault_launches=faults["k4"], hymba_launches=hymba["k4"],
-            moe_launches=moe["k4"], vlm_launches=vlm["k4"]))
+            moe_launches=moe["k4"], vlm_launches=vlm["k4"],
+            graph_launches=graphs.get("kv8 contiguous", {}).get(
+                "qkv_attention.launches", 0)))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",
             native["k5"], rows["k5"], cnn_launches=cnn["k5"],

@@ -37,11 +37,17 @@ Runtime ceilings enforced by the scenario audit
   prefill waves (cold / shared / resume / chunk continuation) per
   ``admit()`` round;
 - ``no-per-token-dispatch`` — the server's stepwise oracle
-  (``generate_stepwise``) is never called by the fused serving path.
+  (``generate_stepwise``) is never called by the fused serving path;
+- ``single-segment-executable`` — at most
+  :data:`SEGMENT_GRAPHS_PER_PROFILE` CUDA-graph capture of the decode step
+  per profile id in use over a pool lifetime (so at most ``P``), where
+  the reference compiles one executable with the profile id as data: the
+  port's graphs read a profile's bf16 weight images by pointer;
+- ``no-retrace`` — no capture after warm-up: an id already captured is
+  never captured again in the lifetime.
 
-The reference's ``single-segment-executable`` and ``no-retrace`` have no
-eager meaning; they return as a capture count once decode runs in CUDA
-graphs.
+Both capture checks run on a CUDA device, where the scheduler replays
+graphs (:mod:`repro_torch.serving.graphs`).
 """
 
 from __future__ import annotations
@@ -52,11 +58,13 @@ import torch
 
 from repro_torch.analysis import op_check
 
-__all__ = ["MAX_PREFILL_WAVES_PER_ROUND", "SegmentBudget",
+__all__ = ["MAX_PREFILL_WAVES_PER_ROUND", "SEGMENT_GRAPHS_PER_PROFILE",
+           "SegmentBudget",
            "REFERENCE_BUDGETS", "smoke_parts", "segment_inputs",
            "trace_segment", "BudgetReport", "check_budget", "pool_carries"]
 
 MAX_PREFILL_WAVES_PER_ROUND = 2
+SEGMENT_GRAPHS_PER_PROFILE = 1
 
 
 @dataclass(frozen=True)

@@ -17,9 +17,13 @@ Three blocking stages (any failure => non-zero exit):
    paged-attention kernel's plain version, which builds the very view the
    check forbids, so there the stage runs the self-test alone and says so.
 3. **scenarios** — a smoke server + scheduler run under
-   :class:`~repro_torch.analysis.tracker.SchedulerAudit` must satisfy the
-   runtime invariants: <= 2 prefill waves per admission round, and zero
-   calls of the server's stepwise oracle (``generate_stepwise``).
+   :class:`~repro_torch.analysis.tracker.SchedulerAudit` (one audit per
+   admission round, the second on a warm pool) must satisfy the runtime
+   invariants: <= 2 prefill waves per admission round, zero calls of the
+   server's stepwise oracle (``generate_stepwise``), and on a CUDA device,
+   where the segment replays CUDA graphs, one capture per profile id in
+   use (``single-segment-executable``) and none in the second round
+   (``no-retrace``).
 
 Flags:
 
@@ -120,7 +124,8 @@ SCENARIO_REQUESTS = ((7, 5), (9, 4), (17, 5), (5, 4), (12, 4))
 def run_scenarios(parts, device) -> int:
     import numpy as np
 
-    from repro_torch.analysis.budgets import MAX_PREFILL_WAVES_PER_ROUND
+    from repro_torch.analysis.budgets import (MAX_PREFILL_WAVES_PER_ROUND,
+                                              SEGMENT_GRAPHS_PER_PROFILE)
     from repro_torch.analysis.tracker import DispatchAudit, SchedulerAudit
     from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
     from repro_torch.serving.scheduler import ContinuousScheduler
@@ -134,29 +139,40 @@ def run_scenarios(parts, device) -> int:
     reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
                     max_new=mn)
             for n, mn in SCENARIO_REQUESTS]
+    graphed = device.type == "cuda"     # the segment replays CUDA graphs
     rc = 0
-    with SchedulerAudit(sched) as audit, \
-            DispatchAudit(srv, ["generate_stepwise"]) as srv_audit:
+    rounds = []
+    with DispatchAudit(srv, ["generate_stepwise"]) as srv_audit:
         srv_audit.forbid("generate_stepwise")   # no-per-token-dispatch
-        for r in reqs[:3]:
-            sched.submit(r)
-        while sched.step():
-            pass
-        for r in reqs[3:]:              # second admission round, warm pool
-            sched.submit(r)
-        res = sched.run()
-        try:
-            audit.assert_max_prefill_waves(MAX_PREFILL_WAVES_PER_ROUND)
-        except AssertionError as e:
-            print(f"scenarios: FAIL — {e}")
-            rc = 1
+        for batch in (reqs[:3], reqs[3:]):     # the second on a warm pool
+            with SchedulerAudit(sched) as audit:
+                for r in batch:
+                    sched.submit(r)
+                res = sched.run()
+            rounds.append(audit)
+            try:
+                audit.assert_max_prefill_waves(MAX_PREFILL_WAVES_PER_ROUND)
+                if graphed:
+                    audit.assert_single_segment()
+                    if len(rounds) == 2:
+                        audit.assert_no_retrace()
+            except AssertionError as e:
+                print(f"scenarios: FAIL — {e}")
+                rc = 1
     if len(res) != len(reqs) or any(not r["tokens"] for r in res):
         print("scenarios: FAIL — scheduler did not complete all requests")
         rc = 1
     if rc == 0:
-        print(f"scenarios: ok — segments={audit.calls('run_segment')}, "
-              f"prefill waves/round={audit.prefill_waves_per_round}, "
-              f"stepwise oracle calls=0")
+        caps = (f"segment graphs captured={sched.graphs.captured} "
+                f"(<= {SEGMENT_GRAPHS_PER_PROFILE} per profile id), none on "
+                f"the warm pool" if graphed else
+                "segment graphs: none (eager segment on "
+                f"{device.type}; checked on a CUDA device)")
+        print(f"scenarios: ok — segments="
+              f"{sum(a.calls('run_segment') for a in rounds)}, prefill "
+              f"waves/round="
+              f"{[w for a in rounds for w in a.prefill_waves_per_round]}, "
+              f"stepwise oracle calls=0, {caps}")
     return rc
 
 

@@ -16,10 +16,12 @@ port's waves are the scheduler's four dispatchers (``_dispatch_cold``,
 the reference's are its admission executables (``_admit`` ...).
 
 The reference's ``assert_no_retrace`` and ``assert_single_segment`` read a
-jitted executable's cache size. An eager segment has no executable and
-nothing to retrace, so both are left out until decode is captured in CUDA
-graphs; their counterpart then is the number of graph captures per pool
-lifetime (``ROADMAP.md`` item 4).
+jitted executable's cache size. The port's segment replays CUDA graphs
+(:mod:`repro_torch.serving.graphs`), one per profile id, so both read the
+scheduler's captures per pool lifetime instead: ``single-segment-
+executable`` is one capture per profile id in use, at most ``P``;
+``no-retrace`` is no capture of a profile id that was already captured
+when the audit opened, and no new pool lifetime.
 """
 
 from __future__ import annotations
@@ -104,7 +106,9 @@ class SchedulerAudit(DispatchAudit):
     The audited invariants (``docs/serving.md`` "Invariants" in the
     reference):
 
+    - ``single-segment-executable`` — ``assert_single_segment()``
     - ``max-prefill-waves`` — ``assert_max_prefill_waves(2)``
+    - ``no-retrace`` — ``assert_no_retrace()``
     - ``no-per-token-dispatch`` — forbid the server's stepwise oracle
       (``DispatchAudit(server, ["generate_stepwise"])``) around the run;
       ``run_segment`` calls count the segments.
@@ -133,6 +137,9 @@ class SchedulerAudit(DispatchAudit):
             return out
 
         self.target.admit = bracketed_admit
+        g = getattr(self.target, "graphs", None)
+        self._graphs_at_enter = (None if g is None else
+                                 (g.lifetimes, list(g.captured)))
         return self
 
     def __exit__(self, *exc) -> None:
@@ -152,3 +159,43 @@ class SchedulerAudit(DispatchAudit):
                 f"an admission round dispatched {worst} prefill waves "
                 f"(ceiling {ceiling}): {self.prefill_waves_per_round}"
             )
+
+    def captures(self) -> int | None:
+        """Graphs captured in the scheduler's current pool lifetime
+        (``None``: the scheduler runs the eager segment)."""
+        g = self.target.graphs
+        return None if g is None else g.capture_count()
+
+    def assert_single_segment(self) -> None:
+        """``single-segment-executable``: one capture per profile id the
+        segments used in this pool lifetime, at most ``P`` (the reference
+        compiles one executable with the id as data; the port's graphs
+        read the id's weight images by pointer)."""
+        g = self.target.graphs
+        if g is None:
+            raise AssertionError("the scheduler runs the eager segment: "
+                                 "nothing is captured")
+        n_prof = len(self.target.srv.engine.table)
+        if (len(set(g.captured)) != len(g.captured)
+                or set(g.captured) != g.used or len(g.captured) > n_prof):
+            raise AssertionError(
+                f"captures {g.captured} for profile ids {sorted(g.used)} "
+                f"(at most one each, {n_prof} profiles)")
+
+    def assert_no_retrace(self) -> None:
+        """``no-retrace``: since the audit opened, no new pool lifetime
+        and no capture of a profile id already captured then (an id first
+        used while open may be captured once: its warm-up)."""
+        g = self.target.graphs
+        if g is None or self._graphs_at_enter is None:
+            raise AssertionError("the scheduler runs the eager segment: "
+                                 "nothing is captured")
+        lifetimes, before = self._graphs_at_enter
+        if g.lifetimes != lifetimes:
+            raise AssertionError(f"a new pool lifetime began ({lifetimes} "
+                                 f"-> {g.lifetimes})")
+        new = g.captured[len(before):]
+        again = [p for p in new if p in before]
+        if again or len(set(new)) != len(new):
+            raise AssertionError(f"profile ids captured again: {new} after "
+                                 f"{before}")

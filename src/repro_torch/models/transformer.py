@@ -103,7 +103,8 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "init_caches", "init_paged_caches", "cache_bytes",
            "supports_prefix_sharing", "supports_speculation",
            "paged_row_masters", "amax_for_scale", "decode_segment",
-           "decode_many", "ngram_propose", "decode_step_spec",
+           "segment_buffers", "segment_step", "decode_many", "ngram_propose",
+           "decode_step_spec",
            "decode_segment_spec"]
 
 
@@ -1414,6 +1415,60 @@ def decode_segment(params: dict, cfg: ModelConfig, table, schedule,
     elif paged:
         _writeback(caches["kv"], caches.pop("kv_view"), finish)
     return ys, ok, tok, pos, caches
+
+
+def segment_buffers(batch: int, steps: int, device=None) -> dict:
+    """The fixed operands of :func:`segment_step`, for ``batch`` rows and
+    segments of up to ``steps`` steps: ``tok``/``pos`` ``[B]`` int32 (the
+    carry), ``rem [B]`` int32 (tokens left) and ``fs [B]`` int32 (the fault
+    step, −1 = never), the two rows of ``inp [2, B]`` so that one copy
+    stages both, ``ok [B]`` bool (the finite check), ``i`` 0-d int32 (the
+    device step index) and ``out [B, steps]`` int32 (each step's tokens,
+    −1 for frozen rows)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    inp = torch.zeros((2, batch), **i32)
+    inp[1] = -1
+    return {"tok": torch.zeros((batch,), **i32),
+            "pos": torch.zeros((batch,), **i32),
+            "inp": inp, "rem": inp[0], "fs": inp[1],
+            "ok": torch.ones((batch,), dtype=torch.bool, device=device),
+            "i": torch.zeros((), **i32),
+            "out": torch.full((batch, steps), -1, **i32)}
+
+
+def segment_step(params: dict, cfg: ModelConfig, bits_row, buf: dict,
+                 caches: dict, paged_backend: str = "gather",
+                 kv_sched=None) -> None:
+    """One step of :func:`decode_segment` whose every tensor operand is a
+    fixed buffer of :func:`segment_buffers`, so that a CUDA graph of it
+    replays any step of any segment: ``live = rem > i`` and the fault
+    check ``fs == i`` are device data, the step's tokens land in column
+    ``i`` of ``out``, and ``tok``/``pos``/``ok``/``i`` advance in place, as
+    do the caches. ``params`` (the profile's overlay), ``bits_row`` and
+    ``kv_sched`` are the profile's, so a graph is one profile's step. A
+    paged pool is read on the kernel backend; the gather backend's view
+    is a per-segment copy and stays with :func:`decode_segment`. On the
+    same inputs the tokens are bitwise :func:`decode_segment`'s."""
+    if "kv_view" in caches or (isinstance(caches.get("kv"), PagedKVCache)
+                               and paged_backend != "kernel"):
+        raise ValueError("segment_step reads a paged pool on the kernel "
+                         "backend; the gather backend's per-segment view "
+                         "belongs to decode_segment")
+    i = buf["i"]
+    live = buf["rem"] > i
+    logits, _ = decode_step(params, cfg, bits_row, buf["tok"][:, None],
+                            buf["pos"], caches, row_valid=live,
+                            paged_backend=paged_backend, kv_sched=kv_sched)
+    logits = torch.where((buf["fs"] == i)[:, None],
+                         torch.full((), float("nan"), device=logits.device),
+                         logits)
+    buf["ok"].logical_and_(torch.isfinite(logits).all(dim=-1) | ~live)
+    nxt = logits.argmax(dim=-1).to(torch.int32)
+    buf["out"].index_copy_(1, i.reshape(1).long(),
+                           torch.where(live, nxt, -1)[:, None])
+    buf["tok"].copy_(torch.where(live, nxt, 0))
+    buf["pos"].add_(live.to(torch.int32))
+    i.add_(1)
 
 
 def decode_many(params: dict, cfg: ModelConfig, table, schedule,

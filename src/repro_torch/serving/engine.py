@@ -26,6 +26,7 @@ from repro_torch.core.engine import AdaptiveEngine
 from repro_torch.core.manager import ProfileManager
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import _mapped
+from repro_torch.serving.graphs import SegmentGraphs, graphable
 from repro_torch.runtime import resolve_device
 
 __all__ = ["ServingConfig", "AdaptiveServer", "Request", "RequestStatus",
@@ -698,11 +699,18 @@ class AdaptiveServer:
 
     def segment(self, schedule: np.ndarray, tok: torch.Tensor,
                 pos: torch.Tensor, caches: dict, remaining: np.ndarray,
-                fault_step: Optional[np.ndarray] = None):
+                fault_step: Optional[np.ndarray] = None,
+                graphs: Optional[SegmentGraphs] = None):
         """One decode segment over the pool (``decode_segment`` on the
         server's images and backend). ``fault_step [B]`` poisons a row's
-        logits with NaN at that step (−1: never). Returns ``(tokens,
-        row_ok, tok, pos, caches)``."""
+        logits with NaN at that step (−1: never). With ``graphs`` (the
+        pool lifetime's :class:`~repro_torch.serving.graphs.SegmentGraphs`)
+        the steps replay from its CUDA graphs, unless the backend is the
+        gather path of a paged pool, which runs eagerly. Returns
+        ``(tokens, row_ok, tok, pos, caches)``."""
+        if graphs is not None and graphable(self):
+            return graphs.run(schedule, tok, pos, caches, remaining,
+                              fault_step)
         fs = (None if fault_step is None else
               torch.as_tensor(fault_step, dtype=torch.int32,
                               device=self.device))

@@ -1,0 +1,272 @@
+"""The continuous scheduler's decode segment replayed from CUDA graphs.
+
+The reference compiles its segment once per pool lifetime (one ``jax.jit``
+with the pool donated; the per-step profile id rides the scan as data), and
+holds that as two named invariants, ``single-segment-executable`` and
+``no-retrace``. The port's counterpart is :class:`SegmentGraphs`: one CUDA
+graph of :func:`~repro_torch.models.transformer.segment_step` per profile
+id, captured on the id's first use and replayed for every later step under
+that id. Every tensor the step touches is a fixed buffer
+(:func:`~repro_torch.models.transformer.segment_buffers`) or the pool
+itself, written in place; the bf16 weight images a profile reads are
+chosen by pointer, so a graph is keyed by the profile id, and a lifetime
+holds at most ``P`` graphs where the reference holds one executable.
+
+A pool lifetime is a scheduler's: the scheduler makes the pool and one
+:class:`SegmentGraphs` beside it, and a new scheduler (such as
+:func:`~repro_torch.serving.durability.recover`'s) starts with no graphs.
+Rebinding the server's images, backend or precision policy also starts a
+new lifetime. A segment
+stages ``remaining`` and the fault operand in one host→device copy, resets
+the step index and the finite check, then replays (or, on a profile's first
+use, runs once on the capture stream and captures) one graph per step. On
+CUDA a failed capture or replay raises; nothing falls back to the eager
+segment.
+
+The kernels' launch counters (``paged_attention.launches`` and the others
+in :func:`counters`) move when a wrapper is called, which under capture is
+once per graph and not once per launch. The capture's increments are taken
+back and recorded per graph, and each replay adds them again, so a counter
+reads the kernel's launches on the graphed path as on the eager one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.attention import PagedKVCache
+
+__all__ = ["SegmentGraphs", "cuda_capture", "counters", "graphable"]
+
+Capture = Callable[[Callable[[], None], Optional[torch.cuda.Stream], object],
+                   Callable[[], None]]
+
+_STREAMS: dict = {}          # device index -> the capture stream
+
+
+def counters() -> list:
+    """``(function, attribute)`` of every launch and call counter a decode
+    step can move: the five kernels' ``launches`` and the plain branches'
+    counts (the dequantize-then-matmul branch, the routed experts'
+    dequant, the gather view, the kv8 einsum)."""
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import qkv_attention as QK
+    from repro_torch.kernels import qmatmul as QM
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as LY
+    from repro_torch.models import moe as MO
+    return [(PA.paged_attention, "launches"),
+            (PA.paged_attention_multi, "launches"),
+            (QK.qkv_attention, "launches"), (QM.qmatmul, "launches"),
+            (AQ.aquant, "launches"), (LY.dequant_matmul, "calls"),
+            (MO.routed_dequant, "calls"), (A.paged_view, "calls"),
+            (A.decode_attention, "kv8_einsum_calls")]
+
+
+def _read(cs: list) -> list:
+    return [getattr(f, a, 0) for f, a in cs]
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """One side stream per device for every capture: K5's per-stream
+    workspace (``kernels/aquant.py::_workspace``) has a few slots, and a
+    graph keeps the workspace of the stream it was captured on."""
+    if dev.index not in _STREAMS:
+        _STREAMS[dev.index] = torch.cuda.Stream(dev)
+    return _STREAMS[dev.index]
+
+
+def cuda_capture(step: Callable[[], None], stream: torch.cuda.Stream,
+                 pool) -> Callable[[], None]:
+    """Capture ``step`` into a CUDA graph on ``stream`` in memory pool
+    ``pool`` and return its replay. Nothing runs: the caller has run the
+    step once on ``stream`` (the warm-up that builds the kernels and the
+    per-stream workspaces). The capture's own synchronize is allowed
+    through a sync-debug mode of ``"error"``."""
+    g = torch.cuda.CUDAGraph()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        with torch.cuda.graph(g, pool=pool, stream=stream):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    return g.replay
+
+
+def graphable(srv) -> bool:
+    """Whether ``srv``'s segments can replay from graphs: a paged pool only
+    on the kernel backend (the gather backend's dense view is made per
+    segment; it is the kernel's oracle and stays eager)."""
+    return not (srv.cfg.has_attn and srv.scfg.paged_kv
+                and srv.paged_backend != "kernel")
+
+
+def _leaves(caches: dict) -> tuple:
+    out = []
+    for key in sorted(caches):
+        c = caches[key]
+        for f in dataclasses.fields(c):
+            x = getattr(c, f.name)
+            if isinstance(x, torch.Tensor):
+                out.append((key, f.name, x.data_ptr()))
+    return tuple(out)
+
+
+class SegmentGraphs:
+    """One pool lifetime's decode-step graphs, one per profile id.
+
+    ``capture`` (default :func:`cuda_capture`, which needs the server on a
+    CUDA device) turns a step into its replay; a stand-in (tests) may
+    return the step itself, so the bookkeeping runs eagerly on the CPU.
+
+    ``captured`` lists the profile ids captured in this lifetime, in
+    order, and ``used`` the ids its segments ran; ``lifetimes`` counts the
+    lifetimes begun on this object (the first included); ``replays`` the
+    graph replays.
+    """
+
+    def __init__(self, srv, batch: int, quantum: int,
+                 capture: Optional[Capture] = None):
+        dev = srv.device
+        if capture is None:
+            if dev.type != "cuda":
+                raise ValueError(f"CUDA graphs need a CUDA device, the "
+                                 f"server is on {dev}")
+            capture = cuda_capture
+        self.srv = srv
+        self.device = dev
+        self._capture = capture
+        self.buf = T.segment_buffers(batch, quantum, dev)
+        self._cuda = dev.type == "cuda"
+        # the host side of the one staging copy (pinned: the copy is
+        # asynchronous), rewritten only once the device has read it
+        self._host = torch.zeros((2, batch), dtype=torch.int32,
+                                 pin_memory=self._cuda)
+        self._copied: Optional[torch.cuda.Event] = None
+        self.lifetimes = 0
+        self.captured: list[int] = []
+        self.replays = 0
+        self._new_lifetime()
+
+    # ---------------------------------------------------------- lifetime
+    def _new_lifetime(self) -> None:
+        self._graphs: dict[int, tuple] = {}         # pid -> (replay, delta)
+        self.captured = []
+        self.used: set = set()
+        self.pool = (torch.cuda.graph_pool_handle() if self._capture is
+                     cuda_capture else None)
+        self._bound = (self.srv.prequant, self.srv.paged_backend,
+                       self.srv.kv_table)
+        self._pool_leaves = None
+        self.lifetimes += 1
+
+    def _check_bound(self, caches: dict) -> None:
+        srv = self.srv
+        images, backend, kv_table = self._bound
+        if (srv.prequant is not images or srv.paged_backend != backend
+                or srv.kv_table is not kv_table):
+            self._new_lifetime()
+        leaves = _leaves(caches)
+        if self._pool_leaves is None:
+            self._pool_leaves = leaves
+        elif leaves != self._pool_leaves:
+            raise ValueError("a pool lifetime's graphs serve the pool they "
+                             "were captured on; a new pool needs a new "
+                             "SegmentGraphs")
+
+    def capture_count(self) -> int:
+        """Graphs captured in this pool lifetime."""
+        return len(self.captured)
+
+    # ------------------------------------------------------------- steps
+    def _step_fn(self, pid: int, caches: dict) -> Callable[[], None]:
+        srv, buf = self.srv, self.buf
+        params = srv.profile_params(pid)
+        bits, ks = srv.engine.table[pid], srv.kv_sched(pid)
+        backend = srv.paged_backend
+
+        def step() -> None:
+            T.segment_step(params, srv.cfg, bits, buf, caches,
+                           paged_backend=backend, kv_sched=ks)
+        return step
+
+    def _run_step(self, pid: int, caches: dict) -> None:
+        self.used.add(pid)
+        got = self._graphs.get(pid)
+        if got is not None:
+            replay, delta = got
+            replay()
+            self.replays += 1
+            for (f, a), d in zip(counters(), delta):
+                if d:
+                    setattr(f, a, getattr(f, a) + d)
+            return
+        step = self._step_fn(pid, caches)
+        stream = _capture_stream(self.device) if self._cuda else None
+        if stream is None:
+            step()                                   # warm-up = this step
+        else:
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                step()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+        cs = counters()
+        before = _read(cs)
+        replay = self._capture(step, stream, self.pool)
+        after = _read(cs)
+        for (f, a), v in zip(cs, before):
+            if hasattr(f, a):
+                setattr(f, a, v)                     # nothing ran
+        self._graphs[pid] = (replay, [x - y for x, y in zip(after, before)])
+        self.captured.append(pid)
+
+    def _stage(self, remaining, fault_step) -> None:
+        """``remaining`` and the fault operand into ``buf["inp"]`` in one
+        host→device copy (pinned and asynchronous on CUDA)."""
+        if self._copied is not None and not self._copied.query():
+            self._copied.synchronize()     # in practice done: a flush since
+        host = self._host
+        host[0] = torch.from_numpy(np.asarray(remaining).astype(np.int32))
+        host[1] = (-1 if fault_step is None else torch.from_numpy(
+            np.asarray(fault_step).astype(np.int32)))
+        self.buf["inp"].copy_(host, non_blocking=self._cuda)
+        if self._cuda:
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+
+    def run(self, schedule, tok: torch.Tensor, pos: torch.Tensor,
+            caches: dict, remaining, fault_step=None):
+        """One decode segment of ``len(schedule)`` steps, as
+        :func:`~repro_torch.models.transformer.decode_segment` on the
+        kernel backend: returns ``(tokens [B, steps], row_ok [B], tok, pos,
+        caches)``, where ``tok``/``pos`` are the fixed buffers (the caller
+        keeps them, and writes its admissions there)."""
+        schedule = np.asarray(schedule).reshape(-1)
+        buf = self.buf
+        steps = len(schedule)
+        if steps > buf["out"].shape[1]:
+            raise ValueError(f"a segment of {steps} steps exceeds the "
+                             f"buffers' {buf['out'].shape[1]}")
+        self._check_bound(caches)
+        if tok is not buf["tok"]:
+            buf["tok"].copy_(tok)
+        if pos is not buf["pos"]:
+            buf["pos"].copy_(pos)
+        self._stage(remaining, fault_step)
+        buf["i"].zero_()
+        buf["ok"].fill_(True)
+        for pid in schedule:
+            self._run_step(int(pid), caches)
+        kv = caches.get("kv")
+        if isinstance(kv, PagedKVCache):
+            rem = buf["rem"]
+            finish = (rem > 0) & (rem <= steps)
+            kv.block_table.masked_fill_(finish[None, :, None], kv.n_blocks)
+        return (buf["out"][:, :steps].clone(), buf["ok"].clone(), buf["tok"],
+                buf["pos"], caches)

@@ -22,7 +22,11 @@ alone, and each wave writes its prefilled rows whole over the pool rows
 (:meth:`~repro_torch.serving.engine.AdaptiveServer.admit`). Token blocks
 come back one segment late
 (``_flush(keep=1)``): retirement needs only the host's ``remaining`` counts,
-so the next dispatch is queued before the previous tokens are read.
+so the next dispatch is queued before the previous tokens are read. On
+CUDA a non-speculative segment replays one CUDA graph per step, captured
+once per profile id and pool lifetime (:mod:`repro_torch.serving.graphs`);
+the slot pool's last tokens and positions are the graphs' input buffers,
+which admission writes in place.
 
 The profile plan is made one segment ahead with
 :meth:`~repro_torch.core.manager.ProfileManager.plan_schedule_ragged` (or,
@@ -122,6 +126,7 @@ import torch
 from repro_torch.models import transformer as T
 from .engine import AdaptiveServer, Request, RequestStatus, _next_pow2
 from .faults import FaultSchedule, Watchdog
+from .graphs import Capture, SegmentGraphs, graphable
 from .paged import BlockAllocator, PrefixRegistry, RowSnapshot, prefix_keys
 from .policy import RowState, SchedulingPolicy, ShedPolicy, make_policy
 
@@ -152,6 +157,15 @@ class ContinuousScheduler:
     budget of a :class:`~repro_torch.serving.faults.Watchdog`), ``clock``
     (replaces ``time.monotonic``: tests inject virtual time) and
     ``paranoid`` (run :meth:`check` after every step).
+
+    Segment graphs (:mod:`repro_torch.serving.graphs`): ``graphs`` (default
+    on for a non-speculative scheduler on CUDA whose server is graphable)
+    replays each decode step from the CUDA graph of its profile id,
+    captured on the id's first use in this pool's lifetime; ``graphs=False``
+    runs the eager segment. ``capture`` replaces the CUDA capture (tests
+    drive the bookkeeping on the CPU with a capture that returns the step
+    itself). ``self.graphs`` is the lifetime's
+    :class:`~repro_torch.serving.graphs.SegmentGraphs`, or ``None``.
     """
 
     def __init__(self, server: AdaptiveServer, quantum: int = 8,
@@ -162,7 +176,8 @@ class ContinuousScheduler:
                  retry_budget: int = 2,
                  watchdog_s: Optional[float] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 paranoid: bool = False):
+                 paranoid: bool = False, graphs: Optional[bool] = None,
+                 capture: Optional[Capture] = None):
         self.srv = server
         self.quantum = int(quantum)
         self.bucket_min = int(prefill_bucket)
@@ -203,8 +218,23 @@ class ContinuousScheduler:
                                          kv_bits=scfg.kv_bits, device=dev)
             self.allocator = None
             self.registry = None
-        self._tok = torch.zeros((nslots,), dtype=torch.int32, device=dev)
-        self._pos = torch.zeros((nslots,), dtype=torch.int32, device=dev)
+        self.spec = bool(scfg.speculate)
+        # the decode segment's CUDA graphs, one set per pool lifetime: on
+        # by default on CUDA for a non-speculative graphable server
+        if graphs is None:
+            graphs = capture is not None or (
+                dev.type == "cuda" and not self.spec and graphable(server))
+        if graphs and self.spec:
+            raise ValueError("the speculative segment runs eagerly: "
+                             "graphs=True needs speculate=False")
+        self.graphs = (SegmentGraphs(server, nslots, self.quantum,
+                                     capture=capture) if graphs else None)
+        if self.graphs is not None:           # admissions write the graphs'
+            self._tok = self.graphs.buf["tok"]    # input storage in place
+            self._pos = self.graphs.buf["pos"]
+        else:
+            self._tok = torch.zeros((nslots,), dtype=torch.int32, device=dev)
+            self._pos = torch.zeros((nslots,), dtype=torch.int32, device=dev)
         self.remaining = np.zeros((nslots,), np.int64)   # tokens left to emit
         self.slot_req: list[Optional[int]] = [None] * nslots
         self._slot_crit = np.zeros((nslots,), bool)
@@ -229,7 +259,6 @@ class ContinuousScheduler:
         # speculative state: per-row drafter history (−1 pad, last entry =
         # the row's current token, updated at the flush) and the per-class
         # opt-out mask (bound at admission)
-        self.spec = bool(scfg.speculate)
         self.draft_w = int(scfg.draft_k) + 1 if self.spec else 1
         if self.spec:
             self._hist = np.full((nslots, int(scfg.draft_hist)), -1,
@@ -1416,7 +1445,7 @@ class ContinuousScheduler:
                                     bool((self._slot_crit & live_i).any())))
         toks, ok, self._tok, self._pos, self._caches = self.srv.segment(
             sched, self._tok, self._pos, self._caches, self.remaining,
-            self._fault_operand())
+            self._fault_operand(), graphs=self.graphs)
         self.segments_run += 1
         self.segments_chunking += bool(self.paged and self._chunk_state)
         self.decode_steps += q

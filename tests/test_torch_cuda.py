@@ -2058,3 +2058,105 @@ def test_resumed_run_on_card_is_bitwise(tmp_path):
     (h0, a), (h1, b) = outs
     assert h1 == h0[3:]
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# the decode segment replayed from CUDA graphs (serving/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _graph_serve(scfg, graphs, reqs, rounds=1):
+    """The granite smoke model on the card in bf16 under the launcher's
+    manager (a small budget: profile switches), served by a scheduler with
+    ``graphs`` on or off in ``rounds`` submission rounds; each graphed
+    segment runs under ``set_sync_debug_mode("error")``. Returns the
+    scheduler, the per-round audits and the K1/K4 launches."""
+    from repro_torch.analysis.tracker import SchedulerAudit
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.launch.serve import profile_stats
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg, params, engine = _smoke_server_parts()
+    stats = profile_stats(cfg, engine.profiles, T.param_count(params))
+    mgr = ProfileManager(stats, accuracy_target=0.985, accuracy_floor=0.95,
+                         budget_j=stats[0].energy_j * 30, low_energy=0.5)
+    srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+        slots=64, max_batch=4, block_size=8, paged_backend="kernel",
+        **scfg), manager=mgr, device="cuda")
+    seg = srv.segment
+
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error" if graphs else 0)
+        try:
+            return seg(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    srv.segment = guarded
+    sched = ContinuousScheduler(srv, quantum=4, graphs=graphs)
+    n0 = PA.paged_attention.launches, QK.qkv_attention.launches
+    audits = []
+    for part in np.array_split(np.arange(len(reqs)), rounds):
+        with SchedulerAudit(sched) as audit:
+            for i in part:
+                sched.submit(reqs[i])
+            sched.run()
+        audits.append(audit)
+    torch.cuda.synchronize()
+    return sched, audits, (PA.paged_attention.launches - n0[0],
+                           QK.qkv_attention.launches - n0[1])
+
+
+def _graph_requests(cfg, seed=41):
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new=m, accuracy_critical=(i % 3 == 0))
+            for i, (n, m) in enumerate([(7, 9), (12, 5), (5, 13), (20, 6),
+                                        (9, 11), (6, 4), (15, 8)])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scfg", [dict(kv_bits=16), dict(kv_bits=8),
+                                  dict(kv_bits=4),
+                                  dict(kv_bits=8, paged_kv=False)],
+                         ids=["kv16", "kv8", "kv4", "kv8-contiguous"])
+def test_graphed_segments_equal_eager_on_card(scfg):
+    """Segment graphs on the card: the scheduler's tokens, traces and
+    events equal the eager segment's; K1 (paged) or K4 (contiguous)
+    launches equal too, counted as launches per capture x replays; one
+    capture per profile id; no synchronizing call in a graphed segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    reqs = _graph_requests(get_smoke("granite-3-2b"))
+    runs = {g: _graph_serve(scfg, g, reqs) for g in (False, True)}
+    (eager, _, n_e), (graphed, (audit,), n_g) = runs[False], runs[True]
+    assert eager.graphs is None and graphed.graphs is not None
+    for rid in eager.results:
+        for key in ("tokens", "profile_trace"):
+            assert graphed.results[rid][key] == eager.results[rid][key]
+    assert graphed.events == eager.events
+    assert n_g == n_e and max(n_g) == graphed.srv.cfg.n_layers * \
+        graphed.decode_steps
+    audit.assert_single_segment()
+    assert len(graphed.graphs.used) >= 2
+    assert graphed.graphs.replays == graphed.decode_steps - len(
+        graphed.graphs.captured)
+
+
+@pytest.mark.cuda
+def test_no_capture_on_a_warm_pool_on_card():
+    """A second submission round on the warm pool replays the graphs the
+    first captured: no profile id is captured again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    reqs = _graph_requests(get_smoke("granite-3-2b"), seed=43)
+    sched, (first, warm), _ = _graph_serve(dict(kv_bits=16), True,
+                                           reqs + reqs, rounds=2)
+    first.assert_single_segment()
+    warm.assert_single_segment()
+    warm.assert_no_retrace()
+    assert sched.graphs.lifetimes == 1
+    assert sched.graphs.capture_count() <= len(sched.srv.engine.table)
