@@ -284,21 +284,28 @@ Phases:
     sharing one card, not a multi-GPU host.
 22. the decode segment replayed from CUDA graphs (``serving/graphs.py``):
     granite-3-2b at full width on phase 4's workload, kv16, kv8 and kv4
-    paged, kv8 contiguous and native W8, each served through the
-    launcher's path eagerly (``graphs=False``) and then graphed, from one
-    manager state: tokens, traces, statuses, events, admission order and
-    the ledger equal; captures = the distinct profile ids the segments
-    used, in one pool lifetime; every graphed segment under
-    ``set_sync_debug_mode("error")``; K1, K4 or K3 launches equal on both
-    (counted as launches per capture x replays on the graphed one); peak
-    memory within 10 % of the eager serve's; tok/s of both; one steady
-    kv16 segment of each under ``torch.profiler`` (wall, device busy).
-Segment graphs: on the card every non-speculative scheduler on the kernel
-backend or a contiguous pool replays its decode steps from CUDA graphs
-(one capture per profile id per pool lifetime), so phases 3–12 and 14–16
-serve graphed; the (c) serves of phases 14–16 are also served eagerly
-once and held equal, and phase 20 (b) traces a graphed segment beside the
-eager ones.
+    paged, kv8 contiguous and native W8 through ``--continuous``, the
+    speculative segment (``--speculate --draft-k 4``) at kv16 and kv8
+    paged and kv8 contiguous, and the static path at kv8, each served
+    through the launcher's path eagerly (``graphs=False``) and then
+    graphed, from one manager state: tokens, traces, statuses, events,
+    ``spec_billed``, admission order and the ledger equal; captures = the
+    distinct profile ids the segments used, in one pool lifetime; every
+    graphed segment (the speculative one without its flush; the static
+    decode) under ``set_sync_debug_mode("error")``; K1, K2, K4 or K3
+    launches equal on both (counted as launches per capture x replays on
+    the graphed one); billed = delivered when speculating; peak memory
+    within 10 % of the eager serve's; tok/s of both; the static path's
+    kept cache bytes and copy time; one steady kv16 segment of each under
+    ``torch.profiler`` (wall, device busy).
+Segment graphs: on the card every scheduler, speculative or not, on the
+kernel backend or a contiguous pool replays its decode steps (or
+draft/verify windows) from CUDA graphs (one capture per profile id per
+pool lifetime), and the static path replays its decode from graphs kept
+per group shape, so phases 3–12 and 14–16 serve graphed (phase 5's
+speculative serve and phase 7's static and speculative ones included);
+the (c) serves of phases 14–16 are also served eagerly once and held
+equal, and phase 20 (b) traces a graphed segment beside the eager ones.
 Depth: phases 8, 9, 10 (its launcher serves), 11 (b) and 15 (c) serve
 at ``FEATURE_LAYERS`` / ``HYMBA_FEATURE_LAYERS`` (``cut_depth``), the
 published depths (40 and 32) since the graphed segment made room for
@@ -313,6 +320,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -2157,6 +2165,13 @@ def phase_spec_serve(seed: int, greedy: dict) -> dict:
     if k2 != expect or k2 == 0 or k1 != 0 or gathers != 0:
         raise AssertionError("the speculative path did not run through K2 "
                              "alone")
+    g = sched.graphs
+    if g is None:
+        raise AssertionError("the speculative serve did not replay its "
+                             "window graphs (the card's default)")
+    print(f"[spec] window graphs (the default): captures {g.captured} = "
+          f"profile ids {sorted(g.used)}, {g.replays} replays of "
+          f"{sched.windows_run} windows")
     n_tok = sum(len(r["tokens"]) for r in results)
     billed = len(sched.admission_log) + sum(n for _, n in sched.spec_billed)
     print(f"[spec] tokens billed {billed} (admission {len(sched.admission_log)}"
@@ -2434,9 +2449,16 @@ def phase_contiguous_serve(seed: int, continuous: bool,
         steps, label = sched.decode_steps, "contiguous pool"
         if sched.paged:
             raise AssertionError("--no-paged-kv built a paged pool")
+        g = sched.graphs
     else:
         n_groups = -(-len(reqs) // srv.scfg.max_batch)
         steps, label = n_groups * (args.max_new - 1), "static serve"
+        g = next(iter(srv.static_graphs.values()), (None,))[0]
+    if g is None:
+        raise AssertionError(f"the {label} did not replay graphs (the "
+                             f"card's default)")
+    print(f"[contig] {label} graphs (the default): captures {g.captured}, "
+          f"{g.replays} replays")
     if policy:
         label += " with the precision policy"
     expect = cfg.n_layers * steps
@@ -2834,7 +2856,7 @@ def phase_contiguous_spec_serve(seed: int) -> dict:
           f"{n_tok} tokens in {wall:.3f}s = {n_tok / wall:.2f} tok/s; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if sched.paged or billed != n_tok or any(launched) or \
-            sched.windows_run == 0:
+            sched.windows_run == 0 or sched.graphs is None:
         raise AssertionError("the contiguous speculative serve went wrong")
     del srv, out
     return {"tok_s": n_tok / wall}
@@ -6928,12 +6950,22 @@ def phase_distrib(seed: int) -> dict:
 # phase 22: the decode segment replayed from CUDA graphs
 # ---------------------------------------------------------------------------
 
-# (label, the launcher's arguments, native weight bits or None)
-GRAPH_MODES = (("kv16 paged", ["--kv-bits", "16"], None),
-               ("kv8 paged", ["--kv-bits", "8"], None),
-               ("kv4 paged", ["--kv-bits", "4"], None),
-               ("kv8 contiguous", ["--kv-bits", "8", "--no-paged-kv"], None),
-               ("native W8", ["--kv-bits", "16"], 8))
+# (label, the launcher's arguments, native weight bits or None); a mode
+# without --continuous serves the static path (AdaptiveServer.serve)
+SPEC4 = ["--speculate", "--draft-k", "4"]
+GRAPH_MODES = (("kv16 paged", ["--continuous", "--kv-bits", "16"], None),
+               ("kv8 paged", ["--continuous", "--kv-bits", "8"], None),
+               ("kv4 paged", ["--continuous", "--kv-bits", "4"], None),
+               ("kv8 contiguous", ["--continuous", "--kv-bits", "8",
+                                   "--no-paged-kv"], None),
+               ("native W8", ["--continuous", "--kv-bits", "16"], 8),
+               ("spec kv16 paged", ["--continuous", "--kv-bits", "16",
+                                    *SPEC4], None),
+               ("spec kv8 paged", ["--continuous", "--kv-bits", "8",
+                                   *SPEC4], None),
+               ("spec kv8 contiguous", ["--continuous", "--kv-bits", "8",
+                                        "--no-paged-kv", *SPEC4], None),
+               ("static kv8", ["--kv-bits", "8"], None))
 
 
 @contextlib.contextmanager
@@ -6948,48 +6980,71 @@ def sync_errors():
         torch.cuda.set_sync_debug_mode(0)
 
 
-def watch_segments(srv, schedules: list, guard: bool) -> None:
+def watch_segments(srv, schedules: list, guard: bool,
+                   name: str = "segment", skip: int = 0) -> None:
     """Record every decode segment's schedule on ``srv`` and, with
     ``guard``, run each under :func:`sync_errors` (an instance attribute
-    shadowing ``AdaptiveServer.segment``; ``del srv.segment`` restores)."""
-    orig = srv.segment
+    shadowing ``AdaptiveServer.<name>``; ``delattr(srv, name)``
+    restores). ``name`` is ``"segment"``, ``"segment_spec"`` (the guard
+    then leaves out the flush before the segment, which syncs by design)
+    or ``"decode_static"`` (the static path's decode, whose first
+    ``skip=1`` profile id is the prefill's)."""
+    orig = getattr(srv, name)
 
     def segment(schedule, *a, **k):
-        schedules.append([int(p) for p in schedule])
+        schedules.append([int(p) for p in schedule][skip:])
         if not guard:
             return orig(schedule, *a, **k)
         with sync_errors():
             return orig(schedule, *a, **k)
-    srv.segment = segment
+    setattr(srv, name, segment)
 
 
-def served(out) -> dict:
+def served(out, srv=None) -> dict:
     """What an eager and a graphed serve must agree on: each request's
-    tokens, profile trace and status, the billing events, the admission
-    order and the ledger's spent energy."""
+    tokens, profile trace and status, the billing events (a speculative
+    scheduler's ``spec_billed`` too), the admission order and the ledger's
+    spent energy. A static serve (no scheduler) has tokens, traces and
+    the ledger of ``srv``."""
     sched = out["sched"]
-    return {"tokens": [r["tokens"] for r in out["results"]],
-            "traces": [r["profile_trace"] for r in out["results"]],
-            "status": [r["status"].value for r in out["results"]],
-            "events": list(sched.events),
-            "admission": list(sched.admission_log),
-            "spent_j": (None if sched.srv.manager is None
-                        else sched.srv.manager.spent_j)}
+    if sched is None:
+        return {"tokens": [r["tokens"] for r in out["results"]],
+                "traces": [r["profile_trace"] for r in out["results"]],
+                "spent_j": (None if srv.manager is None
+                            else srv.manager.spent_j)}
+    got = {"tokens": [r["tokens"] for r in out["results"]],
+           "traces": [r["profile_trace"] for r in out["results"]],
+           "status": [r["status"].value for r in out["results"]],
+           "events": list(sched.events),
+           "admission": list(sched.admission_log),
+           "spent_j": (None if sched.srv.manager is None
+                       else sched.srv.manager.spent_j)}
+    if sched.spec:
+        got["spec_billed"] = list(sched.spec_billed)
+    return got
 
 
-def graph_counts(sched, schedules: list) -> dict:
+def graph_counts(graphs: list, schedules: list) -> dict:
     """A graphed serve's captures against the profile ids its segments
-    used: one capture per distinct id, none of an id already captured."""
-    g = sched.graphs
-    if g is None:
+    used: one capture per distinct id in each graph set (a scheduler's
+    one set, or the static path's one per group shape), none of an id
+    already captured, one lifetime each."""
+    if not graphs:
         raise AssertionError("the serve did not run on segment graphs")
     used = sorted({p for s in schedules for p in s})
-    if sorted(g.captured) != used or len(set(g.captured)) != len(g.captured):
-        raise AssertionError(f"captures {g.captured} for profile ids {used}")
-    if g.lifetimes != 1:
-        raise AssertionError(f"{g.lifetimes} pool lifetimes in one serve")
-    return {"captures": len(g.captured), "pids": used,
-            "replays": g.replays}
+    caps = []
+    for g in graphs:
+        if len(set(g.captured)) != len(g.captured) or \
+                sorted(g.captured) != sorted(g.used):
+            raise AssertionError(f"captures {g.captured} for profile ids "
+                                 f"{sorted(g.used)}")
+        if g.lifetimes != 1:
+            raise AssertionError(f"{g.lifetimes} pool lifetimes in one serve")
+        caps += g.captured
+    if sorted(set(caps)) != used:
+        raise AssertionError(f"captures {caps} for profile ids {used}")
+    return {"captures": len(caps), "pids": used,
+            "replays": sum(g.replays for g in graphs)}
 
 
 def check_graphed(tag: str, srv, reqs, quantum: int, graphed, mgr0) -> None:
@@ -7002,7 +7057,7 @@ def check_graphed(tag: str, srv, reqs, quantum: int, graphed, mgr0) -> None:
 
     sched = graphed["sched"]
     want = served(graphed)
-    g = graph_counts(sched, [[p] for p in sched.graphs.used])
+    g = graph_counts([sched.graphs], [[p] for p in sched.graphs.used])
     srv.manager = copy.deepcopy(mgr0)
     out = S.serve(srv, reqs, quantum, continuous=True,
                   sched_kw={"graphs": False})
@@ -7056,19 +7111,50 @@ def profile_segment(srv, reqs, quantum: int, graphs: bool) -> dict:
             "kernels": sum(e.count for e in ev)}
 
 
+def static_copy(srv) -> dict:
+    """The static path's kept contiguous cache: its bytes, which every
+    graphed ``generate`` copies in from the prefill's cache, and that
+    copy's device time (CUDA events over copies between two caches of the
+    group's shape)."""
+    (g, kept), = srv.static_graphs.values()
+    pairs = [(x, x.clone()) for c in kept.values()
+             for x in (getattr(c, f.name) for f in dataclasses.fields(c))
+             if isinstance(x, torch.Tensor)]
+    nbytes = sum(x.numel() * x.element_size() for x, _ in pairs)
+
+    def copy_all():
+        for x, y in pairs:
+            x.copy_(y)
+    ms = cuda_time_ms(copy_all, iters=20, warmup=3)
+    del pairs
+    print(f"[graphs] static kv8: the kept cache of {tuple(srv.static_graphs)}"
+          f" (rows, slots, kv bits) holds {nbytes} B, copied in from the "
+          f"prefill's cache once per group: {ms:.4f} ms on the device "
+          f"({nbytes / ms / 1e6:.1f} GB/s read and as much written), "
+          f"{card_line()}")
+    return {"kept_bytes": nbytes, "copy_ms": ms}
+
+
 def phase_graphs(seed: int) -> dict:
     """Phase 22: granite-3-2b at full width on phase 4's workload (the
-    launcher's ``--full --continuous``, 12 requests of 64–512 tokens, 32
-    new tokens, 8 rows, quantum 8, bf16) at kv16, kv8 and kv4 paged, kv8
-    contiguous and native W8, each served eagerly (``graphs=False``) and
-    then from the segment's CUDA graphs, one manager state for both:
-    tokens, traces, statuses, events, admission order and the ledger equal;
-    captures = the distinct profile ids the segments used, none of an id
-    already captured, in one pool lifetime; every graphed segment under
-    ``set_sync_debug_mode("error")``; K1 (paged), K4 (contiguous) or K3
-    (native) launches as counted on the eager path, equal on the graphed
-    one; peak memory within 10 % of the eager serve's; tok/s of both; and
-    for kv16 paged, one steady segment of each without the manager (one
+    launcher's ``--full``, 12 requests of 64–512 tokens, 32 new tokens, 8
+    rows, quantum 8, bf16) through ``--continuous`` at kv16, kv8 and kv4
+    paged, kv8 contiguous and native W8, with ``--speculate --draft-k 4``
+    at kv16 and kv8 paged and kv8 contiguous, and on the static path at
+    kv8, each served eagerly (``graphs=False``) and then from CUDA graphs
+    (the decode step's, the draft/verify window's, the static decode's),
+    one manager state for both: tokens, traces, statuses, events,
+    ``spec_billed``, admission order and the ledger equal; captures = the
+    distinct profile ids the segments used, none of an id already
+    captured, in one pool lifetime (the static path: one graph set per
+    group shape); every graphed segment (the speculative segment without
+    the flush before it; the static decode) under
+    ``set_sync_debug_mode("error")``; K1 (paged), K2 (speculative paged),
+    K4 (contiguous, static) or K3 (native) launches as counted on the
+    eager path, equal on the graphed one; billed = delivered when
+    speculating; peak memory within 10 % of the eager serve's; tok/s of
+    both; the static path's kept cache and the cost of its copy; and for
+    kv16 paged, one steady segment of each without the manager (one
     profile) under ``torch.profiler`` (wall, device busy, busy share, 0
     captures)."""
     import gc
@@ -7080,7 +7166,9 @@ def phase_graphs(seed: int) -> dict:
     out = {}
     for label, extra, w_bits in GRAPH_MODES:
         free_card("graphs")
-        args = S.parse_args(["--continuous", "--full", "--requests", "12",
+        continuous = "--continuous" in extra
+        spec = "--speculate" in extra
+        args = S.parse_args(["--full", "--requests", "12",
                              "--max-new", "32", "--quantum", "8",
                              "--block-size", "16", "--seed", str(seed),
                              *extra])
@@ -7093,31 +7181,42 @@ def phase_graphs(seed: int) -> dict:
         gc.collect()
         reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
         mgr0 = copy.deepcopy(srv.manager)
+        watched = ("segment_spec" if spec else "segment" if continuous
+                   else "decode_static")
         runs = {}
         for path in ("eager", "graphed"):
             graphed = path == "graphed"
             srv.manager = copy.deepcopy(mgr0)
             schedules: list = []
-            watch_segments(srv, schedules, guard=graphed)
+            watch_segments(srv, schedules, guard=graphed, name=watched,
+                           skip=0 if continuous else 1)
             c0 = [getattr(f, a) for f, a in G.counters()]
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            res = S.serve(srv, reqs, args.quantum, continuous=True,
+            res = S.serve(srv, reqs, args.quantum, continuous=continuous,
                           sched_kw={"graphs": graphed})
-            del srv.segment
+            delattr(srv, watched)
             counts = {f"{f.__name__}.{a}": getattr(f, a) - c
                       for (f, a), c in zip(G.counters(), c0)}
             sched = res["sched"]
-            runs[path] = {"served": served(res), "wall": res["wall_s"],
+            sets = ([] if not graphed else [g for g, _ in
+                    srv.static_graphs.values()] if sched is None
+                    else [sched.graphs])
+            runs[path] = {"served": served(res, srv), "wall": res["wall_s"],
                           "peak": torch.cuda.max_memory_allocated(),
-                          "counts": counts, "steps": sched.decode_steps,
-                          "segments": sched.segments_run,
-                          "graphs": (graph_counts(sched, schedules)
+                          "counts": counts,
+                          "steps": sum(len(x) for x in schedules),
+                          "segments": len(schedules),
+                          "billed": (None if not spec else
+                                     len(sched.admission_log) + sum(
+                                         n for _, n in sched.spec_billed)),
+                          "graphs": (graph_counts(sets, schedules)
                                      if graphed else None)}
-            if not graphed and sched.graphs is not None:
+            if not graphed and (srv.static_graphs if sched is None
+                                else sched.graphs is not None):
                 raise AssertionError(f"{label}: the eager serve ran on graphs")
-            del res, sched
+            del res, sched, sets         # the graphs hold the server
         e, g = runs["eager"], runs["graphed"]
         for key in e["served"]:
             if e["served"][key] != g["served"][key]:
@@ -7126,27 +7225,40 @@ def phase_graphs(seed: int) -> dict:
         if e["counts"] != g["counts"] or e["steps"] != g["steps"]:
             raise AssertionError(f"[graphs] {label}: launches eager "
                                  f"{e['counts']} graphed {g['counts']}")
+        paged = "--no-paged-kv" not in extra
         kname = ("qmatmul.launches" if w_bits else
-                 "qkv_attention.launches" if "--no-paged-kv" in extra else
-                 "paged_attention.launches")
+                 "paged_attention_multi.launches" if spec else
+                 "qkv_attention.launches" if not (continuous and paged)
+                 else "paged_attention.launches")
         per = (4 if w_bits else 1) * cfg.n_layers
         if w_bits:
             waves = len(g["served"]["events"]) - g["steps"]
             want = per * (g["steps"] + waves)
+        elif spec and not paged:
+            want = 0              # plain window attention: no kernel
         else:
             want = per * g["steps"]
         if g["counts"][kname] != want:
             raise AssertionError(f"[graphs] {label}: {kname} "
                                  f"{g['counts'][kname]} != {want}")
         n_tok = sum(len(t) for t in g["served"]["tokens"])
+        if spec and not e["billed"] == g["billed"] == n_tok:
+            raise AssertionError(f"[graphs] {label}: billed {g['billed']} "
+                                 f"!= delivered {n_tok}")
         ratio = g["peak"] / e["peak"]
-        print(f"[graphs] {label}: eager = graphed (tokens, traces, statuses, "
-              f"{len(g['served']['events'])} events, admission order, ledger "
+        unit = "windows" if spec else "decode steps"
+        what = (f"statuses, {len(g['served']['events'])} events, "
+                f"admission order, " if continuous else "")
+        if spec:
+            what += f"spec_billed, billed = delivered {n_tok}, "
+        print(f"[graphs] {label}: eager = graphed (tokens, traces, {what}"
+              f"ledger "
               f"{g['served']['spent_j']:.6e} J); {kname} {g['counts'][kname]}"
               f" = {want} on both; captures {g['graphs']['captures']} = "
               f"profile ids {g['graphs']['pids']}, replays "
-              f"{g['graphs']['replays']}, {g['segments']} segments, "
-              f"{g['steps']} decode steps; {n_tok} tokens: eager "
+              f"{g['graphs']['replays']}, {g['segments']} "
+              f"{'segments' if continuous else 'groups'}, "
+              f"{g['steps']} {unit}; {n_tok} tokens: eager "
               f"{e['wall']:.3f}s = {n_tok / e['wall']:.2f} tok/s, graphed "
               f"{g['wall']:.3f}s = {n_tok / g['wall']:.2f} tok/s "
               f"({e['wall'] / g['wall']:.2f}x); peak memory eager "
@@ -7158,6 +7270,8 @@ def phase_graphs(seed: int) -> dict:
         row = {"eager_tok_s": n_tok / e["wall"], "graphed_tok_s":
                n_tok / g["wall"], "peak_ratio": ratio,
                "captures": g["graphs"]["captures"], kname: want}
+        if not continuous:
+            row.update(static_copy(srv))
         if label == "kv16 paged":
             srv.manager = None               # one profile: a steady segment
             for path, graphed in (("eager", False), ("graphed", True)):
@@ -7199,8 +7313,9 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     granite steps; phase 20's under the static gate's budget traces and,
     for K1, the full-width segment traces, eager and graphed; phase 21's,
     for K5, over the four ranks' timed bf16 pipeline run; phase 22's on
-    the graphed segment: K1's kv16 paged serve, K4's kv8 contiguous one,
-    K3's native W8 one)."""
+    the graphed segment: K1's kv16 paged serve, K2's speculative kv16
+    paged one, K4's kv8 contiguous one and its static kv8 serve, K3's
+    native W8 one)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -7426,7 +7541,9 @@ def main() -> None:
             "paged_attention_multi", "paged_attention_multi.cu",
             "src/repro/kernels/paged_attention.py:247", spec["launches"],
             rows["k2"], fault_launches=faults["k2"],
-            durable_launches=durable["k2"], analysis_launches=gate["k2"]))
+            durable_launches=durable["k2"], analysis_launches=gate["k2"],
+            graph_launches=graphs.get("spec kv16 paged", {}).get(
+                "paged_attention_multi.launches", 0)))
         kernels.append(kernel_entry(
             "qmatmul", "qmatmul.cu", "src/repro/kernels/qmatmul.py:88",
             native["k3"], rows["k3"], mamba2_launches=mamba2["k3"],
@@ -7441,6 +7558,8 @@ def main() -> None:
             fault_launches=faults["k4"], hymba_launches=hymba["k4"],
             moe_launches=moe["k4"], vlm_launches=vlm["k4"],
             graph_launches=graphs.get("kv8 contiguous", {}).get(
+                "qkv_attention.launches", 0),
+            static_graph_launches=graphs.get("static kv8", {}).get(
                 "qkv_attention.launches", 0)))
         kernels.append(kernel_entry(
             "aquant", "aquant.cu", "src/repro/kernels/aquant.py:59",

@@ -40,14 +40,15 @@ Runtime ceilings enforced by the scenario audit
   (``generate_stepwise``) is never called by the fused serving path;
 - ``single-segment-executable`` — at most
   :data:`SEGMENT_GRAPHS_PER_PROFILE` CUDA-graph capture of the decode step
-  per profile id in use over a pool lifetime (so at most ``P``), where
-  the reference compiles one executable with the profile id as data: the
-  port's graphs read a profile's bf16 weight images by pointer;
+  (a speculative scheduler's: of the draft/verify window) per profile id
+  in use over a pool lifetime (so at most ``P``), where the reference
+  compiles one executable with the profile id as data: the port's graphs
+  read a profile's bf16 weight images by pointer;
 - ``no-retrace`` — no capture after warm-up: an id already captured is
   never captured again in the lifetime.
 
-Both capture checks run on a CUDA device, where the scheduler replays
-graphs (:mod:`repro_torch.serving.graphs`).
+Both capture checks run on a CUDA device, where the scheduler, greedy or
+speculative, replays graphs (:mod:`repro_torch.serving.graphs`).
 """
 
 from __future__ import annotations

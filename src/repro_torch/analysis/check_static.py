@@ -18,12 +18,13 @@ Three blocking stages (any failure => non-zero exit):
    check forbids, so there the stage runs the self-test alone and says so.
 3. **scenarios** — a smoke server + scheduler run under
    :class:`~repro_torch.analysis.tracker.SchedulerAudit` (one audit per
-   admission round, the second on a warm pool) must satisfy the runtime
-   invariants: <= 2 prefill waves per admission round, zero calls of the
-   server's stepwise oracle (``generate_stepwise``), and on a CUDA device,
-   where the segment replays CUDA graphs, one capture per profile id in
-   use (``single-segment-executable``) and none in the second round
-   (``no-retrace``).
+   admission round, the second on a warm pool), once greedy and once
+   speculative (``draft_k`` 2), must satisfy the runtime invariants: <= 2
+   prefill waves per admission round, zero calls of the server's stepwise
+   oracle (``generate_stepwise``), and on a CUDA device, where the segment
+   (or the speculative segment's window) replays CUDA graphs, one capture
+   per profile id in use (``single-segment-executable``) and none in the
+   second round (``no-retrace``). On the CPU both run eagerly.
 
 Flags:
 
@@ -122,6 +123,14 @@ SCENARIO_REQUESTS = ((7, 5), (9, 4), (17, 5), (5, 4), (12, 4))
 
 
 def run_scenarios(parts, device) -> int:
+    rc = 0
+    for label, spec in (("greedy", {}),
+                        ("speculative", dict(speculate=True, draft_k=2))):
+        rc |= _scenario(parts, device, label, spec)
+    return rc
+
+
+def _scenario(parts, device, label: str, spec: dict) -> int:
     import numpy as np
 
     from repro_torch.analysis.budgets import (MAX_PREFILL_WAVES_PER_ROUND,
@@ -132,7 +141,8 @@ def run_scenarios(parts, device) -> int:
 
     cfg, params, eng = parts
     srv = AdaptiveServer(cfg, params, eng,
-                         ServingConfig(slots=64, max_batch=4, block_size=8),
+                         ServingConfig(slots=64, max_batch=4, block_size=8,
+                                       **spec),
                          device=device)
     sched = ContinuousScheduler(srv, quantum=4)
     rng = np.random.default_rng(7)
@@ -157,10 +167,11 @@ def run_scenarios(parts, device) -> int:
                     if len(rounds) == 2:
                         audit.assert_no_retrace()
             except AssertionError as e:
-                print(f"scenarios: FAIL — {e}")
+                print(f"scenarios ({label}): FAIL — {e}")
                 rc = 1
     if len(res) != len(reqs) or any(not r["tokens"] for r in res):
-        print("scenarios: FAIL — scheduler did not complete all requests")
+        print(f"scenarios ({label}): FAIL — scheduler did not complete all "
+              f"requests")
         rc = 1
     if rc == 0:
         caps = (f"segment graphs captured={sched.graphs.captured} "
@@ -168,7 +179,7 @@ def run_scenarios(parts, device) -> int:
                 f"the warm pool" if graphed else
                 "segment graphs: none (eager segment on "
                 f"{device.type}; checked on a CUDA device)")
-        print(f"scenarios: ok — segments="
+        print(f"scenarios ({label}): ok — segments="
               f"{sum(a.calls('run_segment') for a in rounds)}, prefill "
               f"waves/round="
               f"{[w for a in rounds for w in a.prefill_waves_per_round]}, "

@@ -17,7 +17,8 @@ the reference's are its admission executables (``_admit`` ...).
 
 The reference's ``assert_no_retrace`` and ``assert_single_segment`` read a
 jitted executable's cache size. The port's segment replays CUDA graphs
-(:mod:`repro_torch.serving.graphs`), one per profile id, so both read the
+(:mod:`repro_torch.serving.graphs`), one per profile id — a decode step's,
+or on a speculative scheduler a draft/verify window's — so both read the
 scheduler's captures per pool lifetime instead: ``single-segment-
 executable`` is one capture per profile id in use, at most ``P``;
 ``no-retrace`` is no capture of a profile id that was already captured
@@ -170,7 +171,8 @@ class SchedulerAudit(DispatchAudit):
         """``single-segment-executable``: one capture per profile id the
         segments used in this pool lifetime, at most ``P`` (the reference
         compiles one executable with the id as data; the port's graphs
-        read the id's weight images by pointer)."""
+        read the id's weight images by pointer). It holds on a speculative
+        scheduler as on a greedy one: its graphs are the window's."""
         g = self.target.graphs
         if g is None:
             raise AssertionError("the scheduler runs the eager segment: "

@@ -355,7 +355,8 @@ def serve(srv: AdaptiveServer, reqs: list[Request], quantum: int, *,
     """Serve ``reqs``: through a :class:`ContinuousScheduler` stepped to
     the end (``continuous``; ``sched`` if given, such as a recovered one,
     else a fresh one built with ``sched_kw``), else in static groups
-    (:meth:`AdaptiveServer.serve`). Once ``stop["drain"]`` is set (the
+    (:meth:`AdaptiveServer.serve`, given ``sched_kw``'s ``graphs`` or
+    ``capture``). Once ``stop["drain"]`` is set (the
     SIGTERM handler) the scheduler drains, cuts a final checkpoint if it
     is journaled, and the serve ends with the queued requests' results
     ``None``. Returns the results (by rid), the scheduler (``None`` on
@@ -380,7 +381,7 @@ def serve(srv: AdaptiveServer, reqs: list[Request], quantum: int, *,
                 break
         results = [sched.results.get(i) for i in range(sched._n)]
     else:
-        results = srv.serve(reqs)
+        results = srv.serve(reqs, **(sched_kw or {}))
     if srv.device.type == "cuda":
         torch.cuda.synchronize(srv.device)
     return {"results": results, "sched": sched,

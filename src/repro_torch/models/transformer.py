@@ -105,7 +105,8 @@ __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "paged_row_masters", "amax_for_scale", "decode_segment",
            "segment_buffers", "segment_step", "decode_many", "ngram_propose",
            "decode_step_spec",
-           "decode_segment_spec"]
+           "decode_segment_spec", "segment_spec_buffers",
+           "segment_spec_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -1623,6 +1624,50 @@ def _commit_window_scales(kv, k_ladders: torch.Tensor,
                                  kv.v_scale))
 
 
+def _spec_window(params: dict, cfg: ModelConfig, bits_row, caches: dict,
+                 hist, tok, pos, rem, qta, son, fs, i, draft_k: int,
+                 paged_backend: str, draft_fn=None, override=None):
+    """One draft/verify window of :func:`decode_segment_spec` (and of
+    :func:`segment_spec_step`): propose ``draft_k`` tokens per row (the
+    drafter over ``hist``/``tok``, ``override`` entries ``>= 0`` forced),
+    verify ``[tok, d_1..d_k]`` in one forward at ``pos``, poison the
+    window of rows whose fault index ``fs`` is ``i``, and commit each
+    row's int8 scales at its delivered count. ``i`` is the window index,
+    a host int or a 0-d device tensor. Returns ``(g [B, W], m [B], fin
+    [B])``: the greedy chain, the delivered counts (0 for rows that are
+    not live) and the window's finite check (True for rows not live)."""
+    w = draft_k + 1
+    live = (rem > 0) & (qta > 0)
+    if draft_fn is not None:
+        prop = draft_fn(hist, tok).to(torch.int32)
+    else:
+        prop = ngram_propose(hist, tok, draft_k, cfg.vocab)
+    if override is not None:
+        prop = torch.where(override >= 0, override, prop)
+    feed = torch.cat([tok[:, None], prop], dim=1)              # [B, W]
+    feed = torch.where(live[:, None], feed, 0)
+    logits, caches, (klads, vlads) = decode_step_spec(
+        params, cfg, bits_row, feed, pos, caches, paged_backend=paged_backend)
+    # a fault poisons the whole verify window after the KV writes
+    logits = torch.where((fs == i)[:, None, None],
+                         torch.full((), float("nan"), device=logits.device),
+                         logits)
+    fin = torch.isfinite(logits).all(dim=2).all(dim=1) | ~live
+    g = logits.argmax(dim=-1).to(torch.int32)                   # [B, W]
+    if draft_k:
+        match = (prop == g[:, :draft_k]).to(torch.int32)
+        acc = match.cumprod(dim=1).sum(dim=1).to(torch.int32)
+    else:
+        acc = torch.zeros_like(rem)
+    one = torch.ones_like(rem)
+    m = torch.where(son, torch.minimum(torch.minimum(acc + 1, rem), qta),
+                    torch.minimum(torch.minimum(one, rem), qta))
+    m = torch.where(live, m, 0).to(torch.int32)
+    _commit_window_scales(caches["kv_view"] if "kv_view" in caches
+                          else caches["kv"], klads, vlads, m, w)
+    return g, m, fin
+
+
 def decode_segment_spec(params: dict, cfg: ModelConfig, table, schedule,
                         tok0: torch.Tensor, pos0: torch.Tensor, caches: dict,
                         remaining, quota=None, hist0=None, spec_on=None,
@@ -1702,35 +1747,11 @@ def decode_segment_spec(params: dict, cfg: ModelConfig, table, schedule,
     outs, ms = [], []
     for i, pid in enumerate(schedule):
         pid = int(pid)
-        live = (rem > 0) & (qta > 0)
-        if draft_fn is not None:
-            prop = draft_fn(hist, tok).to(torch.int32)
-        else:
-            prop = ngram_propose(hist, tok, draft_k, cfg.vocab)
-        if dov is not None:
-            prop = torch.where(dov[i] >= 0, dov[i], prop)
-        feed = torch.cat([tok[:, None], prop], dim=1)          # [B, W]
-        feed = torch.where(live[:, None], feed, 0)
-        logits, caches, (klads, vlads) = decode_step_spec(
-            overlay_params(params, prequant[pid]), cfg, table[pid], feed,
-            pos, caches, paged_backend=paged_backend)
-        # a fault poisons the whole verify window after the KV writes
-        logits = torch.where((fs == i)[:, None, None],
-                             torch.full((), float("nan"), device=dev),
-                             logits)
-        ok = ok & (torch.isfinite(logits).all(dim=2).all(dim=1) | ~live)
-        g = logits.argmax(dim=-1).to(torch.int32)               # [B, W]
-        if draft_k:
-            match = (prop == g[:, :draft_k]).to(torch.int32)
-            acc = match.cumprod(dim=1).sum(dim=1).to(torch.int32)
-        else:
-            acc = torch.zeros_like(rem)
-        one = torch.ones_like(rem)
-        m = torch.where(son, torch.minimum(torch.minimum(acc + 1, rem), qta),
-                        torch.minimum(torch.minimum(one, rem), qta))
-        m = torch.where(live, m, 0).to(torch.int32)
-        _commit_window_scales(caches["kv_view"] if "kv_view" in caches
-                              else caches["kv"], klads, vlads, m, w)
+        g, m, fin = _spec_window(
+            overlay_params(params, prequant[pid]), cfg, table[pid], caches,
+            hist, tok, pos, rem, qta, son, fs, i, draft_k, paged_backend,
+            draft_fn, None if dov is None else dov[i])
+        ok = ok & fin
         outs.append(torch.where(wj < m[:, None], g, -1))
         ms.append(m)
         last = g.gather(1, (m.long() - 1).clamp(0, w - 1)[:, None])[:, 0]
@@ -1749,3 +1770,77 @@ def decode_segment_spec(params: dict, cfg: ModelConfig, table, schedule,
     elif paged:
         _writeback(caches["kv"], caches.pop("kv_view"), finish)
     return ys, delivered, ok, tok, pos, caches
+
+
+def segment_spec_buffers(batch: int, n_iter: int, w: int, hist: int,
+                         device=None) -> dict:
+    """The fixed operands of :func:`segment_spec_step`, for ``batch`` rows,
+    segments of up to ``n_iter`` windows of ``w`` tokens and a drafter
+    history of ``hist`` tokens: the carries ``tok``/``pos`` ``[B]`` int32;
+    one flat int32 block ``inp`` that one host→device copy stages per
+    segment, viewed as the history ``hist [B, Hn]`` (contiguous), then
+    ``rem`` (tokens left, a carry), ``rem0`` (the staged ``remaining``,
+    read at the segment's end), ``fs`` (the fault window, −1 = never),
+    ``qta`` (quota left, a carry) and ``son`` (1 = the row speculates),
+    each ``[B]``; ``ok [B]`` bool (the finite check), ``i`` 0-d int32 (the
+    device window index), ``out [B, n_iter, w]`` int32 (each window's
+    delivered tokens, −1 past the delivered count) and ``ms [B, n_iter]``
+    int32 (the delivered counts)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    inp = torch.zeros(((5 + hist) * batch,), **i32)
+    n = hist * batch
+    buf = {"inp": inp, "hist": inp[:n].view(batch, hist)}
+    for j, name in enumerate(("rem", "rem0", "fs", "qta", "son")):
+        buf[name] = inp[n + j * batch:n + (j + 1) * batch]
+    buf["hist"].fill_(-1)
+    buf["fs"].fill_(-1)
+    buf.update(tok=torch.zeros((batch,), **i32),
+               pos=torch.zeros((batch,), **i32),
+               ok=torch.ones((batch,), dtype=torch.bool, device=device),
+               i=torch.zeros((), **i32),
+               out=torch.full((batch, n_iter, w), -1, **i32),
+               ms=torch.zeros((batch, n_iter), **i32))
+    return buf
+
+
+def segment_spec_step(params: dict, cfg: ModelConfig, bits_row, buf: dict,
+                      caches: dict, paged_backend: str = "gather",
+                      draft_k: int = 4, draft_fn=None) -> None:
+    """One window of :func:`decode_segment_spec` whose every tensor operand
+    is a fixed buffer of :func:`segment_spec_buffers`, so that a CUDA graph
+    of it replays any window of any segment: ``live``, the fault check
+    ``fs == i``, the drafter, the accept count, the committed int8 scales
+    and the history slide read device data, the window's tokens and
+    delivered counts land in column ``i`` of ``out``/``ms``, and
+    ``tok``/``pos``/``rem``/``qta``/``hist``/``ok``/``i`` advance in place,
+    as do the caches. ``params`` (the profile's overlay) and ``bits_row``
+    are the profile's, so a graph is one profile's window. A paged pool is
+    read on the kernel backend; the gather backend's view is a per-segment
+    copy and stays with :func:`decode_segment_spec`. On the same inputs the
+    tokens, delivered counts, finite check, carries, scales and caches are
+    bitwise :func:`decode_segment_spec`'s."""
+    if "kv_view" in caches or (isinstance(caches.get("kv"), PagedKVCache)
+                               and paged_backend != "kernel"):
+        raise ValueError("segment_spec_step reads a paged pool on the kernel "
+                         "backend; the gather backend's per-segment view "
+                         "belongs to decode_segment_spec")
+    w = draft_k + 1
+    i, tok, hist = buf["i"], buf["tok"], buf["hist"]
+    rem, qta = buf["rem"], buf["qta"]
+    g, m, fin = _spec_window(params, cfg, bits_row, caches, hist, tok,
+                             buf["pos"], rem, qta, buf["son"] != 0, buf["fs"],
+                             i, draft_k, paged_backend, draft_fn)
+    buf["ok"].logical_and_(fin)
+    col = i.reshape(1).long()
+    wj = torch.arange(w, device=g.device)[None]
+    buf["out"].index_copy_(1, col, torch.where(wj < m[:, None], g, -1)[:, None])
+    buf["ms"].index_copy_(1, col, m[:, None])
+    last = g.gather(1, (m.long() - 1).clamp(0, w - 1)[:, None])[:, 0]
+    tok.copy_(torch.where(m >= 1, last, tok))
+    # the slide allocates; its result is copied back into the fixed buffer
+    hj = torch.arange(hist.shape[1], device=g.device)[None]
+    hist.copy_(torch.cat([hist, g], dim=1).gather(1, m.long()[:, None] + hj))
+    buf["pos"].add_(m)
+    rem.sub_(m)
+    qta.sub_(m)
+    i.add_(1)

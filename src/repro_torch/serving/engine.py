@@ -1,7 +1,9 @@
 """Adaptive serving engine (port of ``repro/serving/engine.py``): static
 grouped serving (``generate``, ``serve``, the per-token oracle
 ``generate_stepwise``) on a contiguous KV cache, and the continuous-batching
-primitives on the paged pool and the contiguous pool.
+primitives on the paged pool and the contiguous pool. On CUDA the static
+decode and the scheduler's segments replay CUDA graphs
+(:mod:`repro_torch.serving.graphs`), the reference's one executable each.
 
 The reference's jitted closures become methods that update the scheduler's
 pool tensors in place (its donated carries). Profile adaptivity stays
@@ -26,7 +28,9 @@ from repro_torch.core.engine import AdaptiveEngine
 from repro_torch.core.manager import ProfileManager
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import _mapped
-from repro_torch.serving.graphs import SegmentGraphs, graphable
+from repro_torch.serving.graphs import (Capture, SegmentGraphs,
+                                        SpecSegmentGraphs, cuda_capture,
+                                        graphable)
 from repro_torch.runtime import resolve_device
 
 __all__ = ["ServingConfig", "AdaptiveServer", "Request", "RequestStatus",
@@ -203,6 +207,11 @@ def check_servable(cfg: T.ModelConfig) -> None:
             f"KeyError: {need!r})")
 
 
+# the static path's graph buffers: a group's ``max_new − 1`` decode steps
+# replay in chunks of this many
+STATIC_STEPS = 32
+
+
 def _write_rows(pool, rows, s: torch.Tensor, j: torch.Tensor) -> None:
     """Write wave rows ``j`` of the stacked cache ``rows`` whole over pool
     rows ``s`` (every tensor field, ``[L, B, ...]``)."""
@@ -355,6 +364,10 @@ class AdaptiveServer:
             self.prefix_sharing or self.chunk_tokens)
         # per-profile weight images, built once per server
         self.prequant = T.prequant_decode_weights(params, cfg, engine.table)
+        # the static path's decode graphs, one set per group shape (rows,
+        # slots, kv bits) with the contiguous cache it replays over, kept
+        # for the server's life
+        self.static_graphs: dict = {}
 
     def _check_kernels(self) -> None:
         """Raise now, not at the first decode, if a kernel this server will
@@ -426,10 +439,12 @@ class AdaptiveServer:
                  row_budget: Optional[np.ndarray] = None,
                  prompt_len: Optional[np.ndarray] = None,
                  row_critical: Optional[np.ndarray] = None,
-                 account_rows: Optional[int] = None) -> dict:
+                 account_rows: Optional[int] = None,
+                 graphs: Optional[bool] = None,
+                 capture: Optional[Capture] = None) -> dict:
         """Batched greedy generation: one prefill, then
-        :func:`~repro_torch.models.transformer.decode_many` on the
-        contiguous cache with the server's backend. prompts ``[B, S]``
+        :meth:`decode_static` on the contiguous cache with the server's
+        backend. prompts ``[B, S]``
         int32 (ragged requests left-padded to a common length, real lengths
         in ``prompt_len [B]``: per-row rope offsets, pad-key masks,
         logical-position KV handoff and ``pos0 = prompt_len``).
@@ -437,8 +452,9 @@ class AdaptiveServer:
         With a manager, per-row data (``row_budget`` / ``row_critical``)
         plans the schedule on the exact ragged ledger (step ``i`` bills
         only rows still live); otherwise ``account_rows`` rows (default
-        ``B``) are billed every step. Returns the tokens and the per-step
-        profile trace."""
+        ``B``) are billed every step. ``graphs``/``capture``: see
+        :meth:`decode_static`. Returns the tokens and the per-step profile
+        trace."""
         b, s = prompts.shape
         if self.manager is None:
             schedule = np.zeros((max_new,), np.int32)
@@ -459,14 +475,74 @@ class AdaptiveServer:
             else np.asarray(prompt_len, np.int32), device=self.device)
         rb = (np.full((b,), max_new, np.int32) if row_budget is None
               else np.asarray(row_budget, np.int32))
-        toks, pids, _ = T.decode_many(
-            self.params, self.cfg, self.engine.table, schedule, logits, pos0,
-            caches, row_budget=rb, prequant=self.prequant,
-            paged_backend=self.paged_backend, kv_table=self.kv_table)
+        toks = self.decode_static(schedule, logits, pos0, caches, rb,
+                                  graphs=graphs, capture=capture)
         names = self.engine.profile_names
         # repro: allow(host-sync) the call's single decode sync, at the end
         return {"tokens": toks.cpu().tolist(),
-                "profile_trace": [names[int(p)] for p in pids]}
+                "profile_trace": [names[int(p)] for p in schedule]}
+
+    def decode_static(self, schedule: np.ndarray, logits0: torch.Tensor,
+                      pos0: torch.Tensor, caches: dict,
+                      row_budget: np.ndarray, *,
+                      graphs: Optional[bool] = None,
+                      capture: Optional[Capture] = None) -> torch.Tensor:
+        """:meth:`generate`'s decode from the prefill's ``logits0 [B, V]``
+        and contiguous ``caches``: the tokens ``[B, len(schedule)]`` of
+        :func:`~repro_torch.models.transformer.decode_many`, bitwise.
+
+        ``graphs`` (default: on for a CUDA server, or when ``capture`` is
+        given) replays the decode steps from the
+        :class:`~repro_torch.serving.graphs.SegmentGraphs` of the group's
+        shape ``(rows, slots, kv bits)``, which the server keeps with a
+        contiguous cache of that shape for its life: the prefill's cache
+        is copied whole into it (every slot, ``token_idx`` included, so a
+        row never sees an earlier group's keys), one graph per profile id
+        is captured on the id's first use, and rebinding the server's
+        images, backend or policy starts a new lifetime. The first token
+        (the argmax of ``logits0``) stays eager, as does the prefill.
+        ``graphs=False`` runs ``decode_many`` eagerly; ``capture`` replaces
+        the CUDA capture (tests). On the CPU ``graphs=True`` without a
+        ``capture`` raises."""
+        if graphs is None:
+            graphs = capture is not None or self.device.type == "cuda"
+        if not graphs:
+            toks, _, _ = T.decode_many(
+                self.params, self.cfg, self.engine.table, schedule, logits0,
+                pos0, caches, row_budget=row_budget, prequant=self.prequant,
+                paged_backend=self.paged_backend, kv_table=self.kv_table)
+            return toks
+        schedule = np.asarray(schedule, np.int32).reshape(-1)
+        g, kept, new = self._static_set(caches, logits0.shape[0], capture)
+        if len(schedule) > 1 and not new:
+            for key, c in caches.items():
+                for f in dataclasses.fields(c):
+                    x = getattr(c, f.name)
+                    if isinstance(x, torch.Tensor):
+                        getattr(kept[key], f.name).copy_(x)
+        tok0 = logits0.argmax(dim=-1).to(torch.int32)
+        g.stage(tok0, pos0, kept, np.asarray(row_budget, np.int32) - 1)
+        live0 = g.buf["rem"] >= 0                # budget > 0, on the device
+        g.buf["tok"].copy_(torch.where(live0, tok0, 0))
+        ys = g.replay(schedule[1:], kept)[0]
+        return torch.cat([torch.where(live0, tok0, -1)[:, None], ys], dim=1)
+
+    def _static_set(self, caches: dict, rows: int,
+                    capture: Optional[Capture]) -> tuple:
+        """``(graphs, kept cache, new)`` of a group of ``rows`` rows: made
+        on first use, the cache then a copy of ``caches``."""
+        key = (rows, self.scfg.slots, self.scfg.kv_bits)
+        got = self.static_graphs.get(key)
+        if got is not None and got[0]._capture is (capture or cuda_capture):
+            return (*got, False)
+        g = SegmentGraphs(self, rows, STATIC_STEPS, capture=capture)
+        kept = {k: dataclasses.replace(c, **{
+            f.name: getattr(c, f.name).clone()
+            for f in dataclasses.fields(c)
+            if isinstance(getattr(c, f.name), torch.Tensor)})
+            for k, c in caches.items()}
+        self.static_graphs[key] = (g, kept)
+        return g, kept, True
 
     def generate_stepwise(self, prompts: np.ndarray, max_new: int,  # repro: allow(host-sync) seed oracle syncs per token by design
                           accuracy_critical: bool = False) -> dict:
@@ -499,7 +575,9 @@ class AdaptiveServer:
         return {"tokens": np.stack(out, axis=1).tolist(),
                 "profile_trace": trace}
 
-    def serve(self, requests: Sequence[Request]) -> list[dict]:
+    def serve(self, requests: Sequence[Request], *,
+              graphs: Optional[bool] = None,
+              capture: Optional[Capture] = None) -> list[dict]:
         """Static request batching: sort by prompt length, cut into groups
         of up to ``max_batch``, one ragged :meth:`generate` per group.
         Prompts are left-padded with per-row ``prompt_len``, so every row
@@ -511,7 +589,9 @@ class AdaptiveServer:
         pad rows are dropped from the capacity dispatch, and the group's
         ``rows · maxlen`` tokens must divide the MoE ``groups`` (a
         ``ValueError`` from :func:`~repro_torch.models.moe.moe_ffn`
-        otherwise, where the reference asserts)."""
+        otherwise, where the reference asserts). ``graphs``/``capture``:
+        see :meth:`decode_static` (one graph set per group shape, so MoE's
+        row buckets bound the captures)."""
         results: list = [None] * len(requests)
         order = sorted(range(len(requests)),
                        key=lambda i: len(requests[i].tokens))
@@ -532,7 +612,8 @@ class AdaptiveServer:
                 crit[row] = requests[i].accuracy_critical
             max_new = max(requests[i].max_new for i in group)
             out = self.generate(prompts, max_new, row_budget=budget,
-                                prompt_len=plen, row_critical=crit)
+                                prompt_len=plen, row_critical=crit,
+                                graphs=graphs, capture=capture)
             for row, i in enumerate(group):
                 mn = requests[i].max_new
                 results[i] = {"tokens": out["tokens"][row][:mn],
@@ -724,14 +805,21 @@ class AdaptiveServer:
                      spec_on: np.ndarray, tok: torch.Tensor,
                      pos: torch.Tensor, caches: dict, remaining: np.ndarray,
                      quota: np.ndarray,
-                     fault_step: Optional[np.ndarray] = None):
+                     fault_step: Optional[np.ndarray] = None,
+                     graphs: Optional[SpecSegmentGraphs] = None):
         """One speculative segment over the pool: ``len(schedule)``
         draft/verify windows (``decode_segment_spec`` on the server's
         images, backend and drafter). ``hist``/``spec_on``/``quota`` are
         the host's per-row drafter history, opt-out mask and quantum in
         delivered tokens; ``fault_step [B]`` poisons a row's verify window
-        at that index (−1: never). Returns ``(tokens, delivered, row_ok,
-        tok, pos, caches)``."""
+        at that index (−1: never). With ``graphs`` (the pool lifetime's
+        :class:`~repro_torch.serving.graphs.SpecSegmentGraphs`) the windows
+        replay from its CUDA graphs, unless the backend is the gather path
+        of a paged pool, which runs eagerly. Returns ``(tokens, delivered,
+        row_ok, tok, pos, caches)``."""
+        if graphs is not None and graphable(self):
+            return graphs.run(schedule, hist, spec_on, tok, pos, caches,
+                              remaining, quota, fault_step)
         return T.decode_segment_spec(
             self.params, self.cfg, self.engine.table, schedule, tok, pos,
             caches, remaining, quota=quota,

@@ -19,9 +19,21 @@ Rebinding the server's images, backend or precision policy also starts a
 new lifetime. A segment
 stages ``remaining`` and the fault operand in one host→device copy, resets
 the step index and the finite check, then replays (or, on a profile's first
-use, runs once on the capture stream and captures) one graph per step. On
-CUDA a failed capture or replay raises; nothing falls back to the eager
-segment.
+use, runs once on the capture stream and captures) one graph per step; a
+segment longer than the buffers runs in chunks of their width, the staged
+counts shifted on the device between chunks. On CUDA a failed capture or
+replay raises; nothing falls back to the eager segment.
+
+A speculative scheduler's segment is :class:`SpecSegmentGraphs`: one graph
+of :func:`~repro_torch.models.transformer.segment_spec_step` (one
+draft/verify window) per profile id, over the buffers of
+:func:`~repro_torch.models.transformer.segment_spec_buffers`; a segment
+stages ``remaining``, the fault operand, ``quota``, the opt-out mask and
+the drafter history in one copy. The host keeps the history as its source
+of truth and stages it anew every segment. The static path
+(:meth:`~repro_torch.serving.engine.AdaptiveServer.generate`) replays
+:class:`SegmentGraphs` over a contiguous cache the server keeps per group
+shape, for the server's life.
 
 The kernels' launch counters (``paged_attention.launches`` and the others
 in :func:`counters`) move when a wrapper is called, which under capture is
@@ -40,7 +52,8 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import PagedKVCache
 
-__all__ = ["SegmentGraphs", "cuda_capture", "counters", "graphable"]
+__all__ = ["SegmentGraphs", "SpecSegmentGraphs", "cuda_capture", "counters",
+           "graphable"]
 
 Capture = Callable[[Callable[[], None], Optional[torch.cuda.Stream], object],
                    Callable[[], None]]
@@ -142,11 +155,11 @@ class SegmentGraphs:
         self.srv = srv
         self.device = dev
         self._capture = capture
-        self.buf = T.segment_buffers(batch, quantum, dev)
+        self.buf = self._buffers(batch, quantum)
         self._cuda = dev.type == "cuda"
         # the host side of the one staging copy (pinned: the copy is
         # asynchronous), rewritten only once the device has read it
-        self._host = torch.zeros((2, batch), dtype=torch.int32,
+        self._host = torch.zeros(self.buf["inp"].shape, dtype=torch.int32,
                                  pin_memory=self._cuda)
         self._copied: Optional[torch.cuda.Event] = None
         self.lifetimes = 0
@@ -154,23 +167,29 @@ class SegmentGraphs:
         self.replays = 0
         self._new_lifetime()
 
+    def _buffers(self, batch: int, quantum: int) -> dict:
+        return T.segment_buffers(batch, quantum, self.device)
+
     # ---------------------------------------------------------- lifetime
+    def _binding(self) -> tuple:
+        """What a graph reads by pointer or bakes in: the server's weight
+        images, backend and precision policy."""
+        srv = self.srv
+        return (srv.prequant, srv.paged_backend, srv.kv_table)
+
     def _new_lifetime(self) -> None:
         self._graphs: dict[int, tuple] = {}         # pid -> (replay, delta)
         self.captured = []
         self.used: set = set()
         self.pool = (torch.cuda.graph_pool_handle() if self._capture is
                      cuda_capture else None)
-        self._bound = (self.srv.prequant, self.srv.paged_backend,
-                       self.srv.kv_table)
+        self._bound = self._binding()
         self._pool_leaves = None
         self.lifetimes += 1
 
     def _check_bound(self, caches: dict) -> None:
-        srv = self.srv
-        images, backend, kv_table = self._bound
-        if (srv.prequant is not images or srv.paged_backend != backend
-                or srv.kv_table is not kv_table):
+        if any(a != b if isinstance(a, str) else a is not b
+               for a, b in zip(self._binding(), self._bound)):
             self._new_lifetime()
         leaves = _leaves(caches)
         if self._pool_leaves is None:
@@ -226,19 +245,31 @@ class SegmentGraphs:
         self._graphs[pid] = (replay, [x - y for x, y in zip(after, before)])
         self.captured.append(pid)
 
-    def _stage(self, remaining, fault_step) -> None:
-        """``remaining`` and the fault operand into ``buf["inp"]`` in one
+    def _stage(self, rows: list) -> None:
+        """``rows`` (host arrays, each filling its slice of the staged
+        block, in the order of ``buf["inp"]``) into ``buf["inp"]`` in one
         host→device copy (pinned and asynchronous on CUDA)."""
         if self._copied is not None and not self._copied.query():
             self._copied.synchronize()     # in practice done: a flush since
-        host = self._host
-        host[0] = torch.from_numpy(np.asarray(remaining).astype(np.int32))
-        host[1] = (-1 if fault_step is None else torch.from_numpy(
-            np.asarray(fault_step).astype(np.int32)))
-        self.buf["inp"].copy_(host, non_blocking=self._cuda)
+        host = self._host.view(-1)
+        at = 0
+        for r in rows:
+            r = np.asarray(r).reshape(-1)
+            host[at:at + r.size] = torch.from_numpy(r.astype(np.int32))
+            at += r.size
+        self.buf["inp"].copy_(self._host, non_blocking=self._cuda)
         if self._cuda:
             self._copied = torch.cuda.Event()
             self._copied.record(torch.cuda.current_stream(self.device))
+
+    def _carries(self, tok: torch.Tensor, pos: torch.Tensor,
+                 caches: dict) -> None:
+        self._check_bound(caches)
+        buf = self.buf
+        if tok is not buf["tok"]:
+            buf["tok"].copy_(tok)
+        if pos is not buf["pos"]:
+            buf["pos"].copy_(pos)
 
     def run(self, schedule, tok: torch.Tensor, pos: torch.Tensor,
             caches: dict, remaining, fault_step=None):
@@ -246,27 +277,111 @@ class SegmentGraphs:
         :func:`~repro_torch.models.transformer.decode_segment` on the
         kernel backend: returns ``(tokens [B, steps], row_ok [B], tok, pos,
         caches)``, where ``tok``/``pos`` are the fixed buffers (the caller
-        keeps them, and writes its admissions there)."""
+        keeps them, and writes its admissions there). A segment longer
+        than the buffers runs in chunks of their width: between chunks
+        ``rem`` and ``fs`` drop by the width on the device, so ``rem > i``
+        and ``fs == i`` keep reading the segment's step index."""
+        self.stage(tok, pos, caches, remaining, fault_step)
+        return self.replay(schedule, caches)
+
+    def stage(self, tok: torch.Tensor, pos: torch.Tensor, caches: dict,
+              remaining, fault_step=None) -> None:
+        """The first half of :meth:`run`: the carries into the buffers,
+        ``remaining`` and the fault operand staged, the finite check
+        reset."""
+        self._carries(tok, pos, caches)
+        b = self.buf["tok"].shape[0]
+        self._stage([remaining, np.full((b,), -1) if fault_step is None
+                     else fault_step])
+        self.buf["ok"].fill_(True)
+
+    def replay(self, schedule, caches: dict):
+        """The second half of :meth:`run`: replay ``schedule``'s steps."""
         schedule = np.asarray(schedule).reshape(-1)
         buf = self.buf
-        steps = len(schedule)
-        if steps > buf["out"].shape[1]:
-            raise ValueError(f"a segment of {steps} steps exceeds the "
-                             f"buffers' {buf['out'].shape[1]}")
-        self._check_bound(caches)
-        if tok is not buf["tok"]:
-            buf["tok"].copy_(tok)
-        if pos is not buf["pos"]:
-            buf["pos"].copy_(pos)
-        self._stage(remaining, fault_step)
+        steps, width = len(schedule), buf["out"].shape[1]
+        kv = caches.get("kv")
+        finish = None
+        if isinstance(kv, PagedKVCache):
+            rem = buf["rem"]
+            finish = (rem > 0) & (rem <= steps)
+        outs = []
+        for c0 in range(0, steps, width):
+            part = schedule[c0:c0 + width]
+            if c0:
+                buf["rem"].sub_(width)
+                buf["fs"].sub_(width)
+            buf["i"].zero_()
+            for pid in part:
+                self._run_step(int(pid), caches)
+            outs.append(buf["out"][:, :len(part)].clone())   # reused next chunk
+        if finish is not None:
+            kv.block_table.masked_fill_(finish[None, :, None], kv.n_blocks)
+        toks = torch.cat(outs, dim=1) if outs else buf["out"][:, :0].clone()
+        return toks, buf["ok"].clone(), buf["tok"], buf["pos"], caches
+
+
+class SpecSegmentGraphs(SegmentGraphs):
+    """One pool lifetime's draft/verify window graphs, one per profile id:
+    the speculative twin of :class:`SegmentGraphs` (same lifetime, capture
+    stream, memory pool and counters). ``n_iter`` windows of ``draft_k +
+    1`` tokens per segment, a drafter history of ``hist`` tokens; the
+    server's drafter (``srv.draft_fn``, or the n-gram drafter) is baked
+    into the graphs, so rebinding it starts a new lifetime. A drafter that
+    synchronizes makes the capture raise."""
+
+    def __init__(self, srv, batch: int, n_iter: int, draft_k: int,
+                 hist: int, capture: Optional[Capture] = None):
+        self.draft_k = int(draft_k)
+        self._hist_len = int(hist)
+        super().__init__(srv, batch, n_iter, capture)
+
+    def _buffers(self, batch: int, n_iter: int) -> dict:
+        return T.segment_spec_buffers(batch, n_iter, self.draft_k + 1,
+                                      self._hist_len, self.device)
+
+    def _binding(self) -> tuple:
+        return super()._binding() + (self.srv.draft_fn,)
+
+    def _step_fn(self, pid: int, caches: dict) -> Callable[[], None]:
+        srv, buf = self.srv, self.buf
+        params = srv.profile_params(pid)
+        bits, backend = srv.engine.table[pid], srv.paged_backend
+        k, draft_fn = self.draft_k, srv.draft_fn
+
+        def step() -> None:
+            T.segment_spec_step(params, srv.cfg, bits, buf, caches,
+                                paged_backend=backend, draft_k=k,
+                                draft_fn=draft_fn)
+        return step
+
+    def run(self, schedule, hist, spec_on, tok: torch.Tensor,
+            pos: torch.Tensor, caches: dict, remaining, quota,
+            fault_step=None):
+        """One speculative segment of ``len(schedule)`` windows, as
+        :func:`~repro_torch.models.transformer.decode_segment_spec` on the
+        kernel backend (the server's drafter, no override): returns
+        ``(tokens [B, n_iter, W], delivered [B, n_iter], row_ok [B], tok,
+        pos, caches)``, where ``tok``/``pos`` are the fixed buffers."""
+        schedule = np.asarray(schedule).reshape(-1)
+        buf = self.buf
+        n_iter = len(schedule)
+        if n_iter > buf["ms"].shape[1]:
+            raise ValueError(f"a segment of {n_iter} windows exceeds the "
+                             f"buffers' {buf['ms'].shape[1]}")
+        self._carries(tok, pos, caches)
+        b = buf["tok"].shape[0]
+        rem = np.asarray(remaining)
+        self._stage([hist, rem, rem,
+                     np.full((b,), -1) if fault_step is None else fault_step,
+                     quota, np.asarray(spec_on, bool)])
         buf["i"].zero_()
         buf["ok"].fill_(True)
         for pid in schedule:
             self._run_step(int(pid), caches)
         kv = caches.get("kv")
         if isinstance(kv, PagedKVCache):
-            rem = buf["rem"]
-            finish = (rem > 0) & (rem <= steps)
+            finish = (buf["rem0"] > 0) & (buf["rem"] <= 0)
             kv.block_table.masked_fill_(finish[None, :, None], kv.n_blocks)
-        return (buf["out"][:, :steps].clone(), buf["ok"].clone(), buf["tok"],
-                buf["pos"], caches)
+        return (buf["out"][:, :n_iter].clone(), buf["ms"][:, :n_iter].clone(),
+                buf["ok"].clone(), buf["tok"], buf["pos"], caches)

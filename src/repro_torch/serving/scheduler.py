@@ -23,10 +23,10 @@ alone, and each wave writes its prefilled rows whole over the pool rows
 come back one segment late
 (``_flush(keep=1)``): retirement needs only the host's ``remaining`` counts,
 so the next dispatch is queued before the previous tokens are read. On
-CUDA a non-speculative segment replays one CUDA graph per step, captured
-once per profile id and pool lifetime (:mod:`repro_torch.serving.graphs`);
-the slot pool's last tokens and positions are the graphs' input buffers,
-which admission writes in place.
+CUDA a segment replays one CUDA graph per step (a speculative segment's:
+per draft/verify window), captured once per profile id and pool lifetime
+(:mod:`repro_torch.serving.graphs`); the slot pool's last tokens and
+positions are the graphs' input buffers, which admission writes in place.
 
 The profile plan is made one segment ahead with
 :meth:`~repro_torch.core.manager.ProfileManager.plan_schedule_ragged` (or,
@@ -61,6 +61,8 @@ is data the host needs for retirement, history and billing, so spec mode
 is synchronous (``_flush(keep=0)``): the profile plan is provisional, and
 the ledger bills the tokens each window actually delivered at the flush
 (:attr:`ContinuousScheduler.spec_billed`, invariant 11 of the reference).
+The host keeps each row's drafter history and stages it with the
+segment's other per-row data.
 Speculation runs on either pool, shared copy-on-write rows and resumed rows
 included; a class with ``speculative=False`` advances one token per
 window.
@@ -126,7 +128,7 @@ import torch
 from repro_torch.models import transformer as T
 from .engine import AdaptiveServer, Request, RequestStatus, _next_pow2
 from .faults import FaultSchedule, Watchdog
-from .graphs import Capture, SegmentGraphs, graphable
+from .graphs import Capture, SegmentGraphs, SpecSegmentGraphs, graphable
 from .paged import BlockAllocator, PrefixRegistry, RowSnapshot, prefix_keys
 from .policy import RowState, SchedulingPolicy, ShedPolicy, make_policy
 
@@ -159,13 +161,15 @@ class ContinuousScheduler:
     ``paranoid`` (run :meth:`check` after every step).
 
     Segment graphs (:mod:`repro_torch.serving.graphs`): ``graphs`` (default
-    on for a non-speculative scheduler on CUDA whose server is graphable)
-    replays each decode step from the CUDA graph of its profile id,
-    captured on the id's first use in this pool's lifetime; ``graphs=False``
-    runs the eager segment. ``capture`` replaces the CUDA capture (tests
-    drive the bookkeeping on the CPU with a capture that returns the step
-    itself). ``self.graphs`` is the lifetime's
-    :class:`~repro_torch.serving.graphs.SegmentGraphs`, or ``None``.
+    on for a scheduler on CUDA whose server is graphable) replays each
+    decode step, or on a speculative scheduler each draft/verify window,
+    from the CUDA graph of its profile id, captured on the id's first use
+    in this pool's lifetime; ``graphs=False`` runs the eager segment.
+    ``capture`` replaces the CUDA capture (tests drive the bookkeeping on
+    the CPU with a capture that returns the step itself). ``self.graphs``
+    is the lifetime's :class:`~repro_torch.serving.graphs.SegmentGraphs`
+    (:class:`~repro_torch.serving.graphs.SpecSegmentGraphs` when
+    speculating), or ``None``.
     """
 
     def __init__(self, server: AdaptiveServer, quantum: int = 8,
@@ -219,16 +223,21 @@ class ContinuousScheduler:
             self.allocator = None
             self.registry = None
         self.spec = bool(scfg.speculate)
-        # the decode segment's CUDA graphs, one set per pool lifetime: on
-        # by default on CUDA for a non-speculative graphable server
+        self.draft_w = int(scfg.draft_k) + 1 if self.spec else 1
+        # the decode segment's CUDA graphs (a speculative scheduler's: one
+        # draft/verify window each), one set per pool lifetime: on by
+        # default on CUDA for a graphable server
         if graphs is None:
             graphs = capture is not None or (
-                dev.type == "cuda" and not self.spec and graphable(server))
+                dev.type == "cuda" and graphable(server))
+        self.graphs: Optional[SegmentGraphs] = None
         if graphs and self.spec:
-            raise ValueError("the speculative segment runs eagerly: "
-                             "graphs=True needs speculate=False")
-        self.graphs = (SegmentGraphs(server, nslots, self.quantum,
-                                     capture=capture) if graphs else None)
+            self.graphs = SpecSegmentGraphs(
+                server, nslots, max(1, -(-self.quantum // self.draft_w)),
+                int(scfg.draft_k), int(scfg.draft_hist), capture=capture)
+        elif graphs:
+            self.graphs = SegmentGraphs(server, nslots, self.quantum,
+                                        capture=capture)
         if self.graphs is not None:           # admissions write the graphs'
             self._tok = self.graphs.buf["tok"]    # input storage in place
             self._pos = self.graphs.buf["pos"]
@@ -259,7 +268,6 @@ class ContinuousScheduler:
         # speculative state: per-row drafter history (−1 pad, last entry =
         # the row's current token, updated at the flush) and the per-class
         # opt-out mask (bound at admission)
-        self.draft_w = int(scfg.draft_k) + 1 if self.spec else 1
         if self.spec:
             self._hist = np.full((nslots, int(scfg.draft_hist)), -1,
                                  np.int32)
@@ -1495,7 +1503,7 @@ class ContinuousScheduler:
             self.srv.segment_spec(sched, self._hist, self._slot_spec,
                                   self._tok, self._pos, self._caches,
                                   self.remaining, quota,
-                                  self._fault_operand())
+                                  self._fault_operand(), graphs=self.graphs)
         self.segments_run += 1
         self.segments_chunking += bool(self.paged and self._chunk_state)
         self.windows_run += n_iter

@@ -2160,3 +2160,188 @@ def test_no_capture_on_a_warm_pool_on_card():
     warm.assert_no_retrace()
     assert sched.graphs.lifetimes == 1
     assert sched.graphs.capture_count() <= len(sched.srv.engine.table)
+
+
+# ---------------------------------------------------------------------------
+# the speculative segment and the static decode replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _guarded(fn, on: bool):
+    """``fn`` under ``set_sync_debug_mode("error")`` when ``on``."""
+    def run(*a, **k):
+        torch.cuda.set_sync_debug_mode("error" if on else 0)
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return run
+
+
+def _spec_graph_serve(scfg, graphs, reqs):
+    """The granite smoke model on the card under the launcher's manager,
+    served by a speculative scheduler (``draft_k`` 3) with ``graphs`` on
+    or off; each graphed speculative segment runs under
+    ``set_sync_debug_mode("error")`` (the flush before it syncs by
+    design, so the guard wraps the segment alone). Returns the scheduler,
+    its audit and the K2 launches."""
+    from repro_torch.analysis.tracker import SchedulerAudit
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.launch.serve import profile_stats
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg, params, engine = _smoke_server_parts()
+    stats = profile_stats(cfg, engine.profiles, T.param_count(params))
+    mgr = ProfileManager(stats, accuracy_target=0.985, accuracy_floor=0.95,
+                         budget_j=stats[0].energy_j * 30, low_energy=0.5)
+    srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+        slots=64, max_batch=4, block_size=8, paged_backend="kernel",
+        speculate=True, draft_k=3, **scfg), manager=mgr, device="cuda")
+    srv.segment_spec = _guarded(srv.segment_spec, graphs is not False)
+    sched = ContinuousScheduler(srv, quantum=4, graphs=graphs)
+    n0 = PA.paged_attention_multi.launches
+    with SchedulerAudit(sched) as audit:
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+    torch.cuda.synchronize()
+    return sched, audit, PA.paged_attention_multi.launches - n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scfg", [dict(kv_bits=16), dict(kv_bits=8),
+                                  dict(kv_bits=8, paged_kv=False)],
+                         ids=["kv16", "kv8", "kv8-contiguous"])
+def test_graphed_spec_segments_equal_eager_on_card(scfg):
+    """Window graphs on the card: a speculative scheduler replays them by
+    default; tokens, traces, events and ``spec_billed`` equal the eager
+    segment's; K2 launches (paged) equal too, ``n_layers`` × windows;
+    one capture per profile id; billed tokens equal delivered ones; no
+    synchronizing call inside a graphed segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.configs import get_smoke
+    from repro_torch.serving import graphs as G
+    reqs = _graph_requests(get_smoke("granite-3-2b"), seed=47)
+    runs = {g: _spec_graph_serve(scfg, g, reqs) for g in (False, None)}
+    (eager, _, k2_e), (graphed, audit, k2_g) = runs[False], runs[None]
+    assert eager.graphs is None
+    assert isinstance(graphed.graphs, G.SpecSegmentGraphs)
+    for rid in eager.results:
+        for key in ("tokens", "profile_trace"):
+            assert graphed.results[rid][key] == eager.results[rid][key]
+    assert graphed.events == eager.events
+    assert graphed.spec_billed == eager.spec_billed
+    paged = scfg.get("paged_kv", True)
+    assert k2_g == k2_e == (graphed.srv.cfg.n_layers * graphed.windows_run
+                            if paged else 0)
+    audit.assert_single_segment()
+    delivered = sum(len(r["tokens"]) for r in graphed.results.values())
+    assert len(graphed.admission_log) + sum(
+        n for _, n in graphed.spec_billed) == delivered
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [8, 16])
+def test_graphed_static_generate_equals_eager_on_card(kv_bits):
+    """The static path's decode on graphs (the card's default): the serve's
+    tokens and traces equal the eager ``decode_many``'s from the same
+    manager state; K4 launches (kv8) equal, ``n_layers`` × decode steps;
+    one capture per profile id of the group shape, none on a second serve;
+    no synchronizing call inside the graphed decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.launch.serve import profile_stats
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    cfg, params, engine = _smoke_server_parts()
+    stats = profile_stats(cfg, engine.profiles, T.param_count(params))
+    mgr = ProfileManager(stats, accuracy_target=0.985, accuracy_floor=0.95,
+                         budget_j=stats[0].energy_j * 12, low_energy=0.5)
+    srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+        slots=64, max_batch=4, kv_bits=kv_bits, paged_backend="kernel"),
+        manager=mgr, device="cuda")
+    reqs = _graph_requests(cfg, seed=53)
+    out = {}
+    for graphs in (False, None, None):
+        srv.manager = copy.deepcopy(mgr)
+        srv.decode_static = _guarded(
+            AdaptiveServer.decode_static.__get__(srv), graphs is None)
+        n0 = QK.qkv_attention.launches
+        res = srv.serve(reqs, graphs=graphs)
+        torch.cuda.synchronize()
+        out.setdefault(graphs, []).append(
+            (res, QK.qkv_attention.launches - n0,
+             {k: list(g.captured) for k, (g, _) in
+              srv.static_graphs.items()}))
+    del srv.decode_static
+    (eager, k4_e, _), = out[False]
+    (first, k4_g, caps), (second, k4_2, caps2) = out[None]
+    for res in (first, second):
+        for g, e in zip(res, eager):
+            assert g["tokens"] == e["tokens"]
+            assert g["profile_trace"] == e["profile_trace"]
+    order = sorted(reqs, key=lambda r: len(r.tokens))
+    steps = sum(max(r.max_new for r in order[i:i + 4]) - 1
+                for i in range(0, len(order), 4))
+    assert k4_g == k4_e == k4_2 == (cfg.n_layers * steps if kv_bits == 8
+                                    else 0)
+    assert list(caps) == [(4, 64, kv_bits)] and caps == caps2
+    used = {p for r in first for p in r["profile_trace"]}
+    assert len(caps[(4, 64, kv_bits)]) <= len(used)
+
+
+_SYNCING_DRAFTER = r"""
+import numpy as np, torch
+from repro_torch.configs import get_smoke
+from repro_torch.core.engine import AdaptiveEngine, QuantIndex
+from repro_torch.core.profiles import paper_profiles
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
+from repro_torch.serving.scheduler import ContinuousScheduler
+cfg = get_smoke("granite-3-2b")
+params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+names = T.quant_layer_names(cfg)
+eng = AdaptiveEngine(tuple(paper_profiles(names)), QuantIndex(names))
+
+def drafter(hist, tok):
+    k = int(tok.max())                    # a host read: synchronizes
+    return torch.full((tok.shape[0], 2), k, dtype=torch.int32,
+                      device=tok.device)
+
+srv = AdaptiveServer(cfg, params, eng, ServingConfig(
+    slots=64, max_batch=2, block_size=8, speculate=True, draft_k=2),
+    device="cuda", draft_fn=drafter)
+sched = ContinuousScheduler(srv, quantum=4)
+assert sched.graphs is not None
+sched.submit(Request(tokens=np.arange(5, dtype=np.int32), max_new=6))
+try:
+    sched.run()
+except RuntimeError as e:
+    print("capture raised:", str(e).splitlines()[0])
+else:
+    raise SystemExit("a synchronizing drafter was captured")
+"""
+
+
+@pytest.mark.cuda
+def test_a_synchronizing_drafter_makes_the_capture_raise():
+    """A drafter that reads a device value on the host cannot be captured:
+    the window graph's capture raises, and nothing falls back to the eager
+    segment. Run in a child process, whose CUDA stream the failed capture
+    may leave unusable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _SYNCING_DRAFTER], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "capture raised" in out.stdout

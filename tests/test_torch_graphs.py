@@ -19,7 +19,8 @@ eagerly.
   retrace); the kernels' counters read launches per capture × replays; a
   new lifetime after ``durability.recover`` and after the server's images
   are rebound;
-* the CUDA route refuses a server on the CPU.
+* the CUDA route refuses a server on the CPU, a speculative scheduler's
+  too (its window graphs are held in ``tests/test_torch_spec_graphs.py``).
 """
 import dataclasses
 
@@ -366,8 +367,14 @@ def test_cuda_route_refuses_the_cpu(servers):
     assert ContinuousScheduler(srv, quantum=4).graphs is None
 
 
-def test_speculation_stays_eager(servers):
+def test_speculation_defaults_to_eager_on_the_cpu(servers):
+    """A speculative scheduler on the CPU runs the eager segment by
+    default and refuses ``graphs=True`` (the CUDA capture); the stand-in
+    capture gives it the window graphs."""
     srv = servers(kv_bits=16, speculate=True, draft_k=2)
     assert ContinuousScheduler(srv, quantum=4).graphs is None
-    with pytest.raises(ValueError, match="speculative"):
-        ContinuousScheduler(srv, quantum=4, capture=stand_in)
+    with pytest.raises(ValueError, match="CUDA"):
+        ContinuousScheduler(srv, quantum=4, graphs=True)
+    g = ContinuousScheduler(srv, quantum=4, capture=stand_in).graphs
+    assert isinstance(g, G.SpecSegmentGraphs)
+    assert g.buf["out"].shape == (4, 2, 3) and g.buf["hist"].shape == (4, 32)
