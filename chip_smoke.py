@@ -95,8 +95,9 @@ Phases:
     static kv8 gives the same tokens through K4 as through the einsum, and
     the frontier search runs on the card; then the launcher's
     ``--continuous --precision-policy`` in bf16 at granite's
-    ``FEATURE_LAYERS`` (phase 4's requests, a 40-layer striped row in the
-    frontier's JSON format: K1 = 40 × decode steps, billed = delivered,
+    ``FEATURE_LAYERS`` (phase 4's requests, a striped row of that depth in
+    the frontier's JSON format: K1 = layers × decode steps, billed =
+    delivered,
     tok/s and peak memory beside the serve without the policy, the
     refine's own cost per call) and its static path at ``--kv-bits 8`` (K4
     = 40 × decode steps);
@@ -179,9 +180,9 @@ Phases:
     the head N 32001 take the bytewise split-K and mma.sync routes), K5 bit
     for bit on hymba's images at bits 8 and 4, each timed beside its
     library call and bound; (c) the launcher's ``--arch hymba-1.5b --full``
-    workload at hymba's ``HYMBA_FEATURE_LAYERS`` (32) layers
-    on the paged pool (K1 = 32 x decode steps), ``--kv-bits 8`` static (K4
-    = 32 x 62) and from ``to_native(params, 8)`` (K3 = 193 x (decode steps
+    workload at hymba's ``HYMBA_FEATURE_LAYERS`` layers
+    on the paged pool (K1 = layers x decode steps), ``--kv-bits 8`` static
+    (K4 = layers x 62) and from ``to_native(params, 8)`` (K3 = 193 x (decode steps
     + prefill waves)): tok/s, peak memory, KV and SSM bytes;
     (d) under ``torch.profiler``: one admission wave and one decode
     segment.
@@ -297,20 +298,30 @@ Phases:
     the graphed one); billed = delivered when speculating; peak memory
     within 10 % of the eager serve's; tok/s of both; the static path's
     kept cache bytes and copy time; one steady kv16 segment of each under
-    ``torch.profiler`` (wall, device busy).
+    ``torch.profiler`` (wall, device busy). The admission waves, replayed
+    from one CUDA graph per wave key (``WaveGraphs``): kv16 paged, kv8
+    paged with the prefix registry and ``--prefill-chunk 128``, kv8
+    contiguous and native W8, each served by one scheduler in two passes
+    (phase 4's 12 requests, then 12 of the same lengths from another
+    seed), eagerly and then graphed: per pass everything above equal, K3
+    per wave 4 x 40 on both (native), each key captured once and none of
+    pass 1's again in pass 2, every replayed wave under
+    ``set_sync_debug_mode("error")``, peak memory within 10 %; each
+    ``admit()`` round's host wall, tok/s, captures and replays of both.
 Segment graphs: on the card every scheduler, speculative or not, on the
 kernel backend or a contiguous pool replays its decode steps (or
 draft/verify windows) from CUDA graphs (one capture per profile id per
-pool lifetime), and the static path replays its decode from graphs kept
+pool lifetime) and its admission waves from one graph per wave key, and
+the static path replays its decode from graphs kept
 per group shape, so phases 3–12 and 14–16 serve graphed (phase 5's
 speculative serve and phase 7's static and speculative ones included);
 the (c) serves of phases 14–16 are also served eagerly once and held
 equal, and phase 20 (b) traces a graphed segment beside the eager ones.
 Depth: phases 8, 9, 10 (its launcher serves), 11 (b) and 15 (c) serve
-at ``FEATURE_LAYERS`` / ``HYMBA_FEATURE_LAYERS`` (``cut_depth``), the
-published depths (40 and 32) since the graphed segment made room for
-them; a run that outgrows its limit cuts these first, depth and never
-width.
+at ``FEATURE_LAYERS`` / ``HYMBA_FEATURE_LAYERS`` (``cut_depth``): 10 and
+8 layers, cut from the published 40 and 32 to make room for phase 22's
+wave modes; a run that outgrows its limit cuts these first, depth and
+never width.
 Each phase prints its seconds, and the run its total.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -344,10 +355,11 @@ CARD_SERVER = dict(slots=1024, max_batch=8)
 CARD_PROMPTS = dict(prompt_lens=(64, 513))
 # Depth of the serving phases that check a feature on the main path's
 # widths rather than the main path itself (8, 9, 10 (b)-(c), 11 (b): granite;
-# 15 (c): hymba): the published 40 and 32, the first thing to cut should
-# the phases outgrow the run's time limit.
-FEATURE_LAYERS = 40
-HYMBA_FEATURE_LAYERS = 32
+# 15 (c): hymba), the first thing to cut should the phases outgrow the
+# run's time limit: 10 of granite's 40 and 8 of hymba's 32 since phase 22
+# serves the admission waves twice over (eager and graphed, two passes).
+FEATURE_LAYERS = 10
+HYMBA_FEATURE_LAYERS = 8
 
 
 @contextlib.contextmanager
@@ -7293,6 +7305,208 @@ def phase_graphs(seed: int) -> dict:
     return out
 
 
+# phase 22, the admission waves: (label, the launcher's arguments, native
+# weight bits or None), each served in two passes on one scheduler
+WAVE_MODES = (("kv16 paged", ["--kv-bits", "16"], None),
+              ("kv8 paged, registry, chunk 128",
+               ["--kv-bits", "8", "--prefill-chunk", "128"], None),
+              ("kv8 contiguous", ["--kv-bits", "8", "--no-paged-kv"], None),
+              ("native W8", ["--kv-bits", "16"], 8))
+
+
+def second_pass(cfg, reqs, seed: int) -> list:
+    """``reqs`` again with new tokens from ``seed``: the same lengths,
+    budgets and classes, so the second pass's waves reuse the first's
+    keys."""
+    rng = np.random.default_rng(seed)
+    return [dataclasses.replace(r, tokens=rng.integers(
+        0, cfg.vocab, len(r.tokens)).astype(np.int32)) for r in reqs]
+
+
+def watch_waves(sched, guard: bool) -> dict:
+    """Record ``sched``'s admission waves (kind, whether it replayed a
+    graph, K3 launches in it) and each ``admit()`` round that dispatched
+    one (host wall ms, no sync; waves). With ``guard`` a replayed wave
+    runs under :func:`sync_errors`."""
+    from repro_torch.kernels import qmatmul as QM
+
+    rec = {"waves": [], "rounds": []}
+    wave, admit = sched._wave, sched.admit
+
+    def watched(kind, pid, plan, pre=(), pp=0):
+        w = sched.waves
+        replay = w is not None and w.key(kind, pid, plan, pp) in w._graphs
+        k3 = QM.qmatmul.launches
+        with (sync_errors() if guard and replay
+              else contextlib.nullcontext()):
+            out = wave(kind, pid, plan, pre, pp)
+        rec["waves"].append((kind, replay, QM.qmatmul.launches - k3))
+        return out
+
+    def timed_admit():
+        n = len(rec["waves"])
+        t0 = time.perf_counter()
+        out = admit()
+        ms = (time.perf_counter() - t0) * 1e3
+        if len(rec["waves"]) > n:
+            rec["rounds"].append((ms, len(rec["waves"]) - n))
+        return out
+
+    sched._wave = watched
+    sched.admit = timed_admit
+    return rec
+
+
+def _walls(rounds) -> str:
+    return "[" + ", ".join(f"{ms:.2f}" for ms, _ in rounds) + "]"
+
+
+def phase_wave_graphs(seed: int) -> dict:
+    """Phase 22's admission waves: granite-3-2b at full width on phase 4's
+    workload through the scheduler at kv16 paged, kv8 paged with the
+    prefix registry and ``--prefill-chunk 128`` (continuation and chunk
+    waves from masters), kv8 contiguous and native W8, each served by one
+    scheduler in two passes (phase 4's 12 requests, then 12 of the same
+    lengths from another seed, so wave keys recur), eagerly
+    (``graphs=False``) and then graphed, from one manager state. Per pass:
+    tokens, traces, statuses, events, admission order and the ledger
+    equal; the kernels' counters equal, K3's per wave too (native W8: 4 ×
+    40 a wave); the graphed waves capture each key once, pass 2 none that
+    pass 1 captured; every replayed wave under
+    ``set_sync_debug_mode("error")``; peak memory within 10 % of the
+    eager serve's. Prints each ``admit()`` round's host wall, tok/s,
+    captures, replays and peak memory of both."""
+    import gc
+    from repro_torch.launch import serve as S
+    from repro_torch.models.native import to_native
+    from repro_torch.serving import graphs as G
+    from repro_torch.serving.engine import AdaptiveServer
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    out = {}
+    for label, extra, w_bits in WAVE_MODES:
+        free_card("waves")
+        args = S.parse_args(["--full", "--continuous", "--requests", "12",
+                             "--max-new", "32", "--quantum", "8",
+                             "--block-size", "16", "--seed", str(seed),
+                             *extra])
+        cfg, srv = S.build_server(args, **CARD_SERVER)
+        if w_bits is not None:
+            nat = to_native(srv.params, w_bits)
+            srv = AdaptiveServer(cfg, nat, srv.engine, srv.scfg,
+                                 manager=srv.manager, device="cuda")
+            del nat
+        gc.collect()
+        first = S.make_requests(cfg, args, **CARD_PROMPTS)
+        passes = (first, second_pass(cfg, first, seed + 1))
+        mgr0 = copy.deepcopy(srv.manager)
+        runs = {}
+        for path in ("eager", "graphed"):
+            graphed = path == "graphed"
+            srv.manager = copy.deepcopy(mgr0)
+            sched = ContinuousScheduler(srv, quantum=args.quantum,
+                                        graphs=graphed)
+            if graphed != (sched.waves is not None):
+                raise AssertionError(f"[waves] {label}: {path} serve on "
+                                     f"the wrong route")
+            rec = watch_waves(sched, guard=graphed)
+            runs[path] = []
+            for i, reqs in enumerate(passes):
+                c0 = [getattr(f, a) for f, a in G.counters()]
+                caps0 = len(sched.waves.captured) if graphed else 0
+                rep0 = sched.waves.replays if graphed else 0
+                n_w, n_r = len(rec["waves"]), len(rec["rounds"])
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                res = S.serve(srv, reqs, args.quantum, continuous=True,
+                              sched=sched)
+                mine = res["results"][i * len(first):]
+                runs[path].append({
+                    "served": served(res), "wall": res["wall_s"],
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "counts": [getattr(f, a) - c for (f, a), c
+                               in zip(G.counters(), c0)],
+                    "waves": rec["waves"][n_w:],
+                    "rounds": rec["rounds"][n_r:],
+                    "tokens": sum(len(r["tokens"]) for r in mine),
+                    "new": (list(sched.waves.captured[caps0:]) if graphed
+                            else []),
+                    "replays": (sched.waves.replays - rep0 if graphed
+                                else 0)})
+                del res, mine
+            if graphed and (
+                    len(set(sched.waves.captured)) != len(sched.waves.captured)
+                    or set(sched.waves.captured) != sched.waves.used
+                    or sched.waves.lifetimes != 1):
+                raise AssertionError(
+                    f"[waves] {label}: captures {sched.waves.captured} for "
+                    f"the keys used {sorted(sched.waves.used)}")
+            del sched, rec
+            gc.collect()     # the wrappers hold the scheduler in a cycle
+        row = {}
+        for i in range(len(passes)):
+            e, g = runs["eager"][i], runs["graphed"][i]
+            tag = f"[waves] {label} pass {i + 1}"
+            for key in e["served"]:
+                if e["served"][key] != g["served"][key]:
+                    raise AssertionError(f"{tag}: eager and graphed differ "
+                                         f"in {key}")
+            if e["counts"] != g["counts"]:
+                raise AssertionError(f"{tag}: launches eager {e['counts']} "
+                                     f"graphed {g['counts']}")
+            k3 = [n for _, _, n in g["waves"]]
+            want = 4 * cfg.n_layers if w_bits else 0
+            if [n for _, _, n in e["waves"]] != k3 or \
+                    any(n != want for n in k3):
+                raise AssertionError(f"{tag}: K3 launches per wave eager "
+                                     f"{[n for _, _, n in e['waves']]} "
+                                     f"graphed {k3}, not {want} each")
+            if i and set(g["new"]) & set(runs["graphed"][0]["new"]):
+                raise AssertionError(f"{tag}: captured again a key pass 1 "
+                                     f"captured: {g['new']}")
+            replayed = sum(r for _, r, _ in g["waves"])
+            if replayed != g["replays"]:
+                raise AssertionError(f"{tag}: {replayed} replayed waves, "
+                                     f"{g['replays']} replays")
+            ratio = g["peak"] / e["peak"]
+            kinds = sorted({k for k, _, _ in g["waves"]})
+            e_ms = sum(ms for ms, _ in e["rounds"])
+            g_ms = sum(ms for ms, _ in g["rounds"])
+            n_tok = g["tokens"]
+            print(f"{tag}: eager = graphed (tokens, traces, statuses, "
+                  f"{len(g['served']['events'])} events, admission order, "
+                  f"ledger {g['served']['spent_j']:.6e} J, counters; K3 "
+                  f"{sum(k3)} in waves = {want} x {len(k3)}); "
+                  f"{len(g['waves'])} waves {kinds} in {len(g['rounds'])} "
+                  f"admit() rounds; captures {len(g['new'])} new keys, "
+                  f"replays {g['replays']} (each under sync errors); "
+                  f"admit() host wall per round eager {_walls(e['rounds'])}"
+                  f" ms = {e_ms:.2f} ms, graphed {_walls(g['rounds'])} ms "
+                  f"= {g_ms:.2f} ms; {n_tok} tokens: eager "
+                  f"{e['wall']:.3f}s = {n_tok / e['wall']:.2f} tok/s, "
+                  f"graphed {g['wall']:.3f}s = {n_tok / g['wall']:.2f} "
+                  f"tok/s; peak memory eager {e['peak'] / 2**30:.3f} GiB, "
+                  f"graphed {g['peak'] / 2**30:.3f} GiB ({ratio:.4f}), "
+                  f"{card_line()}")
+            if ratio > 1.10:
+                raise AssertionError(f"{tag}: graphed peak memory "
+                                     f"{ratio:.3f} x the eager serve's")
+            row[f"pass{i + 1}"] = {
+                "eager_tok_s": n_tok / e["wall"],
+                "graphed_tok_s": n_tok / g["wall"],
+                "eager_admit_ms": [ms for ms, _ in e["rounds"]],
+                "graphed_admit_ms": [ms for ms, _ in g["rounds"]],
+                "captures": len(g["new"]), "replays": g["replays"],
+                "peak_ratio": ratio, "k3_waves": sum(k3)}
+        row["k3_waves"] = sum(row[f"pass{i + 1}"]["k3_waves"]
+                              for i in range(len(passes)))
+        out[label] = row
+        del srv
+    free_card("waves")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     """One row of the kernel table: the main path's launch count and the
     phase-2 row of the kernel at its main-path shape (every kernel also
@@ -7315,7 +7529,8 @@ def kernel_entry(name, source, replaces, launches, row, **extra) -> dict:
     for K5, over the four ranks' timed bf16 pipeline run; phase 22's on
     the graphed segment: K1's kv16 paged serve, K2's speculative kv16
     paged one, K4's kv8 contiguous one and its static kv8 serve, K3's
-    native W8 one)."""
+    native W8 one, and K3's in the two-pass native W8 serve's graphed
+    admission waves)."""
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -7520,10 +7735,11 @@ def main() -> None:
     if 21 in phases:
         with timed(21):
             distrib = phase_distrib(args.seed)
-    graphs = {}
+    graphs, waves = {}, {}
     if 22 in phases:
         with timed(22):
             graphs = phase_graphs(args.seed)
+            waves = phase_wave_graphs(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []
@@ -7550,7 +7766,9 @@ def main() -> None:
             hymba_launches=hymba["k3"], moe_launches=moe["k3"],
             vlm_launches=vlm["k3"], audio_launches=audio["k3"],
             graph_launches=graphs.get("native W8", {}).get(
-                "qmatmul.launches", 0)))
+                "qmatmul.launches", 0),
+            wave_graph_launches=waves.get("native W8", {}).get(
+                "k3_waves", 0)))
         kernels.append(kernel_entry(
             "qkv_attention", "qkv_attention.cu",
             "src/repro/kernels/qkv_attention.py:68", static["launches"],

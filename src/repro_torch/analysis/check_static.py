@@ -24,7 +24,9 @@ Three blocking stages (any failure => non-zero exit):
    oracle (``generate_stepwise``), and on a CUDA device, where the segment
    (or the speculative segment's window) replays CUDA graphs, one capture
    per profile id in use (``single-segment-executable``) and none in the
-   second round (``no-retrace``). On the CPU both run eagerly.
+   second round (``no-retrace``); the admission waves, which replay the
+   graph of their wave key, capture each key they use once
+   (``assert_wave_executables``). On the CPU both run eagerly.
 
 Flags:
 
@@ -164,6 +166,7 @@ def _scenario(parts, device, label: str, spec: dict) -> int:
                 audit.assert_max_prefill_waves(MAX_PREFILL_WAVES_PER_ROUND)
                 if graphed:
                     audit.assert_single_segment()
+                    audit.assert_wave_executables()
                     if len(rounds) == 2:
                         audit.assert_no_retrace()
             except AssertionError as e:
@@ -176,7 +179,9 @@ def _scenario(parts, device, label: str, spec: dict) -> int:
     if rc == 0:
         caps = (f"segment graphs captured={sched.graphs.captured} "
                 f"(<= {SEGMENT_GRAPHS_PER_PROFILE} per profile id), none on "
-                f"the warm pool" if graphed else
+                f"the warm pool; wave graphs captured="
+                f"{sched.waves.capture_count()} = distinct wave keys "
+                f"{len(sched.waves.used)}" if graphed else
                 "segment graphs: none (eager segment on "
                 f"{device.type}; checked on a CUDA device)")
         print(f"scenarios ({label}): ok — segments="

@@ -22,7 +22,11 @@ or on a speculative scheduler a draft/verify window's — so both read the
 scheduler's captures per pool lifetime instead: ``single-segment-
 executable`` is one capture per profile id in use, at most ``P``;
 ``no-retrace`` is no capture of a profile id that was already captured
-when the audit opened, and no new pool lifetime.
+when the audit opened, and no new pool lifetime. The admission waves'
+counterpart (the reference compiles one admission executable per bucket
+shape) reads the scheduler's wave graphs: one capture per distinct wave
+key its waves used in the pool lifetime, none twice
+(``assert_wave_executables``).
 """
 
 from __future__ import annotations
@@ -109,7 +113,8 @@ class SchedulerAudit(DispatchAudit):
 
     - ``single-segment-executable`` — ``assert_single_segment()``
     - ``max-prefill-waves`` — ``assert_max_prefill_waves(2)``
-    - ``no-retrace`` — ``assert_no_retrace()``
+    - ``no-retrace`` — ``assert_no_retrace()``, and for the admission
+      waves ``assert_wave_executables()``
     - ``no-per-token-dispatch`` — forbid the server's stepwise oracle
       (``DispatchAudit(server, ["generate_stepwise"])``) around the run;
       ``run_segment`` calls count the segments.
@@ -183,6 +188,27 @@ class SchedulerAudit(DispatchAudit):
             raise AssertionError(
                 f"captures {g.captured} for profile ids {sorted(g.used)} "
                 f"(at most one each, {n_prof} profiles)")
+
+    def wave_captures(self) -> int | None:
+        """Wave graphs captured in the scheduler's current pool lifetime
+        (``None``: the scheduler runs the eager waves)."""
+        w = getattr(self.target, "waves", None)
+        return None if w is None else w.capture_count()
+
+    def assert_wave_executables(self) -> None:
+        """The admission waves' ``no-retrace``: the wave captures of the
+        pool lifetime equal the distinct wave keys ``(kind, profile id,
+        rows, bucket, prefix bucket)`` its waves used, and no key is
+        captured twice."""
+        w = getattr(self.target, "waves", None)
+        if w is None:
+            raise AssertionError("the scheduler runs the eager waves: "
+                                 "nothing is captured")
+        again = sorted({k for k in w.captured if w.captured.count(k) > 1})
+        if again or set(w.captured) != w.used:
+            raise AssertionError(
+                f"wave keys captured {w.captured} for the keys used "
+                f"{sorted(w.used)} (once each; captured again: {again})")
 
     def assert_no_retrace(self) -> None:
         """``no-retrace``: since the audit opened, no new pool lifetime

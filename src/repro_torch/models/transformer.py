@@ -13,9 +13,10 @@ for training ``train_loss`` and ``chunked_xent``,
 ``prefill``, ``decode_step``, ``prequant_decode_weights``,
 ``overlay_params``, ``init_caches``, ``init_paged_caches``,
 ``decode_segment``, ``decode_many``, for continuation prefill
-``forward_extend`` and ``prefill_extend``, and for speculative decoding
-``ngram_propose``, ``decode_step_spec`` and ``decode_segment_spec``, and
-for preemption ``paged_row_masters`` and ``amax_for_scale``.
+``forward_extend``, ``prefill_extend`` and ``prefix_operands``, and for
+speculative decoding ``ngram_propose``, ``decode_step_spec`` and
+``decode_segment_spec``, and for preemption ``paged_row_masters`` and
+``amax_for_scale``.
 
 The per-layer KV precision policy rides ``kv_sched`` (one bit-width per
 layer, host ints; ``decode_segment``/``decode_many`` take the ``[P, L]``
@@ -97,7 +98,8 @@ from repro_torch.runtime import compute_dtype
 __all__ = ["ModelConfig", "sites", "quant_layer_names", "split_bits",
            "init_params", "param_count", "active_param_count", "forward",
            "chunked_xent", "train_loss", "layer_stack",
-           "prefill", "forward_extend", "prefill_extend", "decode_step",
+           "prefill", "forward_extend", "prefill_extend", "prefix_operands",
+           "decode_step",
            "prequant_decode_weights", "overlay_params", "eff_slots",
            "paged_block_size",
            "init_caches", "init_paged_caches", "cache_bytes",
@@ -441,7 +443,7 @@ def _embed_inputs(cfg: ModelConfig, params: dict, bits_row, batch: dict):
     plen = batch.get("prompt_len")
     if plen is None:
         return constrain(x, "dp", None, None), ar[None].expand(b, s), None
-    pad = s - torch.as_tensor(plen, dtype=torch.int32, device=dev)
+    pad = s - _ints(plen, torch.int32, dev)
     positions = ar[None] - pad[:, None]
     valid = positions >= 0
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
@@ -881,6 +883,15 @@ def amax_for_scale(scale: np.ndarray, qmax: float,
 # prefill
 # ---------------------------------------------------------------------------
 
+def _ints(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """Per-row lengths as a ``dtype`` tensor on ``device``: host ints
+    (numpy, a list) are copied over; a tensor already there is taken as it
+    is (no host round trip, so a graph capture can read staged lengths)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
 def _place(dst: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor) -> None:
     """Write ``rows [B, n, ...]`` into ``dst [B, slots, ...]`` at columns
     ``slot [B, n]``; a column ``>= slots`` goes to an extra sink column that
@@ -905,7 +916,8 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
             kv_sched=None):
     """Full-sequence prefill → (last-token logits [B,V], caches).
 
-    Ragged batches (``batch["prompt_len"]``, host ints): each left-padded
+    Ragged batches (``batch["prompt_len"]``: host ints, or an int tensor
+    on the device, read there without a host round trip): each left-padded
     row hands off its KV at per-row *logical* positions, so decode resumes
     at ``pos0 = prompt_len``. Pad slots keep ``token_idx = -1``, and int-KV
     scales are calibrated over real tokens only.
@@ -948,8 +960,7 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     if plen is None:
         pad = torch.zeros((b,), dtype=torch.int64, device=dev)
     else:
-        pad = s - torch.as_tensor(np.asarray(plen), dtype=torch.int64,
-                                  device=dev)
+        pad = s - _ints(plen, torch.int64, dev)
     pos_t = idx[None, :] - pad[:, None]                    # [B, take] logical
     real = pos_t >= 0
     slot = torch.where(real, pos_t % eff, torch.full_like(pos_t, eff))
@@ -991,7 +1002,9 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
 
     ``batch``: ``tokens [B, Sb]`` left-padded suffixes and ``prompt_len
     [B]`` their lengths. ``prefix_k``/``prefix_v [L, B, Pp, Hkv, hd]``:
-    full-precision prefix K/V, zero past ``prefix_len [B]``. Returns
+    full-precision prefix K/V, zero past ``prefix_len [B]``. Both lengths
+    may be host ints or int tensors on the device (no host round trip).
+    Returns
     ``(hidden [B, Sb, d], (k, v) [L, B, Sb, Hkv, hd])``. ``kv_sched``
     refines the fresh suffix K/V only: the prefix K/V were refined when
     they were born.
@@ -1003,9 +1016,8 @@ def forward_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     dev = tokens.device
     x = embed_lookup(params["embed"], tokens, eb)
     b, s = tokens.shape
-    slen = torch.as_tensor(np.asarray(batch["prompt_len"]),
-                           dtype=torch.int32, device=dev)
-    plen = torch.as_tensor(prefix_len, dtype=torch.int32, device=dev)
+    slen = _ints(batch["prompt_len"], torch.int32, dev)
+    plen = _ints(prefix_len, torch.int32, dev)
     local = (torch.arange(s, dtype=torch.int32, device=dev)[None]
              - (s - slen)[:, None])
     positions = local + plen[:, None]          # absolute; negative on pads
@@ -1062,9 +1074,8 @@ def prefill_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     kv = caches["kv"]
     eff = slots
     pp = prefix_k.shape[2]
-    plen = torch.as_tensor(prefix_len, dtype=torch.int64, device=dev)
-    slen = torch.as_tensor(np.asarray(batch["prompt_len"]),
-                           dtype=torch.int64, device=dev)
+    plen = _ints(prefix_len, torch.int64, dev)
+    slen = _ints(batch["prompt_len"], torch.int64, dev)
     ppos = torch.arange(pp, device=dev)[None].expand(b, pp)
     real_p = ppos < plen[:, None]                           # [B, Pp]
     slot_p = torch.where(real_p, ppos, eff)
@@ -1106,6 +1117,32 @@ def prefill_extend(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     if return_raw_kv:
         return logits, caches, (k_all, v_all)
     return logits, caches
+
+
+def prefix_operands(cfg: ModelConfig, a: int, pp: int, pre, device,
+                    out: Optional[tuple] = None) -> tuple:
+    """A master-replay continuation's prefix operands for
+    :func:`prefill_extend`: ``(prefix_k, prefix_v [L, a, pp, Hkv, hd],
+    prefix_k_amax, prefix_v_amax [L, a, Hkv])``, f32, from ``pre`` — one
+    ``(n_tok, mk, mv, ka, va)`` per wave row, the f32 masters ``mk``/``mv
+    [L, ≥ n_tok, Hkv, hd]`` cut to ``n_tok`` and their raw amaxes (``None``:
+    zeros). Every other entry is zero. ``out`` (four tensors of those
+    shapes) is zeroed and filled in place; else new tensors are made."""
+    if out is None:
+        kv = (cfg.n_layers, a, pp, cfg.n_kv, cfg.hd)
+        am = (cfg.n_layers, a, cfg.n_kv)
+        out = tuple(torch.zeros(shape, dtype=torch.float32, device=device)
+                    for shape in (kv, kv, am, am))
+    else:
+        for x in out:
+            x.zero_()
+    kpre, vpre, ka, va = out
+    for j, (n_tok, mk, mv, ka_j, va_j) in enumerate(pre):
+        kpre[:, j, :n_tok] = mk[:, :n_tok]
+        vpre[:, j, :n_tok] = mv[:, :n_tok]
+        if ka_j is not None:
+            ka[:, j], va[:, j] = ka_j, va_j
+    return out
 
 
 # ---------------------------------------------------------------------------

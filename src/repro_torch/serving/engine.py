@@ -131,10 +131,10 @@ class ServingConfig:
     waves and steps to the accuracy target. ``preemption`` — a critical
     arrival that cannot admit evicts saver-class rows, which later resume
     bit-exactly through the master-replay continuation wave
-    (:meth:`AdaptiveServer.admit_shared` with an empty suffix); needs the
-    paged pool on a ``supports_prefix_sharing`` stack. ``aging`` — rounds
-    a queued request waits at the head of its class before it climbs one
-    level (``None``: strict lowest-level-first).
+    (:meth:`AdaptiveServer.wave` ``"master"`` with an empty suffix); needs
+    the paged pool on a ``supports_prefix_sharing`` stack. ``aging`` —
+    rounds a queued request waits at the head of its class before it
+    climbs one level (``None``: strict lowest-level-first).
 
     ``precision_policy`` — the per-layer KV precision policy: a
     ``[n_profiles, n_layers]`` nested tuple of bit-widths in (4, 8, 16),
@@ -212,13 +212,33 @@ def check_servable(cfg: T.ModelConfig) -> None:
 STATIC_STEPS = 32
 
 
-def _write_rows(pool, rows, s: torch.Tensor, j: torch.Tensor) -> None:
-    """Write wave rows ``j`` of the stacked cache ``rows`` whole over pool
-    rows ``s`` (every tensor field, ``[L, B, ...]``)."""
+def _put_rows(dst: torch.Tensor, sidx: torch.Tensor, src: torch.Tensor,
+              dim: int = 1) -> None:
+    """``dst``'s row ``sidx[j]`` along ``dim`` becomes ``src``'s row ``j``
+    for every ``j`` with ``0 <= sidx[j] < dst.shape[dim]``; the other rows
+    of ``src`` write nothing (the reference's ``mode="drop"``). Fixed
+    shapes, no host index set: a dropped row repeats the first live row's
+    write (same row, same values), so the duplicate indices agree; with no
+    live row every write puts a row of ``dst`` back as it was."""
+    n = dst.shape[dim]
+    live = (sidx >= 0) & (sidx < n)
+    first = torch.argmax(live.to(torch.int32))
+    j = torch.where(live, torch.arange(sidx.shape[0], device=sidx.device),
+                    first)
+    t = sidx.long().index_select(0, j).clamp(0, n - 1)
+    vals = torch.where(live.any(), src.index_select(dim, j).to(dst.dtype),
+                       dst.index_select(dim, t))
+    dst.index_copy_(dim, t, vals)
+
+
+def _put_cache_rows(pool, rows, sidx: torch.Tensor) -> None:
+    """:func:`_put_rows` of every tensor field of the stacked cache ``rows``
+    (``[L, a, ...]``) over ``pool`` (``[L, B, ...]``): wave rows land whole
+    at pool rows ``sidx``."""
     for f in dataclasses.fields(pool):
         x = getattr(pool, f.name)
         if isinstance(x, torch.Tensor):
-            x[:, s] = getattr(rows, f.name)[:, j]
+            _put_rows(x, sidx, getattr(rows, f.name))
 
 
 class AdaptiveServer:
@@ -325,7 +345,7 @@ class AdaptiveServer:
                     "precision_policy entries must be 4, 8 or 16")
             self.kv_table = pol
         # a preempted row resumes through the master-replay continuation
-        # wave (admit_shared, empty suffix) at every precision: its blocks
+        # wave ("master", empty suffix) at every precision: its blocks
         # are gone, so the kv16 pool-gather wave cannot serve it
         self.can_restore = bool(serving.paged_kv
                                 and T.supports_prefix_sharing(cfg))
@@ -422,11 +442,11 @@ class AdaptiveServer:
                  return_raw_kv: bool = False):
         """Ragged prefill of ``prompts [B, S]`` under profile ``pid`` into a
         contiguous ``[B, slots]`` cache → ``(logits [B, V], caches)``, and
-        the raw K/V with ``return_raw_kv``."""
-        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
-                                           device=self.device)}
+        the raw K/V with ``return_raw_kv``. ``prompts``/``prompt_len`` are
+        host ints or int tensors on the device."""
+        batch = {"tokens": T._ints(prompts, torch.int32, self.device)}
         if prompt_len is not None:
-            batch["prompt_len"] = np.asarray(prompt_len, np.int32)
+            batch["prompt_len"] = prompt_len
         return T.prefill(self.profile_params(pid), self.cfg,
                          self.engine.table[int(pid)], batch, slots,
                          kv_bits=self.scfg.kv_bits,
@@ -621,162 +641,123 @@ class AdaptiveServer:
         return results
 
     # ------------------------------------------------------ continuous path
-    def admit(self, pid: int, prompts: np.ndarray, prompt_len: np.ndarray,
-              slots_idx: np.ndarray, tok: torch.Tensor, pos: torch.Tensor,
-              caches: dict) -> torch.Tensor:
-        """One admission wave into the contiguous pool (the reference's
-        ``admit_fn``): a ragged prefill of the left-padded ``prompts [a,
-        bucket]`` into ``[a, slots]`` rows, first tokens by on-device
-        argmax, and each row written whole over pool row ``slots_idx[j]``
-        (a retired request's stale ``token_idx`` entries, or its SSM state
-        ``h``/``conv``, must not survive). Wave rows whose ``slots_idx``
-        is out of range (padding) are skipped, where the reference's
-        scatter drops them. Updates ``tok``/``pos``/``caches`` in place
-        and returns the wave's first tokens ``[a]``."""
-        logits, rows = self._prefill(pid, prompts, self.scfg.slots,
-                                     prompt_len)
-        tok0 = logits.argmax(dim=-1).to(torch.int32)
-        sidx = np.asarray(slots_idx)
-        live = np.nonzero(sidx < tok.shape[0])[0]
-        j = torch.as_tensor(live, device=self.device)
-        s = torch.as_tensor(sidx[live], device=self.device)
-        for key in caches:                       # "kv" and/or "ssm"
-            _write_rows(caches[key], rows[key], s, j)
-        tok[s] = tok0[j]
-        pos[s] = torch.as_tensor(np.asarray(prompt_len)[live],
-                                 dtype=torch.int32, device=self.device)
-        return tok0
+    def wave(self, kind: str, pid: int, plan: dict, tok: torch.Tensor,
+             pos: torch.Tensor, caches: dict, prefix: Optional[tuple] = None):
+        """One admission wave in fixed shapes (the reference's ``admit_fn``,
+        ``admit_paged_fn``, ``admit_shared_pool_fn`` and its master-replay
+        body): the body :class:`~repro_torch.serving.graphs.WaveGraphs`
+        captures, and the eager wave. ``plan`` holds the wave's int arrays
+        (host ints, or int tensors on the device, which are read there):
+        ``prompts [a, bucket]`` left-padded, ``plen [a]`` their lengths,
+        ``sidx [a]`` the pool rows (out of range: padding, which writes
+        nothing), and per ``kind``:
 
-    def admit_paged(self, pid: int, prompts: np.ndarray,
-                    prompt_len: np.ndarray, slots_idx: np.ndarray,
-                    dest: np.ndarray, tok: torch.Tensor, pos: torch.Tensor,
-                    caches: dict):
-        """One paged admission wave: a ragged prefill of the left-padded
-        ``prompts [a, bucket]`` into transient dense rows, first tokens by
-        on-device argmax, and a scatter of the rows into the pool at
-        physical blocks ``dest [a, n_lblk]``. Wave rows whose ``slots_idx``
-        is out of range (padding) and table entries outside the pool are
-        skipped — the host filters them, where the reference's scatter
-        drops them. Updates ``tok``/``pos``/``caches`` in place and returns
-        ``(tok0 [a], raw)``: ``raw`` is the wave's pre-quantization K/V
-        (:func:`~repro_torch.models.transformer.prefill`'s
-        ``return_raw_kv``) when the server keeps masters, else ``None``."""
-        out = self._prefill(pid, prompts, self.slots_p, prompt_len,
-                            return_raw_kv=self._collect_masters)
-        raw = out[2] if self._collect_masters else None
-        tok0 = self._land(out[0], out[1], np.asarray(prompt_len), slots_idx,
-                          dest, None, tok, pos, caches)
-        return tok0, raw
+        - ``"cold"``: a ragged prefill into ``[a, slots]`` rows, each
+          written whole over its pool row of the contiguous pool (a retired
+          request's stale ``token_idx`` entries, or its SSM state, must not
+          survive);
+        - ``"paged"``: a ragged prefill into transient dense rows cut into
+          blocks and scattered at physical blocks ``dest [a, n_lblk]``
+          (entries outside the pool go to the write sink);
+        - ``"pool"`` / ``"master"``: a continuation prefill of the suffixes
+          over ``pre_len [a]`` prefix tokens, gathered as f32 from the bf16
+          pool's blocks ``pre_bids [a, Pp / bs]`` (entries outside the pool
+          read as zeros) or replayed from ``prefix`` (``(prefix_k,
+          prefix_v [L, a, Pp, Hkv, hd], k_amax, v_amax [L, a, Hkv] or
+          None)``); then the block scatter with ``dest`` out of the pool on
+          shared blocks (never written: the copy-on-write) and ``bt [a,
+          n_lblk]`` installed as the rows' tables.
 
-    def admit_shared(self, pid: int, prompts: np.ndarray,
-                     suffix_len: np.ndarray, slots_idx: np.ndarray,
-                     dest: np.ndarray, bt_rows: np.ndarray,
-                     prefix_k: torch.Tensor, prefix_v: torch.Tensor,
-                     k_amax: Optional[torch.Tensor],
-                     v_amax: Optional[torch.Tensor], prefix_len: np.ndarray,
-                     tok: torch.Tensor, pos: torch.Tensor, caches: dict):
-        """One continuation wave (shared-prefix admissions, chunks): a
-        continuation prefill of the left-padded suffixes ``prompts [a, sb]``
-        (``suffix_len [a]``) over the prefix K/V ``prefix_k``/``prefix_v
-        [L, a, Pp, Hkv, hd]`` (``prefix_len [a]`` real tokens; raw amaxes
-        ``[L, a, Hkv]`` or ``None``), then the block scatter of
-        :meth:`admit_paged` with ``dest`` out of the pool on shared blocks
-        (never written — that skipped write is the copy-on-write) and
-        ``bt_rows`` installed as the rows' tables (the shared blocks
-        mapped, then the private tail). This is the master-replay variant;
-        :meth:`admit_shared_pool` gathers the prefix from the pool.
-        Returns ``(tok0 [a], raw suffix K/V or None)``."""
-        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
-                                           device=self.device),
-                 "prompt_len": np.asarray(suffix_len, np.int32)}
-        plen = np.asarray(prefix_len, np.int32)
-        out = T.prefill_extend(
-            self.profile_params(pid), self.cfg, self.engine.table[int(pid)],
-            batch, self.slots_p, kv_bits=self.scfg.kv_bits,
-            prefix_k=prefix_k, prefix_v=prefix_v, prefix_len=plen,
-            prefix_k_amax=k_amax, prefix_v_amax=v_amax,
-            return_raw_kv=self._collect_masters, kv_sched=self.kv_sched(pid))
-        raw = out[2] if self._collect_masters else None
-        tok0 = self._land(out[0], out[1], plen + np.asarray(suffix_len),
-                          slots_idx, dest, bt_rows, tok, pos, caches)
-        return tok0, raw
+        A live row's scales (int KV), table, SSM state (a hybrid stack)
+        and carries (``tok`` = its first token, ``pos`` = its token count)
+        are written at its pool row. Updates ``tok``/``pos``/``caches`` in
+        place and returns ``(tok0 [a], raw)``: ``raw`` is the wave's
+        pre-quantization K/V when the server keeps masters (not on a
+        contiguous-pool wave), else ``None``."""
+        dev = self.device
+        p = {k: T._ints(v, torch.int32, dev) for k, v in plan.items()}
+        collect = self._collect_masters and kind != "cold"
+        if kind in ("cold", "paged"):
+            out = self._prefill(pid, p["prompts"], self.scfg.slots
+                                if kind == "cold" else self.slots_p,
+                                p["plen"], return_raw_kv=collect)
+            row_len = p["plen"]
+        else:
+            if kind == "pool":
+                prefix = self._pool_prefix(caches["kv"], p["pre_bids"])
+            pk, pv, ka, va = prefix
+            out = T.prefill_extend(
+                self.profile_params(pid), self.cfg,
+                self.engine.table[int(pid)],
+                {"tokens": p["prompts"], "prompt_len": p["plen"]},
+                self.slots_p, kv_bits=self.scfg.kv_bits, prefix_k=pk,
+                prefix_v=pv, prefix_len=p["pre_len"], prefix_k_amax=ka,
+                prefix_v_amax=va, return_raw_kv=collect,
+                kv_sched=self.kv_sched(pid))
+            row_len = p["pre_len"] + p["plen"]
+        rows, sidx = out[1], p["sidx"]
+        tok0 = out[0].argmax(dim=-1).to(torch.int32)
+        if kind == "cold":
+            for key in caches:                   # "kv" and/or "ssm"
+                _put_cache_rows(caches[key], rows[key], sidx)
+        else:
+            self._scatter_blocks(caches["kv"], rows["kv"], p["dest"], sidx,
+                                 p.get("bt"))
+            if "ssm" in caches:
+                _put_cache_rows(caches["ssm"], rows["ssm"], sidx)
+        _put_rows(tok, sidx, tok0, dim=0)
+        _put_rows(pos, sidx, row_len, dim=0)
+        return tok0, (out[2] if collect else None)
 
-    def admit_shared_pool(self, pid: int, prompts: np.ndarray,
-                          suffix_len: np.ndarray, slots_idx: np.ndarray,
-                          dest: np.ndarray, bt_rows: np.ndarray,
-                          pre_bids: np.ndarray, prefix_len: np.ndarray,
-                          tok: torch.Tensor, pos: torch.Tensor,
-                          caches: dict):
-        """:meth:`admit_shared` for a bf16 pool, whose blocks are the
-        masters: the prefix K/V are gathered from pool blocks ``pre_bids
-        [a, Pp / bs]`` as f32 (entries outside the pool read as zeros)."""
-        pool = caches["kv"]
+    def _pool_prefix(self, pool, pre_bids: torch.Tensor) -> tuple:
+        """A bf16 pool's prefix operands: the K/V of blocks ``pre_bids [a,
+        Pp / bs]`` as f32 ``[L, a, Pp, Hkv, hd]`` (entries outside the
+        pool read as zeros), no amaxes."""
         a, pb = pre_bids.shape
-        ok, idx = _mapped(torch.as_tensor(pre_bids, device=self.device),
-                          pool.n_blocks)
+        ok, idx = _mapped(pre_bids, pool.n_blocks)
 
         def gather(x):                           # [L, nb + 1, bs, Hkv, hd]
             g = torch.where(ok[None, :, :, None, None, None],
                             x[:, idx].float(), 0.0)
             return g.reshape(x.shape[0], a, pb * x.shape[2], *x.shape[3:])
 
-        return self.admit_shared(pid, prompts, suffix_len, slots_idx, dest,
-                                 bt_rows, gather(pool.k), gather(pool.v),
-                                 None, None, prefix_len, tok, pos, caches)
+        return gather(pool.k), gather(pool.v), None, None
 
-    def _land(self, logits, rows, row_len, slots_idx, dest, bt_rows, tok,
-              pos, caches) -> torch.Tensor:
-        """Finish a paged wave: first tokens by on-device argmax, the block
-        scatter of the live wave rows, their SSM state written whole on a
-        hybrid stack (a new row must not decode from its slot's previous
-        occupant's state), and their carry (``pos`` = each row's token
-        count ``row_len``). Returns the wave's first tokens."""
-        tok0 = logits.argmax(dim=-1).to(torch.int32)
-        sidx = np.asarray(slots_idx)
-        live = np.nonzero(sidx < tok.shape[0])[0]
-        self._scatter_blocks(caches["kv"], rows["kv"], np.asarray(dest),
-                             sidx, live,
-                             None if bt_rows is None else np.asarray(bt_rows))
-        j = torch.as_tensor(live, device=self.device)
-        s = torch.as_tensor(sidx[live], device=self.device)
-        if "ssm" in caches:
-            _write_rows(caches["ssm"], rows["ssm"], s, j)
-        tok[s] = tok0[j]
-        pos[s] = torch.as_tensor(np.asarray(row_len)[live],
-                                 dtype=torch.int32, device=self.device)
-        return tok0
+    def admit_paged(self, pid: int, prompts: np.ndarray,
+                    prompt_len: np.ndarray, slots_idx: np.ndarray,
+                    dest: np.ndarray, tok: torch.Tensor, pos: torch.Tensor,
+                    caches: dict):
+        """One eager paged admission wave (the reference's
+        ``admit_paged_fn``): :meth:`wave` ``"paged"`` with host arrays.
+        Returns ``(tok0 [a], raw)``."""
+        return self.wave("paged", pid, {"prompts": prompts,
+                                        "plen": prompt_len,
+                                        "sidx": slots_idx, "dest": dest},
+                         tok, pos, caches)
 
-    def _scatter_blocks(self, pool, rows, dest: np.ndarray,
-                        sidx: np.ndarray, live: np.ndarray,
-                        bt_rows: Optional[np.ndarray] = None) -> None:
-        """Cut each live wave row of the stacked dense cache ``rows``
-        (``[L, a, slots_p, ...]``) into ``n_lblk`` blocks and write the
-        blocks whose ``dest`` entry is in the pool; install the rows' block
-        tables and scales at pool rows ``sidx``. The table is ``bt_rows``
-        where given — it differs from ``dest`` exactly on shared blocks,
-        which are mapped but not written — else ``dest``."""
+    def _scatter_blocks(self, pool, rows, dest: torch.Tensor,
+                        sidx: torch.Tensor,
+                        bt_rows: Optional[torch.Tensor] = None) -> None:
+        """Cut each wave row of the stacked dense cache ``rows`` (``[L, a,
+        slots_p, ...]``) into ``n_lblk`` blocks and write them at ``dest``;
+        a block whose entry is outside the pool, or whose row is padding,
+        lands in the write sink. Install the live rows' block tables and
+        scales at pool rows ``sidx``. The table is ``bt_rows`` where given
+        — it differs from ``dest`` exactly on shared blocks, which are
+        mapped but not written — else ``dest``."""
         nlb, bs, L = self.n_lblk, self.block_size, self.cfg.n_layers
         a = dest.shape[0]
-        d = dest[live]
-        jj, ll = np.nonzero((d >= 0) & (d < pool.n_blocks))
-        dev = self.device
-        src_j = torch.as_tensor(live[jj], device=dev)
-        src_l = torch.as_tensor(ll, device=dev)
-        dst = torch.as_tensor(d[jj, ll], dtype=torch.int64, device=dev)
-
-        def blk(x):
-            return x.reshape(L, a, nlb, bs, *x.shape[3:])
-
+        live = (sidx >= 0) & (sidx < pool.block_table.shape[1])
+        ok, dst = _mapped(dest, pool.n_blocks)
+        dst = torch.where(ok & live[:, None], dst, pool.n_blocks).reshape(-1)
         for name in ("k", "v", "token_idx"):
-            getattr(pool, name)[:, dst] = blk(getattr(rows, name))[:, src_j,
-                                                                   src_l]
-        s = torch.as_tensor(sidx[live], device=dev)
-        j = torch.as_tensor(live, device=dev)
-        table = d if bt_rows is None else bt_rows[live]
-        pool.block_table[:, s] = torch.as_tensor(
-            table, dtype=torch.int32, device=dev)[None].expand(L, -1, -1)
-        pool.k_scale[:, s] = rows.k_scale[:, j]
-        pool.v_scale[:, s] = rows.v_scale[:, j]
+            x = getattr(rows, name)
+            getattr(pool, name).index_copy_(
+                1, dst, x.reshape(L, a * nlb, bs, *x.shape[3:]))
+        table = dest if bt_rows is None else bt_rows
+        _put_rows(pool.block_table, sidx, table[None].expand(L, a, nlb))
+        _put_rows(pool.k_scale, sidx, rows.k_scale)
+        _put_rows(pool.v_scale, sidx, rows.v_scale)
 
     def segment(self, schedule: np.ndarray, tok: torch.Tensor,
                 pos: torch.Tensor, caches: dict, remaining: np.ndarray,

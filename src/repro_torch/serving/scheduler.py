@@ -19,7 +19,7 @@ blocks ``prompt + max_new`` will touch. A dry allocator is backpressure:
 the queue head waits. With ``ServingConfig.paged_kv=False`` the pool is
 contiguous ``[max_batch, slots]`` rows: admission is gated on free rows
 alone, and each wave writes its prefilled rows whole over the pool rows
-(:meth:`~repro_torch.serving.engine.AdaptiveServer.admit`). Token blocks
+(:meth:`~repro_torch.serving.engine.AdaptiveServer.wave`). Token blocks
 come back one segment late
 (``_flush(keep=1)``): retirement needs only the host's ``remaining`` counts,
 so the next dispatch is queued before the previous tokens are read. On
@@ -27,6 +27,9 @@ CUDA a segment replays one CUDA graph per step (a speculative segment's:
 per draft/verify window), captured once per profile id and pool lifetime
 (:mod:`repro_torch.serving.graphs`); the slot pool's last tokens and
 positions are the graphs' input buffers, which admission writes in place.
+An admission wave replays the graph of its key (kind, profile id, rows,
+bucket, prefix bucket), captured once per key and pool lifetime, with its
+host plan staged in one copy.
 
 The profile plan is made one segment ahead with
 :meth:`~repro_torch.core.manager.ProfileManager.plan_schedule_ragged` (or,
@@ -128,7 +131,8 @@ import torch
 from repro_torch.models import transformer as T
 from .engine import AdaptiveServer, Request, RequestStatus, _next_pow2
 from .faults import FaultSchedule, Watchdog
-from .graphs import Capture, SegmentGraphs, SpecSegmentGraphs, graphable
+from .graphs import (Capture, SegmentGraphs, SpecSegmentGraphs, WaveGraphs,
+                     graphable)
 from .paged import BlockAllocator, PrefixRegistry, RowSnapshot, prefix_keys
 from .policy import RowState, SchedulingPolicy, ShedPolicy, make_policy
 
@@ -160,16 +164,19 @@ class ContinuousScheduler:
     (replaces ``time.monotonic``: tests inject virtual time) and
     ``paranoid`` (run :meth:`check` after every step).
 
-    Segment graphs (:mod:`repro_torch.serving.graphs`): ``graphs`` (default
-    on for a scheduler on CUDA whose server is graphable) replays each
-    decode step, or on a speculative scheduler each draft/verify window,
-    from the CUDA graph of its profile id, captured on the id's first use
-    in this pool's lifetime; ``graphs=False`` runs the eager segment.
-    ``capture`` replaces the CUDA capture (tests drive the bookkeeping on
-    the CPU with a capture that returns the step itself). ``self.graphs``
-    is the lifetime's :class:`~repro_torch.serving.graphs.SegmentGraphs`
+    Graphs (:mod:`repro_torch.serving.graphs`): ``graphs`` (default on for
+    a scheduler on CUDA whose server is graphable) replays each decode
+    step, or on a speculative scheduler each draft/verify window, from the
+    CUDA graph of its profile id, and each admission wave from the graph
+    of its key ``(kind, profile id, rows, bucket, prefix bucket)``, each
+    captured on its first use in this pool's lifetime; ``graphs=False``
+    runs the eager segment and the eager waves. ``capture`` replaces the
+    CUDA capture (tests drive the bookkeeping on the CPU with a capture
+    that returns the step itself). ``self.graphs`` is the lifetime's
+    :class:`~repro_torch.serving.graphs.SegmentGraphs`
     (:class:`~repro_torch.serving.graphs.SpecSegmentGraphs` when
-    speculating), or ``None``.
+    speculating) and ``self.waves`` its
+    :class:`~repro_torch.serving.graphs.WaveGraphs`, or both ``None``.
     """
 
     def __init__(self, server: AdaptiveServer, quantum: int = 8,
@@ -238,6 +245,9 @@ class ContinuousScheduler:
         elif graphs:
             self.graphs = SegmentGraphs(server, nslots, self.quantum,
                                         capture=capture)
+        # the admission waves' graphs, one per wave key, beside them
+        self.waves = (WaveGraphs(server, capture=capture)
+                      if self.graphs is not None else None)
         if self.graphs is not None:           # admissions write the graphs'
             self._tok = self.graphs.buf["tok"]    # input storage in place
             self._pos = self.graphs.buf["pos"]
@@ -1072,9 +1082,9 @@ class ContinuousScheduler:
             sidx[j] = slot
         pid = self._bill(reqs)
         self.prefill_tokens += sum(lens)
+        plan = {"prompts": prompts, "plen": plen, "sidx": sidx}
         if not self.paged:
-            tok0 = self.srv.admit(pid, prompts, plen, sidx, self._tok,
-                                  self._pos, self._caches)
+            tok0, _ = self._wave("cold", pid, plan)
             self._post_admission(tok0, self.srv.engine.profile_names[pid],
                                  [(j, rid, slot, None, None)
                                   for j, (rid, slot, _) in enumerate(rows)])
@@ -1082,8 +1092,7 @@ class ContinuousScheduler:
         dest = np.full((a, self.n_lblk), self.allocator.n_blocks, np.int32)
         for j, (_, _, blocks) in enumerate(allrows):
             dest[j, :len(blocks)] = blocks
-        tok0, raw = self.srv.admit_paged(pid, prompts, plen, sidx, dest,
-                                         self._tok, self._pos, self._caches)
+        tok0, raw = self._wave("paged", pid, dict(plan, dest=dest))
         if self.registry is not None and rows:
             self._register_prefixes(rows, reqs[:n_cold], raw, bucket)
         for off, (rid, slot, blocks) in enumerate(chunked):
@@ -1139,42 +1148,46 @@ class ContinuousScheduler:
                 self._prefix_keys.get(rid, []), j_max, blocks, mk, mv,
                 share_blocks=self.srv.scfg.kv_bits == 16)
 
+    def _wave(self, kind: str, pid: int, plan: dict, pre=(), pp: int = 0):
+        """Dispatch one admission wave (:meth:`~repro_torch.serving.engine.
+        AdaptiveServer.wave`): replayed from the pool lifetime's wave
+        graph of its key when the segments replay graphs, else eager. A
+        master wave's prefix operands come from ``pre`` (one ``(n_tok, mk,
+        mv, ka, va)`` per wave row) padded to ``pp`` tokens. Returns
+        ``(tok0, raw)``; ``raw`` is valid until the next wave."""
+        if self.waves is not None and graphable(self.srv):
+            return self.waves.run(kind, pid, plan, self._tok, self._pos,
+                                  self._caches, pre, pp)
+        prefix = None
+        if kind == "master":
+            prefix = T.prefix_operands(self.srv.cfg, len(plan["sidx"]), pp,
+                                       pre, self.srv.device)
+        return self.srv.wave(kind, pid, plan, self._tok, self._pos,
+                             self._caches, prefix=prefix)
+
     def _call_continuation(self, pid: int, prompts, slen, sidx, dest,
                            bt_rows, plen_pre, pp: int, pre: list,
                            masters: bool = False):
         """Assemble the prefix operands of one continuation wave and
         dispatch it. ``pre``: one ``(n_tok, block_ids, mk, mv, ka, va)``
         per wave row. A bf16 pool without masters gathers the prefix from
-        ``block_ids`` (:meth:`~repro_torch.serving.engine.AdaptiveServer.
-        admit_shared_pool`); otherwise, and always with ``masters`` (the
-        resume wave: its rows' blocks are gone), the f32 masters, cut to
-        ``n_tok`` (chain entries share one buffer) and padded to ``pp``,
-        are replayed with their raw amax. Returns ``(tok0, raw)``."""
-        cfg, srv = self.srv.cfg, self.srv
-        a = dest.shape[0]
-        if not srv.masters_mode and not masters:
-            pre_bids = np.full((a, pp // self.block_size),
+        ``block_ids`` (the ``"pool"`` wave); otherwise, and always with
+        ``masters`` (the resume wave: its rows' blocks are gone), the f32
+        masters, cut to ``n_tok`` (chain entries share one buffer) and
+        padded to ``pp``, are replayed with their raw amax (the
+        ``"master"`` wave). Returns ``(tok0, raw)``."""
+        plan = {"prompts": prompts, "plen": slen, "sidx": sidx,
+                "dest": dest, "bt": bt_rows, "pre_len": plen_pre}
+        if not self.srv.masters_mode and not masters:
+            pre_bids = np.full((dest.shape[0], pp // self.block_size),
                                self.allocator.n_blocks, np.int32)
             for j, (n_tok, bids, *_rest) in enumerate(pre):
                 nbl = n_tok // self.block_size
                 pre_bids[j, :nbl] = bids[:nbl]
-            return srv.admit_shared_pool(pid, prompts, slen, sidx, dest,
-                                         bt_rows, pre_bids, plen_pre,
-                                         self._tok, self._pos, self._caches)
-        dev = srv.device
-        kpre = torch.zeros((cfg.n_layers, a, pp, cfg.n_kv, cfg.hd),
-                           device=dev)
-        vpre = torch.zeros_like(kpre)
-        ka = torch.zeros((cfg.n_layers, a, cfg.n_kv), device=dev)
-        va = torch.zeros_like(ka)
-        for j, (n_tok, _, mk, mv, ka_j, va_j) in enumerate(pre):
-            kpre[:, j, :n_tok] = mk[:, :n_tok]
-            vpre[:, j, :n_tok] = mv[:, :n_tok]
-            if ka_j is not None:
-                ka[:, j], va[:, j] = ka_j, va_j
-        return srv.admit_shared(pid, prompts, slen, sidx, dest, bt_rows,
-                                kpre, vpre, ka, va, plen_pre, self._tok,
-                                self._pos, self._caches)
+            return self._wave("pool", pid, dict(plan, pre_bids=pre_bids))
+        return self._wave("master", pid, plan,
+                          [(n_tok, mk, mv, ka, va)
+                           for n_tok, _, mk, mv, ka, va in pre], pp)
 
     def _dispatch_shared(self, rows, chunked=()) -> int:
         """One continuation wave of registry hits: suffix-only prefill over

@@ -28,7 +28,9 @@ qwen2-moe's routed stacks and the MoE smoke forward; at qwen2-vl-2b's and
 hubert-xlarge's shapes, K1 and K4 at Hg 6, D 128, K3 at N 17920, 3840 and
 504 (hubert's head, on mma.sync), the qwen2-vl smoke model's paged decode
 through K1 equal to the gather backend's, and the hubert smoke encoder on
-the card equal to the CPU.
+the card equal to the CPU; the scheduler's decode segments and admission
+waves (kv16, native W8, chunked prefill with prefix hits) replayed from
+CUDA graphs equal to the eager ones.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU mode)
 and skip elsewhere; they import no JAX, so they run on a machine that has
@@ -2345,3 +2347,150 @@ def test_a_synchronizing_drafter_makes_the_capture_raise():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "capture raised" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the admission waves replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _wave_requests(cfg, seed, sys_len):
+    """``_graph_requests``' lengths behind a system prompt of ``sys_len``
+    tokens, from ``seed``."""
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(0, cfg.vocab, sys_len).astype(np.int32)
+    return [Request(tokens=np.concatenate(
+        [sys_p, rng.integers(0, cfg.vocab, n).astype(np.int32)]), max_new=m)
+        for n, m in [(7, 9), (12, 5), (5, 13), (20, 6), (9, 11), (6, 4),
+                     (15, 8)]]
+
+
+def _wave_serve(scfg, graphs, native, sys_len):
+    """The granite smoke model on the card (``native`` weight bits or the
+    bf16 images) served by one scheduler in two passes of the same prompt
+    lengths (the second from another seed, so wave keys recur) with
+    ``graphs`` on or off. A replayed wave runs under
+    ``set_sync_debug_mode("error")``. Returns the scheduler, the pool and
+    the carries after every wave (the write sink cut off) and K3's
+    launches."""
+    import dataclasses
+    from repro_torch.models.native import to_native
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg, params, engine = _smoke_server_parts()
+    if native is not None:
+        params = to_native(params, native)
+    srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+        slots=64, max_batch=4, block_size=8, paged_backend="kernel",
+        **scfg), device="cuda")
+    sched = ContinuousScheduler(srv, quantum=4, graphs=graphs)
+    seen = []
+    wave = sched._wave
+
+    def watched(kind, pid, plan, pre=(), pp=0):
+        w = sched.waves
+        replay = w is not None and w.key(kind, pid, plan, pp) in w._graphs
+        torch.cuda.set_sync_debug_mode("error" if replay else 0)
+        try:
+            out = wave(kind, pid, plan, pre, pp)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        state = {"tok": sched._tok.cpu(), "pos": sched._pos.cpu(),
+                 "tok0": out[0].cpu()}
+        for key, c in sched._caches.items():
+            for f in dataclasses.fields(c):
+                x = getattr(c, f.name)
+                if isinstance(x, torch.Tensor):
+                    if f.name in ("k", "v", "token_idx") and key == "kv" \
+                            and sched.paged:
+                        x = x[:, :c.n_blocks]
+                    state[f"{key}.{f.name}"] = x.cpu()
+        seen.append((kind, replay, state))
+        return out
+
+    sched._wave = watched
+    k3 = QM.qmatmul.launches
+    for seed in (51, 52):
+        for r in _wave_requests(cfg, seed, sys_len):
+            sched.submit(r)
+        sched.run()
+    torch.cuda.synchronize()
+    del sched._wave                # no cycle keeps the graphs alive
+    return sched, seen, QM.qmatmul.launches - k3
+
+
+WAVE_CASES = {"kv16": (dict(kv_bits=16), None, 0),
+              "native-w8": (dict(kv_bits=16), 8, 0),
+              "kv16-chunked-prefix": (dict(kv_bits=16, prefill_chunk=8),
+                                      None, 16),
+              "kv8-chunked-prefix": (dict(kv_bits=8, prefill_chunk=8), None,
+                                     16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WAVE_CASES))
+def test_graphed_waves_equal_eager_on_card(case):
+    """Wave graphs on the card: over two passes, every wave of the
+    graphed scheduler leaves the pool (its blocks but the write sink, its
+    tables, scales and carries) and first tokens bitwise those of the
+    eager waves, replays the keys of the first pass under
+    ``set_sync_debug_mode("error")``, and captures each key once; K3's
+    launches (native W8: 4 per layer per wave and per decode step) are
+    equal on both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    scfg, native, sys_len = WAVE_CASES[case]
+    runs = {g: _wave_serve(scfg, g, native, sys_len) for g in (False, None)}
+    (eager, e_seen, k3_e), (graphed, g_seen, k3_g) = runs[False], runs[None]
+    assert eager.waves is None and graphed.waves is not None
+    assert [k for k, _, _ in e_seen] == [k for k, _, _ in g_seen]
+    for i, ((_, _, a), (_, _, b)) in enumerate(zip(e_seen, g_seen)):
+        assert a.keys() == b.keys()
+        for key in a:
+            assert torch.equal(a[key].contiguous().view(torch.uint8),
+                               b[key].contiguous().view(torch.uint8)), \
+                (i, key)
+    for rid in eager.results:
+        assert graphed.results[rid] == eager.results[rid]
+    assert graphed.events == eager.events
+    w = graphed.waves
+    assert sorted(w.captured) == sorted(w.used)
+    assert len(set(w.captured)) == len(w.captured)
+    assert w.replays == sum(r for _, r, _ in g_seen) > 0
+    assert k3_g == k3_e
+    n_layers = graphed.srv.cfg.n_layers
+    assert k3_g == (4 * n_layers * (graphed.decode_steps + len(g_seen))
+                    if native else 0)
+    if sys_len:
+        assert graphed.registry.hits > 0 and graphed.chunk_waves > 0
+
+
+@pytest.mark.cuda
+def test_the_collector_is_held_off_during_a_capture():
+    """``cuda_capture`` disables Python's garbage collector while it
+    captures (a collected cycle holding another graph would release its
+    memory into the capture and invalidate it) and restores it after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import gc
+    from repro_torch.serving import graphs as G
+    x = torch.arange(8.0, device="cuda")
+    y = torch.zeros_like(x)
+    seen = []
+    stream = torch.cuda.Stream()
+
+    def step():
+        seen.append(gc.isenabled())
+        y.copy_(x * 2)
+
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()
+    torch.cuda.current_stream().wait_stream(stream)
+    assert gc.isenabled()
+    replay = G.cuda_capture(step, stream, torch.cuda.graph_pool_handle())
+    assert seen == [True, False] and gc.isenabled()
+    x.add_(1)
+    replay()
+    torch.cuda.synchronize()
+    assert y.tolist() == [2.0 * (i + 1) for i in range(8)]
