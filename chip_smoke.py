@@ -124,9 +124,11 @@ Phases:
     every serve ends with the uninterrupted tokens, a clean audit and 0
     blocks in use, K1 = 4 × decode steps and K2 = 4 × windows after the
     restart; a corrupted leaf re-prefills its request, a drained run
-    restarts and completes; (b) a real crash at full width: the launcher's
-    ``--full --continuous --journal-dir D --checkpoint-every 8`` as a child
-    process, SIGKILLed after its second cut, restarted on ``D``, beside an
+    restarts and completes; (b) a real crash at granite's widths and
+    ``FEATURE_LAYERS``: the launcher's ``--full --continuous --journal-dir
+    D --checkpoint-every 8`` as a child process (depth cut as
+    ``cut_depth`` cuts it), SIGKILLed after its second cut, restarted on
+    ``D``, beside an
     uninterrupted child and one without the journal: every first-boot rid
     has exactly one ``final`` record with the uninterrupted tokens; bytes
     and ms per cut, ms per fsync'd record, ``recovery_s``, tok/s with and
@@ -287,41 +289,53 @@ Phases:
     granite-3-2b at full width on phase 4's workload, kv16, kv8 and kv4
     paged, kv8 contiguous and native W8 through ``--continuous``, the
     speculative segment (``--speculate --draft-k 4``) at kv16 and kv8
-    paged and kv8 contiguous, and the static path at kv8, each served
-    through the launcher's path eagerly (``graphs=False``) and then
-    graphed, from one manager state: tokens, traces, statuses, events,
-    ``spec_billed``, admission order and the ledger equal; captures = the
-    distinct profile ids the segments used, in one pool lifetime; every
-    graphed segment (the speculative one without its flush; the static
-    decode) under ``set_sync_debug_mode("error")``; K1, K2, K4 or K3
-    launches equal on both (counted as launches per capture x replays on
-    the graphed one); billed = delivered when speculating; peak memory
-    within 10 % of the eager serve's; tok/s of both; the static path's
-    kept cache bytes and copy time; one steady kv16 segment of each under
-    ``torch.profiler`` (wall, device busy). The admission waves, replayed
+    paged and kv8 contiguous, each served through the launcher's path
+    eagerly (``graphs=False``) and then graphed, from one manager state:
+    tokens, traces, statuses, events, ``spec_billed``, admission order and
+    the ledger equal; captures = the distinct profile ids the segments
+    used, in one pool lifetime; every graphed segment (the speculative one
+    without its flush) under ``set_sync_debug_mode("error")``; K1, K2, K4
+    or K3 launches equal on both (counted as launches per capture x
+    replays on the graphed one); billed = delivered when speculating; peak
+    memory within 10 % of the eager serve's; tok/s of both; one steady
+    kv16 segment of each under ``torch.profiler`` (wall, device busy).
+    The static path at kv8 (prefill graphs per exact group key, decode
+    graphs per profile id over the group shape's kept cache) in two passes
+    of the same 12 requests on one server, each eager then graphed: equal
+    tokens, traces and ledger, K4 equal, pass 2 capturing nothing, its
+    prefill replays and decodes under ``set_sync_debug_mode("error")``,
+    the prefill's host wall, tok/s, peak and reserved memory and the graph
+    pool's bytes, and in a third, untimed serve no write over a whole leaf
+    of the kept cache; then the
+    stepwise oracle on 8 rows of one length, eager then graphed (one step
+    graph per profile id): equal tokens, trace, ledger and K4, per-token
+    host wall, and one prefill graph's first and later replays. The
+    admission waves, at ``FEATURE_LAYERS``, replayed
     from one CUDA graph per wave key (``WaveGraphs``): kv16 paged, kv8
     paged with the prefix registry and ``--prefill-chunk 128``, kv8
     contiguous and native W8, each served by one scheduler in two passes
     (phase 4's 12 requests, then 12 of the same lengths from another
     seed), eagerly and then graphed: per pass everything above equal, K3
-    per wave 4 x 40 on both (native), each key captured once and none of
-    pass 1's again in pass 2, every replayed wave under
+    per wave 4 x the layers on both (native), each key captured once and
+    none of pass 1's again in pass 2, every replayed wave under
     ``set_sync_debug_mode("error")``, peak memory within 10 %; each
     ``admit()`` round's host wall, tok/s, captures and replays of both.
 Segment graphs: on the card every scheduler, speculative or not, on the
 kernel backend or a contiguous pool replays its decode steps (or
 draft/verify windows) from CUDA graphs (one capture per profile id per
 pool lifetime) and its admission waves from one graph per wave key, and
-the static path replays its decode from graphs kept
-per group shape, so phases 3–12 and 14–16 serve graphed (phase 5's
+the static path replays its prefill (one graph per exact group key) and
+its decode from graphs kept per group shape, so phases 3–12 and 14–16
+serve graphed (phase 5's
 speculative serve and phase 7's static and speculative ones included);
 the (c) serves of phases 14–16 are also served eagerly once and held
 equal, and phase 20 (b) traces a graphed segment beside the eager ones.
-Depth: phases 8, 9, 10 (its launcher serves), 11 (b) and 15 (c) serve
-at ``FEATURE_LAYERS`` / ``HYMBA_FEATURE_LAYERS`` (``cut_depth``): 10 and
-8 layers, cut from the published 40 and 32 to make room for phase 22's
-wave modes; a run that outgrows its limit cuts these first, depth and
-never width.
+Depth: phases 8, 9, 10 (its launcher serves), 11 (b), 12 (b), 15 (c)
+and phase 22's wave modes serve at ``FEATURE_LAYERS`` /
+``HYMBA_FEATURE_LAYERS`` (``cut_depth``; 12 (b)'s children cut the same
+way): 10 and 8 layers, cut from the published 40 and 32 to make room for
+phase 22's static modes at full depth; a run that outgrows its limit
+cuts these first, depth and never width.
 Each phase prints its seconds, and the run its total.
 The last lines are the card, the kernel table (JSON) and the result (JSON).
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -343,6 +357,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 K5_KERNEL = "aquant_fused_kernel"  # K5's one kernel, as the profiler names it
@@ -354,10 +369,11 @@ ATOL = 1e-4                       # kernel vs plain, f32 outputs
 CARD_SERVER = dict(slots=1024, max_batch=8)
 CARD_PROMPTS = dict(prompt_lens=(64, 513))
 # Depth of the serving phases that check a feature on the main path's
-# widths rather than the main path itself (8, 9, 10 (b)-(c), 11 (b): granite;
-# 15 (c): hymba), the first thing to cut should the phases outgrow the
-# run's time limit: 10 of granite's 40 and 8 of hymba's 32 since phase 22
-# serves the admission waves twice over (eager and graphed, two passes).
+# widths rather than the main path itself (8, 9, 10 (b)-(c), 11 (b), 12 (b)
+# and 22's wave modes: granite; 15 (c): hymba), the first thing to cut
+# should the phases outgrow the run's time limit: 10 of granite's 40 and 8
+# of hymba's 32 since phase 22 serves its admission waves and its static
+# path twice over (eager and graphed, two passes).
 FEATURE_LAYERS = 10
 HYMBA_FEATURE_LAYERS = 8
 
@@ -3879,14 +3895,17 @@ def phase_durable_parity(seed: int) -> dict:
 
 
 def _durable_child(args: list, log: Path) -> subprocess.Popen:
-    """The launcher's ``main(args)`` at the card's workload in a child
-    process from the checkout, its output in ``log``."""
+    """The launcher's ``main(args)`` at the card's workload and
+    ``FEATURE_LAYERS`` (its configs' depth cut as :func:`cut_depth` cuts
+    it) in a child process from the checkout, its output in ``log``."""
     import os
     env = dict(os.environ)
     root = Path(__file__).resolve().parent
     env["PYTHONPATH"] = str(root / "src")
-    main = ("import sys; from repro_torch.launch.serve import main; "
-            f"main(sys.argv[1:], **{CARD_SERVER!r}, **{CARD_PROMPTS!r})")
+    main = ("import dataclasses, sys; import repro_torch.launch.serve as S; "
+            "full = S.get_config; S.get_config = lambda arch: "
+            f"dataclasses.replace(full(arch), n_layers={FEATURE_LAYERS}); "
+            f"S.main(sys.argv[1:], **{CARD_SERVER!r}, **{CARD_PROMPTS!r})")
     return subprocess.Popen([sys.executable, "-c", main, *args], cwd=root,
                             env=env,
                             stdout=log.open("w"), stderr=subprocess.STDOUT)
@@ -3919,7 +3938,8 @@ def _tok_s(log: Path) -> float:
 
 
 def phase_durable_serve(seed: int) -> dict:
-    """Phase 12 (b), a real crash at full width (40 layers, bf16, kv16):
+    """Phase 12 (b), a real crash at granite's widths and
+    ``FEATURE_LAYERS`` (bf16, kv16):
     phase 4's 12 requests (80 new tokens each, so that the serve outlasts
     two cuts at ``--checkpoint-every 8``) through ``python -m
     repro_torch.launch.serve --full --continuous --journal-dir D
@@ -6976,8 +6996,7 @@ GRAPH_MODES = (("kv16 paged", ["--continuous", "--kv-bits", "16"], None),
                ("spec kv8 paged", ["--continuous", "--kv-bits", "8",
                                    *SPEC4], None),
                ("spec kv8 contiguous", ["--continuous", "--kv-bits", "8",
-                                        "--no-paged-kv", *SPEC4], None),
-               ("static kv8", ["--kv-bits", "8"], None))
+                                        "--no-paged-kv", *SPEC4], None))
 
 
 @contextlib.contextmanager
@@ -7123,52 +7142,25 @@ def profile_segment(srv, reqs, quantum: int, graphs: bool) -> dict:
             "kernels": sum(e.count for e in ev)}
 
 
-def static_copy(srv) -> dict:
-    """The static path's kept contiguous cache: its bytes, which every
-    graphed ``generate`` copies in from the prefill's cache, and that
-    copy's device time (CUDA events over copies between two caches of the
-    group's shape)."""
-    (g, kept), = srv.static_graphs.values()
-    pairs = [(x, x.clone()) for c in kept.values()
-             for x in (getattr(c, f.name) for f in dataclasses.fields(c))
-             if isinstance(x, torch.Tensor)]
-    nbytes = sum(x.numel() * x.element_size() for x, _ in pairs)
-
-    def copy_all():
-        for x, y in pairs:
-            x.copy_(y)
-    ms = cuda_time_ms(copy_all, iters=20, warmup=3)
-    del pairs
-    print(f"[graphs] static kv8: the kept cache of {tuple(srv.static_graphs)}"
-          f" (rows, slots, kv bits) holds {nbytes} B, copied in from the "
-          f"prefill's cache once per group: {ms:.4f} ms on the device "
-          f"({nbytes / ms / 1e6:.1f} GB/s read and as much written), "
-          f"{card_line()}")
-    return {"kept_bytes": nbytes, "copy_ms": ms}
-
-
 def phase_graphs(seed: int) -> dict:
     """Phase 22: granite-3-2b at full width on phase 4's workload (the
     launcher's ``--full``, 12 requests of 64–512 tokens, 32 new tokens, 8
     rows, quantum 8, bf16) through ``--continuous`` at kv16, kv8 and kv4
-    paged, kv8 contiguous and native W8, with ``--speculate --draft-k 4``
-    at kv16 and kv8 paged and kv8 contiguous, and on the static path at
-    kv8, each served eagerly (``graphs=False``) and then from CUDA graphs
-    (the decode step's, the draft/verify window's, the static decode's),
-    one manager state for both: tokens, traces, statuses, events,
-    ``spec_billed``, admission order and the ledger equal; captures = the
-    distinct profile ids the segments used, none of an id already
-    captured, in one pool lifetime (the static path: one graph set per
-    group shape); every graphed segment (the speculative segment without
-    the flush before it; the static decode) under
-    ``set_sync_debug_mode("error")``; K1 (paged), K2 (speculative paged),
-    K4 (contiguous, static) or K3 (native) launches as counted on the
+    paged, kv8 contiguous and native W8, and with ``--speculate
+    --draft-k 4`` at kv16 and kv8 paged and kv8 contiguous, each served
+    eagerly (``graphs=False``) and then from CUDA graphs (the decode
+    step's, the draft/verify window's), one manager state for both:
+    tokens, traces, statuses, events, ``spec_billed``, admission order and
+    the ledger equal; captures = the distinct profile ids the segments
+    used, none of an id already captured, in one pool lifetime; every
+    graphed segment (the speculative segment without the flush before it)
+    under ``set_sync_debug_mode("error")``; K1 (paged), K2 (speculative
+    paged), K4 (contiguous) or K3 (native) launches as counted on the
     eager path, equal on the graphed one; billed = delivered when
     speculating; peak memory within 10 % of the eager serve's; tok/s of
-    both; the static path's kept cache and the cost of its copy; and for
-    kv16 paged, one steady segment of each without the manager (one
-    profile) under ``torch.profiler`` (wall, device busy, busy share, 0
-    captures)."""
+    both; and for kv16 paged, one steady segment of each without the
+    manager (one profile) under ``torch.profiler`` (wall, device busy,
+    busy share, 0 captures). The static path: :func:`phase_static_graphs`."""
     import gc
     from repro_torch.launch import serve as S
     from repro_torch.models.native import to_native
@@ -7178,7 +7170,6 @@ def phase_graphs(seed: int) -> dict:
     out = {}
     for label, extra, w_bits in GRAPH_MODES:
         free_card("graphs")
-        continuous = "--continuous" in extra
         spec = "--speculate" in extra
         args = S.parse_args(["--full", "--requests", "12",
                              "--max-new", "32", "--quantum", "8",
@@ -7193,28 +7184,24 @@ def phase_graphs(seed: int) -> dict:
         gc.collect()
         reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
         mgr0 = copy.deepcopy(srv.manager)
-        watched = ("segment_spec" if spec else "segment" if continuous
-                   else "decode_static")
+        watched = "segment_spec" if spec else "segment"
         runs = {}
         for path in ("eager", "graphed"):
             graphed = path == "graphed"
             srv.manager = copy.deepcopy(mgr0)
             schedules: list = []
-            watch_segments(srv, schedules, guard=graphed, name=watched,
-                           skip=0 if continuous else 1)
+            watch_segments(srv, schedules, guard=graphed, name=watched)
             c0 = [getattr(f, a) for f, a in G.counters()]
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            res = S.serve(srv, reqs, args.quantum, continuous=continuous,
+            res = S.serve(srv, reqs, args.quantum, continuous=True,
                           sched_kw={"graphs": graphed})
             delattr(srv, watched)
             counts = {f"{f.__name__}.{a}": getattr(f, a) - c
                       for (f, a), c in zip(G.counters(), c0)}
             sched = res["sched"]
-            sets = ([] if not graphed else [g for g, _ in
-                    srv.static_graphs.values()] if sched is None
-                    else [sched.graphs])
+            sets = [sched.graphs] if graphed else []
             runs[path] = {"served": served(res, srv), "wall": res["wall_s"],
                           "peak": torch.cuda.max_memory_allocated(),
                           "counts": counts,
@@ -7225,8 +7212,7 @@ def phase_graphs(seed: int) -> dict:
                                          n for _, n in sched.spec_billed)),
                           "graphs": (graph_counts(sets, schedules)
                                      if graphed else None)}
-            if not graphed and (srv.static_graphs if sched is None
-                                else sched.graphs is not None):
+            if not graphed and sched.graphs is not None:
                 raise AssertionError(f"{label}: the eager serve ran on graphs")
             del res, sched, sets         # the graphs hold the server
         e, g = runs["eager"], runs["graphed"]
@@ -7240,7 +7226,7 @@ def phase_graphs(seed: int) -> dict:
         paged = "--no-paged-kv" not in extra
         kname = ("qmatmul.launches" if w_bits else
                  "paged_attention_multi.launches" if spec else
-                 "qkv_attention.launches" if not (continuous and paged)
+                 "qkv_attention.launches" if not paged
                  else "paged_attention.launches")
         per = (4 if w_bits else 1) * cfg.n_layers
         if w_bits:
@@ -7260,7 +7246,7 @@ def phase_graphs(seed: int) -> dict:
         ratio = g["peak"] / e["peak"]
         unit = "windows" if spec else "decode steps"
         what = (f"statuses, {len(g['served']['events'])} events, "
-                f"admission order, " if continuous else "")
+                f"admission order, ")
         if spec:
             what += f"spec_billed, billed = delivered {n_tok}, "
         print(f"[graphs] {label}: eager = graphed (tokens, traces, {what}"
@@ -7268,8 +7254,7 @@ def phase_graphs(seed: int) -> dict:
               f"{g['served']['spent_j']:.6e} J); {kname} {g['counts'][kname]}"
               f" = {want} on both; captures {g['graphs']['captures']} = "
               f"profile ids {g['graphs']['pids']}, replays "
-              f"{g['graphs']['replays']}, {g['segments']} "
-              f"{'segments' if continuous else 'groups'}, "
+              f"{g['graphs']['replays']}, {g['segments']} segments, "
               f"{g['steps']} {unit}; {n_tok} tokens: eager "
               f"{e['wall']:.3f}s = {n_tok / e['wall']:.2f} tok/s, graphed "
               f"{g['wall']:.3f}s = {n_tok / g['wall']:.2f} tok/s "
@@ -7282,8 +7267,6 @@ def phase_graphs(seed: int) -> dict:
         row = {"eager_tok_s": n_tok / e["wall"], "graphed_tok_s":
                n_tok / g["wall"], "peak_ratio": ratio,
                "captures": g["graphs"]["captures"], kname: want}
-        if not continuous:
-            row.update(static_copy(srv))
         if label == "kv16 paged":
             srv.manager = None               # one profile: a steady segment
             for path, graphed in (("eager", False), ("graphed", True)):
@@ -7303,6 +7286,374 @@ def phase_graphs(seed: int) -> dict:
         del srv
     free_card("graphs")
     return out
+
+
+def watch_prefills(srv, graphed: bool, guard: bool) -> tuple:
+    """Record the host wall (ms, no sync) of each static-path prefill on
+    ``srv``: the eager ``_prefill`` (an instance attribute), or graphed
+    ``StaticGraphs.prefill_group`` (the class's, under
+    :func:`sync_errors` with ``guard``). Returns ``(walls, restore)``."""
+    from repro_torch.serving import graphs as G
+
+    walls: list = []
+    owner, name = (G.StaticGraphs, "prefill_group") if graphed else \
+        (srv, "_prefill")
+    orig = getattr(owner, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        with (sync_errors() if guard else contextlib.nullcontext()):
+            out = orig(*a, **k)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(owner, name, timed)
+
+    def restore():
+        if graphed:
+            setattr(owner, name, orig)
+        else:
+            delattr(owner, name)
+    return walls, restore
+
+
+def pool_bytes(pool) -> int | None:
+    """The bytes the caching allocator holds in the private memory pool
+    ``pool`` (a graph pool handle), from its segments in
+    ``torch.cuda.memory_snapshot()``; ``None`` where the snapshot does not
+    name a segment's pool."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(x["total_size"] for x in segs
+               if tuple(x["segment_pool_id"]) == tuple(pool))
+
+
+class WholeWrites(TorchDispatchMode):
+    """Count in-place ops whose destination is a whole tensor of
+    ``leaves`` (same storage start, same size): a copy into the static
+    path's kept cache would be one."""
+
+    def __init__(self, leaves):
+        super().__init__()
+        self.leaves = {(x.data_ptr(), x.numel()) for x in leaves}
+        self.hits: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        dst = args[0] if args else None
+        if (func._schema.name.endswith("_") and isinstance(dst, torch.Tensor)
+                and (dst.data_ptr(), dst.numel()) in self.leaves):
+            self.hits.append(func._schema.name)
+        return func(*args, **(kwargs or {}))
+
+
+def _static_parts(srv) -> dict:
+    """Captures and replays of each part of each group shape's static set
+    (prefill, decode, step)."""
+    return {name: (len(part.captured), part.replays)
+            for g, _ in srv.static_graphs.values()
+            for name, part in zip(("prefill", "decode", "step"), g.parts())}
+
+
+def phase_static_graphs(seed: int) -> dict:
+    """Phase 22's static path: granite-3-2b at full width, the launcher's
+    static server at ``--kv-bits 8`` on phase 4's 12 requests (64–512
+    tokens, 32 new, groups of 8 rows), served in two passes on one server,
+    each pass eagerly (``graphs=False``) and then graphed, every serve
+    from one manager state. The graphed path replays each group's prefill
+    from the graph of its exact key (written straight into the group
+    shape's kept cache) and its decode steps from one graph per profile
+    id. Per pass: tokens, traces and the ledger equal; the kernels'
+    counters equal (K4 = 40 × decode steps); pass 1 captures each prefill
+    key and decode profile id once, pass 2 nothing, its prefill replays
+    and every graphed decode under ``set_sync_debug_mode("error")``; the
+    prefill's host wall summed, tok/s, peak memory of both, the reserved
+    memory and the graph pool's bytes. The kept cache: its leaves are the
+    prefill and decode graphs' and stay put over both passes, and no op of
+    pass 2's graphed serve writes one of them whole. Then ``stepwise
+    kv8``: ``generate_stepwise`` on 8 rows of one prompt length, 32
+    tokens, managed, eager then graphed (the uniform prefill key, one step
+    graph per profile id): tokens, trace, ledger and K4 equal, step
+    captures = the profile ids used, per-token host wall of both; and
+    :func:`prefill_replay_probe`. Reserved memory is read after
+    ``empty_cache``: live tensors and the graphs' pools."""
+    import gc
+    from repro_torch.analysis.tracker import (assert_static_executables,
+                                              static_captures)
+    from repro_torch.launch import serve as S
+    from repro_torch.serving import graphs as G
+
+    free_card("graphs")
+    args = S.parse_args(["--full", "--requests", "12", "--max-new", "32",
+                         "--quantum", "8", "--block-size", "16", "--seed",
+                         str(seed), "--kv-bits", "8"])
+    cfg, srv = S.build_server(args, **CARD_SERVER)
+    gc.collect()
+    reqs = S.make_requests(cfg, args, **CARD_PROMPTS)
+    mgr0 = copy.deepcopy(srv.manager)
+    kname, label = "qkv_attention.launches", "[graphs] static kv8"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = [torch.cuda.memory_reserved()]
+    row, ptrs = {}, None
+    for i in (1, 2):
+        runs = {}
+        for path in ("eager", "graphed"):
+            graphed = path == "graphed"
+            srv.manager = copy.deepcopy(mgr0)
+            schedules: list = []
+            watch_segments(srv, schedules, guard=graphed,
+                           name="decode_static", skip=1)
+            walls, restore = watch_prefills(srv, graphed, graphed and i == 2)
+            c0 = [getattr(f, a) for f, a in G.counters()]
+            p0 = _static_parts(srv)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            res = S.serve(srv, reqs, args.quantum, continuous=False,
+                          sched_kw={"graphs": graphed})
+            restore()
+            delattr(srv, "decode_static")
+            counts = {f"{f.__name__}.{a}": getattr(f, a) - c
+                      for (f, a), c in zip(G.counters(), c0)}
+            p1 = _static_parts(srv)
+            runs[path] = {
+                "served": served(res, srv), "wall": res["wall_s"],
+                "peak": torch.cuda.max_memory_allocated(), "counts": counts,
+                "steps": sum(len(x) for x in schedules),
+                "groups": len(schedules), "prefill_ms": sum(walls),
+                "parts": {k: (p1[k][0] - p0.get(k, (0, 0))[0],
+                              p1[k][1] - p0.get(k, (0, 0))[1]) for k in p1}}
+            if not graphed and p1 != p0:
+                raise AssertionError(f"{label}: the eager serve ran on "
+                                     f"graphs")
+            del res
+        e, g = runs["eager"], runs["graphed"]
+        for key in e["served"]:
+            if e["served"][key] != g["served"][key]:
+                raise AssertionError(f"{label} pass {i}: eager and graphed "
+                                     f"differ in {key}")
+        if e["counts"] != g["counts"] or e["steps"] != g["steps"]:
+            raise AssertionError(f"{label} pass {i}: launches eager "
+                                 f"{e['counts']} graphed {g['counts']}")
+        want = cfg.n_layers * g["steps"]
+        if g["counts"][kname] != want:
+            raise AssertionError(f"{label} pass {i}: {kname} "
+                                 f"{g['counts'][kname]} != {want}")
+        assert_static_executables(srv)
+        parts = g["parts"]
+        if i == 1:
+            pids = sorted({p for x in schedules for p in x})
+            (gset, kept), = srv.static_graphs.values()
+            if parts["decode"][0] != len(pids) or parts["prefill"][0] < 1:
+                raise AssertionError(f"{label} pass 1: captures {parts} "
+                                     f"for decode profile ids {pids}")
+            ptrs = G._leaves(kept)
+            if not (gset._pool_leaves == ptrs
+                    == gset.prefill._pool_leaves[:len(ptrs)]):
+                raise AssertionError(f"{label}: the prefill and decode "
+                                     f"graphs do not share the kept cache")
+        elif any(c for c, _ in parts.values()):
+            raise AssertionError(f"{label} pass 2 captured: {parts}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+        (gset, kept), = srv.static_graphs.values()
+        pool = pool_bytes(gset.pool)
+        n_tok = sum(len(t) for t in g["served"]["tokens"])
+        ratio = g["peak"] / e["peak"]
+        print(f"{label} pass {i}: eager = graphed (tokens, traces, ledger "
+              f"{g['served']['spent_j']:.6e} J); {kname} "
+              f"{g['counts'][kname]} = {want} on both; {g['groups']} "
+              f"groups, {g['steps']} decode steps; captures / replays: "
+              f"prefill {parts['prefill'][0]} / {parts['prefill'][1]}, "
+              f"decode {parts['decode'][0]} / {parts['decode'][1]}; prefill "
+              f"host wall summed eager {e['prefill_ms']:.2f} ms, graphed "
+              f"{g['prefill_ms']:.2f} ms; {n_tok} tokens: eager "
+              f"{e['wall']:.3f}s = {n_tok / e['wall']:.2f} tok/s, graphed "
+              f"{g['wall']:.3f}s = {n_tok / g['wall']:.2f} tok/s; peak "
+              f"memory eager {e['peak'] / 2**30:.3f} GiB, graphed "
+              f"{g['peak'] / 2**30:.3f} GiB ({ratio:.4f}); reserved "
+              f"{reserved[0]} B before the static passes, {reserved[-1]} B "
+              f"now; the set's graph pool "
+              f"{'not measured' if pool is None else f'{pool} B'}; "
+              f"{card_line()}")
+        if ratio > 1.10:
+            raise AssertionError(f"{label} pass {i}: graphed peak memory "
+                                 f"{ratio:.3f} x the eager serve's")
+        row[f"pass {i}"] = {
+            "eager_tok_s": n_tok / e["wall"], "graphed_tok_s":
+            n_tok / g["wall"], "peak_ratio": ratio, "parts": parts,
+            "prefill_ms": (e["prefill_ms"], g["prefill_ms"]),
+            "reserved": reserved[-1], "pool_bytes": pool}
+        row.setdefault(kname, want)
+    # untimed: a first replay under the dispatch mode took seconds of host
+    # wall on the card, so the mode stays out of the timed passes
+    srv.manager = copy.deepcopy(mgr0)
+    leaves = [x for _, _, x in _kept_leaves(kept)]
+    p0 = _static_parts(srv)
+    with WholeWrites(leaves) as mode:
+        res = S.serve(srv, reqs, args.quantum, continuous=False,
+                      sched_kw={"graphs": True})
+    if (served(res, srv) != g["served"] or mode.hits
+            or G._leaves(kept) != ptrs
+            or any(c != p0[k][0] for k, (c, _) in
+                   _static_parts(srv).items())):
+        raise AssertionError(f"{label}: a third serve differs, captured, "
+                             f"moved the kept cache or wrote a leaf whole "
+                             f"({mode.hits})")
+    del res
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"{label}: the kept cache of {tuple(srv.static_graphs)} (rows, "
+          f"slots, kv bits), {nbytes} B, is the one the prefill and decode "
+          f"graphs were captured on (data_ptr) in all passes; a third "
+          f"graphed serve under a dispatch mode (untimed): the same "
+          f"results, no capture, 0 in-place ops over a whole leaf (nothing "
+          f"copies into the kept cache)")
+    out = {"static kv8": row,
+           "stepwise kv8": phase_stepwise_graphs(srv, cfg, reqs, mgr0)}
+    assert_static_executables(srv)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved.append(torch.cuda.memory_reserved())
+    print(f"[graphs] static kv8 + stepwise: captures {static_captures(srv)};"
+          f" reserved {reserved[0]} B before, {reserved[-1]} B after; the "
+          f"graph pool {pool_bytes(gset.pool)} B; {card_line()}")
+    row["replay_probe"] = prefill_replay_probe(srv, cfg, reqs)
+    del srv, gset, kept
+    free_card("graphs")
+    return out
+
+
+def _kept_leaves(kept: dict) -> list:
+    return [(k, f.name, getattr(c, f.name)) for k, c in sorted(kept.items())
+            for f in dataclasses.fields(c)
+            if isinstance(getattr(c, f.name), torch.Tensor)]
+
+
+def prefill_replay_probe(srv, cfg, reqs) -> dict:
+    """The host wall of one static prefill graph's replays: on a
+    ``StaticGraphs`` of its own (outside ``srv.static_graphs``, so the
+    audited sets keep their counts), one key of 8 rows at the longest
+    request's length, half of them padding, is captured (a real run plus
+    the capture), then replayed three times, each replay's host wall (no
+    sync) and time to the device's end beside the eager prefill's; the
+    set is dropped after."""
+    import gc
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import graphs as G
+
+    rows = CARD_SERVER["max_batch"]
+    s = max(len(r.tokens) for r in reqs)
+    prompts = np.random.default_rng(s).integers(
+        0, cfg.vocab, (rows, s)).astype(np.int32)
+    plen = np.where(np.arange(rows) < rows // 2, s, 0).astype(np.int32)
+    probe = G.StaticGraphs(srv, rows, E.STATIC_STEPS)
+
+    def timed(fn) -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    def replay():
+        probe.prefill_group(0, prompts, plen)
+    cap = timed(replay)
+    reps = [timed(replay) for _ in range(3)]
+    eager = [timed(lambda: srv._prefill(0, prompts, srv.scfg.slots, plen))
+             for _ in range(2)]
+    if probe.prefill.captured != [("static", 0, rows, s, 0)] or \
+            probe.prefill.replays != 3:
+        raise AssertionError(f"[graphs] replay probe: captures "
+                             f"{probe.prefill.captured}, replays "
+                             f"{probe.prefill.replays}")
+    print(f"[graphs] static kv8 replay probe: one prefill graph of {rows} x "
+          f"{s} tokens ({rows // 2} padding rows): capture (a real run "
+          f"and the capture) {cap[1]:.2f} ms; replays, host wall / to the "
+          f"device's end: "
+          + ", ".join(f"{h:.2f} / {d:.2f}" for h, d in reps)
+          + " ms; the eager prefill: "
+          + ", ".join(f"{h:.2f} / {d:.2f}" for h, d in eager)
+          + f" ms; {card_line()}")
+    del probe, replay
+    gc.collect()                # the set and its followers form a cycle
+    return {"capture_ms": cap[1], "replays_ms": reps, "eager_ms": eager}
+
+
+def phase_stepwise_graphs(srv, cfg, reqs, mgr0) -> dict:
+    """Phase 22's ``stepwise kv8``: ``generate_stepwise`` on 8 rows of the
+    first request's prompt length (tokens from a seed), 32 tokens, on the
+    static server from manager state ``mgr0``, eager then graphed: the
+    tokens, trace and ledger equal, K4 = 40 × 31 on both, the graphed
+    run's captures the uniform prefill key and one step graph per profile
+    id its steps used. Host walls from the loop's profile selections (one
+    before the prefill, one before each step): the prefill to the first
+    step, and per token the steps' mean (captures included) and
+    median."""
+    from repro_torch.serving import graphs as G
+
+    s = len(reqs[0].tokens)
+    prompts = np.random.default_rng(s).integers(
+        0, cfg.vocab, (CARD_SERVER["max_batch"], s)).astype(np.int32)
+    n_new, kname = 32, "qkv_attention.launches"
+    runs = {}
+    for path in ("eager", "graphed"):
+        graphed = path == "graphed"
+        srv.manager = copy.deepcopy(mgr0)
+        stamps: list = []
+        select = srv._select_profile
+
+        def stamped(critical, select=select, stamps=stamps):
+            stamps.append(time.perf_counter())
+            return select(critical)
+        srv._select_profile = stamped
+        c0 = [getattr(f, a) for f, a in G.counters()]
+        p0 = _static_parts(srv)
+        torch.cuda.synchronize()
+        res = srv.generate_stepwise(prompts, n_new, graphs=graphed)
+        end = time.perf_counter()
+        del srv._select_profile
+        p1 = _static_parts(srv)
+        runs[path] = {"res": res, "spent_j": srv.manager.spent_j,
+                      "counts": {f"{f.__name__}.{a}": getattr(f, a) - c
+                                 for (f, a), c in zip(G.counters(), c0)},
+                      "prefill_ms": (stamps[1] - stamps[0]) * 1e3,
+                      "token_ms": (end - stamps[1]) * 1e3 / (n_new - 1),
+                      "median_ms": float(np.median(np.diff(
+                          stamps[1:] + [end]))) * 1e3,
+                      "wall": end - stamps[0],
+                      "parts": {k: p1[k][0] - p0.get(k, (0, 0))[0]
+                                for k in p1}}
+    e, g = runs["eager"], runs["graphed"]
+    if e["res"] != g["res"] or e["spent_j"] != g["spent_j"]:
+        raise AssertionError("[graphs] stepwise kv8: eager and graphed "
+                             "differ")
+    want = cfg.n_layers * (n_new - 1)
+    if e["counts"] != g["counts"] or g["counts"][kname] != want:
+        raise AssertionError(f"[graphs] stepwise kv8: launches eager "
+                             f"{e['counts']} graphed {g['counts']}, "
+                             f"{kname} want {want}")
+    names = srv.engine.profile_names
+    used = sorted({names.index(p) for p in g["res"]["profile_trace"][1:]})
+    if g["parts"]["step"] != len(used) or g["parts"]["prefill"] != 1:
+        raise AssertionError(f"[graphs] stepwise kv8: captures "
+                             f"{g['parts']} for step profile ids {used}")
+    print(f"[graphs] stepwise kv8: {prompts.shape[0]} rows x {s} tokens, "
+          f"{n_new} new, "
+          f"eager = graphed (tokens, trace over "
+          f"{sorted(set(g['res']['profile_trace']))}, ledger "
+          f"{g['spent_j']:.6e} J); {kname} {want} on both; captures: "
+          f"prefill 1 (the uniform key), step {len(used)} = profile ids "
+          f"{used}; per-token host wall eager {e['token_ms']:.3f} ms "
+          f"(median {e['median_ms']:.3f}), graphed {g['token_ms']:.3f} ms "
+          f"(median {g['median_ms']:.3f}); prefill to the first step "
+          f"eager {e['prefill_ms']:.2f} ms, graphed {g['prefill_ms']:.2f} "
+          f"ms; total eager {e['wall']:.3f}s, graphed {g['wall']:.3f}s; "
+          f"{card_line()}")
+    return {kname: want, "token_ms": (e["token_ms"], g["token_ms"]),
+            "median_ms": (e["median_ms"], g["median_ms"]),
+            "captures": g["parts"]}
 
 
 # phase 22, the admission waves: (label, the launcher's arguments, native
@@ -7362,8 +7713,9 @@ def _walls(rounds) -> str:
 
 
 def phase_wave_graphs(seed: int) -> dict:
-    """Phase 22's admission waves: granite-3-2b at full width on phase 4's
-    workload through the scheduler at kv16 paged, kv8 paged with the
+    """Phase 22's admission waves: granite-3-2b at its widths (at
+    ``FEATURE_LAYERS`` in ``main``) on phase 4's workload through the
+    scheduler at kv16 paged, kv8 paged with the
     prefix registry and ``--prefill-chunk 128`` (continuation and chunk
     waves from masters), kv8 contiguous and native W8, each served by one
     scheduler in two passes (phase 4's 12 requests, then 12 of the same
@@ -7371,7 +7723,8 @@ def phase_wave_graphs(seed: int) -> dict:
     (``graphs=False``) and then graphed, from one manager state. Per pass:
     tokens, traces, statuses, events, admission order and the ledger
     equal; the kernels' counters equal, K3's per wave too (native W8: 4 ×
-    40 a wave); the graphed waves capture each key once, pass 2 none that
+    the layers a wave); the graphed waves capture each key once, pass 2
+    none that
     pass 1 captured; every replayed wave under
     ``set_sync_debug_mode("error")``; peak memory within 10 % of the
     eager serve's. Prints each ``admit()`` round's host wall, tok/s,
@@ -7739,7 +8092,9 @@ def main() -> None:
     if 22 in phases:
         with timed(22):
             graphs = phase_graphs(args.seed)
-            waves = phase_wave_graphs(args.seed)
+            graphs.update(phase_static_graphs(args.seed))
+            with cut_depth(FEATURE_LAYERS):
+                waves = phase_wave_graphs(args.seed)
     if args.profile:
         phase_profile(args.seed)
     kernels = []

@@ -26,7 +26,13 @@ Three blocking stages (any failure => non-zero exit):
    per profile id in use (``single-segment-executable``) and none in the
    second round (``no-retrace``); the admission waves, which replay the
    graph of their wave key, capture each key they use once
-   (``assert_wave_executables``). On the CPU both run eagerly.
+   (``assert_wave_executables``). A static-path scenario serves the same
+   groups twice on one server with the stepwise oracle forbidden, then
+   runs the oracle once: on a CUDA device, where the prefill, the decode
+   and the oracle's step replay graphs, each group shape captures each
+   prefill key and profile id it uses once (``assert_static_executables``)
+   and the second serve captures nothing. On the CPU all of it runs
+   eagerly.
 
 Flags:
 
@@ -129,7 +135,55 @@ def run_scenarios(parts, device) -> int:
     for label, spec in (("greedy", {}),
                         ("speculative", dict(speculate=True, draft_k=2))):
         rc |= _scenario(parts, device, label, spec)
+    rc |= _static_scenario(parts, device)
     return rc
+
+
+def _static_scenario(parts, device) -> int:
+    import numpy as np
+
+    from repro_torch.analysis.tracker import (DispatchAudit,
+                                              assert_static_executables,
+                                              static_captures)
+    from repro_torch.serving.engine import AdaptiveServer, Request, ServingConfig
+
+    cfg, params, eng = parts
+    srv = AdaptiveServer(cfg, params, eng,
+                         ServingConfig(slots=64, max_batch=4, kv_bits=8),
+                         device=device)
+    rng = np.random.default_rng(7)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new=mn)
+            for n, mn in SCENARIO_REQUESTS]
+    graphed = device.type == "cuda"     # the static path replays graphs
+    caps = []
+    with DispatchAudit(srv, ["generate_stepwise"]) as srv_audit:
+        srv_audit.forbid("generate_stepwise")   # no-per-token-dispatch
+        for _ in range(2):                     # the second: the same groups
+            res = srv.serve(reqs)
+            caps.append(static_captures(srv))
+    srv.generate_stepwise(np.stack([r.tokens[:5] for r in reqs[:4]]), 4)
+    try:
+        if len(res) != len(reqs) or any(not r["tokens"] for r in res):
+            raise AssertionError("the static serve did not complete all "
+                                 "requests")
+        if graphed:
+            assert_static_executables(srv)
+            if caps[0] != caps[1]:
+                raise AssertionError(f"the second serve captured: "
+                                     f"{caps[0]} -> {caps[1]}")
+    except AssertionError as e:
+        print(f"scenarios (static): FAIL — {e}")
+        return 1
+    done = static_captures(srv)
+    print("scenarios (static): ok — 2 serves of "
+          f"{-(-len(reqs) // srv.scfg.max_batch)} groups, stepwise oracle "
+          "calls in them=0, " + (
+              f"captures per group shape {done} (each prefill key and "
+              "profile id once), none in the second serve" if graphed else
+              f"static graphs: none (eager on {device.type}; checked on a "
+              "CUDA device)"))
+    return 0
 
 
 def _scenario(parts, device, label: str, spec: dict) -> int:

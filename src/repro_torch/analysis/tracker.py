@@ -26,7 +26,12 @@ when the audit opened, and no new pool lifetime. The admission waves'
 counterpart (the reference compiles one admission executable per bucket
 shape) reads the scheduler's wave graphs: one capture per distinct wave
 key its waves used in the pool lifetime, none twice
-(``assert_wave_executables``).
+(``assert_wave_executables``). The static path's counterpart of the
+reference's one ``_prefill`` and one ``_generate`` executable per shape
+(``_cache_size() == 1``) reads the server's group-shape sets
+(``AdaptiveServer.static_graphs``): in each, one capture per exact
+prefill key, per decode profile id and per stepwise step profile id used,
+none twice (:func:`assert_static_executables`).
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Sequence
 
-__all__ = ["DispatchAudit", "SchedulerAudit", "WAVE_NAMES"]
+__all__ = ["DispatchAudit", "SchedulerAudit", "WAVE_NAMES",
+           "static_captures", "assert_static_executables"]
 
 
 @dataclass
@@ -227,3 +233,31 @@ class SchedulerAudit(DispatchAudit):
         if again or len(set(new)) != len(new):
             raise AssertionError(f"profile ids captured again: {new} after "
                                  f"{before}")
+
+
+STATIC_PARTS = ("prefill", "decode", "step")
+
+
+def static_captures(server: Any) -> dict:
+    """The static path's captures in the current lifetime of each group
+    shape's set: ``{(rows, slots, kv bits): {"prefill": [key, ...],
+    "decode": [profile id, ...], "step": [profile id, ...]}}``."""
+    return {shape: {name: list(part.captured) for name, part in
+                    zip(STATIC_PARTS, g.parts())}
+            for shape, (g, _) in server.static_graphs.items()}
+
+
+def assert_static_executables(server: Any) -> None:
+    """The static path's ``no-retrace``: in each group shape's set the
+    prefill captures equal the distinct prefill keys ``(kind, profile id,
+    rows, maxlen, 0)`` used, the decode and step captures the profile ids
+    used, and nothing is captured twice."""
+    for shape, (g, _) in server.static_graphs.items():
+        for name, part in zip(STATIC_PARTS, g.parts()):
+            again = sorted({k for k in part.captured
+                            if part.captured.count(k) > 1})
+            if again or set(part.captured) != part.used:
+                raise AssertionError(
+                    f"group shape {shape}: {name} captured {part.captured} "
+                    f"for the keys used {sorted(part.used)} (once each; "
+                    f"captured again: {again})")

@@ -892,13 +892,20 @@ def _ints(x, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def _place(dst: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor) -> None:
+def _place(dst: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor,
+           fill=None) -> None:
     """Write ``rows [B, n, ...]`` into ``dst [B, slots, ...]`` at columns
     ``slot [B, n]``; a column ``>= slots`` goes to an extra sink column that
-    is cut off (the reference's dropped writes)."""
+    is cut off (the reference's dropped writes). With ``fill`` every other
+    column becomes ``fill`` (an empty cache's value), whatever ``dst``
+    held."""
     eff = dst.shape[1]
     bidx = torch.arange(dst.shape[0], device=dst.device)[:, None]
-    buf = torch.cat([dst, dst[:, :1]], dim=1)
+    if fill is None:
+        buf = torch.cat([dst, dst[:, :1]], dim=1)
+    else:
+        buf = torch.full((dst.shape[0], eff + 1, *dst.shape[2:]), fill,
+                         dtype=dst.dtype, device=dst.device)
     buf[bidx, slot.clamp(max=eff)] = rows
     dst.copy_(buf[:, :eff])
 
@@ -913,7 +920,7 @@ def _masked_amax(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 
 def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
             slots: int, *, kv_bits: int = 16, return_raw_kv: bool = False,
-            kv_sched=None):
+            kv_sched=None, into: Optional[dict] = None):
     """Full-sequence prefill → (last-token logits [B,V], caches).
 
     Ragged batches (``batch["prompt_len"]``: host ints, or an int tensor
@@ -935,23 +942,30 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
     ``None``. The hybrid stack hands off both. A sliding-window ring holds
     ``eff = min(slots, sliding_window)`` slots and keeps the last ``eff``
     prompt tokens at ``pos % eff``. An encoder-only stack is refused.
+
+    ``into`` (a cache of :func:`init_caches`' shape for this batch, slots
+    and ``kv_bits``) takes the hand-off in place of a new cache, and is
+    returned: every slot of every row is written (``k``, ``v`` and
+    ``token_idx`` whole, the int-KV scales, the SSM rows), so it ends
+    bitwise what a new cache would hold, whatever it held before. The
+    static path's prefill graph writes its group shape's kept cache so.
     """
     _require_causal(cfg, "prefill")
     hidden, _, collected = forward(params, cfg, bits_row, batch,
                                    collect=True, kv_sched=kv_sched)
     if cfg.family == "ssm":
-        h_all, tails = collected
-        caches = {"ssm": SSMState(h=h_all, conv=tails.float())}
+        caches = {"ssm": _ssm_handoff(*collected, into)}
         logits = _logits(cfg, params, bits_row, hidden[:, -1:])[:, 0]
         return (logits, caches, None) if return_raw_kv else (logits, caches)
     if cfg.family == "hybrid":
-        collected, (h_all, tails) = collected
+        collected, state = collected
     k_all, v_all = collected
     b, s, _ = hidden.shape
     dev = hidden.device
-    caches = init_caches(cfg, b, slots, kv_bits=kv_bits, device=dev)
+    caches = (init_caches(cfg, b, slots, kv_bits=kv_bits, device=dev)
+              if into is None else into)
     if cfg.family == "hybrid":
-        caches["ssm"] = SSMState(h=h_all, conv=tails.float())
+        caches["ssm"] = _ssm_handoff(*state, into)
     kv = caches["kv"]
     eff = kv.token_idx.shape[-1]
     take = min(eff, s)
@@ -978,13 +992,27 @@ def prefill(params: dict, cfg: ModelConfig, bits_row, batch: dict,
             c.v_scale.copy_(vs)
         else:
             kq, vq = k_l.to(c.k.dtype), v_l.to(c.v.dtype)
-        _place(c.k, slot, kq[:, idx])
-        _place(c.v, slot, vq[:, idx])
-        _place(c.token_idx, slot, tok_w)
+        # the scales of a kv16/kv32 cache stay the ones init_caches made:
+        # nothing writes them
+        _place(c.k, slot, kq[:, idx], 0)
+        _place(c.v, slot, vq[:, idx], 0)
+        _place(c.token_idx, slot, tok_w, -1)
     logits = _logits(cfg, params, bits_row, hidden[:, -1:])[:, 0]
     if return_raw_kv:
         return logits, caches, (k_all, v_all)
     return logits, caches
+
+
+def _ssm_handoff(h_all: torch.Tensor, tails: torch.Tensor,
+                 into: Optional[dict]) -> SSMState:
+    """The prefill's final scan states as the SSM cache: new, or written
+    over ``into["ssm"]``."""
+    if into is None:
+        return SSMState(h=h_all, conv=tails.float())
+    st = into["ssm"]
+    st.h.copy_(h_all)
+    st.conv.copy_(tails)
+    return st
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 grouped serving (``generate``, ``serve``, the per-token oracle
 ``generate_stepwise``) on a contiguous KV cache, and the continuous-batching
 primitives on the paged pool and the contiguous pool. On CUDA the static
-decode and the scheduler's segments replay CUDA graphs
-(:mod:`repro_torch.serving.graphs`), the reference's one executable each.
+path's prefill, decode and stepwise step and the scheduler's segments and
+waves replay CUDA graphs (:mod:`repro_torch.serving.graphs`), where the
+reference runs a compiled executable.
 
 The reference's jitted closures become methods that update the scheduler's
 pool tensors in place (its donated carries). Profile adaptivity stays
@@ -29,8 +30,8 @@ from repro_torch.core.manager import ProfileManager
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import _mapped
 from repro_torch.serving.graphs import (Capture, SegmentGraphs,
-                                        SpecSegmentGraphs, cuda_capture,
-                                        graphable)
+                                        SpecSegmentGraphs, StaticGraphs,
+                                        cuda_capture, graphable)
 from repro_torch.runtime import resolve_device
 
 __all__ = ["ServingConfig", "AdaptiveServer", "Request", "RequestStatus",
@@ -384,9 +385,9 @@ class AdaptiveServer:
             self.prefix_sharing or self.chunk_tokens)
         # per-profile weight images, built once per server
         self.prequant = T.prequant_decode_weights(params, cfg, engine.table)
-        # the static path's decode graphs, one set per group shape (rows,
-        # slots, kv bits) with the contiguous cache it replays over, kept
-        # for the server's life
+        # the static path's graphs, one StaticGraphs per group shape (rows,
+        # slots, kv bits) with the contiguous cache it keeps, as
+        # (graphs, kept cache), for the server's life
         self.static_graphs: dict = {}
 
     def _check_kernels(self) -> None:
@@ -439,11 +440,12 @@ class AdaptiveServer:
 
     def _prefill(self, pid: int, prompts: np.ndarray, slots: int,
                  prompt_len: Optional[np.ndarray] = None,
-                 return_raw_kv: bool = False):
+                 return_raw_kv: bool = False, into: Optional[dict] = None):
         """Ragged prefill of ``prompts [B, S]`` under profile ``pid`` into a
-        contiguous ``[B, slots]`` cache → ``(logits [B, V], caches)``, and
-        the raw K/V with ``return_raw_kv``. ``prompts``/``prompt_len`` are
-        host ints or int tensors on the device."""
+        contiguous ``[B, slots]`` cache (new, or ``into``) → ``(logits [B,
+        V], caches)``, and the raw K/V with ``return_raw_kv``.
+        ``prompts``/``prompt_len`` are host ints or int tensors on the
+        device."""
         batch = {"tokens": T._ints(prompts, torch.int32, self.device)}
         if prompt_len is not None:
             batch["prompt_len"] = prompt_len
@@ -451,7 +453,15 @@ class AdaptiveServer:
                          self.engine.table[int(pid)], batch, slots,
                          kv_bits=self.scfg.kv_bits,
                          return_raw_kv=return_raw_kv,
-                         kv_sched=self.kv_sched(pid))
+                         kv_sched=self.kv_sched(pid), into=into)
+
+    def _use_graphs(self, graphs: Optional[bool],
+                    capture: Optional[Capture]) -> bool:
+        """The static path's route: graphs by default on a CUDA server, or
+        when a ``capture`` is given."""
+        if graphs is None:
+            return capture is not None or self.device.type == "cuda"
+        return bool(graphs)
 
     # ----------------------------------------------------------- static path
     def generate(self, prompts: np.ndarray, max_new: int,
@@ -472,9 +482,19 @@ class AdaptiveServer:
         With a manager, per-row data (``row_budget`` / ``row_critical``)
         plans the schedule on the exact ragged ledger (step ``i`` bills
         only rows still live); otherwise ``account_rows`` rows (default
-        ``B``) are billed every step. ``graphs``/``capture``: see
-        :meth:`decode_static`. Returns the tokens and the per-step profile
-        trace."""
+        ``B``) are billed every step. Returns the tokens and the per-step
+        profile trace.
+
+        ``graphs`` (default: on for a CUDA server, or when ``capture`` is
+        given) runs the group on the
+        :class:`~repro_torch.serving.graphs.StaticGraphs` of its shape
+        ``(rows, slots, kv bits)``: the prefill replays the graph of its
+        exact key (profile id, rows, ``S``, and whether ``prompt_len`` is
+        given), captured on the key's first use and writing the shape's
+        kept cache whole, then :meth:`decode_static` replays the decode over
+        that cache. ``graphs=False`` runs the prefill and ``decode_many``
+        eagerly; ``capture`` replaces the CUDA capture (tests). On the CPU
+        ``graphs=True`` without a ``capture`` raises."""
         b, s = prompts.shape
         if self.manager is None:
             schedule = np.zeros((max_new,), np.int32)
@@ -488,105 +508,117 @@ class AdaptiveServer:
             n_account = b if account_rows is None else account_rows
             schedule = self.manager.plan_schedule(
                 max_new, n_account, accuracy_critical=accuracy_critical)
-        logits, caches = self._prefill(int(schedule[0]), prompts,
-                                       self.scfg.slots, prompt_len)
-        pos0 = torch.as_tensor(
-            np.full((b,), s, np.int32) if prompt_len is None
-            else np.asarray(prompt_len, np.int32), device=self.device)
         rb = (np.full((b,), max_new, np.int32) if row_budget is None
               else np.asarray(row_budget, np.int32))
-        toks = self.decode_static(schedule, logits, pos0, caches, rb,
-                                  graphs=graphs, capture=capture)
+        if self._use_graphs(graphs, capture):
+            g = self._static_set(b, capture)
+            tok0 = g.prefill_group(int(schedule[0]), prompts, prompt_len)
+            toks = self.decode_static(schedule, tok0, g.buf["pos"], g.kept,
+                                      rb, graphs=True, capture=capture)
+        else:
+            logits, caches = self._prefill(int(schedule[0]), prompts,
+                                           self.scfg.slots, prompt_len)
+            pos0 = torch.as_tensor(
+                np.full((b,), s, np.int32) if prompt_len is None
+                else np.asarray(prompt_len, np.int32), device=self.device)
+            toks = self.decode_static(schedule, logits, pos0, caches, rb,
+                                      graphs=False)
         names = self.engine.profile_names
         # repro: allow(host-sync) the call's single decode sync, at the end
         return {"tokens": toks.cpu().tolist(),
                 "profile_trace": [names[int(p)] for p in schedule]}
 
-    def decode_static(self, schedule: np.ndarray, logits0: torch.Tensor,
+    def decode_static(self, schedule: np.ndarray, first: torch.Tensor,
                       pos0: torch.Tensor, caches: dict,
                       row_budget: np.ndarray, *,
                       graphs: Optional[bool] = None,
                       capture: Optional[Capture] = None) -> torch.Tensor:
-        """:meth:`generate`'s decode from the prefill's ``logits0 [B, V]``
-        and contiguous ``caches``: the tokens ``[B, len(schedule)]`` of
+        """:meth:`generate`'s decode after the prefill: the tokens ``[B,
+        len(schedule)]`` of
         :func:`~repro_torch.models.transformer.decode_many`, bitwise.
 
-        ``graphs`` (default: on for a CUDA server, or when ``capture`` is
-        given) replays the decode steps from the
-        :class:`~repro_torch.serving.graphs.SegmentGraphs` of the group's
-        shape ``(rows, slots, kv bits)``, which the server keeps with a
-        contiguous cache of that shape for its life: the prefill's cache
-        is copied whole into it (every slot, ``token_idx`` included, so a
-        row never sees an earlier group's keys), one graph per profile id
-        is captured on the id's first use, and rebinding the server's
-        images, backend or policy starts a new lifetime. The first token
-        (the argmax of ``logits0``) stays eager, as does the prefill.
-        ``graphs=False`` runs ``decode_many`` eagerly; ``capture`` replaces
-        the CUDA capture (tests). On the CPU ``graphs=True`` without a
+        ``graphs=False`` runs ``decode_many`` eagerly from the prefill's
+        logits ``first [B, V]`` and ``caches``. On graphs (the default as
+        in :meth:`generate`) ``first`` is the prefill graph's first tokens
+        ``[B]`` and ``caches`` the kept cache that graph wrote, of the
+        group shape's :class:`~repro_torch.serving.graphs.StaticGraphs`:
+        the decode steps replay one graph per profile id over it, captured
+        on the id's first use; rebinding the server's images, backend or
+        policy starts a new lifetime. On the CPU ``graphs=True`` without a
         ``capture`` raises."""
-        if graphs is None:
-            graphs = capture is not None or self.device.type == "cuda"
-        if not graphs:
+        if not self._use_graphs(graphs, capture):
             toks, _, _ = T.decode_many(
-                self.params, self.cfg, self.engine.table, schedule, logits0,
+                self.params, self.cfg, self.engine.table, schedule, first,
                 pos0, caches, row_budget=row_budget, prequant=self.prequant,
                 paged_backend=self.paged_backend, kv_table=self.kv_table)
             return toks
         schedule = np.asarray(schedule, np.int32).reshape(-1)
-        g, kept, new = self._static_set(caches, logits0.shape[0], capture)
-        if len(schedule) > 1 and not new:
-            for key, c in caches.items():
-                for f in dataclasses.fields(c):
-                    x = getattr(c, f.name)
-                    if isinstance(x, torch.Tensor):
-                        getattr(kept[key], f.name).copy_(x)
-        tok0 = logits0.argmax(dim=-1).to(torch.int32)
-        g.stage(tok0, pos0, kept, np.asarray(row_budget, np.int32) - 1)
+        g = self._static_set(first.shape[0], capture)
+        if caches is not g.kept:
+            raise ValueError("the static decode's graphs replay over the "
+                             "kept cache of the group shape, which its "
+                             "prefill graph writes")
+        g.stage(first, pos0, caches, np.asarray(row_budget, np.int32) - 1)
         live0 = g.buf["rem"] >= 0                # budget > 0, on the device
-        g.buf["tok"].copy_(torch.where(live0, tok0, 0))
-        ys = g.replay(schedule[1:], kept)[0]
-        return torch.cat([torch.where(live0, tok0, -1)[:, None], ys], dim=1)
+        g.buf["tok"].copy_(torch.where(live0, first, 0))
+        ys = g.replay(schedule[1:], caches)[0]
+        return torch.cat([torch.where(live0, first, -1)[:, None], ys], dim=1)
 
-    def _static_set(self, caches: dict, rows: int,
-                    capture: Optional[Capture]) -> tuple:
-        """``(graphs, kept cache, new)`` of a group of ``rows`` rows: made
-        on first use, the cache then a copy of ``caches``."""
+    def _static_set(self, rows: int,
+                    capture: Optional[Capture]) -> StaticGraphs:
+        """The :class:`~repro_torch.serving.graphs.StaticGraphs` of a group
+        of ``rows`` rows, made on first use (and again for another
+        ``capture``)."""
         key = (rows, self.scfg.slots, self.scfg.kv_bits)
         got = self.static_graphs.get(key)
         if got is not None and got[0]._capture is (capture or cuda_capture):
-            return (*got, False)
-        g = SegmentGraphs(self, rows, STATIC_STEPS, capture=capture)
-        kept = {k: dataclasses.replace(c, **{
-            f.name: getattr(c, f.name).clone()
-            for f in dataclasses.fields(c)
-            if isinstance(getattr(c, f.name), torch.Tensor)})
-            for k, c in caches.items()}
-        self.static_graphs[key] = (g, kept)
-        return g, kept, True
+            return got[0]
+        g = StaticGraphs(self, rows, STATIC_STEPS, capture=capture)
+        self.static_graphs[key] = (g, g.kept)
+        return g
 
     def generate_stepwise(self, prompts: np.ndarray, max_new: int,  # repro: allow(host-sync) seed oracle syncs per token by design
-                          accuracy_critical: bool = False) -> dict:
+                          accuracy_critical: bool = False, *,
+                          graphs: Optional[bool] = None,
+                          capture: Optional[Capture] = None) -> dict:
         """The reference's per-token host loop (one decode step and one
         host argmax per token), kept as :meth:`generate`'s oracle: the
         profile is selected and billed (``B`` inferences) before the
-        prefill and before every step."""
+        prefill and before every step. On graphs (the default as in
+        :meth:`generate`) the prefill replays the uniform key's graph into
+        the kept cache of the ``(B, slots, kv bits)`` group shape, and
+        each step replays that shape's step graph of its profile id
+        (:class:`~repro_torch.serving.graphs.StepGraphs`), the host
+        reading its logits; ``graphs=False`` runs both eagerly."""
         b, s = prompts.shape
         names = self.engine.profile_names
+        graphed = self._use_graphs(graphs, capture)
         pid = self._select_profile(accuracy_critical)
-        logits, caches = self._prefill(pid, prompts, self.scfg.slots)
+        if graphed:
+            g = self._static_set(b, capture)
+            nxt = g.prefill_group(pid, prompts).cpu().numpy()
+        else:
+            logits, caches = self._prefill(pid, prompts, self.scfg.slots)
+            nxt = logits.float().cpu().numpy().argmax(axis=-1).astype(
+                np.int32)
         if self.manager is not None:
             self.manager.account(pid, b)    # prefill billed like an inference
-        nxt = logits.float().cpu().numpy().argmax(axis=-1).astype(np.int32)
         out, trace = [nxt], [names[pid]]
         for step in range(max_new - 1):
             pid = self._select_profile(accuracy_critical)
-            pos = torch.full((b,), s + step, dtype=torch.int32,
-                             device=self.device)
-            tok = torch.as_tensor(nxt[:, None], device=self.device)
-            logits, caches = T.decode_step(
-                self.profile_params(pid), self.cfg, self.engine.table[pid],
-                tok, pos, caches, paged_backend=self.paged_backend,
-                kv_sched=self.kv_sched(pid))
+            if graphed:
+                logits = g.steps.run(pid, nxt[:, None],
+                                     np.full((b,), s + step, np.int32),
+                                     g.kept)
+            else:
+                pos = torch.full((b,), s + step, dtype=torch.int32,
+                                 device=self.device)
+                tok = torch.as_tensor(nxt[:, None], device=self.device)
+                logits, caches = T.decode_step(
+                    self.profile_params(pid), self.cfg,
+                    self.engine.table[pid], tok, pos, caches,
+                    paged_backend=self.paged_backend,
+                    kv_sched=self.kv_sched(pid))
             if self.manager is not None:
                 self.manager.account(pid, b)
             nxt = logits.float().cpu().numpy().argmax(axis=-1).astype(np.int32)
@@ -610,8 +642,8 @@ class AdaptiveServer:
         ``rows · maxlen`` tokens must divide the MoE ``groups`` (a
         ``ValueError`` from :func:`~repro_torch.models.moe.moe_ffn`
         otherwise, where the reference asserts). ``graphs``/``capture``:
-        see :meth:`decode_static` (one graph set per group shape, so MoE's
-        row buckets bound the captures)."""
+        see :meth:`generate` (one graph set per group shape, so MoE's row
+        buckets bound the sets, and one prefill graph per exact key)."""
         results: list = [None] * len(requests)
         order = sorted(range(len(requests)),
                        key=lambda i: len(requests[i].tokens))
@@ -666,7 +698,12 @@ class AdaptiveServer:
           prefix_v [L, a, Pp, Hkv, hd], k_amax, v_amax [L, a, Hkv] or
           None)``); then the block scatter with ``dest`` out of the pool on
           shared blocks (never written: the copy-on-write) and ``bt [a,
-          n_lblk]`` installed as the rows' tables.
+          n_lblk]`` installed as the rows' tables;
+        - ``"static"`` / ``"uniform"``: the static path's prefill of a
+          group (``prompts`` and ``plen``; a uniform batch ``prompts``
+          alone) written whole into ``caches``, its group shape's kept
+          cache, with ``tok``/``pos`` its first tokens and ``pos0``
+          (:meth:`_prefill_kept`).
 
         A live row's scales (int KV), table, SSM state (a hybrid stack)
         and carries (``tok`` = its first token, ``pos`` = its token count)
@@ -676,6 +713,8 @@ class AdaptiveServer:
         contiguous-pool wave), else ``None``."""
         dev = self.device
         p = {k: T._ints(v, torch.int32, dev) for k, v in plan.items()}
+        if kind in ("static", "uniform"):
+            return self._prefill_kept(pid, p, tok, pos, caches)
         collect = self._collect_masters and kind != "cold"
         if kind in ("cold", "paged"):
             out = self._prefill(pid, p["prompts"], self.scfg.slots
@@ -708,6 +747,22 @@ class AdaptiveServer:
         _put_rows(tok, sidx, tok0, dim=0)
         _put_rows(pos, sidx, row_len, dim=0)
         return tok0, (out[2] if collect else None)
+
+    def _prefill_kept(self, pid: int, p: dict, tok: torch.Tensor,
+                      pos: torch.Tensor, caches: dict) -> tuple:
+        """The static path's prefill body: the group's prefill written into
+        ``caches`` (its group shape's kept cache) whole, the first tokens
+        into ``tok`` and ``pos0`` (``plen``, or ``S`` for a uniform batch)
+        into ``pos``. Returns ``(tok0 [B], None)``."""
+        logits, _ = self._prefill(pid, p["prompts"], self.scfg.slots,
+                                  p.get("plen"), into=caches)
+        tok0 = logits.argmax(dim=-1).to(torch.int32)
+        tok.copy_(tok0)
+        if "plen" in p:
+            pos.copy_(p["plen"])
+        else:
+            pos.fill_(p["prompts"].shape[1])
+        return tok0, None
 
     def _pool_prefix(self, pool, pre_bids: torch.Tensor) -> tuple:
         """A bf16 pool's prefix operands: the K/V of blocks ``pre_bids [a,

@@ -30,10 +30,18 @@ draft/verify window) per profile id, over the buffers of
 :func:`~repro_torch.models.transformer.segment_spec_buffers`; a segment
 stages ``remaining``, the fault operand, ``quota``, the opt-out mask and
 the drafter history in one copy. The host keeps the history as its source
-of truth and stages it anew every segment. The static path
-(:meth:`~repro_torch.serving.engine.AdaptiveServer.generate`) replays
-:class:`SegmentGraphs` over a contiguous cache the server keeps per group
-shape, for the server's life.
+of truth and stages it anew every segment.
+
+The static path (:meth:`~repro_torch.serving.engine.AdaptiveServer.
+generate`, :meth:`~repro_torch.serving.engine.AdaptiveServer.
+generate_stepwise`) keeps one :class:`StaticGraphs` per group shape
+``(rows, slots, kv bits)`` for the server's life, with a contiguous cache
+of that shape: the group's prefill replays from a graph per exact key
+``("static" or "uniform", profile id, rows, maxlen, 0)`` and writes that
+cache whole (nothing is copied into it), the decode steps replay from
+one graph per profile id over it, and so does the stepwise oracle's
+decode step (:class:`StepGraphs`, its logits read by the host). The three
+share one lifetime, binding, capture stream and memory pool.
 
 The scheduler's admission waves replay from :class:`WaveGraphs`, made
 beside the segment graphs and living by the same lifetime rules: one graph
@@ -70,8 +78,9 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import PagedKVCache
 
-__all__ = ["SegmentGraphs", "SpecSegmentGraphs", "WaveGraphs", "WAVE_FIELDS",
-           "cuda_capture", "counters", "graphable"]
+__all__ = ["SegmentGraphs", "SpecSegmentGraphs", "WaveGraphs", "StepGraphs",
+           "StaticGraphs", "WAVE_FIELDS", "cuda_capture", "counters",
+           "graphable"]
 
 Capture = Callable[[Callable[[], None], Optional[torch.cuda.Stream], object],
                    Callable[[], None]]
@@ -194,9 +203,14 @@ class _Graphs:
 
     ``captured`` lists the keys captured in this lifetime, in order, and
     ``used`` the keys run; ``lifetimes`` counts the lifetimes begun on
-    this object (the first included); ``replays`` the graph replays."""
+    this object (the first included); ``replays`` the graph replays.
 
-    def __init__(self, srv, capture: Optional[Capture] = None):
+    ``lead`` (another set on the same server and capture) makes this set
+    follow it: the lead's memory pool, and a new lifetime whenever the
+    lead begins one."""
+
+    def __init__(self, srv, capture: Optional[Capture] = None,
+                 lead: Optional["_Graphs"] = None):
         dev = srv.device
         if capture is None:
             if dev.type != "cuda":
@@ -207,6 +221,7 @@ class _Graphs:
         self.device = dev
         self._capture = capture
         self._cuda = dev.type == "cuda"
+        self._lead = lead
         self.lifetimes = 0
         self.captured: list = []
         self.replays = 0
@@ -223,16 +238,30 @@ class _Graphs:
         self._graphs: dict = {}
         self.captured = []
         self.used: set = set()
-        self.pool = (torch.cuda.graph_pool_handle() if self._capture is
-                     cuda_capture else None)
+        lead = self._lead
+        if lead is not None:
+            self.pool, self._lead_life = lead.pool, lead.lifetimes
+        else:
+            self.pool = (torch.cuda.graph_pool_handle() if self._capture is
+                         cuda_capture else None)
         self._bound = self._binding()
         self._pool_leaves = None
         self.lifetimes += 1
 
-    def _check_bound(self, caches: dict, *carries: torch.Tensor) -> None:
-        if any(a != b if isinstance(a, str) else a is not b
-               for a, b in zip(self._binding(), self._bound)):
+    def _refresh(self) -> None:
+        """A new lifetime if the binding moved (a follower: once its lead
+        has begun one)."""
+        lead = self._lead
+        if lead is not None:
+            lead._refresh()
+            if lead.lifetimes != self._lead_life:
+                self._new_lifetime()
+        elif any(a != b if isinstance(a, str) else a is not b
+                 for a, b in zip(self._binding(), self._bound)):
             self._new_lifetime()
+
+    def _check_bound(self, caches: dict, *carries: torch.Tensor) -> None:
+        self._refresh()
         leaves = _leaves(caches) + tuple(x.data_ptr() for x in carries)
         if self._pool_leaves is None:
             self._pool_leaves = leaves
@@ -445,15 +474,18 @@ class SpecSegmentGraphs(SegmentGraphs):
                 buf["ok"].clone(), buf["tok"], buf["pos"], caches)
 
 
-# a wave kind's staged plan, in order: the kinds are the server's four wave
+# a wave kind's staged plan, in order: the kinds are the server's wave
 # bodies (AdaptiveServer.wave): a cold wave into the contiguous pool, a cold
-# paged wave, and the continuation over prefix blocks gathered from a bf16
-# pool or over replayed f32 masters
+# paged wave, the continuation over prefix blocks gathered from a bf16 pool
+# or over replayed f32 masters, and the static path's prefill of a ragged
+# group or of a uniform batch (no lengths) into its kept cache
 WAVE_FIELDS = {
     "cold": ("prompts", "plen", "sidx"),
     "paged": ("prompts", "plen", "sidx", "dest"),
     "pool": ("prompts", "plen", "sidx", "dest", "bt", "pre_len", "pre_bids"),
     "master": ("prompts", "plen", "sidx", "dest", "bt", "pre_len"),
+    "static": ("prompts", "plen"),
+    "uniform": ("prompts",),
 }
 
 
@@ -570,3 +602,86 @@ class WaveGraphs(_Graphs):
 
         rec.replay, rec.delta = self._record(key, step)
         return tok0, raw
+
+
+class StepGraphs(_Graphs):
+    """The stepwise oracle's decode step
+    (:func:`~repro_torch.models.transformer.decode_step`, every row live)
+    over a contiguous cache, one graph per profile id (the keys of
+    ``captured`` and ``used``): a step stages its ``tok [B, 1]`` and ``pos
+    [B]`` in one pinned copy and replays; its logits land in the fixed
+    buffer ``logits``, which the caller reads. See :class:`_Graphs` for
+    ``capture``, ``lead`` and the bookkeeping."""
+
+    def __init__(self, srv, batch: int, capture: Optional[Capture] = None,
+                 lead: Optional[_Graphs] = None):
+        super().__init__(srv, capture, lead)
+        self.inp = torch.zeros((2, batch), dtype=torch.int32,
+                               device=self.device)
+        self._staged = _Staged(self.inp, self._cuda)
+        self.logits: Optional[torch.Tensor] = None
+
+    def run(self, pid: int, tok, pos, caches: dict) -> torch.Tensor:
+        """One decode step under profile ``pid`` from the host's ``tok
+        [B, 1]`` and ``pos [B]``, updating ``caches`` in place: returns
+        the logits buffer ``[B, V]``."""
+        self._check_bound(caches)
+        self._staged.put([tok, pos])
+        self.used.add(pid)
+        got = self._graphs.get(pid)
+        if got is not None:
+            self._replay(*got)
+            return self.logits
+        srv = self.srv
+        params = srv.profile_params(pid)
+        bits, ks = srv.engine.table[pid], srv.kv_sched(pid)
+        tok_b, pos_b = self.inp[0].view(-1, 1), self.inp[1]
+
+        def step() -> None:
+            logits, _ = T.decode_step(params, srv.cfg, bits, tok_b, pos_b,
+                                      caches, paged_backend=srv.paged_backend,
+                                      kv_sched=ks)
+            if self.logits is None:           # the warm-up allocates it
+                self.logits = torch.empty_like(logits)
+            self.logits.copy_(logits)
+
+        self._warm(step)                             # warm-up = this step
+        self._graphs[pid] = self._record(pid, step)
+        return self.logits
+
+
+class StaticGraphs(SegmentGraphs):
+    """The static path's graphs of one group shape ``(rows, slots, kv
+    bits)``, kept by the server for its life with the shape's contiguous
+    cache ``kept`` (made once, empty): the decode steps (this set, one
+    graph per profile id, chunks of ``quantum`` steps), the group's
+    prefill (``prefill``, a :class:`WaveGraphs` keyed ``("static",
+    profile id, rows, maxlen, 0)`` for a ragged group and ``("uniform",
+    ...)`` for a batch without lengths, one graph per exact key), and the
+    stepwise oracle's step (``steps``, a :class:`StepGraphs`). The prefill
+    and the step follow this set (its lifetime and memory pool)."""
+
+    def __init__(self, srv, rows: int, quantum: int,
+                 capture: Optional[Capture] = None):
+        super().__init__(srv, rows, quantum, capture)
+        scfg = srv.scfg
+        self.kept = T.init_caches(srv.cfg, rows, scfg.slots,
+                                  kv_bits=scfg.kv_bits, device=self.device)
+        self.prefill = WaveGraphs(srv, capture, lead=self)
+        self.steps = StepGraphs(srv, rows, capture, lead=self)
+
+    def parts(self) -> tuple:
+        """The set's graph sets: prefill, decode, step."""
+        return self.prefill, self, self.steps
+
+    def prefill_group(self, pid: int, prompts, prompt_len=None):
+        """The group's prefill under profile ``pid`` (host ints; without
+        ``prompt_len`` a uniform batch) from its key's graph: ``kept``
+        then holds the group's cache, and ``buf["tok"]``/``buf["pos"]``
+        its first tokens and ``pos0``. Returns the first tokens ``[rows]``
+        int32, a tensor of their own."""
+        plan, kind = {"prompts": prompts}, "uniform"
+        if prompt_len is not None:
+            plan["plen"], kind = prompt_len, "static"
+        return self.prefill.run(kind, pid, plan, self.buf["tok"],
+                                self.buf["pos"], self.kept)[0]

@@ -575,3 +575,35 @@ def test_scenario_audit_catches_a_stepwise_dispatch(parts, monkeypatch):
     monkeypatch.setattr(ContinuousScheduler, "run_segment", bad_segment)
     with pytest.raises(AssertionError, match="forbidden"):
         check_static.run_scenarios(parts, torch.device("cpu"))
+
+
+def test_a_retraced_prefill_key_fails_the_static_reading(parts):
+    """The static path's reading (``assert_static_executables``) holds over
+    two serves of the same groups on the capture stand-in, and fails once
+    a prefill key whose graph was dropped is captured again."""
+    from repro_torch.serving.engine import (AdaptiveServer, Request,
+                                            ServingConfig)
+    cfg, params, eng = parts
+    srv = AdaptiveServer(cfg, params, eng,
+                         ServingConfig(slots=64, max_batch=4, kv_bits=8),
+                         device="cpu")
+    rng = np.random.default_rng(5)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new=4) for n in (5, 9, 6, 12, 7)]
+
+    def stand_in(step, stream, pool):
+        return step
+
+    srv.serve(reqs, capture=stand_in)
+    TR.assert_static_executables(srv)
+    caps = TR.static_captures(srv)
+    srv.serve(reqs, capture=stand_in)
+    TR.assert_static_executables(srv)
+    assert TR.static_captures(srv) == caps
+    (g, _), = srv.static_graphs.values()
+    key = g.prefill.captured[0]
+    g.prefill._graphs.pop(key)                 # forget one key's graph
+    srv.serve(reqs, capture=stand_in)
+    assert g.prefill.captured.count(key) == 2
+    with pytest.raises(AssertionError, match="captured again"):
+        TR.assert_static_executables(srv)

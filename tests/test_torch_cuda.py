@@ -2295,6 +2295,93 @@ def test_graphed_static_generate_equals_eager_on_card(kv_bits):
     assert len(caps[(4, 64, kv_bits)]) <= len(used)
 
 
+
+def _static_card_server(kv_bits):
+    import copy
+    from repro_torch.core.manager import ProfileManager
+    from repro_torch.launch.serve import profile_stats
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import AdaptiveServer, ServingConfig
+    cfg, params, engine = _smoke_server_parts()
+    stats = profile_stats(cfg, engine.profiles, T.param_count(params))
+    mgr = ProfileManager(stats, accuracy_target=0.985, accuracy_floor=0.95,
+                         budget_j=stats[0].energy_j * 12, low_energy=0.5)
+    srv = AdaptiveServer(cfg, params, engine, ServingConfig(
+        slots=64, max_batch=4, kv_bits=kv_bits, paged_backend="kernel"),
+        manager=copy.deepcopy(mgr), device="cuda")
+    return srv, mgr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [8, 16])
+def test_graphed_static_prefill_equals_eager_on_card(kv_bits):
+    """The static path on graphs, prefill included (the card's default):
+    two serves of the same groups equal the eager serve's tokens, traces
+    and ledger from one manager state; the first captures each exact
+    prefill key once, the second nothing, its prefill replays passing
+    ``set_sync_debug_mode("error")``; K4 launches (kv8) equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+    from repro_torch.analysis.tracker import (assert_static_executables,
+                                              static_captures)
+    from repro_torch.serving import graphs as G
+    srv, mgr = _static_card_server(kv_bits)
+    reqs = _graph_requests(srv.cfg, seed=59)
+    runs = []
+    fill = G.StaticGraphs.prefill_group
+    for graphs, guard in ((False, False), (None, False), (None, True)):
+        srv.manager = copy.deepcopy(mgr)
+        n0 = QK.qkv_attention.launches
+        G.StaticGraphs.prefill_group = _guarded(fill, guard)
+        try:
+            res = srv.serve(reqs, graphs=graphs)
+        finally:
+            G.StaticGraphs.prefill_group = fill
+        torch.cuda.synchronize()
+        runs.append((res, srv.manager.spent_j,
+                     QK.qkv_attention.launches - n0, static_captures(srv)))
+        if graphs is False:                    # the eager serve comes first
+            assert not srv.static_graphs
+    (eager, j_e, k4_e, _), (first, j_1, k4_1, caps), (second, j_2, k4_2,
+                                                      caps2) = runs
+    assert first == eager and second == eager and j_1 == j_2 == j_e
+    assert k4_1 == k4_2 == k4_e and (k4_e > 0) == (kv_bits == 8)
+    assert caps == caps2 and len(caps) == 1
+    assert_static_executables(srv)
+    (g, _), = srv.static_graphs.values()
+    assert g.prefill.replays >= len(g.prefill.captured) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [8, 16])
+def test_graphed_stepwise_equals_eager_on_card(kv_bits):
+    """The stepwise oracle on graphs (the uniform prefill key, one step
+    graph per profile id, the host reading the logits buffer) equals the
+    eager loop: tokens, trace, ledger, K4 launches (kv8: ``n_layers`` ×
+    steps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+    srv, mgr = _static_card_server(kv_bits)
+    prompts = np.random.default_rng(kv_bits).integers(
+        0, srv.cfg.vocab, (4, 9)).astype(np.int32)
+    out = []
+    for graphs in (False, None):
+        srv.manager = copy.deepcopy(mgr)
+        n0 = QK.qkv_attention.launches
+        res = srv.generate_stepwise(prompts, 12, graphs=graphs)
+        out.append((res, srv.manager.spent_j,
+                    QK.qkv_attention.launches - n0))
+    (eager, j_e, k4_e), (got, j_g, k4_g) = out
+    assert got == eager and j_g == j_e
+    assert k4_g == k4_e == (srv.cfg.n_layers * 11 if kv_bits == 8 else 0)
+    (g, _), = srv.static_graphs.values()
+    names = srv.engine.profile_names
+    used = {names.index(p) for p in got["profile_trace"][1:]}
+    assert sorted(g.steps.captured) == sorted(used)
+    assert g.steps.replays == 11 - len(used)
+
 _SYNCING_DRAFTER = r"""
 import numpy as np, torch
 from repro_torch.configs import get_smoke
