@@ -142,13 +142,17 @@ Phases:
     (c) the forward of all six profiles on the card against the port on
     the CPU under the tests' tie rule; (d) the launcher's Table 1
     (``run_table1(steps=120)``: per-profile QAT, fake and native accuracy,
-    latency at batch 256 and 1 by CUDA events, modelled power and energy)
-    and Fig. 4 (the merged A8-W8 + Mixed engine, overhead, battery),
-    failing under 0.75 test accuracy, a native engine more than 0.5 points
-    from the fake path, or no K5 launch; K5's launches over (d) are its
-    ``cnn_launches``; (e) where the time goes: the A8-W8 forward's eager
-    latency beside its device time from a CUDA graph, and one training
-    step's device-busy share under ``torch.profiler``.
+    latency at batch 256 and 1 by CUDA events, modelled power and energy,
+    each on CUDA graphs: the QAT steps, the accuracy forwards and the
+    forwards timed) and Fig. 4 (the merged A8-W8 + Mixed engine, overhead,
+    battery), failing under 0.75 test accuracy, a native engine more than
+    0.5 points from the fake path, or no K5 launch; K5's launches over (d)
+    are its ``cnn_launches``; then A8-W8's QAT eager, graphed, graphed,
+    eager: parameters and accuracy bitwise equal, each run's seconds; (e)
+    where the time goes: the A8-W8 forward's eager and graphed latency
+    beside its device time from a CUDA graph, the logits bitwise equal,
+    and one training step eager and replayed, each under
+    ``torch.profiler`` (wall, device-busy share), bitwise equal.
 14. the mamba2 SSM family at mamba2-130m's full width (24 layers, d_model
     768, 24 SSD heads of 64, d_state 128, chunk 256, vocab 50280, tied
     embeddings): (a) in f32, TF32 off: prefill(31) + decode_step against
@@ -243,15 +247,20 @@ Phases:
     the card against the CPU in f32, TF32 off; (b) K5 bit for bit, with
     its scale, on each weight site's stacked-leaf view and the tied table,
     timed over cold copies, and inside a ``torch.utils.checkpoint``
-    recompute; (c) the launcher's setup through the port's ``train()``:
-    bf16 over f32 masters, B 8 x S 512, AdamW in place, remat on, the six
-    profiles in turn, 2 warm-up and 6 timed steps: losses, tokens/s, ms
-    per step, peak memory, K5 = 323 launches per step as worked out from
-    the code, one step under ``torch.profiler``; (d) the same with
-    ``--grad-compression`` for 3 steps (peak memory, ms per step, the
-    error-feedback invariant); (e) at 2 layers, SIGTERM → checkpoint →
-    exit, an injected failure, and the resumed run's parameters and
-    moments bitwise the uninterrupted run's.
+    recompute; (c) the launcher's setup through the port's ``train()`` on
+    its default, CUDA graphs: bf16 over f32 masters, B 8 x S 512, AdamW in
+    place, remat on, the six profiles in turn (six captures, two
+    replays), 2 warm-up and 6 timed steps: losses, tokens/s, ms per step,
+    peak and reserved memory, K5 = 323 launches per step as worked out
+    from the code, one replay under ``torch.profiler``; (d) the same with
+    ``--grad-compression`` at one profile for 3 steps (peak memory, ms per
+    replay, the error-feedback invariant kept on the device); (e) at 2
+    layers, SIGTERM → checkpoint → exit, an injected failure, and the
+    resumed run's parameters and moments bitwise the uninterrupted run's;
+    (f) one profile at full width, 2 warm-up and 6 timed steps, eager and
+    then graphed: ms per step, tokens/s, peak and reserved memory, and
+    both runs bitwise equal (losses, step, each leaf by a digest of its
+    bits).
 20. the hot-path analysis (``repro_torch.analysis``): (a) the static gate
     on the card: the lint of ``src/repro_torch`` clean, the five budget
     points on the granite smoke config passing on the kernel backend (each
@@ -286,7 +295,8 @@ Phases:
     card's memory, flops per device. The times describe four processes
     sharing one card, not a multi-GPU host.
 22. the decode segment replayed from CUDA graphs (``serving/graphs.py``):
-    granite-3-2b at full width on phase 4's workload, kv16, kv8 and kv4
+    granite-3-2b at full width (10 of its 40 layers, ``FEATURE_LAYERS``,
+    since the training phase grew) on phase 4's workload, kv16, kv8 and kv4
     paged, kv8 contiguous and native W8 through ``--continuous``, the
     speculative segment (``--speculate --draft-k 4``) at kv16 and kv8
     paged and kv8 contiguous, each served through the launcher's path
@@ -370,10 +380,11 @@ CARD_SERVER = dict(slots=1024, max_batch=8)
 CARD_PROMPTS = dict(prompt_lens=(64, 513))
 # Depth of the serving phases that check a feature on the main path's
 # widths rather than the main path itself (8, 9, 10 (b)-(c), 11 (b), 12 (b)
-# and 22's wave modes: granite; 15 (c): hymba), the first thing to cut
-# should the phases outgrow the run's time limit: 10 of granite's 40 and 8
-# of hymba's 32 since phase 22 serves its admission waves and its static
-# path twice over (eager and graphed, two passes).
+# and 22's segment and wave modes: granite; 15 (c): hymba), the first thing
+# to cut should the phases outgrow the run's time limit: 10 of granite's 40
+# and 8 of hymba's 32 since phase 22 serves its admission waves and its
+# static path twice over (eager and graphed, two passes) and phase 19
+# trains granite eagerly and on graphs.
 FEATURE_LAYERS = 10
 HYMBA_FEATURE_LAYERS = 8
 
@@ -4207,8 +4218,9 @@ def phase_cnn_grad(seed: int) -> None:
 
 def phase_cnn_paper(seed: int) -> dict:
     """Phase 13 (d): the launcher's ``run_table1(steps=120)`` and
-    ``run_fig4`` at full width on the card, K5's launches counted over
-    both. Fails if a profile's test accuracy is under 0.75 (the
+    ``run_fig4`` at full width on the card (its default: the QAT steps,
+    the accuracy forwards and the latencies replayed from CUDA graphs),
+    K5's launches counted over both. Fails if a profile's test accuracy is under 0.75 (the
     reference's own bar), if a native engine's accuracy (each profile's
     own, and A8-W8 / Mixed through the merged engine) is more than 0.5
     points from the fake path's, or if K5 never launched."""
@@ -4264,26 +4276,110 @@ def phase_cnn_paper(seed: int) -> dict:
     return {"k5": launches}
 
 
+def same_tree(a: dict, b: dict) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def phase_cnn_qat_graphs(seed: int) -> None:
+    """Phase 13 (d), second half: A8-W8's QAT (120 steps, full width,
+    batch 256) through ``train_profile``, eager, graphed (one capture, 119
+    replays), graphed, eager, under the launcher's numerics (TF32 off,
+    deterministic cuDNN): the four runs' parameters bitwise equal, the
+    test accuracies (the eager forward, and one forward graph per batch
+    shape) equal, K5 720 launches in each, and each run's seconds."""
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.kernels import aquant as AQ
+    from repro_torch.launch import repro_cnn as L
+    from repro_torch.models import cnn as C
+    table = profile_table(paper_profiles(C.CNN_LAYERS,
+                                         inner_layers=["conv1"]),
+                          C.CNN_LAYERS)
+    data = L._train_data()
+    test_x, test_y = L._test_data()
+    runs = []
+    for graphs in (False, True, True, False):
+        n0 = AQ.aquant.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = L.train_profile(2, table, 120, seed=seed, data=data,
+                                 graphs=graphs)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k5 = AQ.aquant.launches - n0
+        with L._f32():
+            acc = C.cnn_accuracy(params, table[2], test_x, test_y,
+                                 graphs=graphs)
+        runs.append((graphs, params, train_s, k5, acc))
+    p0, a0 = runs[0][1], runs[0][4]
+    bad = [(g, k5, acc) for g, p, _, k5, acc in runs
+           if not same_tree(p0, p) or acc != a0 or k5 != 720]
+    if bad:
+        raise AssertionError(f"(d) A8-W8 QAT eager vs graphed differ: "
+                             f"{bad} (first run: accuracy {a0})")
+    secs = {g: [s_ for g_, _, s_, _, _ in runs if g_ == g]
+            for g in (False, True)}
+    print(f"[cnn] (d) A8-W8 QAT, 120 steps at batch 256 ({card_line()}), "
+          f"eager / graphed / graphed / eager: "
+          f"{' / '.join(f'{s_:.3f}' for _, _, s_, _, _ in runs)} s "
+          f"({1e3 * min(secs[False]) / 120:.3f} vs "
+          f"{1e3 * min(secs[True]) / 120:.3f} ms a step at best, one "
+          f"capture a graphed run): {min(secs[False]) / min(secs[True]):.2f}x"
+          f"; parameters bitwise equal across the four; test accuracy "
+          f"{100 * a0:.2f}% in each (graphed: one forward graph); K5 720 "
+          f"launches in each")
+    AQ.aquant.launches = 0
+
+
+def _profiled(steps: int, fn):
+    """``fn`` run ``steps`` times under ``torch.profiler`` (ending in a
+    sync): wall ms, device-busy ms, device kernels and K5's device ms,
+    each per step, and the profiler's events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) is not None
+          and str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / steps
+    k5 = sum(e.self_device_time_total for e in ev
+             if K5_KERNEL in e.key) / 1e3 / steps
+    return wall, busy, sum(e.count for e in ev) / steps, k5, ev
+
+
 def phase_cnn_profile(seed: int) -> None:
     """Phase 13 (e): where the CNN's time goes at full width, A8-W8, f32,
     TF32 off. The forward at batch 256 and 1, fake path and native
-    engine: eager latency (CUDA events, the launcher's ``measure_ms``)
-    beside the device time of the same forward replayed from a CUDA
-    graph; then one training step (forward, backward, AdamW) under
-    ``torch.profiler``: wall time, device-busy time and share, K5's
-    device time, and the kernels that take the most."""
-    from torch.profiler import ProfilerActivity, profile
+    engine: the eager latency and the graphed one (the launcher's
+    ``measure_ms``, CUDA events, ``graphs=False`` / default) beside the
+    device time of 20 forwards in one CUDA graph, the graphed forward's
+    logits bitwise the eager one's; then the training step (forward,
+    backward, AdamW in place), eager and replayed from its graph, each
+    for 3 warm-up and 5 steps under ``torch.profiler`` from the same init:
+    wall time, device-busy time and share,
+    K5's device time, the kernels that take the most, and the parameters
+    after the 8 steps bitwise equal."""
     from repro_torch.core.merge import merge_plan
     from repro_torch.core.profiles import paper_profiles, profile_table
     from repro_torch.kernels import aquant as AQ
     from repro_torch.launch import repro_cnn as L
     from repro_torch.models import cnn as C
-    from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.train.graphs import CallGraphs, TrainGraphs, on_device
     profs = paper_profiles(C.CNN_LAYERS, inner_layers=["conv1"])
-    row = profile_table(profs, C.CNN_LAYERS)[2]             # A8-W8
-    params = C.init_cnn(C.CNNConfig(),
-                        torch.Generator(device="cuda").manual_seed(seed),
-                        "cuda")
+    table = profile_table(profs, C.CNN_LAYERS)
+    row = table[2]                                          # A8-W8
+
+    def init():
+        return C.init_cnn(C.CNNConfig(),
+                          torch.Generator(device="cuda").manual_seed(seed),
+                          "cuda")
+    params = init()
     plan = merge_plan([profs[2]])
     images = C.quantize_cnn_images(params, plan)
     batch = _cnn_batch(256, "cuda")
@@ -4295,44 +4391,52 @@ def phase_cnn_profile(seed: int) -> None:
                     ("fake", lambda: C.cnn_forward(params, row, x)),
                     ("native", lambda: C.cnn_forward_native(
                         params, images, plan, [0, 0, 0], row, x))):
-                eager = L.measure_ms(fn, dev)
+                eager = L.measure_ms(fn, dev, graphs=False)
+                graphed = L.measure_ms(fn, dev)
                 device = graph_ms(fn)
+                g = CallGraphs(fn, dev)
+                g()
+                if not torch.equal(g(), fn()):
+                    raise AssertionError(f"(e) {path} forward at batch {b}: "
+                                         f"graphed logits differ")
                 print(f"[cnn] (e) A8-W8 {path} forward at batch {b}: eager "
-                      f"{eager:.4f} ms (CUDA events), device {device:.4f} "
-                      f"ms (CUDA graph), device busy "
-                      f"{100 * device / eager:.1f}% of the eager call")
+                      f"{eager:.4f} ms, graphed {graphed:.4f} ms (CUDA "
+                      f"events), device {device:.4f} ms (CUDA graph of 20): "
+                      f"device busy {100 * device / eager:.1f}% of the eager "
+                      f"call, {100 * device / graphed:.1f}% of the graphed; "
+                      f"logits bitwise equal")
     acfg = AdamConfig(lr=1e-3, total_steps=120, warmup_steps=10)
-    opt = adam_init(params)
-
-    def step():
-        _, g = C.cnn_loss_and_grad(params, row, batch)
-        return adam_update(acfg, g, opt, params)
-
+    host = {"images": np.asarray(batch["images"].cpu()),
+            "labels": np.asarray(batch["labels"].cpu()), "profile_id": 2}
+    step = L.qat_step(acfg, table)
+    ends = {}
     with L._f32():
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 5
-    ev = [e for e in prof.key_averages()
-          if getattr(e, "device_type", None) is not None
-          and str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in ev) / 1e3 / 5   # ms
-    k5 = sum(e.self_device_time_total for e in ev
-             if K5_KERNEL in e.key) / 1e3 / 5
-    n = sum(e.count for e in ev) / 5
-    print(f"[cnn] (e) one A8-W8 training step at batch 256 (mean of 5): "
-          f"wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / (wall * 1e3):.1f}%), {n:.0f} device kernels, "
-          f"K5 {k5:.4f} ms of device time")
-    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[cnn] (e)   {e.self_device_time_total / 1e3 / 5:9.4f} ms "
-              f"{e.count / 5:5.0f}x  {e.key[:90]}")
+        for graphed in (False, True):
+            p = init()
+            opt = adam_init(p)
+            if graphed:
+                tg = TrainGraphs(step, dev)
+                run = lambda: tg.run(p, opt, host)  # noqa: E731
+            else:
+                run = lambda: step(p, opt, on_device(host, dev))  # noqa
+            for _ in range(3):
+                run()
+            wall, busy, n, k5, ev = _profiled(5, run)
+            ends[graphed] = p
+            tag = "graphed" if graphed else "eager"
+            print(f"[cnn] (e) one A8-W8 training step at batch 256, {tag} "
+                  f"(mean of 5): wall {wall:.3f} ms, device busy "
+                  f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {n:.0f} device "
+                  f"kernels, K5 {k5:.4f} ms of device time"
+                  + (f"; {len(tg.captured)} capture, {tg.replays} replays"
+                     if graphed else ""))
+            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+                print(f"[cnn] (e)   {tag} {e.self_device_time_total / 5e3:9.4f}"
+                      f" ms {e.count / 5:5.0f}x  {e.key[:80]}")
+    if not same_tree(ends[False], ends[True]):
+        raise AssertionError("(e) eager and graphed training steps differ")
+    print("[cnn] (e) after 8 steps each, eager and graphed parameters "
+          "bitwise equal")
     AQ.aquant.launches = 0
 
 # ---------------------------------------------------------------------------
@@ -6217,48 +6321,51 @@ def k5_per_step(cfg, bits_row, seq: int) -> int:
 
 
 def _step_counter(run, rec: list):
-    """The launcher's step, recording each step's profile and K5
-    launches."""
+    """``run.data_at`` recording each step's profile and the K5 launches
+    since the previous step began (the step before's, graphed or eager:
+    a replay adds its graph's launches as it returns); :func:`_last_step`
+    closes the last step's count."""
     from repro_torch.kernels import aquant as AQ
-    make = run.step_factory
+    base = run.data_at
+    mark = {"n": None}
 
-    def factory(loss_fn, acfg):
-        step = make(loss_fn, acfg)
-
-        def counted(params, opt, batch):
-            n0 = AQ.aquant.launches
-            out = step(params, opt, batch)
-            rec.append((batch["profile_id"], AQ.aquant.launches - n0))
-            return out
-        return counted
-    return factory
+    def data_at(step):
+        _last_step(rec, mark)
+        b = base(step)
+        rec.append([b["profile_id"], None])
+        mark["n"] = AQ.aquant.launches
+        return b
+    run.data_at = data_at
+    return mark
 
 
-def _trace_step(tag: str, run, params, opt, step: int) -> None:
-    """One more training step under ``torch.profiler``: wall time,
+def _last_step(rec: list, mark: dict) -> None:
+    from repro_torch.kernels import aquant as AQ
+    if mark["n"] is not None:
+        rec[-1][1] = AQ.aquant.launches - mark["n"]
+
+
+def _trace_step(tag: str, run, out, step: int) -> None:
+    """One more training step under ``torch.profiler`` (a replay of the
+    run's graph of that step's profile, or the eager step): wall time,
     device-busy share, K5's share and the top device operations."""
-    from torch.profiler import ProfilerActivity, profile
-    train_step = run.step_factory(run.loss_fn, run.adam_cfg)
+    from repro_torch.train.graphs import on_device
     batch = run.data_at(step)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, _, m = train_step(params, opt, batch)
-        float(m["loss"])
-        wall = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.key_averages()
-          if getattr(e, "device_type", None) is not None
-          and str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    g = out["graphs"]
+    if g is not None:
+        fn = lambda: g.run(out["params"], out["opt"], batch)  # noqa: E731
+    else:
+        train_step = run.step_factory(run.loss_fn, run.adam_cfg)
+        fn = lambda: train_step(out["params"], out["opt"],  # noqa: E731
+                                on_device(batch, run.device))
+    wall, busy, n, k5_ms, ev = _profiled(1, fn)
     k5 = [e for e in ev if K5_KERNEL in e.key]
-    k5_ms = sum(e.self_device_time_total for e in k5) / 1e3
     print(f"[train] {tag} one step under torch.profiler (profile "
-          f"{batch['profile_id']}): wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms ({100 * busy / wall:.1f}%), "
-          f"{sum(e.count for e in ev)} device kernels; K5 ({K5_KERNEL}) "
-          f"{k5_ms:.3f} ms in {sum(e.count for e in k5)} kernels, "
-          f"{100 * k5_ms / max(busy, 1e-9):.1f}% of the device time")
+          f"{batch['profile_id']}, {'a replay' if g is not None else 'eager'}"
+          f"): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), {n:.0f} device kernels; K5 "
+          f"({K5_KERNEL}) {k5_ms:.3f} ms in {sum(e.count for e in k5)} "
+          f"kernels, {100 * k5_ms / max(busy, 1e-9):.1f}% of the device time")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[train] {tag}   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
@@ -6267,13 +6374,17 @@ def _trace_step(tag: str, run, params, opt, step: int) -> None:
 def phase_train_full(seed: int) -> dict:
     """Phase 19 (b) and (c): granite-3-2b as published (40 layers, d_model
     2048, vocab 49155, tied), from seed ``seed``, through the launcher's
-    setup and the port's ``train()``: bf16 compute over f32 masters, B 8 x
-    S 512, AdamW in place, remat on, the six profiles in turn, 2 warm-up
-    steps then 6 timed. Prints every loss (finite), tokens/s and ms per
-    step on the host clock (each step ends in the loss's read-back), the
-    peak of ``torch.cuda.max_memory_allocated``, K5's launches per step
-    against :func:`k5_per_step`, then one more step under the profiler.
-    Returns K5's launches over the 8 steps."""
+    setup and the port's ``train()`` on its default, CUDA graphs (each of
+    the six profiles' first step a real step and a capture, steps 6 and 7
+    replays): bf16 compute over f32 masters, B 8 x S 512, AdamW in place,
+    remat on, the six profiles in turn, 2 warm-up steps then 6 timed.
+    Prints every loss (finite), tokens/s and ms per step on the host
+    clock (each step ends in the loss's read-back), the peak of
+    ``torch.cuda.max_memory_allocated``, the captures (one per profile
+    id, ``assert_train_executables``), K5's launches per step against
+    :func:`k5_per_step`, then one more step (a replay) under the
+    profiler. Returns K5's launches over the 8 steps."""
+    from repro_torch.analysis.tracker import assert_train_executables
     from repro_torch.kernels import aquant as AQ
     from repro_torch.launch import train as LT
     from repro_torch.models import transformer as T
@@ -6288,21 +6399,30 @@ def phase_train_full(seed: int) -> dict:
           f"{min(run.cfg.loss_chunk, args.seq)}")
     phase_train_kernels(run.params, run.cfg.n_layers)
     rec: list = []
-    run.step_factory = _step_counter(run, rec)
+    mark = _step_counter(run, rec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     AQ.aquant.launches = 0
     out = run.run(log=lambda s: print(f"[train] (c) {s[8:]}"))
     torch.cuda.synchronize()
+    _last_step(rec, mark)
     launches = AQ.aquant.launches
     peak = torch.cuda.max_memory_allocated()
     hist = out["history"]
     if len(hist) != 8 or not np.isfinite(hist).all():
         raise AssertionError(f"(c) losses {hist}")
+    g = out["graphs"]
+    assert_train_executables(g, steps=8)
+    print(f"[train] (c) on graphs: captures {g.captured} (one per profile "
+          f"id), {g.replays} replays; reserved memory "
+          f"{torch.cuda.memory_reserved()} B")
+    seen = set()
     for i, (pid, k5) in enumerate(rec):
         want = k5_per_step(run.cfg, run.engine.bits_row(pid), args.seq)
+        how = "replay" if pid in seen else "run + capture"
+        seen.add(pid)
         print(f"[train] (c) step {i} profile "
-              f"{run.engine.profile_names[pid]}: loss {hist[i]:.6f}, "
+              f"{run.engine.profile_names[pid]} ({how}): loss {hist[i]:.6f}, "
               f"{out['times'][i] * 1e3:.1f} ms, K5 {k5} launches (from the "
               f"code: {want})")
         if k5 != want:
@@ -6318,35 +6438,41 @@ def phase_train_full(seed: int) -> dict:
           f"{tok / ms * 1e3:.1f} tokens/s; peak memory "
           f"{peak / 2**30:.2f} GiB ({peak} B); K5 {launches} launches in 8 "
           f"steps; loss {hist[0]:.4f} -> {hist[-1]:.4f}")
-    _trace_step("(c)", run, out["params"], out["opt"], 8)
+    _trace_step("(c)", run, out, 8)
     AQ.aquant.launches = 0
-    del run, out
+    del run, out, g                       # the graphs' pool goes with g
     free_card("train")
     return {"k5": launches}
 
 
 def phase_train_compressed(seed: int) -> None:
-    """Phase 19 (d): (c) with ``--grad-compression`` for 3 steps (1 warm-up,
-    2 timed): ms per step, peak memory, and the error-feedback invariant
-    on ``attn_out``'s leaf at every step: the sent int8 · scale plus the
-    new residual equals the gradient plus the old residual (the residual
-    is ``corrected − q·s`` itself, so within 1e-6 of the leaf's max)."""
+    """Phase 19 (d): (c) with ``--grad-compression`` at one profile
+    (A8-W8) for 3 steps (1 warm-up: a run and the capture, the noise
+    generator registered with it; 2 timed: replays, the generator reseeded
+    before each): ms per step, peak memory, and the
+    error-feedback invariant on ``attn_out``'s leaf at every step: the
+    sent int8 · scale plus the new residual equals the gradient plus the
+    old residual (the residual is ``corrected − q·s`` itself, so within
+    1e-6 of the leaf's max), its worst relative error kept on the device
+    inside the graphed step and read after the run."""
     from repro_torch.launch import train as LT
     path = ("layers", "attn_out", "w")
     orig = LT.compress_tree
-    errs = []
+    worst = torch.zeros((), device="cuda")
 
     def checked(grads, state, gen, release=False):
         total = _at(grads, path) + _at(state.residual, path)
         q, s, st = orig(grads, state, gen, release=release)
         sent = _at(q, path).float() * _at(s, path)
-        errs.append(float(((sent + _at(st.residual, path)) - total).abs()
-                          .max() / total.abs().max()))
+        err = ((sent + _at(st.residual, path)) - total).abs().max() \
+            / total.abs().max()
+        torch.maximum(worst, err, out=worst)
         del total, sent
         return q, s, st
 
     args = LT.parse_args(["--full", "--steps", "3", "--batch", "8", "--seq",
-                          "512", "--seed", str(seed), "--grad-compression"])
+                          "512", "--seed", str(seed), "--grad-compression",
+                          "--profile", "A8-W8"])
     run = LT.setup(args)
     LT.compress_tree = checked
     try:
@@ -6358,16 +6484,18 @@ def phase_train_compressed(seed: int) -> None:
         LT.compress_tree = orig
     peak = torch.cuda.max_memory_allocated()
     hist = out["history"]
-    if len(hist) != 3 or not np.isfinite(hist).all() or max(errs) > 1e-6:
-        raise AssertionError(f"(d) losses {hist}, invariant {errs}")
+    err = float(worst)
+    if len(hist) != 3 or not np.isfinite(hist).all() or err > 1e-6:
+        raise AssertionError(f"(d) losses {hist}, invariant {err}")
     ms = 1e3 * float(np.mean(out["times"][1:]))
     print(f"[train] (d) --grad-compression, full width, B {args.batch} x S "
-          f"{args.seq}: "
-          f"{ms:.1f} ms per step (mean of 2 after 1 warm-up), peak memory "
-          f"{peak / 2**30:.2f} GiB ({peak} B); losses "
+          f"{args.seq}, on graphs (captures {out['graphs'].captured}): "
+          f"{ms:.1f} ms per step (mean of 2 replays after 1 warm-up), "
+          f"peak memory {peak / 2**30:.2f} GiB ({peak} B), "
+          f"reserved {torch.cuda.memory_reserved()} B; losses "
           f"{', '.join(f'{h:.6f}' for h in hist)}; error feedback on "
           f"attn_out: |sent + residual - (gradient + old residual)| <= "
-          f"{max(errs):.3g} of its max")
+          f"{err:.3g} of its max")
     del run, out
     free_card("train")
 
@@ -6467,6 +6595,101 @@ def phase_train_restart(seed: int) -> None:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     del ref, res
     free_card("train")
+
+
+def bits_digest(tree) -> torch.Tensor:
+    """One int64 per leaf, on the host: the sum, taken on the card, of the
+    leaf's bits read as integers of its width (two leaves differ in a bit
+    pattern where these sums differ; a 30 GB state checks in one read)."""
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}
+    return torch.stack([t.contiguous().view(ints[t.element_size()])
+                        .sum(dtype=torch.int64)
+                        for t in _leaves(tree)]).cpu()
+
+
+def phase_train_graphs(seed: int) -> None:
+    """Phase 19 (f): granite-3-2b as published, one profile (A8-W8), B 8 x
+    S 512, the launcher's ``train()`` for 8 steps (2 warm-up, 6 timed),
+    eager (``graphs=False``) and then on graphs (one capture, 7 replays),
+    each from the same seed on a freed card (the two runs' masters and
+    moments, 30 GB each, do not fit together): ms per step and tokens/s
+    on the host clock, peak allocated and reserved memory, and the two
+    runs bitwise equal: every loss, the step counter, and each parameter
+    and moment leaf by a digest of its bits taken on the card."""
+    from repro_torch.launch import train as LT
+    res = {}
+    for graphs in (False, True):
+        free_card("train")
+        args = LT.parse_args(["--full", "--steps", "8", "--batch", "8",
+                              "--seq", "512", "--seed", str(seed),
+                              "--profile", "A8-W8"])
+        run = LT.setup(args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_reserved()
+        out = run.run(log=lambda s: None, graphs=graphs)
+        torch.cuda.synchronize()
+        g = out["graphs"]
+        res[graphs] = {
+            "hist": out["history"], "times": out["times"][2:],
+            "peak": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.memory_reserved() - before,
+            "step": int(out["opt"].step),
+            "digest": bits_digest([out["params"], out["opt"].mu,
+                                   out["opt"].nu]),
+            "graphs": None if g is None else (list(g.captured), g.replays)}
+        del run, out, g
+    tok = 8 * 512
+    for graphs, r in res.items():
+        ms = 1e3 * float(np.mean(r["times"]))
+        print(f"[train] (f) A8-W8 full width, B 8 x S 512, "
+              f"{'graphed' if graphs else 'eager'} ({card_line()}): "
+              f"{ms:.1f} ms per step (mean of 6 after 2 warm-up, min "
+              f"{1e3 * min(r['times']):.1f}, max {1e3 * max(r['times']):.1f}"
+              f"), {tok / ms * 1e3:.1f} tokens/s; peak allocated "
+              f"{r['peak']} B ({r['peak'] / 2**30:.2f} GiB), reserved "
+              f"during the run +{r['reserved']} B"
+              + (f"; captures {r['graphs'][0]}, {r['graphs'][1]} replays"
+                 if graphs else ""))
+    e, g = res[False], res[True]
+    same = (e["hist"] == g["hist"] and e["step"] == g["step"] == 8
+            and torch.equal(e["digest"], g["digest"]))
+    if not same or g["graphs"] != ([2], 7):
+        raise AssertionError(f"(f) eager vs graphed: losses {e['hist']} vs "
+                             f"{g['hist']}, step {e['step']} vs {g['step']}, "
+                             f"digests equal "
+                             f"{torch.equal(e['digest'], g['digest'])}, "
+                             f"graphs {g['graphs']}")
+    print(f"[train] (f) eager and graphed bitwise equal: 8 losses "
+          f"({e['hist'][0]:.6f} -> {e['hist'][-1]:.6f}), step 8, "
+          f"{len(e['digest'])} parameter and moment leaves by digest; "
+          f"graphed / eager: {np.mean(e['times']) / np.mean(g['times']):.3f}x"
+          f" tokens/s, peak {g['peak'] / e['peak']:.4f}x")
+    free_card("train")
+    phase_train_smoke_graphs(seed)
+
+
+def phase_train_smoke_graphs(seed: int, steps: int = 30) -> None:
+    """Phase 19 (f), second half: the launcher's default (the smoke config
+    at B 8 x S 64, the six profiles in turn) for ``steps`` steps, eager
+    and graphed (six captures, then replays): ms per step over the last
+    ``steps - 6`` (the graphed run's replays) and bitwise equal losses."""
+    from repro_torch.launch import train as LT
+    res = {}
+    for graphs in (False, True):
+        run = LT.setup(LT.parse_args(["--steps", str(steps), "--seed",
+                                      str(seed)]))
+        out = run.run(log=lambda s: None, graphs=graphs)
+        res[graphs] = (out["history"], out["times"][6:])
+    (he, te), (hg, tg) = res[False], res[True]
+    if he != hg:
+        raise AssertionError(f"(f) smoke launcher: eager losses {he} vs "
+                             f"graphed {hg}")
+    me, mg = 1e3 * float(np.mean(te)), 1e3 * float(np.mean(tg))
+    print(f"[train] (f) the launcher's default (smoke, B 8 x S 64), {steps} "
+          f"steps: eager {me:.2f} ms per step, graphed {mg:.2f} ms (replays;"
+          f" mean of the last {len(tg)}): {me / mg:.2f}x; {steps} losses "
+          f"bitwise equal")
 
 
 def _leaves(tree):
@@ -8018,6 +8241,7 @@ def main() -> None:
             phase_cnn_sites(args.seed)
             phase_cnn_grad(args.seed)
             cnn = phase_cnn_paper(args.seed)
+            phase_cnn_qat_graphs(args.seed)
             phase_cnn_profile(args.seed)
     mamba2 = {"k3": 0, "k5": 0}
     if 14 in phases:
@@ -8075,6 +8299,7 @@ def main() -> None:
             train = phase_train_full(args.seed)
             phase_train_compressed(args.seed)
             phase_train_restart(args.seed)
+            phase_train_graphs(args.seed)
     gate = {"k1": 0, "k2": 0}
     if 20 in phases:
         with timed(20):
@@ -8091,7 +8316,8 @@ def main() -> None:
     graphs, waves = {}, {}
     if 22 in phases:
         with timed(22):
-            graphs = phase_graphs(args.seed)
+            with cut_depth(FEATURE_LAYERS):
+                graphs = phase_graphs(args.seed)
             graphs.update(phase_static_graphs(args.seed))
             with cut_depth(FEATURE_LAYERS):
                 waves = phase_wave_graphs(args.seed)

@@ -31,7 +31,13 @@ reference's one ``_prefill`` and one ``_generate`` executable per shape
 (``_cache_size() == 1``) reads the server's group-shape sets
 (``AdaptiveServer.static_graphs``): in each, one capture per exact
 prefill key, per decode profile id and per stepwise step profile id used,
-none twice (:func:`assert_static_executables`).
+none twice (:func:`assert_static_executables`). The training step's
+counterpart of the reference's one jitted step (the profile id passed as
+data) reads a training lifetime's graphs
+(:class:`~repro_torch.train.graphs.TrainGraphs`, ``train()``'s
+``"graphs"``): one capture per distinct profile id the steps used, none
+twice, and every step of the run in that one lifetime
+(:func:`assert_train_executables`).
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ from dataclasses import dataclass
 from typing import Any, Sequence
 
 __all__ = ["DispatchAudit", "SchedulerAudit", "WAVE_NAMES",
-           "static_captures", "assert_static_executables"]
+           "static_captures", "assert_static_executables", "train_captures",
+           "assert_train_executables"]
 
 
 @dataclass
@@ -261,3 +268,29 @@ def assert_static_executables(server: Any) -> None:
                     f"group shape {shape}: {name} captured {part.captured} "
                     f"for the keys used {sorted(part.used)} (once each; "
                     f"captured again: {again})")
+
+
+def train_captures(graphs: Any) -> list:
+    """A training lifetime's captures, in order: the profile id of each
+    (``None`` for steps without one)."""
+    return list(graphs.captured)
+
+
+def assert_train_executables(graphs: Any, steps: int | None = None) -> None:
+    """The training step's ``no-retrace``: the lifetime's captures equal
+    the distinct profile ids its steps used, none captured twice, and (with
+    ``steps``, the steps the run took) every step ran in this one lifetime,
+    none in a new one begun mid-run."""
+    if graphs is None:
+        raise AssertionError("the run took the eager step: nothing is "
+                             "captured")
+    again = sorted({k for k in graphs.captured
+                    if graphs.captured.count(k) > 1}, key=repr)
+    if again or set(graphs.captured) != graphs.used:
+        raise AssertionError(
+            f"training step captured {graphs.captured} for the profile ids "
+            f"used {sorted(graphs.used, key=repr)} (once each; captured "
+            f"again: {again})")
+    if steps is not None and graphs.runs != steps:
+        raise AssertionError(f"{graphs.runs} of the run's {steps} steps ran "
+                             f"in this training lifetime")

@@ -24,9 +24,13 @@ warmup_steps=10)``. Then:
   standalone engine, each profile's accuracy through it, and the battery
   simulation (classifications on a budget, adaptive against A8-W8 alone).
 
-Everything runs in f32 with TF32 off, as the reference's CNN computes. It
+Everything runs in f32 with TF32 off, as the reference's CNN computes, on
+cuDNN's deterministic algorithms, so a run repeats bit for bit. It
 writes nothing unless ``--json`` names a file. Runs on the GPU unless
-``--device cpu`` is given.
+``--device cpu`` is given. Where the reference jits, the card replays CUDA
+graphs (:mod:`repro_torch.train.graphs`): each profile's QAT step from one
+graph of its training lifetime, the test-set forward from one graph per
+batch shape, and every latency from a graph of the forward timed.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import argparse
 import contextlib
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,11 +49,14 @@ from repro_torch.core.merge import merge_plan
 from repro_torch.core.profiles import paper_profiles, profile_table
 from repro_torch.data.digits import batches, make_dataset
 from repro_torch.models import cnn as C
-from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
+from repro_torch.optim.adam import AdamConfig, adam_init, adam_update_
 from repro_torch.runtime import resolve_device
+from repro_torch.serving.graphs import Capture
+from repro_torch.train.graphs import (CallGraphs, TrainGraphs, on_device,
+                                      use_graphs)
 
-__all__ = ["PAPER_TABLE1", "train_profile", "measure_ms", "profile_energy",
-           "run_table1", "run_fig4", "main"]
+__all__ = ["PAPER_TABLE1", "qat_step", "train_profile", "measure_ms",
+           "profile_energy", "run_table1", "run_fig4", "main"]
 
 # the paper's measured points (Table 1, KRIA FPGA), printed beside ours
 PAPER_TABLE1 = {
@@ -72,16 +80,24 @@ def _inner_share(cfg: C.CNNConfig) -> float:
 
 @contextlib.contextmanager
 def _f32():
-    """Convolutions and matmuls in true f32 on the card (no TF32)."""
-    prev = (torch.backends.cudnn.allow_tf32,
+    """Convolutions and matmuls in true f32 on the card (no TF32), on
+    cuDNN's deterministic algorithms: with its default ones the
+    convolutions' backward is not reproducible run to run, so neither
+    were the trained weights and Table 1's accuracies; the deterministic
+    ones make the QAT repeat bit for bit, eager or graphed, as the
+    reference's XLA convolutions do."""
+    flags = ("allow_tf32", "deterministic", "benchmark")
+    prev = ([getattr(torch.backends.cudnn, f) for f in flags],
             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
+    for f, v in zip(flags, (False, True, False)):
+        setattr(torch.backends.cudnn, f, v)
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+        for f, v in zip(flags, prev[0]):
+            setattr(torch.backends.cudnn, f, v)
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
 
 
 def _train_data():
@@ -92,10 +108,30 @@ def _test_data():
     return make_dataset(2048, seed=2, difficulty="hard")
 
 
+def qat_step(acfg: AdamConfig, table):
+    """The CNN's QAT step ``(params, opt, batch) -> (params, opt,
+    metrics)`` under the batch's ``profile_id`` (a row of ``table``): the
+    loss and its gradients, then the AdamW update in place."""
+
+    def step(params, opt, batch):
+        (loss, aux), g = C.cnn_loss_and_grad(
+            params, table[batch["profile_id"]], batch)
+        params, opt, om = adam_update_(acfg, g, opt, params)
+        return params, opt, {"loss": loss, **aux, **om}
+    return step
+
+
 def train_profile(profile_idx: int, table, steps: int = 120, seed: int = 0,
-                  device=None, channels: int = 64, data=None) -> dict:
+                  device=None, channels: int = 64, data=None,
+                  graphs: Optional[bool] = None,
+                  capture: Optional[Capture] = None) -> dict:
     """QAT of one profile from the shared init (``seed``); ``data`` is the
-    (images, labels) training set, rendered here when not given."""
+    (images, labels) training set, rendered here when not given. On the
+    card (``graphs``, default: on for a CUDA device or under a
+    ``capture`` stand-in) the steps replay from one graph, a training
+    lifetime of their own (:class:`~repro_torch.train.graphs.
+    TrainGraphs`), each batch staged with one pinned copy; the parameters
+    are bitwise the eager steps'."""
     dev = resolve_device(device)
     cfg = C.CNNConfig(channels=channels)
     params = C.init_cnn(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -103,25 +139,33 @@ def train_profile(profile_idx: int, table, steps: int = 120, seed: int = 0,
     acfg = AdamConfig(lr=1e-3, total_steps=steps, warmup_steps=10)
     train_x, train_y = data if data is not None else _train_data()
     opt = adam_init(params)
+    step = qat_step(acfg, table)
+    if use_graphs(graphs, dev, capture):
+        run = TrainGraphs(step, dev, capture).run
+    else:
+        def run(params, opt, batch):
+            return step(params, opt, on_device(batch, dev))
     it = batches(train_x, train_y, BATCH, seed=3 + profile_idx)
     with _f32():
         for _ in range(steps):
             x, y = next(it)
-            _, g = C.cnn_loss_and_grad(
-                params, table[profile_idx],
-                {"images": torch.as_tensor(x, device=dev),
-                 "labels": torch.as_tensor(y, device=dev)})
-            params, opt, _ = adam_update(acfg, g, opt, params)
+            params, opt, _ = run(params, opt, {"images": x, "labels": y,
+                                               "profile_id": profile_idx})
     return params
 
 
 @torch.no_grad()
 def measure_ms(fn, device: torch.device, iters: int = 20,
-               reps: int = 5) -> float:
+               reps: int = 5, graphs: Optional[bool] = None) -> float:
     """Milliseconds per call of ``fn``: the median over ``reps`` windows of
     ``iters`` back-to-back calls, CUDA events around each window after a
     warm-up, on the card (the host's launch gaps included, as a caller
-    sees them); one short window on the host clock on the CPU."""
+    sees them); one short window on the host clock on the CPU. On the
+    card ``fn`` is captured into a CUDA graph first and the calls timed
+    are its replays, as the reference times its jitted forward
+    (``graphs=False``: the eager calls)."""
+    if use_graphs(graphs, device, None):
+        fn = CallGraphs(fn, device)
     if device.type != "cuda":
         fn()
         t0 = time.perf_counter()

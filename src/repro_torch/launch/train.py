@@ -15,15 +15,19 @@ bf16 over f32 masters, with K5 fake-quantizing every weight site.
       [--grad-compression] [--device cpu]
 
 The step updates the parameters and moments in place (bitwise the
-reference's functional update). This launcher runs on one device, as the
-reference's does; its step is the one the dry run runs on ``meta`` over
-the production meshes' shardings (``launch/specs.py``, ``launch/dryrun.py``).
+reference's functional update). On the card it replays from one CUDA graph
+per profile id (:class:`~repro_torch.train.graphs.TrainGraphs`; the
+reference jits it once with the profile id as data), the batch staged
+from the host with one pinned copy. This launcher runs on one device, as
+the reference's does; its step is the one the dry run runs on ``meta``
+over the production meshes' shardings (``launch/specs.py``,
+``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -69,7 +73,7 @@ class Training:
     params: dict
     engine: AdaptiveEngine
     loss_fn: Callable
-    data_at: Callable[[int], dict]
+    data_at: Callable[[int], dict]     # the step's batch, on the host
     step_factory: Callable
     train_cfg: TrainConfig
     adam_cfg: AdamConfig
@@ -79,17 +83,20 @@ class Training:
         params, self.params = self.params, None
         return params
 
-    def run(self, log: Callable[[str], None] = print) -> dict:
-        """:func:`~repro_torch.train.loop.train` on this setup, once: the
-        initial parameters are handed over (the in-place step trains them
-        where they lie; a resume drops them before the checkpoint's are
-        read), and the trained ones are in the result."""
+    def run(self, log: Callable[[str], None] = print,
+            graphs: Optional[bool] = None) -> dict:
+        """:func:`~repro_torch.train.loop.train` on this setup, once (one
+        training lifetime): the initial parameters are handed over (the
+        in-place step trains them where they lie; a resume drops them
+        before the checkpoint's are read), and the trained ones are in the
+        result. ``graphs``: see ``train`` (default: on for a CUDA
+        device)."""
         if self.params is None:
             raise RuntimeError("Training.run: the parameters were handed "
                                "over to an earlier run; call setup again")
         return train(self._take_params(), self.loss_fn, self.data_at,
                      self.train_cfg, self.adam_cfg,
-                     step_factory=self.step_factory, log=log)
+                     step_factory=self.step_factory, log=log, graphs=graphs)
 
 
 def _step_factory(ef: dict, device: torch.device):
@@ -99,23 +106,25 @@ def _step_factory(ef: dict, device: torch.device):
     (``ef["state"]``) the gradients first go through compress →
     decompress, the int8 wire format of the reference's multi-pod
     all-reduce (error feedback shown on one device). Each step draws its
-    noise from a generator seeded 0, as the reference passes
-    ``PRNGKey(0)`` at every step. Each raw gradient is dropped once its
-    leaf is compressed, each int8 leaf once it is read."""
-
-    def wire(grads):
-        gen = torch.Generator(device=device).manual_seed(0)
-        q, s, ef["state"] = compress_tree(grads, ef["state"], gen,
-                                          release=True)
-        return decompress_tree(q, s, release=True)
+    noise from the step's generator reseeded 0, as the reference passes
+    ``PRNGKey(0)`` at every step; the step names it in its ``generators``,
+    so a replayed graph draws the same noise. Each raw gradient is dropped
+    once its leaf is compressed, each int8 leaf once it is read."""
 
     def factory(loss_fn, acfg):
+        gen = (torch.Generator(device=device) if ef["state"] is not None
+               else None)
+
         def step(params, opt, batch):
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
-            if ef["state"] is not None:
-                grads = wire(grads)
+            if gen is not None:
+                gen.manual_seed(0)
+                q, s, ef["state"] = compress_tree(grads, ef["state"], gen,
+                                                  release=True)
+                grads = decompress_tree(q, s, release=True)
             params, opt, om = adam_update_(acfg, grads, opt, params)
             return params, opt, {"loss": loss, **metrics, **om}
+        step.generators = () if gen is None else (gen,)
         return step
     return factory
 
@@ -152,8 +161,8 @@ def setup(args: argparse.Namespace) -> Training:
     def data_at(step):
         b = stream.batch_at(step)
         pid = pid_fixed if pid_fixed is not None else step % len(profs)
-        return {"tokens": torch.from_numpy(b["tokens"]).to(dev),
-                "labels": torch.from_numpy(b["labels"]).to(dev),
+        return {"tokens": torch.from_numpy(b["tokens"]),
+                "labels": torch.from_numpy(b["labels"]),
                 "profile_id": pid}
 
     return Training(

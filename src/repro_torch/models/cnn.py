@@ -171,14 +171,20 @@ def cnn_loss_and_grad(params: dict, bits_row, batch: dict):
 
 @torch.no_grad()
 def cnn_accuracy(params: dict, bits_row, images, labels, batch: int = 512,
-                 forward=None) -> float:
+                 forward=None, graphs=None) -> float:
     """Test accuracy over whole batches of ``batch`` (the remainder is
     dropped, as in the reference); numpy inputs move to the parameters'
     device. ``forward(x) -> logits`` replaces the fake path (the native
-    engine's accuracy)."""
+    engine's accuracy). On the card (``graphs``, default: on for a CUDA
+    device) the forward replays from one CUDA graph per batch shape, as
+    the reference jits it (:class:`~repro_torch.train.graphs.
+    CallGraphs`)."""
+    from repro_torch.train.graphs import CallGraphs, use_graphs
     dev = params["fc"]["w"].device
     if forward is None:
         forward = lambda x: cnn_forward(params, bits_row, x)  # noqa: E731
+    if use_graphs(graphs, dev, None):
+        forward = CallGraphs(forward, dev)
     hits = 0
     for i in range(0, len(labels) - batch + 1, batch):
         lg = forward(torch.as_tensor(np.asarray(images[i:i + batch]),

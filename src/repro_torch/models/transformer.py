@@ -580,13 +580,16 @@ def _remat(cfg: ModelConfig, fn, *args):
     rest in the backward; ``"dots"`` also keeps the plain matmuls'
     outputs (:func:`_save_dots`). The recompute runs the same ops on the
     same inputs, so the values and gradients are those of ``fn`` run
-    plainly."""
+    plainly. No random op runs inside a layer or a loss chunk, so the
+    generators' states are not stashed for the recompute (reading a CUDA
+    generator's state is refused inside a CUDA graph capture)."""
     from torch.utils import checkpoint as ckpt
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
 
 
 def _ssm_bits(cfg: ModelConfig, lb):

@@ -90,6 +90,16 @@ def clip_by_global_norm(tree, max_norm: float):
     return _tree_map(lambda g: g * scale, tree), norm
 
 
+def _corrections(cfg: AdamConfig, step: torch.Tensor) -> tuple:
+    """The bias corrections ``1 - b ** step`` of both moments, each base a
+    0-d f32 made on the device by a fill (a host tensor copied over would
+    be refused inside a CUDA graph capture); the f32 of ``b`` is the one
+    ``torch.tensor(b)`` holds."""
+    sf = step.to(torch.float32)
+    return tuple(1 - torch.pow(torch.full((), b, device=sf.device), sf)
+                 for b in (cfg.b1, cfg.b2))
+
+
 @torch.no_grad()
 def adam_update(cfg: AdamConfig, grads, state: AdamState, params):
     """One AdamW step. Returns ``(new_params, new_state, metrics)``; the
@@ -97,9 +107,7 @@ def adam_update(cfg: AdamConfig, grads, state: AdamState, params):
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     step = state.step + 1
     lr = warmup_cosine(cfg, step)
-    sf = step.to(torch.float32)
-    b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=sf.device), sf)
-    b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=sf.device), sf)
+    b1c, b2c = _corrections(cfg, step)
 
     def upd(p, g, m, v):
         g = g.float()
@@ -139,15 +147,14 @@ def adam_update_(cfg: AdamConfig, grads, state: AdamState, params):
     """:func:`adam_update` in place: the gradients are clipped in place,
     and the new parameters and moments are written into ``params``,
     ``state.mu`` and ``state.nu`` (which must be f32, as ``adam_init``
-    makes them). Returns ``(params, new_state, metrics)``; ``new_state``
-    holds the same moment tensors and a new step."""
+    makes them), and ``state.step`` is advanced in place. Returns
+    ``(params, new_state, metrics)``; ``new_state`` holds the same step
+    and moment tensors, so a CUDA graph of the update replays on them."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
+    step = state.step.add_(1)
     lr = warmup_cosine(cfg, step)
-    sf = step.to(torch.float32)
-    b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=sf.device), sf)
-    b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=sf.device), sf)
+    b1c, b2c = _corrections(cfg, step)
     for p_, g_, m_, v_ in zip(_leaves(params), _leaves(grads),
                               _leaves(state.mu), _leaves(state.nu)):
         g_.mul_(scale)

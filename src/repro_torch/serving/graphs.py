@@ -78,9 +78,9 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import PagedKVCache
 
-__all__ = ["SegmentGraphs", "SpecSegmentGraphs", "WaveGraphs", "StepGraphs",
-           "StaticGraphs", "WAVE_FIELDS", "cuda_capture", "counters",
-           "graphable"]
+__all__ = ["GraphSet", "SegmentGraphs", "SpecSegmentGraphs", "WaveGraphs",
+           "StepGraphs", "StaticGraphs", "WAVE_FIELDS", "cuda_capture",
+           "counters", "graphable"]
 
 Capture = Callable[[Callable[[], None], Optional[torch.cuda.Stream], object],
                    Callable[[], None]]
@@ -122,16 +122,21 @@ def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
 
 
 def cuda_capture(step: Callable[[], None], stream: torch.cuda.Stream,
-                 pool) -> Callable[[], None]:
+                 pool, generators=()) -> Callable[[], None]:
     """Capture ``step`` into a CUDA graph on ``stream`` in memory pool
     ``pool`` and return its replay. Nothing runs: the caller has run the
     step once on ``stream`` (the warm-up that builds the kernels and the
-    per-stream workspaces). The capture's own synchronize is allowed
-    through a sync-debug mode of ``"error"``. Python's garbage collector
-    is held off while the capture runs: an unreachable cycle that holds
-    another graph would otherwise be freed mid-capture, and its memory
-    released into the capture invalidates it."""
+    per-stream workspaces). ``generators`` are the CUDA generators the
+    step draws from besides the default one: registered with the graph, so
+    each replay draws from the generator's seed and offset at the replay.
+    The capture's own synchronize is allowed through a sync-debug mode of
+    ``"error"``. Python's garbage collector is held off while the capture
+    runs: an unreachable cycle that holds another graph would otherwise be
+    freed mid-capture, and its memory released into the capture
+    invalidates it."""
     g = torch.cuda.CUDAGraph()
+    for gen in generators:
+        g.register_generator_state(gen)
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode(0)
     collecting = gc.isenabled()
@@ -194,12 +199,83 @@ class _Staged:
             self._copied.record(torch.cuda.current_stream(self.block.device))
 
 
-class _Graphs:
-    """What a pool lifetime's graph sets share: the capture (``capture``,
-    default :func:`cuda_capture`, which needs the server on a CUDA device;
-    a stand-in (tests) may return the step itself, so the bookkeeping runs
-    eagerly on the CPU), the lifetime and what binds it, the capture
-    stream, one memory pool, and the counters' bookkeeping.
+class GraphSet:
+    """What every set of graphs shares: the capture (``capture``, default
+    :func:`cuda_capture`, which needs a CUDA device; a stand-in (tests)
+    may return the step itself, so the bookkeeping runs eagerly on the
+    CPU), the capture stream, the warm-up, and the counters' bookkeeping.
+    ``captured`` lists the keys captured, in order, and ``replays``
+    counts the graph replays. A subclass sets ``pool`` (the memory pool
+    its captures share) before its first capture."""
+
+    pool = None
+
+    def __init__(self, device: torch.device, capture: Optional[Capture],
+                 owner: str):
+        if capture is None:
+            if device.type != "cuda":
+                raise ValueError(f"CUDA graphs need a CUDA device, the "
+                                 f"{owner} is on {device}")
+            capture = cuda_capture
+        self.device = device
+        self._capture = capture
+        self._cuda = device.type == "cuda"
+        self.captured: list = []
+        self.replays = 0
+
+    def _new_pool(self):
+        """A memory pool of its own (none under a capture stand-in)."""
+        return (torch.cuda.graph_pool_handle() if self._capture is
+                cuda_capture else None)
+
+    def capture_count(self) -> int:
+        """Graphs captured in this set's current lifetime."""
+        return len(self.captured)
+
+    # ----------------------------------------------------- capture, replay
+    def _warm(self, fn: Callable):
+        """Run ``fn`` for real on the capture stream (the warm-up that
+        builds the kernels and the per-stream workspaces; off CUDA, here)
+        and return what it returns."""
+        if not self._cuda:
+            return fn()
+        stream = _capture_stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = fn()
+        cur.wait_stream(stream)
+        return out
+
+    def _record(self, key, step: Callable[[], None],
+                generators=()) -> tuple:
+        """Capture ``step`` as ``key``'s graph: ``(replay, counter
+        increments per replay)``. Nothing runs; the increments the capture
+        made are taken back. ``generators``: see :func:`cuda_capture`."""
+        stream = _capture_stream(self.device) if self._cuda else None
+        cs = counters()
+        before = _read(cs)
+        replay = self._capture(step, stream, self.pool,
+                               *((tuple(generators),) if generators else ()))
+        after = _read(cs)
+        for (f, a), v in zip(cs, before):
+            if hasattr(f, a):
+                setattr(f, a, v)                     # nothing ran
+        self.captured.append(key)
+        return replay, [x - y for x, y in zip(after, before)]
+
+    def _replay(self, replay: Callable[[], None], delta: list) -> None:
+        replay()
+        self.replays += 1
+        for (f, a), d in zip(counters(), delta):
+            if d:
+                setattr(f, a, getattr(f, a) + d)
+
+
+class _Graphs(GraphSet):
+    """What a pool lifetime's graph sets on a server share (besides
+    :class:`GraphSet`'s): the lifetime and what binds it, and one memory
+    pool.
 
     ``captured`` lists the keys captured in this lifetime, in order, and
     ``used`` the keys run; ``lifetimes`` counts the lifetimes begun on
@@ -211,20 +287,10 @@ class _Graphs:
 
     def __init__(self, srv, capture: Optional[Capture] = None,
                  lead: Optional["_Graphs"] = None):
-        dev = srv.device
-        if capture is None:
-            if dev.type != "cuda":
-                raise ValueError(f"CUDA graphs need a CUDA device, the "
-                                 f"server is on {dev}")
-            capture = cuda_capture
+        super().__init__(srv.device, capture, "server")
         self.srv = srv
-        self.device = dev
-        self._capture = capture
-        self._cuda = dev.type == "cuda"
         self._lead = lead
         self.lifetimes = 0
-        self.captured: list = []
-        self.replays = 0
         self._new_lifetime()
 
     # ---------------------------------------------------------- lifetime
@@ -242,8 +308,7 @@ class _Graphs:
         if lead is not None:
             self.pool, self._lead_life = lead.pool, lead.lifetimes
         else:
-            self.pool = (torch.cuda.graph_pool_handle() if self._capture is
-                         cuda_capture else None)
+            self.pool = self._new_pool()
         self._bound = self._binding()
         self._pool_leaves = None
         self.lifetimes += 1
@@ -269,47 +334,6 @@ class _Graphs:
             raise ValueError("a pool lifetime's graphs serve the pool they "
                              "were captured on; a new pool needs a new "
                              f"{type(self).__name__}")
-
-    def capture_count(self) -> int:
-        """Graphs captured in this pool lifetime."""
-        return len(self.captured)
-
-    # ----------------------------------------------------- capture, replay
-    def _warm(self, fn: Callable):
-        """Run ``fn`` for real on the capture stream (the warm-up that
-        builds the kernels and the per-stream workspaces; off CUDA, here)
-        and return what it returns."""
-        if not self._cuda:
-            return fn()
-        stream = _capture_stream(self.device)
-        cur = torch.cuda.current_stream(self.device)
-        stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
-            out = fn()
-        cur.wait_stream(stream)
-        return out
-
-    def _record(self, key, step: Callable[[], None]) -> tuple:
-        """Capture ``step`` as ``key``'s graph: ``(replay, counter
-        increments per replay)``. Nothing runs; the increments the capture
-        made are taken back."""
-        stream = _capture_stream(self.device) if self._cuda else None
-        cs = counters()
-        before = _read(cs)
-        replay = self._capture(step, stream, self.pool)
-        after = _read(cs)
-        for (f, a), v in zip(cs, before):
-            if hasattr(f, a):
-                setattr(f, a, v)                     # nothing ran
-        self.captured.append(key)
-        return replay, [x - y for x, y in zip(after, before)]
-
-    def _replay(self, replay: Callable[[], None], delta: list) -> None:
-        replay()
-        self.replays += 1
-        for (f, a), d in zip(counters(), delta):
-            if d:
-                setattr(f, a, getattr(f, a) + d)
 
 
 class SegmentGraphs(_Graphs):

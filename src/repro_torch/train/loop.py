@@ -20,11 +20,14 @@ a checkpoint replays bit-exactly.
 * **failure injection** — ``fail_at_step`` raises once after that step's
   update, before its checkpoint.
 
-A step is eager PyTorch: the loss, ``torch.autograd.grad`` over the
-parameter leaves, then the AdamW update (no jit, no ``torch.compile``).
-:func:`make_train_step` is the reference's functional step; the launcher
-builds its own in-place one (:mod:`repro_torch.launch.train`), which a
-multi-GB model needs to fit.
+A step is the loss, ``torch.autograd.grad`` over the parameter leaves,
+then the AdamW update. :func:`make_train_step` is the reference's
+functional step; the launcher builds its own in-place one
+(:mod:`repro_torch.launch.train`), which a multi-GB model needs to fit.
+Where the reference jits the step, the port replays it on CUDA from one
+graph per profile id (:class:`~repro_torch.train.graphs.TrainGraphs`, one
+training lifetime per :func:`train` call; ``graphs=False``: the eager
+step).
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.optim.adam import (AdamConfig, AdamState, adam_init,
                                     adam_update)
+from repro_torch.serving.graphs import Capture
+from repro_torch.train.graphs import TrainGraphs, on_device, use_graphs
 
 __all__ = ["TrainConfig", "StragglerMonitor", "train", "make_train_step",
            "value_and_grad"]
@@ -141,18 +146,27 @@ def _meta(tree):
 def train(params, loss_fn: Callable, data_at: Callable[[int], Any],
           cfg: TrainConfig, adam_cfg: AdamConfig,
           step_factory: Callable | None = None,
-          log: Callable[[str], None] = print) -> dict:
+          log: Callable[[str], None] = print,
+          graphs: Optional[bool] = None,
+          capture: Optional[Capture] = None) -> dict:
     """Run (or resume) training. Returns the final state and history:
     ``params``, ``opt``, ``history`` (the loss of each step run),
-    ``stragglers``, ``last_step`` and ``times`` (each step's seconds on
-    the host clock, ending in the loss's read-back, which waits for the
-    device).
+    ``stragglers``, ``last_step``, ``times`` (each step's seconds on the
+    host clock, ending in the loss's read-back, which waits for the
+    device) and ``graphs`` (the lifetime's
+    :class:`~repro_torch.train.graphs.TrainGraphs`, or ``None`` on the
+    eager path).
 
-    ``data_at(step)`` must be a pure function of the step index.
-    ``step_factory`` overrides ``make_train_step`` (e.g. the launcher's
-    in-place step). On a resume ``params`` gives only the structure,
-    shapes, dtypes and device: the checkpoint's tensors replace it, and
-    this function drops its own reference to it before they are read.
+    ``data_at(step)`` must be a pure function of the step index; its
+    arrays may lie on the host (they are staged onto the parameters'
+    device). ``step_factory`` overrides ``make_train_step`` (e.g. the
+    launcher's in-place step). On a resume ``params`` gives only the
+    structure, shapes, dtypes and device: the checkpoint's tensors replace
+    it, and this function drops its own reference to it before they are
+    read. ``graphs`` (default: on for a CUDA device, or when ``capture``
+    is given) replays the step from one graph per profile id, captured on
+    the restored tensors; ``capture`` replaces the CUDA capture (tests).
+    On the CPU ``graphs=True`` without a ``capture`` raises.
     """
     train_step = (step_factory or make_train_step)(loss_fn, adam_cfg)
 
@@ -167,6 +181,9 @@ def train(params, loss_fn: Callable, data_at: Callable[[int], Any],
         log(f"[train] resumed from step {meta['step']}")
     else:
         opt = adam_init(params)
+    dev = _device(params)
+    tg = (TrainGraphs(train_step, dev, capture)
+          if use_graphs(graphs, dev, capture) else None)
 
     monitor = StragglerMonitor()
     history = []
@@ -182,7 +199,11 @@ def train(params, loss_fn: Callable, data_at: Callable[[int], Any],
         for step in range(start, cfg.steps):
             t0 = time.perf_counter()
             batch = data_at(step)
-            params, opt, metrics = train_step(params, opt, batch)
+            if tg is not None:
+                params, opt, metrics = tg.run(params, opt, batch)
+            else:
+                params, opt, metrics = train_step(params, opt,
+                                                  on_device(batch, dev))
             if cfg.fail_at_step is not None and step == cfg.fail_at_step \
                     and not failed_once["done"]:
                 failed_once["done"] = True
@@ -205,4 +226,5 @@ def train(params, loss_fn: Callable, data_at: Callable[[int], Any],
         signal.signal(signal.SIGTERM, old)
     return {"params": params, "opt": opt, "history": history,
             "stragglers": monitor.flagged,
-            "last_step": step if cfg.steps else -1, "times": monitor.times}
+            "last_step": step if cfg.steps else -1, "times": monitor.times,
+            "graphs": tg}

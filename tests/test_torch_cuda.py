@@ -2062,6 +2062,137 @@ def test_resumed_run_on_card_is_bitwise(tmp_path):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.cuda
+def test_training_step_makes_no_host_sync():
+    """The launcher's step (with and without ``--grad-compression``) and
+    the CNN's QAT step, run eagerly on the card under
+    ``set_sync_debug_mode("error")``: no host sync and no pageable copy
+    anywhere in the loss, its gradients (remat, ``chunked_xent``,
+    ``_PickGold``, the straight-through quantizers) or the AdamW update,
+    so a capture of the step records it whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.launch import repro_cnn as L
+    from repro_torch.launch import train as LT
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.train.graphs import on_device
+    steps = []
+    for extra in ([], ["--grad-compression"]):
+        run = LT.setup(LT.parse_args(["--batch", "2", "--seq", "32"]
+                                     + extra))
+        step = run.step_factory(run.loss_fn, run.adam_cfg)
+        params = run._take_params()
+        steps.append((step, params, adam_init(params),
+                      on_device(run.data_at(5), run.device)))
+    table = profile_table(paper_profiles(C.CNN_LAYERS,
+                                         inner_layers=["conv1"]),
+                          C.CNN_LAYERS)
+    cp = C.init_cnn(C.CNNConfig(), torch.Generator("cuda").manual_seed(0),
+                    "cuda")
+    x, y = L._train_data()
+    steps.append((L.qat_step(AdamConfig(lr=1e-3), table), cp, adam_init(cp),
+                  on_device({"images": x[:256], "labels": y[:256],
+                             "profile_id": 5}, torch.device("cuda"))))
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with L._f32():
+            for step, params, opt, batch in steps:
+                step(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+
+
+def _smoke_run(graphed: bool, extra=()):
+    """8 steps of the launcher's granite smoke LM on the card (bf16, remat
+    on, the six profiles in turn), graphed or eager: the result and K5's
+    launches."""
+    from repro_torch.launch import train as LT
+    run = LT.setup(LT.parse_args(["--batch", "2", "--seq", "32", "--steps",
+                                  "8", *extra]))
+    n0 = AQ.aquant.launches
+    out = run.run(log=lambda s: None, graphs=graphed)
+    torch.cuda.synchronize()
+    return out, AQ.aquant.launches - n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [(), ("--grad-compression",)])
+def test_graphed_smoke_steps_equal_eager(extra):
+    """The launcher's 8 smoke steps replayed from CUDA graphs (one capture
+    per profile id, two replays; with ``--grad-compression`` the noise
+    generator reseeded before each replay) equal the eager steps bit for
+    bit: every loss, the parameters, the moments and the step counter;
+    K5 launches as often on both paths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    from repro_torch.analysis.tracker import (assert_train_executables,
+                                              train_captures)
+    from repro_torch.train.loop import _flatten
+    (eager, k_e), (graphed, k_g) = (_smoke_run(g, extra)
+                                    for g in (False, True))
+    assert eager["history"] == graphed["history"]
+    for tree in ("params", "mu", "nu"):
+        a, b = ((o[tree] if tree == "params" else getattr(o["opt"], tree))
+                for o in (eager, graphed))
+        assert all(torch.equal(x, y) for x, y in zip(_flatten(a)[0],
+                                                     _flatten(b)[0]))
+    assert int(eager["opt"].step) == int(graphed["opt"].step) == 8
+    assert k_e == k_g > 0
+    g = graphed["graphs"]
+    assert train_captures(g) == [0, 1, 2, 3, 4, 5] and g.replays == 2
+    assert_train_executables(g, steps=8)
+
+
+@pytest.mark.cuda
+def test_cnn_graphed_qat_equals_eager():
+    """A CNN profile's QAT (full width, 24 steps of batch 256, Mixed)
+    replayed from its one graph equals the eager QAT bit for bit, under
+    the launcher's deterministic cuDNN with TF32 off (``_f32``), and so
+    does a second graphed run; K5 launches 6 times a step on both
+    paths; the graphed test-set accuracy (one forward graph per batch
+    shape) and the eager one agree, above chance, and so do the logits of
+    a graphed and an eager forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    from repro_torch.core.profiles import paper_profiles, profile_table
+    from repro_torch.launch import repro_cnn as L
+    from repro_torch.models import cnn as C
+    from repro_torch.train.graphs import CallGraphs
+    table = profile_table(paper_profiles(C.CNN_LAYERS,
+                                         inner_layers=["conv1"]),
+                          C.CNN_LAYERS)
+    data = L._train_data()
+    test_x, test_y = L._test_data()
+    out, k5 = [], []
+    for graphs in (False, True, True):
+        n0 = AQ.aquant.launches
+        out.append(L.train_profile(5, table, steps=24, data=data,
+                                   graphs=graphs))
+        torch.cuda.synchronize()
+        k5.append(AQ.aquant.launches - n0)
+    assert k5 == [6 * 24] * 3
+    for other in out[1:]:
+        for ln in out[0]:
+            for k in out[0][ln]:
+                assert torch.equal(out[0][ln][k], other[ln][k]), (ln, k)
+    with L._f32():
+        accs = [C.cnn_accuracy(out[1], table[5], test_x, test_y, graphs=g)
+                for g in (False, True)]
+        x = torch.as_tensor(test_x[:256], device="cuda")
+        fwd = CallGraphs(lambda t: C.cnn_forward(out[1], table[5], t),
+                         torch.device("cuda"))
+        fwd(x)
+        got = fwd(x).clone()
+        want = C.cnn_forward(out[1], table[5], x)
+    assert accs[0] == accs[1] > 0.25
+    assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # the decode segment replayed from CUDA graphs (serving/graphs.py)
 # ---------------------------------------------------------------------------
